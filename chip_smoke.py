@@ -1,0 +1,313 @@
+"""Drive the PyTorch port (``odin_tpu_torch``) on one NVIDIA card.
+
+Run from the repository root:  python3 chip_smoke.py
+
+It builds the CUDA kernels from ``odin_tpu_torch/csrc`` with plain nvcc
+(at first use, into ``build/``), holds each kernel against its plain
+PyTorch version on the card, drives the port's main paths through the entry
+points a user calls, and checks their outputs against the same calls on the
+CPU:
+
+  1. device and build: the card's name and power limit, the nvcc build;
+  2. K1 (``ops/logmel.py``) against ``logmel_reference`` at the speech
+     path's shape (64 x 4 s = 25,472 frames) and at a ragged 1,000 frames,
+     within 0.01 dB, with CUDA-event timings of the kernel, the plain
+     version and ``torch.fft.rfft`` + mel (a yardstick the port never
+     calls);
+  3. the speech path: ``batch_speech_features`` on 64 int16 utterances of
+     2-4 s, against the same call on the CPU, and its rate in valid
+     (unpadded) frames/s with the host-to-device copy;
+  4. the serving path: the full-width dSprites beta-VAE answering
+     ``encode_mean``, ``decode_mean`` and ``reconstruct`` at batch 1 and
+     256, against the same model on the CPU, with batch-1 latency and
+     batch-256 images/s.
+
+TF32 is off for matmuls and cuDNN convolutions, so the card computes in
+fp32 like the CPU.  Any failure raises and the script exits non-zero; it
+also exits non-zero, printing no result, where no CUDA card is visible.
+The last line is the JSON object ``{"ok": true, "device": {...}}``; the
+line before it is the ``{"kernels": [...]}`` summary.
+"""
+import json
+import math
+import subprocess
+import sys
+import time
+
+T_START = time.perf_counter()
+SEED = 0
+FP32_PEAK_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (data sheet)
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
+LOGMEL_TOL_DB = 0.01
+SERVING_ATOL = 1e-4
+
+
+def log(msg):
+  print(msg, flush=True)
+
+
+class Phase:
+  """Prints one line with the phase's elapsed seconds when it ends."""
+
+  def __init__(self, name):
+    self.name = name
+
+  def __enter__(self):
+    self.t0 = time.perf_counter()
+    log(f"[phase] {self.name} ...")
+    return self
+
+  def __exit__(self, *exc):
+    status = "FAILED" if exc[0] is not None else "ok"
+    log(f"[phase] {self.name}: {status} in "
+        f"{time.perf_counter() - self.t0:.2f} s")
+    return False
+
+
+def cuda_ms(torch, fn, reps=25, warmup=3):
+  """Median device time of `fn` in ms, one pair of CUDA events per call."""
+  for _ in range(warmup):
+    fn()
+  times = []
+  for _ in range(reps):
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    times.append(start.elapsed_time(end))
+  times.sort()
+  return times[len(times) // 2]
+
+
+def host_times_s(torch, fn, reps):
+  """Sorted host-clock seconds of `reps` calls, each ending synchronised."""
+  times = []
+  for _ in range(reps):
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    times.append(time.perf_counter() - t0)
+  return sorted(times)
+
+
+def main() -> int:
+  import numpy as np
+  import torch
+
+  from odin_tpu_torch import _build, serving
+  from odin_tpu_torch.bay.vi import BetaVAE
+  from odin_tpu_torch.networks import get_networks
+  from odin_tpu_torch.ops.features import FeatureConfig
+  from odin_tpu_torch.ops.logmel import logmel, logmel_reference
+  from odin_tpu_torch.preprocessing import batch_speech_features
+
+  if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA card visible (torch.cuda.is_available() is "
+          "false); nothing was run", file=sys.stderr)
+    return 2
+
+  kernels = {"logmel": logmel}  # every kernel wrapper with a launch count
+  cuda = torch.device("cuda", 0)
+
+  def reset_counts():
+    for wrapper in kernels.values():
+      wrapper.launches = 0
+
+  def read_counts():
+    return {name: wrapper.launches for name, wrapper in kernels.items()}
+
+  with Phase("1 device and build"):
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    log(smi)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} on "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
+        "torch.backends.cudnn.allow_tf32 = False")
+    t0 = time.perf_counter()
+    _build.build_all(kernels)
+    log(f"build: {time.perf_counter() - t0:.2f} s")
+
+  cfg = FeatureConfig()
+  batch, seconds = 64, 4.0
+  T = int(seconds * cfg.sr)
+  n_main = batch * cfg.n_frames(T)  # 25,472 frames: the speech path's shape
+  report = {}
+
+  with Phase("2 K1 logmel against its plain version"):
+    gen = torch.Generator(device=cuda).manual_seed(SEED)
+    bases = cfg.device_bases(cuda)
+    window = bases["window"]
+    err = 0.0
+    for n in (n_main, 1000):
+      frames = (torch.randn(n, cfg.frame_length, device=cuda, generator=gen)
+                * 0.1 * window).contiguous()
+      got = logmel(frames, cfg)
+      want = logmel_reference(frames, bases["cos"], bases["sin"],
+                              bases["mel_t"], cfg.scale ** 2)
+      torch.cuda.synchronize()
+      if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"logmel kernel gave non-finite values at N={n}")
+      e = float((got - want).abs().max())
+      log(f"logmel N={n}: max |kernel - plain| = {e:.6f} dB")
+      if e > LOGMEL_TOL_DB:
+        raise AssertionError(f"logmel kernel disagrees with its plain version "
+                             f"by {e} dB at N={n} (limit {LOGMEL_TOL_DB})")
+      err = max(err, e)
+    frames = (torch.randn(n_main, cfg.frame_length, device=cuda,
+                          generator=gen) * 0.1 * window).contiguous()
+    mel_t = bases["mel_t"]
+    scale_sq = cfg.scale ** 2
+
+    def library():
+      spec = torch.fft.rfft(frames, n=cfg.n_fft)
+      power = (spec.real ** 2 + spec.imag ** 2) * scale_sq
+      return 10.0 * torch.log10(torch.clamp(power @ mel_t, min=1e-10))
+
+    lib_err = float((library() - logmel(frames, cfg)).abs().max())
+    kernel_ms = cuda_ms(torch, lambda: logmel(frames, cfg))
+    plain_ms = cuda_ms(torch, lambda: logmel_reference(
+        frames, bases["cos"], bases["sin"], mel_t, scale_sq))
+    library_ms = cuda_ms(torch, library)
+    # The bound is the function's own, not that of the kernel's dense-DFT
+    # algorithm: a real FFT of n_fft points (2.5 n log2 n flop, the usual
+    # count for real input) gives the spectrum, then the power (3 flop a
+    # bin), the mel product over the filters' nonzero weights (counted on
+    # this run's filter bank) and the log.  The bytes are the frames and
+    # the filter bank read once and the mels written once.
+    n_freqs = cfg.n_fft // 2 + 1
+    mel_nnz = int(torch.count_nonzero(mel_t))
+    fft_flops = 2.5 * cfg.n_fft * math.log2(cfg.n_fft)
+    flops = n_main * (fft_flops + 3 * n_freqs + 2 * mel_nnz + cfg.n_mels)
+    nbytes = 4 * (n_main * (cfg.frame_length + cfg.n_mels) +
+                  n_freqs * cfg.n_mels)
+    ops_ms = flops / FP32_PEAK_FLOPS * 1e3
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    bound_ms = max(ops_ms, bytes_ms)
+    # the bound of the kernel's own algorithm: dense real DFT, banded mel
+    dft_flops = n_main * (2 * cfg.frame_length * n_freqs * 2 +
+                          3 * n_freqs + 2 * mel_nnz + cfg.n_mels)
+    log(f"logmel N={n_main}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={library_ms:.4f} (rfft+mel, max diff {lib_err:.4f} dB) "
+        f"bound_ms={bound_ms:.4f} ({flops:.4g} flop, {nbytes / 1e6:.2f} MB; "
+        f"{mel_nnz} nonzero mel weights); dense-DFT algorithm's bound "
+        f"{dft_flops / FP32_PEAK_FLOPS * 1e3:.4f} ms ({dft_flops:.4g} flop)")
+    report["logmel"] = dict(
+        name="logmel", route="cuda", source="odin_tpu_torch/csrc/logmel.cu",
+        replaces="odin_tpu/ops/pallas_features.py:32", launches=None,
+        max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+        bound_ms=bound_ms,
+        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+        library_ms=library_ms)
+    del frames
+
+  with Phase("3 speech path: batch_speech_features"):
+    rs = np.random.RandomState(SEED)
+    lengths = rs.randint(T // 2, T + 1, size=batch)
+    lengths[0] = T
+    utts = [(rs.randn(n) * 0.1 * 32768.0).clip(-32768, 32767).astype(np.int16)
+            for n in lengths]
+    feats = ("mspec", "mfcc", "vad")
+    reset_counts()
+    got = batch_speech_features(utts, cfg, features=feats, device="cuda")
+    counts = read_counts()
+    log(f"speech path launches: {counts}")
+    if counts["logmel"] < 1:
+      raise AssertionError("the speech path did not launch the logmel kernel")
+    report["logmel"]["launches"] = counts["logmel"]
+    want = batch_speech_features(utts, cfg, features=feats, device="cpu")
+    vad_agree = vad_total = 0
+    mspec_err = mfcc_err = 0.0
+    for g, w, n in zip(got, want, lengths):
+      if g["mspec"].shape != (cfg.n_frames(int(n)), cfg.n_mels):
+        raise AssertionError(f"mspec shape {g['mspec'].shape} for {n} samples")
+      for k in feats:
+        if g[k].shape != w[k].shape:
+          raise AssertionError(f"{k}: {g[k].shape} on the card, {w[k].shape} "
+                               "on the CPU")
+      if not (np.isfinite(g["mspec"]).all() and np.isfinite(g["mfcc"]).all()):
+        raise AssertionError("non-finite features on the card")
+      mspec_err = max(mspec_err, float(np.abs(g["mspec"] - w["mspec"]).max()))
+      mfcc_err = max(mfcc_err, float(np.abs(g["mfcc"] - w["mfcc"]).max()))
+      vad_agree += int((g["vad"] == w["vad"]).sum())
+      vad_total += g["vad"].size
+    log(f"card vs CPU: mspec max diff {mspec_err:.6f} dB, mfcc max diff "
+        f"{mfcc_err:.6f}, vad agreement {vad_agree}/{vad_total}")
+    if mspec_err > LOGMEL_TOL_DB:
+      raise AssertionError(f"mspec differs from the CPU by {mspec_err} dB")
+    if mfcc_err > 0.05:
+      raise AssertionError(f"mfcc differs from the CPU by {mfcc_err}")
+    if vad_agree < 0.999 * vad_total:
+      raise AssertionError(f"vad agrees on {vad_agree}/{vad_total} frames")
+    rounds = 10
+    t_batch = host_times_s(torch, lambda: batch_speech_features(
+        utts, cfg, features=feats, device="cuda"), rounds)[rounds // 2]
+    # padded frames hold no audio, so the rate counts the valid ones only
+    n_valid = sum(cfg.n_frames(int(n)) for n in lengths)
+    log(f"speech frames/s (64 int16 utterances of 2-4 s, {n_valid} valid "
+        f"frames in a padded batch of {n_main}, host to device copy "
+        f"included, median of {rounds}): {n_valid / t_batch:.1f} "
+        f"({t_batch * 1e3:.3f} ms per batch)")
+
+  with Phase("4 serving path: dSprites beta-VAE"):
+    nets = dict(get_networks("dsprites", zdim=10))
+    vae = BetaVAE(beta=1.0, **nets).build(seed=1, device="cuda")
+    vae_cpu = BetaVAE(beta=1.0, **get_networks("dsprites", zdim=10)).build(
+        seed=1, device="cpu")
+    n_params = sum(p.numel() for p in vae.core.parameters())
+    log(f"beta-VAE dSprites zdim 10, conv 32-32-64-64, proj 128: "
+        f"{n_params} parameters")
+    reset_counts()
+    for b in (1, 256):
+      x = (np.random.RandomState(SEED + b).rand(b, 64, 64, 1) < 0.5
+           ).astype(np.float32)
+      z = np.random.RandomState(SEED + 1000 + b).randn(b, 10).astype(np.float32)
+      for name, arg, shape in (("encode_mean", x, (b, 10)),
+                               ("decode_mean", z, (b, 64, 64, 1)),
+                               ("reconstruct", x, (b, 64, 64, 1))):
+        fn = getattr(serving, name)
+        out = fn(vae, arg)
+        if out.device.type != "cuda" or tuple(out.shape) != shape:
+          raise AssertionError(f"{name} b={b}: {tuple(out.shape)} on "
+                               f"{out.device}, expected {shape} on the card")
+        out = out.cpu().numpy()
+        if not np.isfinite(out).all():
+          raise AssertionError(f"{name} b={b}: non-finite output")
+        if name != "encode_mean" and (out.min() < 0 or out.max() > 1):
+          raise AssertionError(f"{name} b={b}: probabilities outside [0, 1]")
+        e = float(np.abs(out - fn(vae_cpu, arg).numpy()).max())
+        log(f"{name} b={b}: max |card - CPU| = {e:.3g}")
+        if e > SERVING_ATOL:
+          raise AssertionError(f"{name} b={b} differs from the CPU by {e}")
+    log(f"serving path launches: {read_counts()}")
+    x1 = (np.random.RandomState(SEED).rand(1, 64, 64, 1) < 0.5).astype("f")
+    x256 = (np.random.RandomState(SEED + 1).rand(256, 64, 64, 1) < 0.5
+            ).astype("f")
+    for name in ("encode_mean", "reconstruct"):
+      fn = getattr(serving, name)
+      lat = host_times_s(torch, lambda: fn(vae, x1).cpu(), 50)
+      log(f"{name} b=1 latency (host to host, 50 calls): median "
+          f"{lat[25] * 1e3:.3f} ms, p80 {lat[40] * 1e3:.3f} ms")
+    t256 = host_times_s(torch, lambda: serving.reconstruct(vae, x256).cpu(),
+                        20)[10]
+    log(f"reconstruct b=256 (host to host, median of 20): "
+        f"{256 / t256:.1f} images/s ({t256 * 1e3:.3f} ms per batch)")
+
+  log(f"kernels: " + " ".join(f"{k}={v['launches']}" for k, v in report.items()))
+  log(f"total wall time: {time.perf_counter() - T_START:.2f} s")
+  log(smi)
+  print(json.dumps({"kernels": list(report.values())}))
+  print(json.dumps({"ok": True, "device": {
+      "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+      "count": torch.cuda.device_count()}}), flush=True)
+  return 0
+
+
+if __name__ == "__main__":
+  sys.exit(main())

@@ -1,0 +1,107 @@
+"""String alias registry of the port: alias -> (params_size, builder,
+default prior), for the families this slice serves through (PyTorch port of
+``odin_tpu/bay/distribution_alias.py``: ``_softplus`` :30, the normal,
+mvndiag and bernoulli builders :83,93,127, the default priors :282-305)."""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from odin_tpu_torch.bay import distributions as D
+
+__all__ = ["DistSpec", "parse_distribution", "register_distribution_alias"]
+
+
+def _softplus(x, eps=1e-5):
+  return F.softplus(x) + eps
+
+
+def _size(event_shape) -> int:
+  return int(np.prod(event_shape)) if len(event_shape) else 1
+
+
+def _reshape_event(x, event_shape):
+  return x.reshape(tuple(x.shape[:-1]) + tuple(event_shape))
+
+
+def _indep(dist, event_shape):
+  return D.Independent(dist, len(event_shape)) if len(event_shape) else dist
+
+
+@dataclass(frozen=True)
+class DistSpec:
+  name: str
+  params_size: Callable[..., int]
+  builder: Callable[..., D.Distribution]
+  default_prior: Callable[..., Optional[D.Distribution]]
+
+
+_ALIASES: Dict[str, DistSpec] = {}
+
+
+def register_distribution_alias(names, spec: DistSpec):
+  for n in (names if isinstance(names, (tuple, list)) else [names]):
+    _ALIASES[n.lower()] = spec
+
+
+def parse_distribution(alias) -> DistSpec:
+  """Resolve a string alias (or DistSpec) to its DistSpec."""
+  if isinstance(alias, DistSpec):
+    return alias
+  key = str(alias).lower()
+  if key not in _ALIASES:
+    raise ValueError(f"unknown distribution alias '{alias}'; "
+                     f"available: {sorted(_ALIASES)}")
+  return _ALIASES[key]
+
+
+def _split(params, n, event_shape):
+  """Split the trailing axis into n event-shaped chunks."""
+  d = _size(event_shape)
+  return [_reshape_event(params[..., i * d:(i + 1) * d], event_shape)
+          for i in range(n)]
+
+
+def _normal_builder(params, event_shape, **kw):
+  loc, raw = _split(params, 2, event_shape)
+  return _indep(D.Normal(loc, _softplus(raw)), event_shape)
+
+
+def _mvndiag_builder(params, event_shape, **kw):
+  d = _size(event_shape)
+  return D.MultivariateNormalDiag(params[..., :d], _softplus(params[..., d:]))
+
+
+def _bernoulli_builder(params, event_shape, **kw):
+  return _indep(D.Bernoulli(logits=_reshape_event(params, event_shape)),
+                event_shape)
+
+
+def _std_normal_prior(event_shape, **kw):
+  return _indep(D.Normal(torch.zeros(event_shape), torch.ones(event_shape)),
+                event_shape)
+
+
+def _mvndiag_prior(event_shape, **kw):
+  d = _size(event_shape)
+  return D.MultivariateNormalDiag(torch.zeros(d), torch.ones(d))
+
+
+def _no_prior(event_shape, **kw):
+  return None
+
+
+def _n_params(n):
+  return lambda event_size, **kw: n * event_size
+
+
+register_distribution_alias(("normal", "gaussian"), DistSpec(
+    "normal", _n_params(2), _normal_builder, _std_normal_prior))
+register_distribution_alias("mvndiag", DistSpec(
+    "mvndiag", _n_params(2), _mvndiag_builder, _mvndiag_prior))
+register_distribution_alias("bernoulli", DistSpec(
+    "bernoulli", _n_params(1), _bernoulli_builder, _no_prior))

@@ -1,0 +1,110 @@
+"""Gaussian families of the port (``Normal`` and ``MultivariateNormalDiag``
+of ``odin_tpu/bay/distributions/continuous.py:72,402``)."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from odin_tpu_torch.bay.distributions.base import Distribution, register_kl
+
+__all__ = ["Normal", "MultivariateNormalDiag"]
+
+_LOG2PI = math.log(2.0 * math.pi)
+
+
+def _noise(shape, like: torch.Tensor, generator, eps):
+  if eps is None:
+    return torch.randn(shape, generator=generator, dtype=like.dtype,
+                       device=like.device)
+  eps = torch.as_tensor(eps, dtype=like.dtype, device=like.device)
+  if tuple(eps.shape) != tuple(shape):
+    raise ValueError(f"eps has shape {tuple(eps.shape)}, expected {tuple(shape)}")
+  return eps
+
+
+class Normal(Distribution):
+
+  def __init__(self, loc, scale):
+    self.loc = torch.as_tensor(loc)
+    self.scale = torch.as_tensor(scale)
+
+  @property
+  def batch_shape(self):
+    return torch.broadcast_shapes(self.loc.shape, self.scale.shape)
+
+  def sample(self, sample_shape=(), generator=None, eps=None):
+    shape = tuple(sample_shape) + tuple(self.batch_shape)
+    return self.loc + self.scale * _noise(shape, self.loc, generator, eps)
+
+  def log_prob(self, x):
+    z = (x - self.loc) / self.scale
+    return -0.5 * (z * z + _LOG2PI) - torch.log(self.scale)
+
+  def mean(self):
+    return self.loc.expand(self.batch_shape)
+
+  def mode(self):
+    return self.mean()
+
+  def variance(self):
+    return (self.scale * self.scale).expand(self.batch_shape)
+
+  def stddev(self):
+    return self.scale.expand(self.batch_shape)
+
+
+@register_kl(Normal, Normal)
+def _kl_normal(q: Normal, p: Normal):
+  var_ratio = (q.scale / p.scale) ** 2
+  t = ((q.loc - p.loc) / p.scale) ** 2
+  return 0.5 * (var_ratio + t - 1.0 - torch.log(var_ratio))
+
+
+class MultivariateNormalDiag(Distribution):
+
+  def __init__(self, loc, scale_diag):
+    self.loc = torch.as_tensor(loc)
+    self.scale_diag = torch.as_tensor(scale_diag)
+
+  @property
+  def _shape(self):
+    return torch.broadcast_shapes(self.loc.shape, self.scale_diag.shape)
+
+  @property
+  def batch_shape(self):
+    return self._shape[:-1]
+
+  @property
+  def event_shape(self):
+    return self._shape[-1:]
+
+  def sample(self, sample_shape=(), generator=None, eps=None):
+    shape = tuple(sample_shape) + tuple(self._shape)
+    return self.loc + self.scale_diag * _noise(shape, self.loc, generator, eps)
+
+  def log_prob(self, x):
+    z = (x - self.loc) / self.scale_diag
+    d = self.event_shape[0]
+    return (-0.5 * torch.sum(z * z, dim=-1)
+            - torch.sum(torch.log(self.scale_diag) * torch.ones_like(z), dim=-1)
+            - 0.5 * d * _LOG2PI)
+
+  def mean(self):
+    return self.loc.expand(self._shape)
+
+  def mode(self):
+    return self.mean()
+
+  def variance(self):
+    return (self.scale_diag ** 2).expand(self._shape)
+
+  def stddev(self):
+    return self.scale_diag.expand(self._shape)
+
+
+@register_kl(MultivariateNormalDiag, MultivariateNormalDiag)
+def _kl_mvndiag(q, p):
+  var_ratio = (q.scale_diag / p.scale_diag) ** 2
+  t = ((q.loc - p.loc) / p.scale_diag) ** 2
+  return 0.5 * torch.sum(var_ratio + t - 1.0 - torch.log(var_ratio), dim=-1)

@@ -1,0 +1,16 @@
+"""Network layers and per-dataset architectures of the port."""
+from odin_tpu_torch.networks.base import (
+    CenterAt0,
+    Conv,
+    ConvTranspose,
+    Dense,
+    Flatten,
+    Reshape,
+    SequentialNetwork,
+    get_activation,
+)
+from odin_tpu_torch.networks.image_networks import (
+    PackImageParams,
+    dsprites_networks,
+    get_networks,
+)

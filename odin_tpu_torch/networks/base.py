@@ -1,0 +1,278 @@
+"""Network layers of the port (PyTorch port of ``odin_tpu/networks/base.py``).
+
+Layers keep the JAX package's NHWC layout at their boundaries; the
+convolutions permute to NCHW views inside (the permuted tensor keeps
+channels-last strides, so no copy is made).  flax infers input widths when
+it initialises; here every layer has ``build(in_shape, generator)``, which
+creates its parameters for one example of shape `in_shape` (batch dim
+excluded), draws them with flax's initialisers from `generator`, and
+returns the output shape.  ``SequentialNetwork.build`` chains them.
+"""
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+__all__ = [
+    "Dense", "Conv", "ConvTranspose", "Flatten", "Reshape", "CenterAt0",
+    "SequentialNetwork", "get_activation", "same_padding",
+    "conv_transpose_padding",
+]
+
+Shape = Tuple[int, ...]
+
+_ACTIVATIONS: Dict[str, Callable] = {
+    "linear": lambda x: x,
+    "identity": lambda x: x,
+    "relu": F.relu,
+    "elu": F.elu,
+    "selu": F.selu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),  # jax.nn.gelu's default
+    "silu": F.silu,
+    "swish": F.silu,
+    "tanh": torch.tanh,
+    "sigmoid": torch.sigmoid,
+    "softplus": F.softplus,
+    "softmax": lambda x: F.softmax(x, dim=-1),
+    "leaky_relu": F.leaky_relu,
+    "relu6": F.relu6,
+    "mish": F.mish,
+    "softsign": F.softsign,
+    # softplus shifted to pass through 1 at 0 (strictly-positive scale heads)
+    "softplus1": lambda x: F.softplus(x + math.log(math.e - 1.0)),
+}
+
+
+def get_activation(fn: Union[str, Callable, None]) -> Callable:
+  """Resolve an activation alias."""
+  if fn is None:
+    return lambda x: x
+  if callable(fn):
+    return fn
+  key = str(fn).lower()
+  if key not in _ACTIVATIONS:
+    raise ValueError(f"unknown activation '{fn}'; available: {sorted(_ACTIVATIONS)}")
+  return _ACTIVATIONS[key]
+
+
+def _pair(v) -> Tuple[int, int]:
+  return tuple(int(i) for i in v) if isinstance(v, (tuple, list)) \
+      else (int(v), int(v))
+
+
+def _variance_scaling_(w: torch.Tensor, scale: float, fan_in: int,
+                       generator: Optional[torch.Generator]) -> torch.Tensor:
+  """flax's ``variance_scaling(scale, 'fan_in', 'truncated_normal')``."""
+  std = math.sqrt(scale / fan_in) / .87962566103423978
+  with torch.no_grad():
+    return nn.init.trunc_normal_(w, 0.0, std, -2.0 * std, 2.0 * std,
+                                 generator=generator)
+
+
+def _new_param(shape: Shape) -> nn.Parameter:
+  return nn.Parameter(torch.empty(shape, dtype=torch.float32))
+
+
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+  """(low, high) padding of XLA's 'SAME' for one spatial dim."""
+  out = -(-size // stride)
+  total = max((out - 1) * stride + kernel - size, 0)
+  return total // 2, total - total // 2
+
+
+def conv_transpose_padding(kernel: int, stride: int,
+                           padding: str) -> Tuple[int, int]:
+  """(low, high) padding of the stride-dilated input in
+  ``lax.conv_transpose`` (what flax's ``ConvTranspose`` calls)."""
+  if padding == "SAME":
+    pad_len = kernel + stride - 2
+    pad_a = kernel - 1 if stride > kernel - 1 else int(math.ceil(pad_len / 2))
+  elif padding == "VALID":
+    pad_len = kernel + stride - 2 + max(kernel - stride, 0)
+    pad_a = kernel - 1
+  else:
+    raise ValueError(f"unsupported padding {padding!r}")
+  return pad_a, pad_len - pad_a
+
+
+class Dense(nn.Module):
+  """``y = act(x W^T + b)``; ``weight`` is (out, in), flax's kernel
+  transposed."""
+
+  def __init__(self, units: int, activation=None, use_bias: bool = True):
+    super().__init__()
+    self.units = int(units)
+    self.activation = activation
+    self.use_bias = bool(use_bias)
+
+  def build(self, in_shape: Shape, generator=None) -> Shape:
+    fan_in = int(in_shape[-1])
+    self.weight = _new_param((self.units, fan_in))
+    _variance_scaling_(self.weight, 1.0, fan_in, generator)  # lecun_normal
+    self.bias = nn.Parameter(torch.zeros(self.units)) if self.use_bias else None
+    return tuple(in_shape[:-1]) + (self.units,)
+
+  def forward(self, x):
+    return get_activation(self.activation)(F.linear(x, self.weight, self.bias))
+
+
+class Conv(nn.Module):
+  """2-D convolution on NHWC tensors, XLA padding, He init; ``weight`` is
+  (out, in, kh, kw), flax's HWIO kernel permuted."""
+
+  def __init__(self, filters: int, kernel_size=3, strides=1, activation=None,
+               padding: str = "SAME", use_bias: bool = True):
+    super().__init__()
+    self.filters = int(filters)
+    self.kernel_size = _pair(kernel_size)
+    self.strides = _pair(strides)
+    self.activation = activation
+    self.padding = str(padding).upper()
+    self.use_bias = bool(use_bias)
+
+  def _pads(self, h: int, w: int):
+    if self.padding == "VALID":
+      return (0, 0), (0, 0)
+    if self.padding != "SAME":
+      raise ValueError(f"unsupported padding {self.padding!r}")
+    (kh, kw), (sh, sw) = self.kernel_size, self.strides
+    return same_padding(h, kh, sh), same_padding(w, kw, sw)
+
+  def build(self, in_shape: Shape, generator=None) -> Shape:
+    h, w, c = (int(i) for i in in_shape)
+    kh, kw = self.kernel_size
+    self.weight = _new_param((self.filters, c, kh, kw))
+    _variance_scaling_(self.weight, 2.0, c * kh * kw, generator)  # he_normal
+    self.bias = nn.Parameter(torch.zeros(self.filters)) if self.use_bias else None
+    (ph, qh), (pw, qw) = self._pads(h, w)
+    sh, sw = self.strides
+    return ((h + ph + qh - kh) // sh + 1, (w + pw + qw - kw) // sw + 1,
+            self.filters)
+
+  def forward(self, x):
+    (ph, qh), (pw, qw) = self._pads(x.shape[1], x.shape[2])
+    y = x.permute(0, 3, 1, 2)
+    if ph == qh and pw == qw:
+      y = F.conv2d(y, self.weight, self.bias, self.strides, (ph, pw))
+    else:
+      y = F.conv2d(F.pad(y, (pw, qw, ph, qh)), self.weight, self.bias,
+                   self.strides)
+    return get_activation(self.activation)(y.permute(0, 2, 3, 1))
+
+
+class ConvTranspose(nn.Module):
+  """2-D transposed convolution on NHWC tensors with flax's semantics.
+
+  flax runs ``lax.conv_transpose`` with an unflipped (kh, kw, in, out)
+  kernel: a correlation of the stride-dilated input, padded per
+  ``conv_transpose_padding``.  ``F.conv_transpose2d`` correlates the same
+  dilated input with the spatially flipped (in, out, kh, kw) weight, padded
+  by ``kh - 1 - padding`` on both sides plus ``output_padding`` at the end.
+  So ``weight`` holds flax's kernel flipped and permuted, and the padding
+  is matched by ``padding = k - 1 - low`` and an output padding, or a crop
+  where XLA pads the end less than the start.
+  """
+
+  def __init__(self, filters: int, kernel_size=3, strides=1, activation=None,
+               padding: str = "SAME", use_bias: bool = True):
+    super().__init__()
+    self.filters = int(filters)
+    self.kernel_size = _pair(kernel_size)
+    self.strides = _pair(strides)
+    self.activation = activation
+    self.padding = str(padding).upper()
+    self.use_bias = bool(use_bias)
+    pads = [conv_transpose_padding(k, s, self.padding)
+            for k, s in zip(self.kernel_size, self.strides)]
+    self._torch_padding = tuple(k - 1 - lo for k, (lo, _) in
+                                zip(self.kernel_size, pads))
+    self._output_padding = tuple(max(hi - lo, 0) for lo, hi in pads)
+    self._crop = tuple(max(lo - hi, 0) for lo, hi in pads)
+
+  def build(self, in_shape: Shape, generator=None) -> Shape:
+    h, w, c = (int(i) for i in in_shape)
+    kh, kw = self.kernel_size
+    self.weight = _new_param((c, self.filters, kh, kw))
+    _variance_scaling_(self.weight, 2.0, c * kh * kw, generator)  # he_normal
+    self.bias = nn.Parameter(torch.zeros(self.filters)) if self.use_bias else None
+    out = []
+    for size, k, s, p, op, crop in zip((h, w), self.kernel_size, self.strides,
+                                       self._torch_padding,
+                                       self._output_padding, self._crop):
+      out.append((size - 1) * s - 2 * p + k + op - crop)
+    return tuple(out) + (self.filters,)
+
+  def forward(self, x):
+    y = F.conv_transpose2d(x.permute(0, 3, 1, 2), self.weight, self.bias,
+                           self.strides, self._torch_padding,
+                           self._output_padding)
+    ch, cw = self._crop
+    if ch or cw:
+      y = y[:, :, :y.shape[2] - ch, :y.shape[3] - cw]
+    return get_activation(self.activation)(y.permute(0, 2, 3, 1))
+
+
+class Flatten(nn.Module):
+  """(B, ...) -> (B, prod(...)) in the tensor's own (NHWC) order."""
+
+  def build(self, in_shape: Shape, generator=None) -> Shape:
+    return (int(np.prod(in_shape)),)
+
+  def forward(self, x):
+    return x.reshape(x.shape[0], -1) if x.ndim > 1 else x
+
+
+class Reshape(nn.Module):
+
+  def __init__(self, shape: Sequence[int]):
+    super().__init__()
+    self.shape = tuple(int(i) for i in shape)
+
+  def build(self, in_shape: Shape, generator=None) -> Shape:
+    return self.shape
+
+  def forward(self, x):
+    return x.reshape((x.shape[0],) + self.shape)
+
+
+class CenterAt0(nn.Module):
+  """[0, 1] images -> [-1, 1]."""
+
+  def __init__(self, enable: bool = True, div_255: bool = False):
+    super().__init__()
+    self.enable = bool(enable)
+    self.div_255 = bool(div_255)
+
+  def build(self, in_shape: Shape, generator=None) -> Shape:
+    return tuple(in_shape)
+
+  def forward(self, x):
+    if not self.enable:
+      return x
+    if self.div_255:
+      x = x / 255.0
+    return 2.0 * x - 1.0
+
+
+class SequentialNetwork(nn.Module):
+  """Call layers in order; ``layers.<i>`` matches flax's ``layers_<i>``."""
+
+  def __init__(self, layers: Sequence[nn.Module] = ()):
+    super().__init__()
+    self.layers = nn.ModuleList(layers)
+
+  def build(self, in_shape: Shape, generator=None) -> Shape:
+    shape = tuple(in_shape)
+    for layer in self.layers:
+      shape = layer.build(shape, generator)
+    return shape
+
+  def forward(self, x):
+    for layer in self.layers:
+      x = layer(x)
+    return x

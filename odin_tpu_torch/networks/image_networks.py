@@ -1,0 +1,131 @@
+"""Per-dataset architectures of the port (PyTorch port of
+``odin_tpu/networks/image_networks.py``: ``_decoder_network`` :40,
+``PackImageParams`` :59, ``_obs_distribution`` :77, ``dsprites_networks``
+:243-307, ``get_networks`` :488).  Only the plain decoder and the dSprites
+family are ported so far."""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from odin_tpu_torch.bay.random_variable import RVconf
+from odin_tpu_torch.networks.base import (
+    CenterAt0,
+    Conv,
+    ConvTranspose,
+    Dense,
+    Flatten,
+    Reshape,
+    SequentialNetwork,
+)
+
+__all__ = ["PackImageParams", "dsprites_networks", "get_networks"]
+
+
+def _decoder_network(layers, skip_generator: bool = False):
+  if skip_generator:
+    raise NotImplementedError("the skip-generator decoder is not ported yet")
+  return SequentialNetwork(layers)
+
+
+class PackImageParams(nn.Module):
+  """(B, H, W, C·n) conv output -> (B, n·H·W·C) flat params whose chunk `i`
+  is the i-th parameter map, the layout the alias builders expect."""
+
+  def __init__(self, n_params: int):
+    super().__init__()
+    self.n_params = int(n_params)
+
+  def build(self, in_shape, generator=None):
+    return (int(np.prod(in_shape)),)
+
+  def forward(self, x):
+    if self.n_params == 1:
+      return x.reshape(x.shape[0], -1)
+    b, h, w, cn = x.shape
+    c = cn // self.n_params
+    return torch.cat([x[..., i * c:(i + 1) * c].reshape(b, -1)
+                      for i in range(self.n_params)], dim=-1)
+
+
+def _obs_distribution(input_shape: Tuple[int, ...], distribution: str):
+  """n_params + observation RVconf for an image likelihood."""
+  if distribution != "bernoulli":
+    raise NotImplementedError(f"image likelihood '{distribution}' is not "
+                              "ported yet")
+  n_params = 1
+  observation = RVconf(input_shape, distribution, projection=False,
+                       name="image")
+  return n_params, observation
+
+
+def dsprites_networks(qz: str = "mvndiag",
+                      zdim: Optional[int] = None,
+                      activation="elu",
+                      is_semi_supervised: bool = False,
+                      is_hierarchical: bool = False,
+                      centerize_image: bool = True,
+                      skip_generator: bool = False,
+                      **kwargs) -> Dict[str, Any]:
+  """Networks for 64x64 images: conv 32-32-64-64 stride 2, kernel 4, proj
+  128, and the mirror-image transposed-conv decoder."""
+  if is_semi_supervised or kwargs.get("space_to_depth"):
+    raise NotImplementedError("semi-supervised heads and space_to_depth are "
+                              "not ported yet")
+  n_channels = int(kwargs.get("n_channels", 1))
+  input_shape = (64, 64, n_channels)
+  zdim = 10 if zdim is None else int(zdim)
+  w = int(kwargs.get("width", 1))
+  proj_dim = int(kwargs.get("proj_dim") or
+                 (128 if n_channels == 1 else 256) * w)
+  n_params, observation = _obs_distribution(
+      input_shape, kwargs.get("distribution", "bernoulli"))
+  encoder = SequentialNetwork((
+      CenterAt0(enable=centerize_image),
+      Conv(32 * w, 4, 2, activation),   # 32, 32, 32w
+      Conv(32 * w, 4, 2, activation),   # 16, 16, 32w
+      Conv(64 * w, 4, 2, activation),   # 8, 8, 64w
+      Conv(64 * w, 4, 2, activation),   # 4, 4, 64w
+      Flatten(),
+      Dense(proj_dim, activation=None),
+  ))
+  decoder = _decoder_network((
+      Dense(proj_dim, activation=None),
+      Reshape((4, 4, proj_dim // 16)),
+      ConvTranspose(64 * w, 4, 2, activation),  # 8, 8, 64w
+      ConvTranspose(64 * w, 4, 2, activation),  # 16, 16, 64w
+      ConvTranspose(32 * w, 4, 2, activation),  # 32, 32, 32w
+      ConvTranspose(32 * w, 4, 2, activation),  # 64, 64, 32w
+      Conv(n_channels * n_params, 1, 1, None),
+      PackImageParams(n_params),
+  ), skip_generator)
+  return dict(
+      encoder=encoder,
+      decoder=decoder,
+      latents=RVconf((zdim,), qz, projection=True, name="latents"),
+      observation=observation,
+      input_shape=input_shape,
+  )
+
+
+dspritessmall_networks = dsprites_networks
+dsprites0_networks = dsprites_networks
+
+
+def get_networks(dataset_name, *, is_semi_supervised: bool = False,
+                 is_hierarchical: bool = False, qz: str = "mvndiag",
+                 zdim: Optional[int] = None, **kwargs) -> Dict[str, Any]:
+  """Dispatch ``<name>_networks`` by dataset name."""
+  if hasattr(dataset_name, "name"):
+    dataset_name = dataset_name.name
+  if zdim is not None and zdim <= 0:
+    zdim = None
+  name = str(dataset_name).lower().strip()
+  for key, fn in globals().items():
+    if key.endswith("_networks") and key.split("_")[0] == name:
+      return fn(qz=qz, zdim=zdim, is_semi_supervised=is_semi_supervised,
+                is_hierarchical=is_hierarchical, **kwargs)
+  raise ValueError(f"no network for dataset '{dataset_name}' in the port yet")

@@ -1,0 +1,81 @@
+"""The PyTorch port stands alone: odin_tpu_torch and chip_smoke.py import
+nothing of JAX and nothing of the JAX package, and chip_smoke.py fails,
+printing no result, where there is no CUDA card or no port beside it."""
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "odin_tpu")
+SOURCES = sorted((ROOT / "odin_tpu_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+  tree = ast.parse(path.read_text(), filename=str(path))
+  for node in ast.walk(tree):
+    if isinstance(node, ast.Import):
+      yield from (alias.name for alias in node.names)
+    elif isinstance(node, ast.ImportFrom) and node.level == 0:
+      yield node.module
+
+
+def test_sources_exist():
+  names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
+  assert "odin_tpu_torch/ops/logmel.py" in names
+  assert (ROOT / "odin_tpu_torch" / "csrc" / "logmel.cu").exists()
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=lambda p: p.relative_to(ROOT).as_posix())
+def test_no_jax_or_odin_tpu_imports(path):
+  bad = [m for m in _imported_modules(path)
+         if m.split(".")[0] in FORBIDDEN]
+  assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_no_torch_cpp_extension():
+  """Kernels are built with plain nvcc and bound with ctypes."""
+  for path in SOURCES:
+    text = path.read_text()
+    assert "cpp_extension" not in text, path
+  for path in (ROOT / "odin_tpu_torch" / "csrc").iterdir():
+    assert "torch/extension.h" not in path.read_text(), path
+
+
+def _run(args, cwd, env=None):
+  return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                        capture_output=True, text=True, timeout=120)
+
+
+def test_importing_the_port_loads_no_jax():
+  code = ("import sys, odin_tpu_torch.ops, odin_tpu_torch.preprocessing, "
+          "odin_tpu_torch.bay.vi, odin_tpu_torch.networks, "
+          "odin_tpu_torch.serving, odin_tpu_torch.weights\n"
+          "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+          f"{FORBIDDEN!r})\nassert not bad, bad")
+  res = _run(["-c", code], cwd=ROOT)
+  assert res.returncode == 0, res.stderr
+
+
+def test_chip_smoke_fails_without_a_card():
+  env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+  res = _run([str(ROOT / "chip_smoke.py")], cwd=ROOT, env=env)
+  assert res.returncode != 0
+  assert "no CUDA card" in res.stderr
+  assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_fails_without_the_port(tmp_path):
+  shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+  env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+             PYTHONPATH="", PYTHONNOUSERSITE="1")
+  res = _run(["chip_smoke.py"], cwd=tmp_path, env=env)
+  assert res.returncode != 0
+  assert "No module named 'odin_tpu_torch'" in res.stderr
+  assert '"ok"' not in res.stdout
