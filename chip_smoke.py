@@ -20,7 +20,18 @@ CPU:
   4. the serving path: the full-width dSprites beta-VAE answering
      ``encode_mean``, ``decode_mean`` and ``reconstruct`` at batch 1 and
      256, against the same model on the CPU, with batch-1 latency and
-     batch-256 images/s.
+     batch-256 images/s;
+  5. K2 (``ops/flash_attention.py``) against ``flash_attention_reference``
+     at the benchmark width (B 4, H 8, T 4096, D 64) in fp32, non-causal
+     and causal, at ragged and small shapes, and in bf16, within 2e-5 (fp32)
+     and 1e-5 + 2^-6·|plain| (bf16), with CUDA-event timings of the kernel,
+     the plain version and ``scaled_dot_product_attention`` (a yardstick
+     the port never calls);
+  6. the attention path: ``MultiHeadAttention(num_heads=8,
+     qkv_features=512, flash=True)`` on (4, 4096, 512), forward and
+     gradient, against the same module with ``flash=False`` on the card and
+     against the CPU at T 1024, with host-timed forward and forward+backward
+     steps.
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
 fp32 like the CPU.  Any failure raises and the script exits non-zero; it
@@ -37,9 +48,19 @@ import time
 T_START = time.perf_counter()
 SEED = 0
 FP32_PEAK_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores (data sheet)
+TF32_PEAK_FLOPS = 495e12  # H100 SXM, dense TF32 tensor cores (data sheet)
+BF16_PEAK_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores (data sheet)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 (data sheet)
 LOGMEL_TOL_DB = 0.01
 SERVING_ATOL = 1e-4
+ATTN_ATOL = 2e-5  # fp32 attention outputs (tests/test_flash_attention.py)
+# bf16 attention: kernel and plain version both sum in fp32 and round each
+# output once to bf16, so they may differ by one rounding of that output;
+# the limit is two roundings, 2^-6·|plain|, beside 1e-5 for fp32 sums
+ATTN_BF16_RTOL = 2 ** -6
+ATTN_BF16_ATOL = 1e-5
+ATTN_GRAD_ATOL = 1e-4  # attention gradients (tests/test_flash_attention.py)
+ATTN_CPU_ATOL = 1e-4  # card against CPU, fp32 sums in another order
 
 
 def log(msg):
@@ -99,7 +120,10 @@ def main() -> int:
   from odin_tpu_torch import _build, serving
   from odin_tpu_torch.bay.vi import BetaVAE
   from odin_tpu_torch.networks import get_networks
+  from odin_tpu_torch.networks.attention import MultiHeadAttention
   from odin_tpu_torch.ops.features import FeatureConfig
+  from odin_tpu_torch.ops.flash_attention import (flash_attention,
+                                                  flash_attention_reference)
   from odin_tpu_torch.ops.logmel import logmel, logmel_reference
   from odin_tpu_torch.preprocessing import batch_speech_features
 
@@ -108,7 +132,8 @@ def main() -> int:
           "false); nothing was run", file=sys.stderr)
     return 2
 
-  kernels = {"logmel": logmel}  # every kernel wrapper with a launch count
+  # every kernel wrapper with a launch count
+  kernels = {"logmel": logmel, "flash_attention": flash_attention}
   cuda = torch.device("cuda", 0)
 
   def reset_counts():
@@ -131,7 +156,7 @@ def main() -> int:
     log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
     t0 = time.perf_counter()
-    _build.build_all(kernels)
+    _build.build_all(list(kernels))
     log(f"build: {time.perf_counter() - t0:.2f} s")
 
   cfg = FeatureConfig()
@@ -299,7 +324,170 @@ def main() -> int:
     log(f"reconstruct b=256 (host to host, median of 20): "
         f"{256 / t256:.1f} images/s ({t256 * 1e3:.3f} ms per batch)")
 
-  log(f"kernels: " + " ".join(f"{k}={v['launches']}" for k, v in report.items()))
+  with Phase("5 K2 flash_attention against its plain version"):
+    gen = torch.Generator(device=cuda).manual_seed(SEED)
+
+    def qkv(b, h, tq, tk, d, dtype):
+      return tuple((torch.randn(b, h, t, d, device=cuda, generator=gen) * 0.5
+                    ).to(dtype) for t in (tq, tk, tk))
+
+    main = (4, 8, 4096, 4096, 64)  # the repo's benchmark width
+    f32, bf16 = torch.float32, torch.bfloat16
+    err = 0.0
+    for shape, dtype, causal in ((main, f32, False), (main, f32, True),
+                                 ((1, 1, 130, 300, 16), f32, False),
+                                 ((1, 2, 200, 200, 32), f32, True),
+                                 (main, bf16, False)):
+      q, k, v = qkv(*shape, dtype)
+      got = flash_attention(q, k, v, causal=causal)
+      want = flash_attention_reference(q, k, v, shape[-1] ** -0.5, causal)
+      torch.cuda.synchronize()
+      if got.dtype != dtype or got.shape != q.shape:
+        raise AssertionError(f"flash_attention gave {got.dtype} "
+                             f"{tuple(got.shape)} for {dtype} {shape}")
+      if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"flash_attention gave non-finite values at "
+                             f"{shape} {dtype} causal={causal}")
+      diff = (got.float() - want.float()).abs()
+      e = float(diff.max())
+      if dtype == f32:
+        tol = f"{ATTN_ATOL}"
+        ok = e <= ATTN_ATOL
+      else:
+        tol = f"{ATTN_BF16_ATOL} + 2^-6·|plain|"
+        ok = bool((diff <= ATTN_BF16_ATOL +
+                   ATTN_BF16_RTOL * want.float().abs()).all())
+      log(f"flash_attention (B, H, Tq, Tk, D)={shape} {dtype} causal={causal}"
+          f": max |kernel - plain| = {e:.3g} (limit {tol}; max |plain| "
+          f"{float(want.float().abs().max()):.3g})")
+      if not ok:
+        raise AssertionError(f"flash attention kernel disagrees with its "
+                             f"plain version by {e} at {shape} {dtype} "
+                             f"causal={causal} (limit {tol})")
+      if dtype == f32:
+        err = max(err, e)
+      del q, k, v, got, want
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    B, H, Tq, Tk, D = main
+    flops = 4 * B * H * Tq * Tk * D  # the two products; softmax not counted
+    for dtype, peak in ((f32, FP32_PEAK_FLOPS), (bf16, BF16_PEAK_FLOPS)):
+      q, k, v = qkv(*main, dtype)
+      nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+      lib_err = float((sdpa(q, k, v).float() -
+                       flash_attention(q, k, v).float()).abs().max())
+      kernel_ms = cuda_ms(torch, lambda: flash_attention(q, k, v), reps=10)
+      plain_ms = cuda_ms(torch, lambda: flash_attention_reference(
+          q, k, v, D ** -0.5, False), reps=10)
+      library_ms = cuda_ms(torch, lambda: sdpa(q, k, v), reps=10)
+      ops_ms = flops / peak * 1e3
+      bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+      bound_ms = max(ops_ms, bytes_ms)
+      bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+      log(f"flash_attention {main} {dtype} non-causal: "
+          f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+          f"library_ms={library_ms:.4f} (scaled_dot_product_attention, max "
+          f"diff {lib_err:.3g}) bound_ms={bound_ms:.4f} by {bound_by} "
+          f"({flops:.4g} flop at {peak / 1e12:.0f} TFLOP/s, "
+          f"{nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+      if dtype == f32:
+        log(f"  beside it: TF32 tensor cores would bound it at "
+            f"{flops / TF32_PEAK_FLOPS * 1e3:.4f} ms but do not hold "
+            f"{ATTN_ATOL}; bf16 tensor cores at "
+            f"{flops / BF16_PEAK_FLOPS * 1e3:.4f} ms")
+        report["flash_attention"] = dict(
+            name="flash_attention", route="cuda",
+            source="odin_tpu_torch/csrc/flash_attention.cu",
+            replaces="odin_tpu/ops/pallas_attention.py:35", launches=None,
+            max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+      del q, k, v
+    torch.cuda.empty_cache()
+
+  with Phase("6 attention path: MultiHeadAttention(flash=True)"):
+    B, T, F = 4, 4096, 512
+
+    def mha(flash, device):
+      m = MultiHeadAttention(num_heads=8, qkv_features=512, flash=flash)
+      m.build((T, F), torch.Generator().manual_seed(SEED), device=device)
+      return m
+
+    flash_mha, plain_mha = mha(True, cuda), mha(False, cuda)
+    x_np = np.random.RandomState(SEED).randn(B, T, F).astype(np.float32)
+    x = torch.from_numpy(x_np).to(cuda)
+    reset_counts()
+    with torch.no_grad():
+      out = flash_mha(x)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"attention path forward launches: {counts}")
+    if counts["flash_attention"] != 1:
+      raise AssertionError("a MultiHeadAttention(flash=True) forward launched "
+                           f"the flash attention kernel "
+                           f"{counts['flash_attention']} times, not once")
+    report["flash_attention"]["launches"] = counts["flash_attention"]
+    if out.device != cuda or tuple(out.shape) != (B, T, F):
+      raise AssertionError(f"MultiHeadAttention gave {tuple(out.shape)} on "
+                           f"{out.device}, expected {(B, T, F)} on the card")
+    if not bool(torch.isfinite(out).all()):
+      raise AssertionError("MultiHeadAttention gave non-finite values")
+    with torch.no_grad():
+      e = float((out - plain_mha(x)).abs().max())
+    log(f"flash=True against flash=False on the card, T={T}: max diff "
+        f"{e:.3g} (limit {ATTN_ATOL})")
+    if e > ATTN_ATOL:
+      raise AssertionError(f"flash=True differs from flash=False by {e}")
+    t_cpu = 1024
+    with torch.no_grad():
+      got = flash_mha(torch.from_numpy(x_np[:, :t_cpu]).to(cuda)).cpu()
+      want = mha(True, "cpu")(torch.from_numpy(x_np[:, :t_cpu]))
+    e = float((got - want).abs().max())
+    log(f"card against CPU, T={t_cpu}: max diff {e:.3g} "
+        f"(limit {ATTN_CPU_ATOL})")
+    if e > ATTN_CPU_ATOL:
+      raise AssertionError(f"the card differs from the CPU by {e}")
+    w = torch.from_numpy(np.random.RandomState(SEED + 1).randn(
+        B, T, F).astype(np.float32)).to(cuda)
+
+    def step(m):
+      m.zero_grad(set_to_none=True)
+      xg = x.clone().requires_grad_()
+      (m(xg) * w).sum().backward()
+      return xg.grad
+
+    reset_counts()
+    gx = step(flash_mha)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    log(f"attention path forward+backward launches: {counts}")
+    if counts["flash_attention"] != 1:
+      raise AssertionError("a forward+backward launched the flash attention "
+                           f"kernel {counts['flash_attention']} times, not "
+                           "once")
+    gx_plain = step(plain_mha)
+    errs = {"x": float((gx - gx_plain).abs().max())}
+    for (name, a), b in zip(flash_mha.named_parameters(),
+                            plain_mha.parameters()):
+      errs[name] = float((a.grad - b.grad).abs().max())
+    log("gradients, flash=True against flash=False on the card, max diff: " +
+        ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) +
+        f" (limit {ATTN_GRAD_ATOL})")
+    bad = {k: v for k, v in errs.items() if not v <= ATTN_GRAD_ATOL}
+    if bad:
+      raise AssertionError(f"gradients differ beyond {ATTN_GRAD_ATOL}: {bad}")
+    rounds = 10
+    for name, m in (("flash=True", flash_mha), ("flash=False", plain_mha)):
+      with torch.no_grad():
+        fwd = host_times_s(torch, lambda: m(x), rounds)[rounds // 2]
+      both = host_times_s(torch, lambda: step(m), rounds)[rounds // 2]
+      log(f"MultiHeadAttention {name} {(B, T, F)}, 8 heads, host to host, "
+          f"median of {rounds}: forward {fwd * 1e3:.3f} ms, forward+backward "
+          f"{both * 1e3:.3f} ms")
+
+  log("kernels: " + "; ".join(
+      f"{k} launches={v['launches']} ms={v['ms']:.4f} "
+      f"plain_ms={v['plain_ms']:.4f} library_ms={v['library_ms']:.4f} "
+      f"bound_ms={v['bound_ms']:.4f} ({v['bound_by']})"
+      for k, v in report.items()))
   log(f"total wall time: {time.perf_counter() - T_START:.2f} s")
   log(smi)
   print(json.dumps({"kernels": list(report.values())}))

@@ -16,7 +16,7 @@ import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, List
+from typing import Dict, List, Sequence
 
 __all__ = ["NVCC_FLAGS", "build_all", "library_path", "load"]
 
@@ -46,26 +46,43 @@ def library_path(name: str) -> Path:
   return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
-def build_all(names: Iterable[str]) -> List[Path]:
-  """Compile every source not yet built, one ``nvcc`` after another.
-  Prints each build's seconds and ptxas's register and spill report."""
-  outs = []
-  for name in names:
-    out = library_path(name)
-    if not out.exists():
-      BUILD_DIR.mkdir(parents=True, exist_ok=True)
+def _report(name: str, seconds: float, log: str) -> str:
+  """When the build ended and what ``nvcc`` printed about each kernel's
+  name, registers and spills."""
+  lines = [f"nvcc {name}.cu: done {seconds:.2f} s after the builds began"]
+  lines += [f"  {line.strip()}" for line in log.splitlines()
+            if "entry function" in line or "registers" in line or
+            "spill" in line]
+  return "\n".join(lines)
+
+
+def build_all(names: Sequence[str]) -> List[Path]:
+  """Compile every source not yet built, one ``nvcc`` each, all started
+  together.  Prints each build's seconds and ptxas's register and spill
+  report."""
+  outs = [library_path(name) for name in names]
+  todo = [(name, out) for name, out in zip(names, outs) if not out.exists()]
+  if todo:
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    procs = []
+    for name, out in todo:
       tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
-      t0 = time.perf_counter()
-      log = subprocess.run(
+      procs.append((name, out, tmp, subprocess.Popen(
           [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
-          timeout=NVCC_TIMEOUT_S, check=True, capture_output=True,
-          text=True)
-      os.replace(tmp, out)
-      print(f"nvcc {name}.cu: {time.perf_counter() - t0:.2f} s", flush=True)
-      for line in (log.stdout + log.stderr).splitlines():
-        if "registers" in line or "spill" in line:
-          print(f"  {line.strip()}", flush=True)
-    outs.append(out)
+          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    try:
+      for name, out, tmp, proc in procs:
+        log, _ = proc.communicate(timeout=NVCC_TIMEOUT_S)
+        if proc.returncode:
+          raise RuntimeError(f"nvcc failed on {name}.cu:\n{log}")
+        os.replace(tmp, out)
+        print(_report(name, time.perf_counter() - t0, log), flush=True)
+    finally:
+      for *_, proc in procs:
+        if proc.poll() is None:
+          proc.kill()
+          proc.wait()
   return outs
 
 

@@ -25,7 +25,7 @@ class DistributionDense(nn.Module):
     self.event_shape = tuple(int(i) for i in event_shape)
     self.posterior = posterior
     self.posterior_kwargs = dict(posterior_kwargs or {})
-    self.projection = (Dense(self.params_size, use_bias=use_bias)
+    self.projection = (Dense(self.params_size, use_bias=use_bias, bare=True)
                        if projection else None)
 
   @property

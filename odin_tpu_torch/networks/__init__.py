@@ -1,4 +1,14 @@
 """Network layers and per-dataset architectures of the port."""
+from odin_tpu_torch.networks.attention import (
+    Attention,
+    AttentionHeads,
+    AttentionMechanism,
+    GlobalAttention,
+    LocalPredictiveAttention,
+    MultiHeadAttention,
+    SelfAttention,
+    create_attention_heads,
+)
 from odin_tpu_torch.networks.base import (
     CenterAt0,
     Conv,

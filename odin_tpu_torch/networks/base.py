@@ -102,13 +102,17 @@ def conv_transpose_padding(kernel: int, stride: int,
 
 class Dense(nn.Module):
   """``y = act(x W^T + b)``; ``weight`` is (out, in), flax's kernel
-  transposed."""
+  transposed.  ``bare`` marks a Dense that stands for one of flax's own
+  ``nn.Dense`` layers (its flax path holds the kernel itself) and not for
+  the package's ``Dense`` layer (which holds it under ``Dense_0``)."""
 
-  def __init__(self, units: int, activation=None, use_bias: bool = True):
+  def __init__(self, units: int, activation=None, use_bias: bool = True,
+               bare: bool = False):
     super().__init__()
     self.units = int(units)
     self.activation = activation
     self.use_bias = bool(use_bias)
+    self.bare = bool(bare)
 
   def build(self, in_shape: Shape, generator=None) -> Shape:
     fan_in = int(in_shape[-1])

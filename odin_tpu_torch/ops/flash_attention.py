@@ -1,0 +1,205 @@
+"""K2: flash attention, a hand-written CUDA kernel, and its users' entry points.
+
+PyTorch port of ``odin_tpu/ops/pallas_attention.py``.  ``flash_attention``
+computes ``softmax(Q K^T * sm_scale) V`` over (B, H, T, D) tensors.  On a
+CUDA tensor its forward launches ``csrc/flash_attention.cu`` (which replaces
+``_flash_kernel``, ``pallas_attention.py:35-90``) and raises if the launch
+fails; there is no fallback.  On a CPU tensor it runs
+``flash_attention_reference``, the plain PyTorch version of the kernel's
+function.  As in JAX, the backward recomputes plain attention
+(``reference_attention``) and takes its gradients, so the forward saves
+only q, k and v.  The kernel's bound on the card and its design are noted in
+the CUDA source.
+
+``flash_attention_fn`` is the drop-in attention function of
+``networks.attention.MultiHeadAttention(flash=True)`` over (B, T, H, D);
+``dot_product_attention`` is the plain attention it takes when a bias or a
+mask is given, the port of flax's function of that name.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Optional
+
+import torch
+
+from odin_tpu_torch import _build
+
+__all__ = ["flash_attention", "flash_attention_fn", "flash_attention_reference",
+           "reference_attention", "dot_product_attention"]
+
+NEG_INF = -1e30  # JAX's masking value (`_reference_attention`, `Attention`)
+MAX_HEAD_DIM = 128  # the kernel's kMaxDim
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _causal_mask(tq: int, tk: int, device) -> torch.Tensor:
+  """Top-left aligned: query i sees keys j <= i."""
+  return (torch.arange(tq, device=device)[:, None] >=
+          torch.arange(tk, device=device)[None, :])
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, sm_scale: float,
+                              causal: bool) -> torch.Tensor:
+  """Plain PyTorch K2: the scores, the softmax and the product with V in
+  fp32 from inputs of either dtype; the output in q's dtype.  A row with no
+  valid key gives 0."""
+  qf, kf, vf = q.float(), k.float(), v.float()
+  s = torch.matmul(qf, kf.transpose(-1, -2)) * sm_scale
+  if causal:
+    s = s.masked_fill(~_causal_mask(q.shape[-2], k.shape[-2], q.device),
+                      -math.inf)
+  m = s.amax(dim=-1, keepdim=True) if s.shape[-1] else s.new_zeros(
+      s.shape[:-1] + (1,))
+  m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+  p = torch.exp(s - m)
+  l = p.sum(dim=-1, keepdim=True)
+  o = torch.matmul(p, vf)
+  o = torch.where(l > 0, o / l.clamp_min(1e-30), torch.zeros_like(o))
+  return o.to(q.dtype)
+
+
+def reference_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        sm_scale: float, causal: bool) -> torch.Tensor:
+  """JAX's ``_reference_attention`` (``pallas_attention.py:152-159``): the
+  scores in the input dtype, then fp32; the probabilities cast to q's dtype
+  before the product with V.  The backward of ``flash_attention``."""
+  s = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * sm_scale
+  if causal:
+    s = torch.where(_causal_mask(q.shape[2], k.shape[2], q.device), s,
+                    torch.full_like(s, NEG_INF))
+  p = torch.softmax(s, dim=-1)
+  return torch.einsum("bhqk,bhkd->bhqd", p.to(q.dtype), v)
+
+
+def _library() -> ctypes.CDLL:
+  lib = _build.load("flash_attention")
+  fn = lib.odin_flash_attention
+  if fn.argtypes is None:
+    lib.odin_flash_attention_max_dim.restype = ctypes.c_int
+    if lib.odin_flash_attention_max_dim() != MAX_HEAD_DIM:
+      raise RuntimeError("csrc/flash_attention.cu and ops/flash_attention.py "
+                         "disagree on the largest head dim")
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [
+        ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+  return lib
+
+
+def _check(q, k, v):
+  if q.ndim != 4 or k.ndim != 4 or v.ndim != 4:
+    raise ValueError("flash_attention takes (B, H, T, D) tensors, got "
+                     f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+  if k.shape != v.shape or q.shape[:2] != k.shape[:2] or \
+      q.shape[3] != k.shape[3]:
+    raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v "
+                     f"{tuple(v.shape)} do not fit (B, H, Tq, D), "
+                     "(B, H, Tk, D), (B, H, Tk, D)")
+  if not q.dtype == k.dtype == v.dtype or q.dtype not in _DTYPES:
+    raise TypeError("flash_attention takes float32 or bfloat16 q, k and v of "
+                    f"one dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
+  if not q.device == k.device == v.device or \
+      q.device.type not in ("cpu", "cuda"):
+    raise ValueError("q, k and v must lie on one 'cpu' or 'cuda' device, got "
+                     f"{q.device}, {k.device}, {v.device}")
+  if q.shape[3] > MAX_HEAD_DIM:
+    raise ValueError(f"the flash attention kernel takes head dims up to "
+                     f"{MAX_HEAD_DIM}, got {q.shape[3]}")
+
+
+def _forward(q, k, v, sm_scale: float, causal: bool) -> torch.Tensor:
+  if q.device.type == "cpu":
+    return flash_attention_reference(q, k, v, sm_scale, causal)
+  B, H, Tq, D = q.shape
+  Tk = k.shape[2]
+  q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+  out = torch.empty_like(q)
+  if out.numel() == 0:
+    return out
+  lib = _library()
+  with torch.cuda.device(q.device):
+    err = lib.odin_flash_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, Tq,
+        Tk, D, float(sm_scale), int(bool(causal)), _DTYPES[q.dtype],
+        torch.cuda.current_stream(q.device).cuda_stream)
+  if err != 0:
+    raise RuntimeError(f"flash attention kernel launch failed with CUDA "
+                       f"error {err}")
+  flash_attention.launches += 1
+  return out
+
+
+class _FlashAttention(torch.autograd.Function):
+
+  @staticmethod
+  def forward(ctx, q, k, v, sm_scale, causal):
+    ctx.save_for_backward(q, k, v)
+    ctx.sm_scale, ctx.causal = sm_scale, causal
+    return _forward(q, k, v, sm_scale, causal)
+
+  @staticmethod
+  def backward(ctx, g):
+    q, k, v = ctx.saved_tensors
+    with torch.enable_grad():
+      q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+      out = reference_attention(q, k, v, ctx.sm_scale, ctx.causal)
+      gq, gk, gv = torch.autograd.grad(out, (q, k, v), g)
+    return gq, gk, gv, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    sm_scale: Optional[float] = None,
+                    causal: bool = False) -> torch.Tensor:
+  """Tiled online-softmax attention over (B, H, T, D) tensors, float32 or
+  bfloat16, head dim up to 128; Tq and Tk may differ.  ``causal`` masks
+  key j from query i unless i >= j.  ``sm_scale`` defaults to 1/sqrt(D)."""
+  _check(q, k, v)
+  if sm_scale is None:
+    sm_scale = 1.0 / math.sqrt(q.shape[-1])
+  return _FlashAttention.apply(q, k, v, float(sm_scale), bool(causal))
+
+
+flash_attention.launches = 0
+
+
+def dot_product_attention(query: torch.Tensor, key: torch.Tensor,
+                          value: torch.Tensor,
+                          bias: Optional[torch.Tensor] = None,
+                          mask: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+  """flax's ``dot_product_attention`` without dropout, over (..., T, H, D):
+  the query scaled by 1/sqrt(D), the bias added to the (..., H, Tq, Tk)
+  scores, masked scores set to the dtype's lowest value, softmax over the
+  keys."""
+  dtype = torch.promote_types(torch.promote_types(query.dtype, key.dtype),
+                              value.dtype)
+  query, key, value = query.to(dtype), key.to(dtype), value.to(dtype)
+  query = query / math.sqrt(query.shape[-1])
+  w = torch.einsum("...qhd,...khd->...hqk", query, key)
+  if bias is not None:
+    w = w + bias
+  if mask is not None:
+    w = torch.where(mask.bool(), w,
+                    torch.tensor(torch.finfo(w.dtype).min, dtype=w.dtype,
+                                 device=w.device))
+  w = torch.softmax(w, dim=-1).to(dtype)
+  return torch.einsum("...hqk,...khd->...qhd", w, value)
+
+
+def flash_attention_fn(query, key, value, bias=None, mask=None,
+                       dropout_rate=0.0, deterministic=False, **_):
+  """Drop-in attention function of ``MultiHeadAttention(flash=True)`` on
+  (B, T, H, D) tensors.  With a bias or a mask it computes the plain
+  attention (those need the explicit score matrix), as the JAX function
+  does; dropout is not ported and raises.  flax's other keyword arguments
+  (``dtype``, ``precision``, ...) are taken and ignored, as on JAX's
+  flash path."""
+  if dropout_rate > 0.0 and not deterministic:
+    raise NotImplementedError("attention dropout is not ported")
+  if bias is not None or mask is not None:
+    return dot_product_attention(query, key, value, bias=bias, mask=mask)
+  out = flash_attention(query.transpose(1, 2), key.transpose(1, 2),
+                        value.transpose(1, 2))
+  return out.transpose(1, 2)

@@ -13,9 +13,22 @@ The layout rules:
   * activations stay NHWC, so ``Flatten`` before a ``Dense`` needs no
     permutation of the Dense kernel.
 
+Attention (``networks.attention``):
+
+  * flax's ``MultiHeadDotProductAttention_0`` has no module of its own in
+    the port's ``MultiHeadAttention``; its ``query``, ``key`` and ``value``
+    kernels (F_in, H, D_h) become ``Dense`` weights (H·D_h, F_in), their
+    biases (H, D_h) become (H·D_h,), and the ``out`` kernel (H, D_h, F_out)
+    becomes the weight (F_out, H·D_h);
+  * ``Attention``'s raw parameter ``v_add`` keeps its name and shape.
+
 Path rules: flax's ``layers_<i>`` is ``layers.<i>``; the primitive a
 wrapper layer holds (``Conv_0``, ``ConvTranspose_0``, ``Dense_0``) has no
-module of its own in the port; ``kernel`` is ``weight``.
+module of its own in the port; ``Attention``'s ``position`` Dense is
+``position_proj``; ``kernel`` is ``weight``.  A ``Dense`` built with
+``bare=True`` stands for one of flax's own ``nn.Dense`` layers (a head's
+``projection``, ``Attention``'s and ``AttentionHeads``' projections), whose
+flax path has no ``Dense_0``.
 """
 from __future__ import annotations
 
@@ -26,6 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from odin_tpu_torch.networks.attention import MultiHeadAttention
 from odin_tpu_torch.networks.base import Conv, ConvTranspose, Dense
 
 __all__ = ["from_jax_params", "to_jax_params"]
@@ -33,6 +47,11 @@ __all__ = ["from_jax_params", "to_jax_params"]
 _PRIMITIVES = {"Conv_0": Conv, "ConvTranspose_0": ConvTranspose,
                "Dense_0": Dense}
 _LAYER = re.compile(r"^layers_(\d+)$")
+_MHA = "MultiHeadDotProductAttention_0"
+_MHA_PROJECTIONS = ("query", "key", "value", "out")
+_RAW = ("v_add",)  # parameters held by a module itself, not by a Dense
+_TO_PORT = {"position": "position_proj"}
+_TO_FLAX = {v: k for k, v in _TO_PORT.items()}
 
 
 def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
@@ -67,47 +86,92 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
   out = {}
   for path, value in _leaves(params):
     *modules, leaf = path
+    if len(modules) >= 2 and modules[-2] == _MHA and \
+        modules[-1] in _MHA_PROJECTIONS:
+      if modules[-1] == "out":  # (H, D_h, F_out) -> (H·D_h, F_out)
+        value = value.reshape(-1, value.shape[-1]) if leaf == "kernel" \
+            else value
+      else:  # (F_in, H, D_h) -> (F_in, H·D_h); (H, D_h) -> (H·D_h,)
+        value = value.reshape(value.shape[0], -1) if leaf == "kernel" \
+            else value.reshape(-1)
+      modules = modules[:-2] + modules[-1:]
     kind = _PRIMITIVES.get(modules[-1]) if modules else None
     if kind is not None:
       modules = modules[:-1]
     names = []
     for m in modules:
       match = _LAYER.match(m)
-      names.extend(("layers", match.group(1)) if match else (m,))
+      names.extend(("layers", match.group(1)) if match else
+                   (_TO_PORT.get(m, m),))
     if leaf == "kernel":
       value = _kernel_to_torch(kind, value)
       leaf = "weight"
-    elif leaf != "bias":
+    elif leaf != "bias" and leaf not in _RAW:
       raise ValueError(f"unexpected flax parameter {'/'.join(path)}")
     out[".".join(names + [leaf])] = torch.from_numpy(
         value.astype(np.float32, order="C", copy=True))
   return out
 
 
+def _flax_path(name: str):
+  """A port module's dotted name -> its flax path."""
+  parts = name.split(".") if name else []
+  path = []
+  i = 0
+  while i < len(parts):
+    if parts[i] == "layers" and i + 1 < len(parts) and parts[i + 1].isdigit():
+      path.append(f"layers_{parts[i + 1]}")
+      i += 2
+    else:
+      path.append(_TO_FLAX.get(parts[i], parts[i]))
+      i += 1
+  return path
+
+
+def _node(tree: Dict[str, Any], path) -> Dict[str, Any]:
+  for p in path:
+    tree = tree.setdefault(p, {})
+  return tree
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+  return t.detach().cpu().numpy().copy()
+
+
 def to_jax_params(module: nn.Module) -> Dict[str, Any]:
   """The inverse of ``from_jax_params`` for a built module of the port:
   its parameters as a flax tree of numpy arrays."""
   tree: Dict[str, Any] = {}
+  held = set()  # the Dense layers of a MultiHeadAttention
   for name, sub in module.named_modules():
-    if not isinstance(sub, (Conv, ConvTranspose, Dense)):
+    if isinstance(sub, MultiHeadAttention):
+      heads = (sub.num_heads, sub.head_dim)
+      for proj in _MHA_PROJECTIONS:
+        dense = getattr(sub, proj)
+        held.add(dense)
+        node = _node(tree, _flax_path(name) + [_MHA, proj])
+        kernel = _numpy(dense.weight).T
+        if proj == "out":
+          node["kernel"] = np.ascontiguousarray(kernel.reshape(
+              heads + (kernel.shape[-1],)))
+          node["bias"] = _numpy(dense.bias)
+        else:
+          node["kernel"] = np.ascontiguousarray(kernel.reshape(
+              (kernel.shape[0],) + heads))
+          node["bias"] = _numpy(dense.bias).reshape(heads)
       continue
-    parts = name.split(".") if name else []
-    path = []
-    i = 0
-    while i < len(parts):
-      if parts[i] == "layers" and i + 1 < len(parts) and parts[i + 1].isdigit():
-        path.append(f"layers_{parts[i + 1]}")
-        i += 2
-      else:
-        path.append(parts[i])
-        i += 1
-    if not path or path[-1] != "projection":  # a head's Dense is flax's own
+    if not isinstance(sub, (Conv, ConvTranspose, Dense)) or sub in held:
+      continue
+    path = _flax_path(name)
+    if not (isinstance(sub, Dense) and sub.bare):
       path.append(next(k for k, v in _PRIMITIVES.items() if type(sub) is v))
-    node = tree
-    for p in path:
-      node = node.setdefault(p, {})
+    node = _node(tree, path)
     w = sub.weight.detach().cpu().numpy()
     node["kernel"] = np.ascontiguousarray(_kernel_to_flax(type(sub), w))
     if sub.bias is not None:
-      node["bias"] = sub.bias.detach().cpu().numpy().copy()
+      node["bias"] = _numpy(sub.bias)
+  for name, param in module.named_parameters():
+    *owner, leaf = name.split(".")
+    if leaf in _RAW:
+      _node(tree, _flax_path(".".join(owner)))[leaf] = _numpy(param)
   return tree

@@ -5,17 +5,28 @@ JAX nor the JAX package, so they run on a machine that has only PyTorch:
 
   python -m pytest tests/test_torch_cuda.py -q -m cuda --noconftest
 
-(``--noconftest``: tests/conftest.py configures JAX.)  Tolerance: 0.01 dB
-on log-mel, the JAX package's own (tests/test_ops_features.py).
+(``--noconftest``: tests/conftest.py configures JAX.)  Tolerances: 0.01 dB
+on log-mel and 2e-5 on fp32 attention, the JAX package's own
+(tests/test_ops_features.py, tests/test_flash_attention.py).  bf16
+attention: the kernel and its plain version both accumulate in fp32 and
+round once to bf16, so each output may differ by one bf16 rounding; the
+limit is two roundings of that output, 2^-6·|plain|, beside 1e-5 for fp32
+sums taken in another order.
 """
 import numpy as np
 import pytest
 import torch
 
+from odin_tpu_torch.networks.attention import MultiHeadAttention
 from odin_tpu_torch.ops import features as tf
+from odin_tpu_torch.ops.flash_attention import (flash_attention,
+                                                flash_attention_reference)
 from odin_tpu_torch.ops.logmel import logmel, logmel_reference
 
 MSPEC_ATOL = 0.01
+ATTN_ATOL = 2e-5
+ATTN_BF16_RTOL = 2 ** -6
+ATTN_BF16_ATOL = 1e-5
 
 pytestmark = pytest.mark.cuda
 
@@ -77,3 +88,72 @@ def test_speech_features_on_card_matches_cpu(cuda_device):
                              want["mspec"].numpy(), atol=MSPEC_ATOL)
   np.testing.assert_array_equal(got["frame_mask"].cpu().numpy(),
                                 want["frame_mask"].numpy())
+
+
+def _qkv(device, b, h, tq, tk, d, dtype=torch.float32, seed=0):
+  g = torch.Generator(device=device).manual_seed(seed)
+  return tuple((torch.randn(b, h, t, d, device=device, generator=g) * 0.5
+                ).to(dtype) for t in (tq, tk, tk))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 4, 256, 256, 64), (1, 2, 200, 200, 32),
+                                   (1, 1, 130, 300, 16), (1, 2, 77, 45, 100),
+                                   (1, 1, 1, 1, 1), (2, 1, 65, 129, 128)])
+def test_flash_kernel_matches_plain_on_card(cuda_device, shape, causal):
+  """f32, causal and ragged: Tq != Tk, neither a tile multiple, any D."""
+  q, k, v = _qkv(cuda_device, *shape)
+  scale = shape[-1] ** -0.5
+  before = flash_attention.launches
+  got = flash_attention(q, k, v, causal=causal)
+  assert flash_attention.launches == before + 1
+  want = flash_attention_reference(q, k, v, scale, causal)
+  torch.cuda.synchronize()
+  assert got.dtype == torch.float32 and got.shape == q.shape
+  assert torch.isfinite(got).all()
+  np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                             atol=ATTN_ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_bf16_on_card(cuda_device, causal):
+  q, k, v = _qkv(cuda_device, 2, 4, 300, 200, 64, torch.bfloat16)
+  got = flash_attention(q, k, v, causal=causal)
+  want = flash_attention_reference(q, k, v, 64 ** -0.5, causal)
+  torch.cuda.synchronize()
+  assert got.dtype == torch.bfloat16
+  np.testing.assert_allclose(got.float().cpu().numpy(),
+                             want.float().cpu().numpy(), rtol=ATTN_BF16_RTOL,
+                             atol=ATTN_BF16_ATOL)
+
+
+def test_flash_kernel_runs_for_a_cuda_tensor(cuda_device):
+  """A CUDA tensor launches the kernel (the count rises), never the plain
+  version; the gradient recomputes plain attention and launches nothing."""
+  q, k, v = (t.requires_grad_() for t in _qkv(cuda_device, 1, 2, 70, 70, 32))
+  before = flash_attention.launches
+  out = flash_attention(q, k, v, causal=True)
+  assert flash_attention.launches == before + 1
+  out.sum().backward()
+  assert flash_attention.launches == before + 1
+  assert all(torch.isfinite(t.grad).all() for t in (q, k, v))
+
+
+def test_flash_mha_on_card_matches_plain_and_cpu(cuda_device):
+  g = torch.Generator().manual_seed(0)
+  plain = MultiHeadAttention(num_heads=4, flash=False)
+  plain.build((96, 64), g, device="cpu")
+  flash = MultiHeadAttention(num_heads=4, flash=True)
+  flash.build((96, 64), device=cuda_device)
+  flash.load_state_dict(plain.state_dict())
+  x = torch.randn(2, 96, 64, generator=g)
+  with torch.no_grad():
+    want = plain(x)
+    plain.to(cuda_device)
+    before = flash_attention.launches
+    got = flash(x.to(cuda_device))
+    assert flash_attention.launches == before + 1
+    on_card = plain(x.to(cuda_device))
+  np.testing.assert_allclose(got.cpu().numpy(), on_card.cpu().numpy(),
+                             atol=ATTN_ATOL)
+  np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)

@@ -27,8 +27,10 @@ def _imported_modules(path):
 
 def test_sources_exist():
   names = {p.relative_to(ROOT).as_posix() for p in SOURCES}
-  assert "odin_tpu_torch/ops/logmel.py" in names
-  assert (ROOT / "odin_tpu_torch" / "csrc" / "logmel.cu").exists()
+  for kernel in ("logmel", "flash_attention"):
+    assert f"odin_tpu_torch/ops/{kernel}.py" in names
+    assert (ROOT / "odin_tpu_torch" / "csrc" / f"{kernel}.cu").exists()
+  assert "odin_tpu_torch/networks/attention.py" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,

@@ -139,3 +139,116 @@ def test_to_jax_params_inverts_from_jax_params():
   assert set(got) == set(want)
   for k in want:
     np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _flat(tree):
+  return {jax.tree_util.keystr(k): np.asarray(v) for k, v in
+          jax.tree_util.tree_flatten_with_path(tree)[0]}
+
+
+def _mha_params(seed=0):
+  from odin_tpu.networks.attention import MultiHeadAttention
+  x = jnp.asarray(np.random.RandomState(seed).randn(2, 16, 32), jnp.float32)
+  params = MultiHeadAttention(num_heads=4).init(jax.random.PRNGKey(seed),
+                                                x)["params"]
+  return jax.device_get(params)
+
+
+def test_mha_qkv_kernels_flatten_the_heads():
+  """query/key/value kernel (F_in, H, D_h) -> weight (H·D_h, F_in), bias
+  (H, D_h) -> (H·D_h,); MultiHeadDotProductAttention_0 has no module."""
+  params = _mha_params()
+  sd = from_jax_params(params)
+  mha = params["MultiHeadDotProductAttention_0"]
+  for name in ("query", "key", "value"):
+    kernel, bias = mha[name]["kernel"], mha[name]["bias"]
+    assert kernel.shape == (32, 4, 8)
+    np.testing.assert_array_equal(sd[f"{name}.weight"].numpy(),
+                                  kernel.reshape(32, 32).T)
+    np.testing.assert_array_equal(sd[f"{name}.bias"].numpy(),
+                                  bias.reshape(32))
+
+
+def test_mha_out_kernel_flattens_the_heads():
+  """out kernel (H, D_h, F_out) -> weight (F_out, H·D_h); head h's rows of
+  the flattened input are h·D_h .. (h + 1)·D_h - 1."""
+  params = _mha_params(1)
+  sd = from_jax_params(params)
+  kernel = params["MultiHeadDotProductAttention_0"]["out"]["kernel"]
+  assert kernel.shape == (4, 8, 32)
+  w = sd["out.weight"].numpy()
+  assert w.shape == (32, 32)
+  np.testing.assert_array_equal(w[:, 8 * 2 + 5], kernel[2, 5])
+  assert set(sd) == {f"{n}.{p}" for n in ("query", "key", "value", "out")
+                     for p in ("weight", "bias")}
+
+
+def test_attention_dense_params_keep_their_names():
+  """Attention's own nn.Dense layers; flax's `position` is `position_proj`
+  (the port's `position` names the mode); `v_add` stays a raw parameter."""
+  from odin_tpu.networks.attention import Attention
+  from odin_tpu_torch.networks.attention import Attention as PortAttention
+  x = np.random.RandomState(2).randn(2, 5, 6).astype(np.float32)
+  params = jax.device_get(Attention(
+      units=4, score="additive", position="local_p").init(
+          jax.random.PRNGKey(0), jnp.asarray(x))["params"])
+  sd = from_jax_params(params)
+  assert set(sd) == {f"{n}.{p}" for n in ("q_proj", "k_proj", "pos_hidden",
+                                          "position_proj", "w_add", "u_add")
+                     for p in ("weight", "bias")} | {"v_add"}
+  np.testing.assert_array_equal(sd["v_add"].numpy(), params["v_add"])
+  np.testing.assert_array_equal(sd["position_proj.weight"].numpy(),
+                                params["position"]["kernel"].T)
+  port = PortAttention(units=4, score="additive", position="local_p")
+  port.build((5, 6))
+  port.load_state_dict(sd, strict=True)
+
+
+def test_attention_heads_projections_keep_their_names():
+  from odin_tpu.networks.attention import AttentionHeads
+  x = np.random.RandomState(3).randn(2, 5, 6).astype(np.float32)
+  params = jax.device_get(AttentionHeads(num_heads=3, depth=2).init(
+      jax.random.PRNGKey(0), jnp.asarray(x))["params"])
+  sd = from_jax_params(params)
+  assert sd["head_proj_0.weight"].shape == (18, 6)
+  assert sd["head_proj_1.weight"].shape == (18, 18)
+
+
+@pytest.mark.parametrize("which", ["mha", "attention", "heads", "nested"])
+def test_to_jax_params_inverts_from_jax_params_for_attention(which):
+  from odin_tpu.networks import attention as ja
+  from odin_tpu_torch.networks import attention as ta
+  x = jnp.asarray(np.random.RandomState(4).randn(2, 6, 8), jnp.float32)
+  if which == "mha":
+    jm, tm = ja.MultiHeadAttention(num_heads=2), ta.MultiHeadAttention(2)
+  elif which == "attention":
+    jm = ja.Attention(units=4, score="additive", position="local_p")
+    tm = ta.Attention(units=4, score="additive", position="local_p")
+  elif which == "heads":
+    jm, tm = ja.AttentionHeads(num_heads=2, depth=2), ta.AttentionHeads(2, 2)
+  else:  # an attention layer held by another module
+    jm, tm = ja.SelfAttention(units=4, score="general"), \
+        ta.SelfAttention(units=4, score="general")
+  params = jax.device_get(jm.init(jax.random.PRNGKey(0), x)["params"])
+  tm.build((6, 8), **({"device": "cpu"} if which == "mha" else {}))
+  tm.load_state_dict(from_jax_params(params), strict=True)
+  want, got = _flat(params), _flat(to_jax_params(tm))
+  assert set(got) == set(want)
+  for k in want:
+    assert got[k].shape == want[k].shape, k
+    np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def test_to_jax_params_follows_the_bare_flag_not_the_name():
+  """A Dense built with bare=True is one of flax's own nn.Dense layers (no
+  Dense_0), whatever its name; any other Dense holds its kernel under
+  Dense_0, also where its name is one of the attention layers'."""
+  m = torch.nn.Module()
+  m.loc = tb.Dense(3)
+  m.other = tb.Dense(3, bare=True)
+  for layer in (m.loc, m.other):
+    layer.build((4,))
+  tree = to_jax_params(m)
+  assert set(tree["loc"]) == {"Dense_0"}
+  assert set(tree["other"]) == {"kernel", "bias"}
+  m.load_state_dict(from_jax_params(tree), strict=True)
