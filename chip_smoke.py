@@ -10,10 +10,10 @@ CPU:
 
   1. device and build: the card's name and power limit, the nvcc build;
   2. K1 (``ops/logmel.py``) against ``logmel_reference`` at the speech
-     path's shape (64 x 4 s = 25,472 frames) and at a ragged 1,000 frames,
-     within 0.01 dB, with CUDA-event timings of the kernel, the plain
-     version and ``torch.fft.rfft`` + mel (a yardstick the port never
-     calls);
+     path's shape (64 x 4 s = 25,472 frames), at a ragged 1,000 frames and
+     at n_fft 1024 with 1024-sample frames (513 bins), within 0.01 dB, with
+     CUDA-event timings of the kernel, the plain version and
+     ``torch.fft.rfft`` + mel (a yardstick the port never calls);
   3. the speech path: ``batch_speech_features`` on 64 int16 utterances of
      2-4 s, against the same call on the CPU, and its rate in valid
      (unpadded) frames/s with the host-to-device copy;
@@ -22,16 +22,19 @@ CPU:
      256, against the same model on the CPU, with batch-1 latency and
      batch-256 images/s;
   5. K2 (``ops/flash_attention.py``) against ``flash_attention_reference``
-     at the benchmark width (B 4, H 8, T 4096, D 64) in fp32, non-causal
-     and causal, at ragged and small shapes, and in bf16, within 2e-5 (fp32)
-     and 1e-5 + 2^-6·|plain| (bf16), with CUDA-event timings of the kernel,
-     the plain version and ``scaled_dot_product_attention`` (a yardstick
-     the port never calls);
+     at the benchmark width (B 4, H 8, T 4096, D 64) in fp32, bf16 and fp16
+     (the fp32 FMA kernel and the 16-bit tensor-core kernel), non-causal and
+     causal, at ragged and small shapes, and at D 256 in each dtype (two
+     launches in fp32), within 2e-5 (fp32), 1e-5 + 2^-6·|plain| (bf16) and
+     1e-5 + 2^-9·|plain| (fp16), with CUDA-event timings of the kernel, the
+     plain version and ``scaled_dot_product_attention`` (a yardstick the
+     port never calls) in each dtype;
   6. the attention path: ``MultiHeadAttention(num_heads=8,
      qkv_features=512, flash=True)`` on (4, 4096, 512), forward and
      gradient, against the same module with ``flash=False`` on the card and
      against the CPU at T 1024, with host-timed forward and forward+backward
-     steps.
+     steps; then the same layer cast to bf16 and to fp16 (the 16-bit kernel),
+     forward, against the fp32 layer beside ``flash=False`` in that dtype.
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
 fp32 like the CPU.  Any failure raises and the script exits non-zero; it
@@ -59,6 +62,8 @@ ATTN_ATOL = 2e-5  # fp32 attention outputs (tests/test_flash_attention.py)
 # the limit is two roundings, 2^-6·|plain|, beside 1e-5 for fp32 sums
 ATTN_BF16_RTOL = 2 ** -6
 ATTN_BF16_ATOL = 1e-5
+# fp16 attention: the same two roundings, of fp16's 11-bit significand
+ATTN_FP16_RTOL = 2 ** -9
 ATTN_GRAD_ATOL = 1e-4  # attention gradients (tests/test_flash_attention.py)
 ATTN_CPU_ATOL = 1e-4  # card against CPU, fp32 sums in another order
 
@@ -132,16 +137,22 @@ def main() -> int:
           "false); nothing was run", file=sys.stderr)
     return 2
 
-  # every kernel wrapper with a launch count
-  kernels = {"logmel": logmel, "flash_attention": flash_attention}
+  # every kernel wrapper's launch counts: "flash_attention" counts the
+  # launches of both K2 kernels, "flash_attention_mma" the tensor-core
+  # kernel's share
+  counters = {"logmel": (logmel, "launches"),
+              "flash_attention": (flash_attention, "launches"),
+              "flash_attention_mma": (flash_attention, "mma_launches")}
+  sources = ["logmel", "flash_attention", "flash_attention_mma"]
   cuda = torch.device("cuda", 0)
 
   def reset_counts():
-    for wrapper in kernels.values():
-      wrapper.launches = 0
+    for wrapper, attr in counters.values():
+      setattr(wrapper, attr, 0)
 
   def read_counts():
-    return {name: wrapper.launches for name, wrapper in kernels.items()}
+    return {name: getattr(wrapper, attr)
+            for name, (wrapper, attr) in counters.items()}
 
   with Phase("1 device and build"):
     smi = subprocess.run(
@@ -156,7 +167,7 @@ def main() -> int:
     log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
     t0 = time.perf_counter()
-    _build.build_all(list(kernels))
+    _build.build_all(sources)
     log(f"build: {time.perf_counter() - t0:.2f} s")
 
   cfg = FeatureConfig()
@@ -185,6 +196,25 @@ def main() -> int:
         raise AssertionError(f"logmel kernel disagrees with its plain version "
                              f"by {e} dB at N={n} (limit {LOGMEL_TOL_DB})")
       err = max(err, e)
+    # n_fft 1024: 513 bins, two groups of the kernel's 288
+    big = FeatureConfig(frame_length=1024, step_length=256, n_fft=1024)
+    big_bases = big.device_bases(cuda)
+    frames = (torch.randn(n_main, big.frame_length, device=cuda,
+                          generator=gen) * 0.1 * big_bases["window"]
+              ).contiguous()
+    got = logmel(frames, big)
+    want = logmel_reference(frames, big_bases["cos"], big_bases["sin"],
+                            big_bases["mel_t"], big.scale ** 2)
+    torch.cuda.synchronize()
+    e = float((got - want).abs().max())
+    big_ms = cuda_ms(torch, lambda: logmel(frames, big))
+    log(f"logmel N={n_main} n_fft=1024 frame_length=1024: max |kernel - "
+        f"plain| = {e:.6f} dB, kernel_ms={big_ms:.4f}")
+    if not bool(torch.isfinite(got).all()) or e > LOGMEL_TOL_DB:
+      raise AssertionError(f"logmel kernel disagrees with its plain version "
+                           f"by {e} dB at n_fft 1024 (limit {LOGMEL_TOL_DB})")
+    err = max(err, e)
+    del frames, got, want
     frames = (torch.randn(n_main, cfg.frame_length, device=cuda,
                           generator=gen) * 0.1 * window).contiguous()
     mel_t = bases["mel_t"]
@@ -332,14 +362,24 @@ def main() -> int:
                     ).to(dtype) for t in (tq, tk, tk))
 
     main = (4, 8, 4096, 4096, 64)  # the repo's benchmark width
-    f32, bf16 = torch.float32, torch.bfloat16
-    err = 0.0
-    for shape, dtype, causal in ((main, f32, False), (main, f32, True),
-                                 ((1, 1, 130, 300, 16), f32, False),
-                                 ((1, 2, 200, 200, 32), f32, True),
-                                 (main, bf16, False)):
+    wide = (4, 8, 1024, 1024, 256)
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    rtol = {bf16: ATTN_BF16_RTOL, f16: ATTN_FP16_RTOL}
+    peak = {f32: FP32_PEAK_FLOPS, bf16: BF16_PEAK_FLOPS, f16: BF16_PEAK_FLOPS}
+    entry = {f32: "flash_attention", bf16: "flash_attention_mma_bf16",
+             f16: "flash_attention_mma_fp16"}
+    err = {dtype: 0.0 for dtype in entry}
+    cases = [(main, f32, False), (main, f32, True),
+             ((1, 1, 130, 300, 16), f32, False),
+             ((1, 2, 200, 200, 32), f32, True), (wide, f32, False)]
+    for dtype in (bf16, f16):
+      cases += [(main, dtype, False), (main, dtype, True),
+                ((1, 2, 300, 200, 100), dtype, True), (wide, dtype, False)]
+    for shape, dtype, causal in cases:
       q, k, v = qkv(*shape, dtype)
+      before = flash_attention.launches
       got = flash_attention(q, k, v, causal=causal)
+      n_launches = flash_attention.launches - before
       want = flash_attention_reference(q, k, v, shape[-1] ** -0.5, causal)
       torch.cuda.synchronize()
       if got.dtype != dtype or got.shape != q.shape:
@@ -348,59 +388,66 @@ def main() -> int:
       if not bool(torch.isfinite(got).all()):
         raise AssertionError(f"flash_attention gave non-finite values at "
                              f"{shape} {dtype} causal={causal}")
+      want_launches = -(-shape[-1] // (128 if dtype == f32 else 256))
+      if n_launches != want_launches:
+        raise AssertionError(f"flash_attention launched {n_launches} kernels "
+                             f"at {shape} {dtype}, not {want_launches}")
       diff = (got.float() - want.float()).abs()
       e = float(diff.max())
       if dtype == f32:
         tol = f"{ATTN_ATOL}"
         ok = e <= ATTN_ATOL
       else:
-        tol = f"{ATTN_BF16_ATOL} + 2^-6·|plain|"
+        tol = f"{ATTN_BF16_ATOL} + {rtol[dtype]:.3g}·|plain|"
         ok = bool((diff <= ATTN_BF16_ATOL +
-                   ATTN_BF16_RTOL * want.float().abs()).all())
+                   rtol[dtype] * want.float().abs()).all())
       log(f"flash_attention (B, H, Tq, Tk, D)={shape} {dtype} causal={causal}"
           f": max |kernel - plain| = {e:.3g} (limit {tol}; max |plain| "
-          f"{float(want.float().abs().max()):.3g})")
+          f"{float(want.float().abs().max()):.3g}; {n_launches} launch(es))")
       if not ok:
         raise AssertionError(f"flash attention kernel disagrees with its "
                              f"plain version by {e} at {shape} {dtype} "
                              f"causal={causal} (limit {tol})")
-      if dtype == f32:
-        err = max(err, e)
-      del q, k, v, got, want
+      err[dtype] = max(err[dtype], e)
+      del q, k, v, got, want, diff
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    B, H, Tq, Tk, D = main
-    flops = 4 * B * H * Tq * Tk * D  # the two products; softmax not counted
-    for dtype, peak in ((f32, FP32_PEAK_FLOPS), (bf16, BF16_PEAK_FLOPS)):
-      q, k, v = qkv(*main, dtype)
-      nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-      lib_err = float((sdpa(q, k, v).float() -
-                       flash_attention(q, k, v).float()).abs().max())
-      kernel_ms = cuda_ms(torch, lambda: flash_attention(q, k, v), reps=10)
-      plain_ms = cuda_ms(torch, lambda: flash_attention_reference(
-          q, k, v, D ** -0.5, False), reps=10)
-      library_ms = cuda_ms(torch, lambda: sdpa(q, k, v), reps=10)
-      ops_ms = flops / peak * 1e3
-      bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-      bound_ms = max(ops_ms, bytes_ms)
-      bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-      log(f"flash_attention {main} {dtype} non-causal: "
-          f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={library_ms:.4f} (scaled_dot_product_attention, max "
-          f"diff {lib_err:.3g}) bound_ms={bound_ms:.4f} by {bound_by} "
-          f"({flops:.4g} flop at {peak / 1e12:.0f} TFLOP/s, "
-          f"{nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
-      if dtype == f32:
-        log(f"  beside it: TF32 tensor cores would bound it at "
-            f"{flops / TF32_PEAK_FLOPS * 1e3:.4f} ms but do not hold "
-            f"{ATTN_ATOL}; bf16 tensor cores at "
-            f"{flops / BF16_PEAK_FLOPS * 1e3:.4f} ms")
-        report["flash_attention"] = dict(
-            name="flash_attention", route="cuda",
-            source="odin_tpu_torch/csrc/flash_attention.cu",
-            replaces="odin_tpu/ops/pallas_attention.py:35", launches=None,
-            max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-      del q, k, v
+    for shape in (main, wide):
+      B, H, Tq, Tk, D = shape
+      flops = 4 * B * H * Tq * Tk * D  # the two products; softmax not counted
+      for dtype in (f32, bf16, f16):
+        q, k, v = qkv(*shape, dtype)
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        lib_err = float((sdpa(q, k, v).float() -
+                         flash_attention(q, k, v).float()).abs().max())
+        kernel_ms = cuda_ms(torch, lambda: flash_attention(q, k, v), reps=10)
+        plain_ms = cuda_ms(torch, lambda: flash_attention_reference(
+            q, k, v, D ** -0.5, False), reps=10)
+        library_ms = cuda_ms(torch, lambda: sdpa(q, k, v), reps=10)
+        ops_ms = flops / peak[dtype] * 1e3
+        bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+        bound_ms = max(ops_ms, bytes_ms)
+        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+        log(f"flash_attention {shape} {dtype} non-causal: "
+            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+            f"library_ms={library_ms:.4f} (scaled_dot_product_attention, max "
+            f"diff {lib_err:.3g}) bound_ms={bound_ms:.4f} by {bound_by} "
+            f"({flops:.4g} flop at {peak[dtype] / 1e12:.0f} TFLOP/s, "
+            f"{nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+        if shape == main and dtype == f32:
+          log(f"  beside it: TF32 tensor cores would bound it at "
+              f"{flops / TF32_PEAK_FLOPS * 1e3:.4f} ms but do not hold "
+              f"{ATTN_ATOL}; bf16 tensor cores at "
+              f"{flops / BF16_PEAK_FLOPS * 1e3:.4f} ms")
+        if shape == main:
+          report[entry[dtype]] = dict(
+              name=entry[dtype], route="cuda",
+              source="odin_tpu_torch/csrc/" + (
+                  "flash_attention.cu" if dtype == f32
+                  else "flash_attention_mma.cu"),
+              replaces="odin_tpu/ops/pallas_attention.py:35", launches=None,
+              max_abs_err=err[dtype], ms=kernel_ms, plain_ms=plain_ms,
+              bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+        del q, k, v
     torch.cuda.empty_cache()
 
   with Phase("6 attention path: MultiHeadAttention(flash=True)"):
@@ -420,10 +467,10 @@ def main() -> int:
     torch.cuda.synchronize()
     counts = read_counts()
     log(f"attention path forward launches: {counts}")
-    if counts["flash_attention"] != 1:
-      raise AssertionError("a MultiHeadAttention(flash=True) forward launched "
-                           f"the flash attention kernel "
-                           f"{counts['flash_attention']} times, not once")
+    if counts["flash_attention"] != 1 or counts["flash_attention_mma"] != 0:
+      raise AssertionError("an fp32 MultiHeadAttention(flash=True) forward "
+                           "launched the flash attention kernels "
+                           f"{counts}, not the fp32 kernel once")
     report["flash_attention"]["launches"] = counts["flash_attention"]
     if out.device != cuda or tuple(out.shape) != (B, T, F):
       raise AssertionError(f"MultiHeadAttention gave {tuple(out.shape)} on "
@@ -482,6 +529,47 @@ def main() -> int:
       log(f"MultiHeadAttention {name} {(B, T, F)}, 8 heads, host to host, "
           f"median of {rounds}: forward {fwd * 1e3:.3f} ms, forward+backward "
           f"{both * 1e3:.3f} ms")
+    # the layer in 16 bits: weights and input cast, so its attention takes
+    # the tensor-core kernel; held against the fp32 layer beside the plain
+    # layer in the same dtype (both round their inputs and projections)
+    with torch.no_grad():
+      want = flash_mha(x)
+      for dtype, name in ((torch.bfloat16, "flash_attention_mma_bf16"),
+                          (torch.float16, "flash_attention_mma_fp16")):
+        flash_16 = mha(True, cuda).to(dtype)
+        flash_16.load_state_dict(flash_mha.state_dict())
+        plain_16 = mha(False, cuda).to(dtype)
+        plain_16.load_state_dict(flash_mha.state_dict())
+        x16 = x.to(dtype)
+        reset_counts()
+        out = flash_16(x16)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        log(f"attention path forward in {dtype}, launches: {counts}")
+        if counts["flash_attention"] != 1 or \
+            counts["flash_attention_mma"] != 1:
+          raise AssertionError(f"a {dtype} MultiHeadAttention(flash=True) "
+                               "forward launched the flash attention kernels "
+                               f"{counts}, not the 16-bit kernel once")
+        report[name]["launches"] = counts["flash_attention_mma"]
+        if out.dtype != dtype or not bool(torch.isfinite(out).all()):
+          raise AssertionError(f"the {dtype} layer gave {out.dtype} or "
+                               "non-finite values")
+        e_flash = float((out.float() - want).abs().max())
+        e_plain = float((plain_16(x16).float() - want).abs().max())
+        log(f"{dtype} layer against the fp32 layer, T={T}: flash=True max "
+            f"diff {e_flash:.3g}, flash=False {e_plain:.3g} (limit "
+            f"2 x flash=False's)")
+        if e_flash > 2 * e_plain:
+          raise AssertionError(f"the {dtype} flash layer is {e_flash} from "
+                               f"fp32, the plain one {e_plain}")
+        fwd = host_times_s(torch, lambda: flash_16(x16), rounds)[rounds // 2]
+        fwd_plain = host_times_s(torch, lambda: plain_16(x16),
+                                 rounds)[rounds // 2]
+        log(f"MultiHeadAttention {dtype} {(B, T, F)}, host to host, median "
+            f"of {rounds}: forward flash=True {fwd * 1e3:.3f} ms, "
+            f"flash=False {fwd_plain * 1e3:.3f} ms")
+        del flash_16, plain_16, x16, out
 
   log("kernels: " + "; ".join(
       f"{k} launches={v['launches']} ms={v['ms']:.4f} "

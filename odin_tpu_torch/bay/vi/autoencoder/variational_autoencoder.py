@@ -118,9 +118,16 @@ class VariationalAutoencoder(VariationalModel):
     """x (B, H, W, C) -> qz."""
     return self.core.encode(self._tensor(x))
 
-  def decode(self, z) -> Distribution:
-    """z (B, zdim) -> px."""
-    return self.core.decode(self._tensor(z))
+  def decode(self, z) -> Union[Distribution,
+                               Tuple[Distribution, Tuple[int, ...]]]:
+    """z (B, zdim) -> px.  z with leading sample dims (S..., B, zdim) is
+    decoded as (S·...·B, zdim) and returns ``(px, lead)``, ``lead`` the
+    shape z had without its last dim, as in the JAX package."""
+    z = self._tensor(z)
+    if z.ndim > 2:
+      lead = tuple(z.shape[:-1])
+      return self.core.decode(z.reshape(-1, z.shape[-1])), lead
+    return self.core.decode(z)
 
   def reconstruct(self, x) -> Tuple[Distribution, Distribution]:
     """x -> (qz, px) through the posterior mean: encode, then decode E[z|x]."""

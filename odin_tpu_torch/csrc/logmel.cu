@@ -26,15 +26,21 @@
 // (lane + 32 j, j < 3), so a thread keeps 48 fp32 accumulators (8 frames x 3
 // bins x re, im).  For two samples it reads 8 float2 frame values (each a
 // shared-memory broadcast) and 12 cos/sin values, for 96 FMAs.  The DFT
-// bases come in the kernel's own layout (`odin_logmel_bases_layout`): the
-// samples padded to a multiple of kChunk and the bins to kMaxFreqs, both with
-// zeros, cos then sin in each sample row.  So every chunk of kChunk sample
-// rows is one contiguous run, copied into shared memory with cp.async while
-// the block works on the previous chunk (double buffer, 88 KB a block).  The
-// power rows then overwrite the frame tile, and the mel product runs over
-// each filter's nonzero band only (`bands`, exact: the skipped weights are
-// 0), followed by the log.  The ragged last tile is masked here, not padded
-// by the caller.  Plain fp32 FMAs hold 0.01 dB.
+// bases come in the kernel's own layout (`odin_logmel_bases_layout`): one
+// block of rows for each group of kMaxFreqs bins, the samples padded to a
+// multiple of kChunk, each sample row holding cos then sin of the group's
+// bins, padded with zeros.  So every chunk of kChunk sample rows of a group
+// is one contiguous run, copied into shared memory with cp.async while the
+// block works on the previous chunk (double buffer, 88 KB a block at the
+// speech path's size).  The power rows then overwrite
+// the frame tile, and the mel product runs over each filter's nonzero band
+// only (`bands`, exact: the skipped weights are 0), followed by the log.
+// Above kMaxFreqs bins (n_fft > 574) the block runs the DFT once per group
+// of kMaxFreqs bins, adding each group's share of the mel product to sums
+// kept in shared memory; where a tile of whole frames does not fit in
+// shared memory (frame_length above about 1,400 with two bin groups), the
+// frames are staged in segments of `seg` samples.  The ragged last tile is
+// masked here, not padded by the caller.  Plain fp32 FMAs hold 0.01 dB.
 #include <cuda_runtime.h>
 
 namespace {
@@ -45,9 +51,10 @@ constexpr int kThreads = 32 * kFrameGroups * kBinGroups;
 constexpr int kFramesPerWarp = 8;
 constexpr int kTileFrames = kFrameGroups * kFramesPerWarp;
 constexpr int kBinsPerLane = 3;
-constexpr int kMaxFreqs = kBinGroups * 32 * kBinsPerLane;  // 288: n_fft <= 574
-constexpr int kRow = 2 * kMaxFreqs;  // floats of one sample row of the bases
+constexpr int kMaxFreqs = kBinGroups * 32 * kBinsPerLane;  // 288 bins a group
+constexpr int kRow = 2 * kMaxFreqs;  // floats of one staged sample row
 constexpr int kChunk = 8;            // sample rows per staged chunk
+constexpr int kSmemBytes = 232448;   // shared memory a block may use
 
 __device__ __forceinline__ void copy16_async(float* dst, const float* src) {
   const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -62,118 +69,160 @@ __device__ __forceinline__ void stage_chunk(float* dst, const float* src) {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
+// kGrouped: more than one group of bins, or frames in more than one
+// segment; without it the loops over both run once, at compile time, which
+// keeps the speech path's code as it was before they existed
+template <bool kGrouped>
 __global__ void __launch_bounds__(kThreads, 2) logmel_kernel(
     const float* __restrict__ frames,  // (n, frame_length)
-    const float* __restrict__ bases,   // (padded, 2, kMaxFreqs): cos, sin
+    const float* __restrict__ bases,   // (groups, padded, 2, kMaxFreqs)
     const float* __restrict__ mel_t,   // (n_freqs, n_mels)
     const int2* __restrict__ bands,    // (n_mels): nonzero rows [x, y) of mel_t
     float* __restrict__ out,           // (n, n_mels)
-    int n, int frame_length, int n_freqs, int n_mels, float scale_sq) {
+    int n, int frame_length, int n_freqs, int n_mels, float scale_sq,
+    int seg) {
   extern __shared__ float smem[];
-  float* staged = smem;                    // 2 x kChunk x kRow
-  float* tile = smem + 2 * kChunk * kRow;  // kTileFrames x max(padded, n_freqs)
   const int padded = (frame_length + kChunk - 1) / kChunk * kChunk;
-  const int n_chunks = padded / kChunk;
+  const int n_groups = kGrouped ? (n_freqs + kMaxFreqs - 1) / kMaxFreqs : 1;
+  const int cols = max(seg, min(n_freqs, kMaxFreqs));
+  float* staged = smem;                    // 2 x kChunk x kRow
+  float* tile = smem + 2 * kChunk * kRow;  // kTileFrames x cols
+  float* mel_sums = tile + kTileFrames * cols;  // kTileFrames x n_mels
   const int first = blockIdx.x * kTileFrames;
   const int rows = min(kTileFrames, n - first);
-  stage_chunk(staged, bases);
   const float* src = frames + static_cast<size_t>(first) * frame_length;
-  for (int i = threadIdx.x; i < kTileFrames * padded; i += kThreads) {
-    const int f = i / padded;
-    const int t = i - f * padded;
-    tile[i] = f < rows && t < frame_length ? src[f * frame_length + t] : 0.0f;
-  }
 
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int f0 = (warp % kFrameGroups) * kFramesPerWarp;
   const int b0 = (warp / kFrameGroups) * 32 * kBinsPerLane + lane;
-  float re[kFramesPerWarp][kBinsPerLane];
-  float im[kFramesPerWarp][kBinsPerLane];
+  // the frame samples in segments of `seg`: one, at compile time, without
+  // kGrouped
+  const int t_end = kGrouped ? padded : 1;
+  const int t_step = kGrouped ? seg : 1;
+  for (int group = 0; group < n_groups; ++group) {
+    const int bin0 = group * kMaxFreqs;
+    float re[kFramesPerWarp][kBinsPerLane];
+    float im[kFramesPerWarp][kBinsPerLane];
 #pragma unroll
-  for (int i = 0; i < kFramesPerWarp; ++i) {
+    for (int i = 0; i < kFramesPerWarp; ++i) {
 #pragma unroll
-    for (int j = 0; j < kBinsPerLane; ++j) {
-      re[i][j] = 0.0f;
-      im[i][j] = 0.0f;
-    }
-  }
-  const float* xrow = tile + f0 * padded;
-  for (int c = 0; c < n_chunks; ++c) {
-    if (c + 1 < n_chunks) {
-      stage_chunk(staged + ((c + 1) & 1) * kChunk * kRow,
-                  bases + static_cast<size_t>(c + 1) * kChunk * kRow);
-      asm volatile("cp.async.wait_group 1;\n" ::);
-    } else {
-      asm volatile("cp.async.wait_group 0;\n" ::);
-    }
-    __syncthreads();  // chunk c (and, at c = 0, the frame tile) is in place
-    const float* chunk = staged + (c & 1) * kChunk * kRow;
-    // not unrolled: unrolling the pairs of samples spills registers at the
-    // 2 blocks per SM that __launch_bounds__ asks for
-#pragma unroll 1
-    for (int r = 0; r < kChunk; r += 2) {
-      float2 x[kFramesPerWarp];
-#pragma unroll
-      for (int i = 0; i < kFramesPerWarp; ++i) {
-        x[i] = *reinterpret_cast<const float2*>(xrow + i * padded +
-                                                c * kChunk + r);
+      for (int j = 0; j < kBinsPerLane; ++j) {
+        re[i][j] = 0.0f;
+        im[i][j] = 0.0f;
       }
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const float* crow = chunk + (r + u) * kRow;
-#pragma unroll
-        for (int j = 0; j < kBinsPerLane; ++j) {
-          const float cv = crow[b0 + 32 * j];
-          const float sv = crow[kMaxFreqs + b0 + 32 * j];
+    }
+    for (int t0 = 0; t0 < t_end; t0 += t_step) {
+      const int len = kGrouped ? min(seg, padded - t0) : padded;
+      const int n_chunks = len / kChunk;
+      const float* chunk_src =
+          bases + (static_cast<size_t>(group) * padded + t0) * kRow;
+      // the tile and both buffers are free: the last chunk loop and the
+      // last group's mel sums end with a barrier
+      stage_chunk(staged, chunk_src);
+      for (int i = threadIdx.x; i < kTileFrames * len; i += kThreads) {
+        const int f = i / len;
+        const int t = i - f * len;
+        tile[i] = f < rows && t0 + t < frame_length
+                      ? src[f * frame_length + t0 + t]
+                      : 0.0f;
+      }
+      const float* xrow = tile + f0 * len;
+      for (int c = 0; c < n_chunks; ++c) {
+        if (c + 1 < n_chunks) {
+          stage_chunk(staged + ((c + 1) & 1) * kChunk * kRow,
+                      chunk_src + (c + 1) * kChunk * kRow);
+          asm volatile("cp.async.wait_group 1;\n" ::);
+        } else {
+          asm volatile("cp.async.wait_group 0;\n" ::);
+        }
+        __syncthreads();  // chunk c (and, at c = 0, the frame tile) is in
+        const float* chunk = staged + (c & 1) * kChunk * kRow;
+        // not unrolled: unrolling the pairs of samples spills registers at
+        // the 2 blocks per SM that __launch_bounds__ asks for
+#pragma unroll 1
+        for (int r = 0; r < kChunk; r += 2) {
+          float2 x[kFramesPerWarp];
 #pragma unroll
           for (int i = 0; i < kFramesPerWarp; ++i) {
-            const float xv = u == 0 ? x[i].x : x[i].y;
-            re[i][j] = fmaf(xv, cv, re[i][j]);
-            im[i][j] = fmaf(xv, sv, im[i][j]);
+            x[i] = *reinterpret_cast<const float2*>(xrow + i * len +
+                                                    c * kChunk + r);
           }
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            const float* crow = chunk + (r + u) * kRow;
+#pragma unroll
+            for (int j = 0; j < kBinsPerLane; ++j) {
+              const float cv = crow[b0 + 32 * j];
+              const float sv = crow[kMaxFreqs + b0 + 32 * j];
+#pragma unroll
+              for (int i = 0; i < kFramesPerWarp; ++i) {
+                const float xv = u == 0 ? x[i].x : x[i].y;
+                re[i][j] = fmaf(xv, cv, re[i][j]);
+                im[i][j] = fmaf(xv, sv, im[i][j]);
+              }
+            }
+          }
+        }
+        __syncthreads();  // chunk c is read before its buffer is staged again
+      }
+    }
+
+    // this group's power rows overwrite the frame tile, which is done
+    const int nb = min(kMaxFreqs, n_freqs - bin0);
+    float* power = tile;  // (kTileFrames, nb)
+#pragma unroll
+    for (int i = 0; i < kFramesPerWarp; ++i) {
+#pragma unroll
+      for (int j = 0; j < kBinsPerLane; ++j) {
+        const int k = b0 + 32 * j;
+        if (k < nb) {
+          power[(f0 + i) * nb + k] =
+              (re[i][j] * re[i][j] + im[i][j] * im[i][j]) * scale_sq;
         }
       }
     }
-    __syncthreads();  // chunk c is read before its buffer is staged again
-  }
+    __syncthreads();
 
-  float* power = tile;  // (kTileFrames, n_freqs): the frame tile is done
-#pragma unroll
-  for (int i = 0; i < kFramesPerWarp; ++i) {
-#pragma unroll
-    for (int j = 0; j < kBinsPerLane; ++j) {
-      const int k = b0 + 32 * j;
-      if (k < n_freqs) {
-        power[(f0 + i) * n_freqs + k] =
-            (re[i][j] * re[i][j] + im[i][j] * im[i][j]) * scale_sq;
+    // the group's share of the mel product; a thread keeps the same
+    // (frame, mel) entries in every group
+    const bool last = !kGrouped || group + 1 == n_groups;
+    for (int idx = threadIdx.x; idx < rows * n_mels; idx += kThreads) {
+      const int f = idx / n_mels;
+      const int m = idx - f * n_mels;
+      const int2 band = __ldg(bands + m);
+      const int lo = max(band.x, bin0);
+      const int hi = min(band.y, bin0 + nb);
+      const float* p = power + f * nb - bin0;
+      float acc = group == 0 ? 0.0f : mel_sums[idx];
+      for (int k = lo; k < hi; ++k) {
+        acc = fmaf(p[k], __ldg(mel_t + k * n_mels + m), acc);
+      }
+      if (last) {
+        out[static_cast<size_t>(first + f) * n_mels + m] =
+            10.0f * log10f(fmaxf(acc, 1e-10f));
+      } else {
+        mel_sums[idx] = acc;
       }
     }
-  }
-  __syncthreads();
-
-  for (int idx = threadIdx.x; idx < rows * n_mels; idx += kThreads) {
-    const int f = idx / n_mels;
-    const int m = idx - f * n_mels;
-    const int2 band = __ldg(bands + m);
-    const float* p = power + f * n_freqs;
-    float acc = 0.0f;
-    for (int k = band.x; k < band.y; ++k) {
-      acc = fmaf(p[k], __ldg(mel_t + k * n_mels + m), acc);
+    if (!last) {
+      __syncthreads();  // the power rows are read before the next tile
     }
-    out[static_cast<size_t>(first + f) * n_mels + m] =
-        10.0f * log10f(fmaxf(acc, 1e-10f));
   }
 }
 
 }  // namespace
 
-// The layout of `bases`: (ceil(frame_length / chunk) * chunk, 2, max_freqs)
-// fp32, 16-byte aligned; row t holds cos then sin of sample t, zero past
-// n_freqs, and the padded rows are zero.
-extern "C" void odin_logmel_bases_layout(int* chunk, int* max_freqs) {
+// The layout of `bases`: (ceil(n_freqs / max_freqs),
+// ceil(frame_length / chunk) * chunk, 2, max_freqs) fp32, 16-byte aligned;
+// row t of group g holds cos then sin of sample t at the bins
+// g * max_freqs + (0 .. max_freqs - 1), zero past n_freqs, and the padded
+// rows are zero.  `tile_frames` frames share a block.
+extern "C" void odin_logmel_bases_layout(int* chunk, int* max_freqs,
+                                         int* tile_frames) {
   *chunk = kChunk;
   *max_freqs = kMaxFreqs;
+  *tile_frames = kTileFrames;
 }
 
 // Launches K1 on `stream`.  Allocates nothing and does not synchronise.
@@ -182,23 +231,36 @@ extern "C" int odin_logmel(const void* frames, const void* bases,
                            const void* mel_t, const void* bands, void* out,
                            int n, int frame_length, int n_freqs, int n_mels,
                            float scale_sq, void* stream) {
-  if (n_freqs > kMaxFreqs || n <= 0 || frame_length <= 0 || n_mels <= 0 ||
+  if (n <= 0 || frame_length <= 0 || n_freqs <= 0 || n_mels <= 0 ||
       reinterpret_cast<size_t>(bases) % 16 != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  // the frame tile whole if it fits, else in the longest segments that do
   const int padded = (frame_length + kChunk - 1) / kChunk * kChunk;
-  const int cols = padded > n_freqs ? padded : n_freqs;
-  const size_t smem = sizeof(float) * (2 * kChunk * kRow + kTileFrames * cols);
+  const int n_groups = (n_freqs + kMaxFreqs - 1) / kMaxFreqs;
+  const int fixed = 2 * kChunk * kRow + (n_groups > 1 ? kTileFrames * n_mels
+                                                      : 0);
+  const int power_cols = n_freqs < kMaxFreqs ? n_freqs : kMaxFreqs;
+  const int room = (kSmemBytes / 4 - fixed) / kTileFrames / kChunk * kChunk;
+  const int seg = padded < room ? padded : room;
+  if (seg < kChunk || room < power_cols) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const int cols = seg > power_cols ? seg : power_cols;
+  const size_t smem = sizeof(float) * (fixed + kTileFrames * cols);
+  auto kernel = n_groups > 1 || seg < padded ? logmel_kernel<true>
+                                             : logmel_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      logmel_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) {
     return static_cast<int>(err);
   }
   const int blocks = (n + kTileFrames - 1) / kTileFrames;
-  logmel_kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<blocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(frames), static_cast<const float*>(bases),
       static_cast<const float*>(mel_t), static_cast<const int2*>(bands),
-      static_cast<float*>(out), n, frame_length, n_freqs, n_mels, scale_sq);
+      static_cast<float*>(out), n, frame_length, n_freqs, n_mels, scale_sq,
+      seg);
   return static_cast<int>(cudaGetLastError());
 }

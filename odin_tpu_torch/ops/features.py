@@ -4,8 +4,11 @@
   pre-emphasis -> framing -> window -> [K1: DFT -> power -> mel -> log]
   -> top-dB -> DCT (MFCC) -> deltas -> masked CMVN -> energy VAD
 
-The log-mel core always goes through the K1 wrapper (``ops/logmel.py``): the
+The log-mel core goes through the K1 wrapper (``ops/logmel.py``) by default
+(``use_pallas=True``, the JAX package's name for its kernel branch): the
 hand-written CUDA kernel on the card, its plain PyTorch version on the CPU.
+``use_pallas=False`` takes the JAX package's default branch, the plain
+matmul DFT, which also returns the power spectrum ``spec``.
 All functions are mask-aware (padded frames are excluded from the top-dB
 reference, CMVN and VAD statistics).  The tf.signal-compatible path of the
 JAX package is not ported yet.
@@ -19,7 +22,7 @@ import numpy as np
 import torch
 
 from odin_tpu_torch.device import resolve_device
-from odin_tpu_torch.ops.logmel import logmel
+from odin_tpu_torch.ops.logmel import logmel, power_spectrum
 from odin_tpu_torch.preprocessing import signal as np_signal
 
 __all__ = ["FeatureConfig", "dft_bases", "frame_signal", "speech_features",
@@ -155,8 +158,8 @@ def ulaw_expand_device(u: torch.Tensor) -> torch.Tensor:
 
 
 def speech_features(y, config: FeatureConfig, lengths=None,
-                    device: Union[str, torch.device] = "cuda"
-                    ) -> Dict[str, torch.Tensor]:
+                    device: Union[str, torch.device] = "cuda",
+                    use_pallas: bool = True) -> Dict[str, torch.Tensor]:
   """Fused pipeline on a padded batch, on `device`.
 
   Args:
@@ -165,12 +168,15 @@ def speech_features(y, config: FeatureConfig, lengths=None,
       device); or uint8 G.711 mu-law codewords (expanded on the device).
     lengths: (B,) valid sample counts (defaults to the full length).
     device: where the pipeline runs; 'cpu' runs K1's plain version.
+    use_pallas: True runs the log-mel core through K1 (the kernel on the
+      card), whose power spectrum never leaves it; False runs the plain
+      matmul DFT, power and mel products, as the JAX package's default
+      branch does, and returns the power spectrum as 'spec'.
 
   Returns a dict of tensors on `device`: 'mspec' (log-mel dB, top-dB
   clipped), 'mfcc', 'energy' (log), 'frame_mask', 'vad' (energy threshold),
-  and with the config's defaults 'mspec_cmvn', 'mfcc_cmvn' and 'mfcc_delta'.
-  Like the JAX package's ``use_pallas=True`` branch it returns no 'spec':
-  the power spectrum never leaves the K1 kernel.
+  with the config's defaults 'mspec_cmvn', 'mfcc_cmvn' and 'mfcc_delta',
+  and with ``use_pallas=False`` 'spec' (power, (B, n_frames, n_freqs)).
   """
   device = resolve_device(device)
   y = torch.as_tensor(y).to(device)
@@ -196,7 +202,14 @@ def speech_features(y, config: FeatureConfig, lengths=None,
                           config.step_length) * bases["window"]
   energy = torch.sum(frames_w * frames_w, dim=-1)
   energy = torch.log(torch.clamp(energy, min=float(np.finfo(np.float32).eps)))
-  mspec_raw = logmel(frames_w, config)  # 10log10 mel power, unclipped
+  if use_pallas:
+    mspec_raw = logmel(frames_w, config)  # 10log10 mel power, unclipped
+    spec = None
+  else:
+    spec = power_spectrum(frames_w, bases["cos"], bases["sin"],
+                          config.scale ** 2)
+    mel = torch.matmul(spec, bases["mel_t"])
+    mspec_raw = 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
 
   # top_db clipping with the per-utterance max over VALID frames
   masked = torch.where(mask[..., None], mspec_raw,
@@ -218,6 +231,8 @@ def speech_features(y, config: FeatureConfig, lengths=None,
 
   out = dict(mspec=mspec, mfcc=mfcc, energy=energy[..., None],
              frame_mask=mask, vad=vad)
+  if spec is not None:
+    out["spec"] = spec
   if config.cmvn:
     m = mask[..., None].to(mspec.dtype)
     denom = torch.clamp(torch.sum(m, dim=1, keepdim=True), min=1.0)

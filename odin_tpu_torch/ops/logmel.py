@@ -21,23 +21,28 @@ from odin_tpu_torch import _build
 if TYPE_CHECKING:
   from odin_tpu_torch.ops.features import FeatureConfig
 
-__all__ = ["logmel", "logmel_reference"]
+__all__ = ["logmel", "logmel_reference", "power_spectrum"]
 
 # the kernel's constants (csrc/logmel.cu); `_library` checks them
 CHUNK = 8  # kChunk: sample rows per staged chunk of the bases
-MAX_FREQS = 288  # kMaxFreqs
-_TILE_FRAMES = 32  # kTileFrames
-_SMEM_LIMIT = 232448  # bytes of shared memory one block may use on Hopper
+MAX_FREQS = 288  # kMaxFreqs: bins per group of the bases
+TILE_FRAMES = 32  # kTileFrames: frames per block
+
+
+def power_spectrum(frames: torch.Tensor, cos_b: torch.Tensor,
+                   sin_b: torch.Tensor, scale_sq: float) -> torch.Tensor:
+  """The scaled power of the real DFT by matmuls: (..., frame_length) ->
+  (..., n_freqs), fp32."""
+  re = torch.matmul(frames, cos_b)
+  im = torch.matmul(frames, sin_b)
+  return (re * re + im * im) * scale_sq
 
 
 def logmel_reference(frames: torch.Tensor, cos_b: torch.Tensor,
                      sin_b: torch.Tensor, mel_t: torch.Tensor,
                      scale_sq: float) -> torch.Tensor:
   """Plain PyTorch K1: (..., frame_length) -> (..., n_mels), fp32."""
-  re = torch.matmul(frames, cos_b)
-  im = torch.matmul(frames, sin_b)
-  power = (re * re + im * im) * scale_sq
-  mel = torch.matmul(power, mel_t)
+  mel = torch.matmul(power_spectrum(frames, cos_b, sin_b, scale_sq), mel_t)
   return 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
 
 
@@ -45,9 +50,12 @@ def _library() -> ctypes.CDLL:
   lib = _build.load("logmel")
   fn = lib.odin_logmel
   if fn.argtypes is None:
-    chunk, max_freqs = ctypes.c_int(), ctypes.c_int()
-    lib.odin_logmel_bases_layout(ctypes.byref(chunk), ctypes.byref(max_freqs))
-    if (chunk.value, max_freqs.value) != (CHUNK, MAX_FREQS):
+    layout = lib.odin_logmel_bases_layout
+    layout.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    layout.restype = None
+    consts = [ctypes.c_int() for _ in range(3)]
+    layout(*(ctypes.byref(c) for c in consts))
+    if tuple(c.value for c in consts) != (CHUNK, MAX_FREQS, TILE_FRAMES):
       raise RuntimeError("csrc/logmel.cu and ops/logmel.py disagree on the "
                          "layout of the bases")
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [
@@ -60,8 +68,10 @@ def kernel_operands(bases: dict) -> Tuple[torch.Tensor, torch.Tensor]:
   """The DFT bases and the mel bands in the kernel's layout, built once and
   kept beside the config's other bases (``FeatureConfig.device_bases``):
 
-  * ``dft`` (ceil(frame_length / CHUNK) * CHUNK, 2, MAX_FREQS): row t holds
-    cos then sin of sample t, zero past n_freqs; the padded rows are zero;
+  * ``dft`` (groups, ceil(frame_length / CHUNK) * CHUNK, 2, MAX_FREQS),
+    one group for each MAX_FREQS bins: row t of group g holds cos then sin
+    of sample t at the bins g·MAX_FREQS + (0 .. MAX_FREQS − 1), zero past
+    n_freqs; the padded rows are zero;
   * ``bands`` (n_mels, 2) int32: the rows [lo, hi) where mel_t's column is
     nonzero, so that the kernel skips only exact zeros.
   """
@@ -69,10 +79,14 @@ def kernel_operands(bases: dict) -> Tuple[torch.Tensor, torch.Tensor]:
     cos_b, sin_b, mel_t = bases["cos"], bases["sin"], bases["mel_t"]
     frame_length, n_freqs = cos_b.shape
     padded = -(-frame_length // CHUNK) * CHUNK
-    dft = torch.zeros(padded, 2, MAX_FREQS, dtype=torch.float32,
+    groups = -(-n_freqs // MAX_FREQS)
+    dft = torch.zeros(groups, padded, 2, MAX_FREQS, dtype=torch.float32,
                       device=cos_b.device)
-    dft[:frame_length, 0, :n_freqs] = cos_b
-    dft[:frame_length, 1, :n_freqs] = sin_b
+    for g in range(groups):
+      bins = slice(g * MAX_FREQS, min((g + 1) * MAX_FREQS, n_freqs))
+      n = bins.stop - bins.start
+      dft[g, :frame_length, 0, :n] = cos_b[:, bins]
+      dft[g, :frame_length, 1, :n] = sin_b[:, bins]
     nonzero = (mel_t != 0).cpu().numpy()
     bands = [(int(np.argmax(col)), n_freqs - int(np.argmax(col[::-1])))
              if col.any() else (0, 0) for col in nonzero.T]
@@ -102,14 +116,6 @@ def logmel(frames_windowed: torch.Tensor,
     return logmel_reference(frames_windowed, bases["cos"], bases["sin"],
                             bases["mel_t"], config.scale ** 2)
 
-  if n_freqs > MAX_FREQS:
-    raise ValueError(f"the logmel kernel takes at most {MAX_FREQS} bins "
-                     f"(n_fft {config.n_fft} gives {n_freqs})")
-  padded = -(-frame_length // CHUNK) * CHUNK
-  if 4 * (2 * CHUNK * 2 * MAX_FREQS + _TILE_FRAMES * max(padded, n_freqs)) \
-      > _SMEM_LIMIT:
-    raise ValueError(f"frame_length {frame_length} needs more shared memory "
-                     "than a block has")
   lead = frames_windowed.shape[:-1]
   n = frames_windowed.numel() // frame_length
   out = torch.empty(lead + (config.n_mels,), dtype=torch.float32,

@@ -31,6 +31,13 @@ def batch_speech_features(utterances: Sequence[np.ndarray],
   ``np.int16`` forces raw PCM for float inputs.  On the card the host batch
   is pinned, so the copy is a DMA that does not stage through pageable
   memory.
+
+  Every feature of ``speech_features`` may be asked for, as in the JAX
+  package.  The log-mel core runs through K1 unless ``"spec"`` is in
+  ``features``: the power spectrum never leaves K1, so then the batch
+  takes ``speech_features(use_pallas=False)``, the plain matmul DFT, which
+  returns it.  The caller's ``features`` make that choice; nothing falls
+  back.
   """
   from odin_tpu_torch.ops.features import (FeatureConfig, speech_features,
                                            ulaw_expand_device)
@@ -69,7 +76,7 @@ def batch_speech_features(utterances: Sequence[np.ndarray],
     if device.type == "cuda":
       y = y.pin_memory().to(device, non_blocking=True)
     res = speech_features(y, config, lengths=torch.from_numpy(lengths),
-                          device=device)
+                          device=device, use_pallas="spec" not in features)
     res = {k: v.cpu().numpy() for k, v in res.items()
            if k in features or k == "frame_mask"}
     for j in range(len(chunk)):

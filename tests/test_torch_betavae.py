@@ -73,6 +73,19 @@ def test_decode_logits_match_jax(models):
                              np.asarray(want.distribution.logits), atol=ATOL)
 
 
+@pytest.mark.parametrize("shape", [(3, 2, 10), (3, 1, 10)])
+def test_decode_with_sample_dims_matches_jax(models, shape):
+  """z with leading sample dims is decoded flat and returns (px, lead)."""
+  jvae, vae, _, _, _ = models
+  z = np.random.RandomState(sum(shape)).randn(*shape).astype(np.float32)
+  want, want_lead = jvae.decode(z, jit=False)
+  got, lead = vae.decode(z)
+  assert lead == tuple(want_lead) == shape[:-1]
+  assert tuple(got.mean().shape) == (shape[0] * shape[1], 64, 64, 1)
+  np.testing.assert_allclose(_np(got.distribution.logits),
+                             np.asarray(want.distribution.logits), atol=ATOL)
+
+
 def test_reconstruct_matches_jax(models):
   jvae, vae, _, x, _ = models
   jqz, jpx = jvae.reconstruct(x)

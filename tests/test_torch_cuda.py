@@ -7,11 +7,11 @@ JAX nor the JAX package, so they run on a machine that has only PyTorch:
 
 (``--noconftest``: tests/conftest.py configures JAX.)  Tolerances: 0.01 dB
 on log-mel and 2e-5 on fp32 attention, the JAX package's own
-(tests/test_ops_features.py, tests/test_flash_attention.py).  bf16
-attention: the kernel and its plain version both accumulate in fp32 and
-round once to bf16, so each output may differ by one bf16 rounding; the
-limit is two roundings of that output, 2^-6·|plain|, beside 1e-5 for fp32
-sums taken in another order.
+(tests/test_ops_features.py, tests/test_flash_attention.py).  bf16 and
+fp16 attention: the kernel and its plain version both accumulate in fp32
+and round once to the 16-bit type, so each output may differ by one
+rounding; the limit is two roundings of that output, 2^-6·|plain| in bf16
+and 2^-9·|plain| in fp16, beside 1e-5 for fp32 sums taken in another order.
 """
 import numpy as np
 import pytest
@@ -27,6 +27,7 @@ MSPEC_ATOL = 0.01
 ATTN_ATOL = 2e-5
 ATTN_BF16_RTOL = 2 ** -6
 ATTN_BF16_ATOL = 1e-5
+ATTN_RTOL = {torch.bfloat16: ATTN_BF16_RTOL, torch.float16: 2 ** -9}
 
 pytestmark = pytest.mark.cuda
 
@@ -69,6 +70,42 @@ def test_logmel_kernel_small_config_on_card(cuda_device):
   want = logmel_reference(frames, bases["cos"], bases["sin"], bases["mel_t"],
                           cfg.scale ** 2)
   assert tuple(got.shape) == (3, 70, 20)
+  np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                             atol=MSPEC_ATOL)
+
+
+def test_logmel_kernel_large_fft_on_card(cuda_device):
+  """n_fft 1024 and frame_length 1024: 513 bins, two groups of the
+  kernel's 288, one tile of whole frames."""
+  cfg = tf.FeatureConfig(frame_length=1024, step_length=256, n_fft=1024)
+  rs = np.random.RandomState(1)
+  frames = torch.from_numpy((rs.randn(2, 333, cfg.frame_length) * 0.1).astype(
+      np.float32) * cfg.window_fn).to(cuda_device)
+  before = logmel.launches
+  got = logmel(frames, cfg)
+  assert logmel.launches == before + 1
+  bases = cfg.device_bases(cuda_device)
+  want = logmel_reference(frames, bases["cos"], bases["sin"], bases["mel_t"],
+                          cfg.scale ** 2)
+  torch.cuda.synchronize()
+  assert tuple(got.shape) == (2, 333, cfg.n_mels)
+  np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                             atol=MSPEC_ATOL)
+
+
+def test_logmel_kernel_long_frames_on_card(cuda_device):
+  """frame_length 4000 (n_fft 4096, 2049 bins): the frames are staged in
+  segments, the bins in 8 groups."""
+  cfg = tf.FeatureConfig(frame_length=4000, step_length=1000, n_fft=4096,
+                         n_mels=80)
+  rs = np.random.RandomState(2)
+  frames = torch.from_numpy((rs.randn(70, cfg.frame_length) * 0.1).astype(
+      np.float32) * cfg.window_fn).to(cuda_device)
+  got = logmel(frames, cfg)
+  bases = cfg.device_bases(cuda_device)
+  want = logmel_reference(frames, bases["cos"], bases["sin"], bases["mel_t"],
+                          cfg.scale ** 2)
+  torch.cuda.synchronize()
   np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                              atol=MSPEC_ATOL)
 
@@ -125,6 +162,66 @@ def test_flash_kernel_bf16_on_card(cuda_device, causal):
   np.testing.assert_allclose(got.float().cpu().numpy(),
                              want.float().cpu().numpy(), rtol=ATTN_BF16_RTOL,
                              atol=ATTN_BF16_ATOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128, 256, 72, 100])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_mma_kernel_matches_plain_on_card(cuda_device, dtype, d,
+                                                causal):
+  """The tensor-core kernel at each of its widths (64, 128, 256) and at
+  ragged D (72: cp.async's zero fill; 100: not a multiple of 8, plain
+  loads), with Tq != Tk, neither a tile multiple."""
+  q, k, v = _qkv(cuda_device, 2, 3, 150, 97, d, dtype, seed=d)
+  before = (flash_attention.launches, flash_attention.mma_launches)
+  got = flash_attention(q, k, v, causal=causal)
+  assert (flash_attention.launches, flash_attention.mma_launches) == (
+      before[0] + 1, before[1] + 1)
+  want = flash_attention_reference(q, k, v, d ** -0.5, causal)
+  torch.cuda.synchronize()
+  assert got.dtype == dtype and got.shape == q.shape
+  np.testing.assert_allclose(got.float().cpu().numpy(),
+                             want.float().cpu().numpy(),
+                             rtol=ATTN_RTOL[dtype], atol=ATTN_BF16_ATOL)
+
+
+@pytest.mark.parametrize("dtype,d,launches", [
+    (torch.float32, 256, 2), (torch.float32, 200, 2),
+    (torch.bfloat16, 320, 2), (torch.float16, 600, 3)])
+def test_flash_kernel_head_dims_above_a_launch_on_card(cuda_device, dtype, d,
+                                                       launches):
+  """Above a launch's width (128 fp32, 256 16-bit) the forward launches
+  once per chunk of V's and O's columns."""
+  for causal in (False, True):
+    q, k, v = _qkv(cuda_device, 1, 2, 130, 70, d, dtype, seed=d)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + launches
+    want = flash_attention_reference(q, k, v, d ** -0.5, causal)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+      np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                 atol=ATTN_ATOL)
+    else:
+      np.testing.assert_allclose(got.float().cpu().numpy(),
+                                 want.float().cpu().numpy(),
+                                 rtol=ATTN_RTOL[dtype], atol=ATTN_BF16_ATOL)
+
+
+@pytest.mark.parametrize("sm_scale", [-0.3, 0.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_kernel_sm_scale_sign_on_card(cuda_device, dtype, sm_scale):
+  """A negative or zero sm_scale, causal: the 16-bit kernel takes the
+  scale's sign onto Q and a zero scale as the least normal float."""
+  q, k, v = _qkv(cuda_device, 1, 2, 90, 130, 64, dtype, seed=7)
+  got = flash_attention(q, k, v, sm_scale=sm_scale, causal=True)
+  want = flash_attention_reference(q, k, v, sm_scale, True)
+  torch.cuda.synchronize()
+  rtol = ATTN_RTOL.get(dtype, 0.0)
+  atol = ATTN_ATOL if dtype == torch.float32 else ATTN_BF16_ATOL
+  np.testing.assert_allclose(got.float().cpu().numpy(),
+                             want.float().cpu().numpy(), rtol=rtol, atol=atol)
 
 
 def test_flash_kernel_runs_for_a_cuda_tensor(cuda_device):

@@ -123,10 +123,13 @@ def test_logmel_on_cpu_runs_the_plain_version():
 
 
 @pytest.mark.parametrize("frame_length,n_fft,n_mels", [(400, 512, 40),
-                                                        (201, 256, 20)])
+                                                        (201, 256, 20),
+                                                        (1024, 1024, 40),
+                                                        (1600, 2048, 64)])
 def test_logmel_kernel_operands(frame_length, n_fft, n_mels):
-  """The kernel's layout of the bases (rows padded to CHUNK, bins to
-  MAX_FREQS, zeros) and mel bands give K1's plain result."""
+  """The kernel's layout of the bases (rows padded to CHUNK, bins in
+  groups of MAX_FREQS, zeros) and mel bands give K1's plain result, also
+  where the bins take more than one group."""
   from odin_tpu_torch.ops.logmel import CHUNK, MAX_FREQS, kernel_operands
   cfg = tf.FeatureConfig(frame_length=frame_length, n_fft=n_fft,
                          n_mels=n_mels)
@@ -134,18 +137,21 @@ def test_logmel_kernel_operands(frame_length, n_fft, n_mels):
   dft, bands = kernel_operands(bases)
   n_freqs = n_fft // 2 + 1
   padded = -(-frame_length // CHUNK) * CHUNK
-  assert tuple(dft.shape) == (padded, 2, MAX_FREQS)
+  groups = -(-n_freqs // MAX_FREQS)
+  assert tuple(dft.shape) == (groups, padded, 2, MAX_FREQS)
   assert kernel_operands(bases)[0] is dft  # built once per config and device
-  assert not dft[frame_length:].any() and not dft[:, :, n_freqs:].any()
-  np.testing.assert_array_equal(dft[:frame_length, 0, :n_freqs].numpy(),
+  # the groups side by side: (padded, 2, groups * MAX_FREQS)
+  flat = dft.permute(1, 2, 0, 3).reshape(padded, 2, groups * MAX_FREQS)
+  assert not flat[frame_length:].any() and not flat[:, :, n_freqs:].any()
+  np.testing.assert_array_equal(flat[:frame_length, 0, :n_freqs].numpy(),
                                 bases["cos"].numpy())
-  np.testing.assert_array_equal(dft[:frame_length, 1, :n_freqs].numpy(),
+  np.testing.assert_array_equal(flat[:frame_length, 1, :n_freqs].numpy(),
                                 bases["sin"].numpy())
   frames = torch.from_numpy(_windowed_frames(cfg, np.random.RandomState(3),
                                              6))
   x = torch.zeros(6, padded)
   x[:, :frame_length] = frames
-  re, im = x @ dft[:, 0, :n_freqs], x @ dft[:, 1, :n_freqs]
+  re, im = x @ flat[:, 0, :n_freqs], x @ flat[:, 1, :n_freqs]
   power = (re * re + im * im) * cfg.scale ** 2
   mel_t = bases["mel_t"]
   mel = torch.stack([power[:, lo:hi] @ mel_t[lo:hi, m]
@@ -213,6 +219,61 @@ def test_speech_features_matches_jax_pallas_branch():
     want = jf.speech_features(jnp.asarray(y), jcfg, use_pallas=True)
   got = tf.speech_features(y, cfg, device="cpu")
   assert set(got) == set(want)
+  np.testing.assert_allclose(got["mspec"].numpy(), np.asarray(want["mspec"]),
+                             atol=MSPEC_ATOL)
+
+
+@pytest.mark.parametrize("kind", ["float32", "int16"])
+def test_speech_features_spec_matches_jax(kind):
+  """use_pallas=False: the plain matmul DFT, with the power spectrum, as
+  JAX's default branch; tolerances of tests/test_ops_features.py (spec
+  rtol 2e-3, atol 1e-7)."""
+  rng = np.random.RandomState({"float32": 10, "int16": 11}[kind])
+  y = _audio(kind, rng, (2, 8000))
+  lengths = np.array([8000, 5000])
+  cfg, jcfg = tf.FeatureConfig(), jf.FeatureConfig()
+  want = jf.speech_features(jnp.asarray(y), jcfg,
+                            lengths=jnp.asarray(lengths), use_pallas=False)
+  got = tf.speech_features(y, cfg, lengths=lengths, device="cpu",
+                           use_pallas=False)
+  assert set(got) == set(want)
+  assert got["spec"].shape == want["spec"].shape == (
+      2, cfg.n_frames(8000), cfg.n_fft // 2 + 1)
+  np.testing.assert_allclose(got["spec"].numpy(), np.asarray(want["spec"]),
+                             rtol=2e-3, atol=1e-7)
+  np.testing.assert_allclose(got["mspec"].numpy(), np.asarray(want["mspec"]),
+                             atol=MSPEC_ATOL)
+  np.testing.assert_allclose(got["mfcc"].numpy(), np.asarray(want["mfcc"]),
+                             atol=MFCC_ATOL)
+  np.testing.assert_array_equal(got["vad"].numpy(), np.asarray(want["vad"]))
+
+
+def test_batch_speech_features_spec_matches_jax():
+  """Asking for "spec" returns it, as JAX does; on the CPU the logmel
+  kernel's plain version is not run for such a batch (no count moves
+  either way)."""
+  rng = np.random.RandomState(12)
+  utts = [_audio("int16", rng, (n,)) for n in (6000, 4500, 7100)]
+  cfg, jcfg = tf.FeatureConfig(), jf.FeatureConfig()
+  feats = ("mspec", "spec")
+  want = jproc.batch_speech_features(utts, jcfg, batch_size=2, features=feats)
+  got = tproc.batch_speech_features(utts, cfg, batch_size=2, features=feats,
+                                    device="cpu")
+  for g, w, u in zip(got, want, utts):
+    assert set(g) == set(w) == set(feats)
+    assert g["spec"].shape == (cfg.n_frames(len(u)), cfg.n_fft // 2 + 1)
+    np.testing.assert_allclose(g["spec"], w["spec"], rtol=2e-3, atol=1e-7)
+    np.testing.assert_allclose(g["mspec"], w["mspec"], atol=MSPEC_ATOL)
+
+
+def test_logmel_large_fft_matches_jax():
+  """n_fft 1024 and frame_length 1024 (513 bins, two groups of the
+  kernel's bins): K1's plain version against JAX's plain branch."""
+  kw = dict(frame_length=1024, step_length=256, n_fft=1024)
+  cfg, jcfg = tf.FeatureConfig(**kw), jf.FeatureConfig(**kw)
+  y = _audio("float32", np.random.RandomState(13), (1, 8000))
+  want = jf.speech_features(jnp.asarray(y), jcfg, use_pallas=False)
+  got = tf.speech_features(y, cfg, device="cpu")
   np.testing.assert_allclose(got["mspec"].numpy(), np.asarray(want["mspec"]),
                              atol=MSPEC_ATOL)
 

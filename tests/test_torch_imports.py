@@ -12,8 +12,8 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "odin_tpu")
-SOURCES = sorted((ROOT / "odin_tpu_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "odin_tpu_torch").rglob("*.py")) + sorted(
+    (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
 def _imported_modules(path):
@@ -31,6 +31,8 @@ def test_sources_exist():
     assert f"odin_tpu_torch/ops/{kernel}.py" in names
     assert (ROOT / "odin_tpu_torch" / "csrc" / f"{kernel}.cu").exists()
   assert "odin_tpu_torch/networks/attention.py" in names
+  # the 16-bit flash attention kernel, behind ops/flash_attention.py
+  assert (ROOT / "odin_tpu_torch" / "csrc" / "flash_attention_mma.cu").exists()
 
 
 @pytest.mark.parametrize("path", SOURCES,
