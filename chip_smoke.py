@@ -9,14 +9,21 @@ points a user calls, and checks their outputs against the same calls on the
 CPU:
 
   1. device and build: the card's name and power limit, the nvcc build;
-  2. K1 (``ops/logmel.py``) against ``logmel_reference`` at the speech
-     path's shape (64 x 4 s = 25,472 frames), at a ragged 1,000 frames and
-     at n_fft 1024 with 1024-sample frames (513 bins), within 0.01 dB, with
-     CUDA-event timings of the kernel, the plain version and
-     ``torch.fft.rfft`` + mel (a yardstick the port never calls);
+  2. K1 (``ops/logmel.py``): its FFT kernel against ``logmel_reference``
+     at the speech path's shape (64 x 4 s = 25,472 frames of 400 samples,
+     n_fft 512), at a ragged 1,000 frames and at n_fft 1024 with 1024-sample
+     frames, and its dense-DFT kernel at n_fft 400 (Whisper's framing: 80
+     mels, no power of two), each on white noise and on ``harmonic_frames``
+     (about 80 dB across the mel bands), within 0.01 dB, with CUDA-event
+     timings of each kernel, the plain version and ``torch.fft.rfft`` + mel
+     (a yardstick the port never calls), and of the dense kernel at the
+     speech path's shape beside the FFT kernel (each timing: CUDA events
+     around bursts of 10 back-to-back calls, median of 10 bursts);
   3. the speech path: ``batch_speech_features`` on 64 int16 utterances of
      2-4 s, against the same call on the CPU, and its rate in valid
-     (unpadded) frames/s with the host-to-device copy;
+     (unpadded) frames/s with the host-to-device copy, which launches the
+     FFT kernel once for the batch; then the same utterances at Whisper's
+     framing, which launches the dense kernel once;
   4. the serving path: the full-width dSprites beta-VAE answering
      ``encode_mean``, ``decode_mean`` and ``reconstruct`` at batch 1 and
      256, against the same model on the CPU, with batch-1 latency and
@@ -90,8 +97,11 @@ class Phase:
     return False
 
 
-def cuda_ms(torch, fn, reps=25, warmup=3):
-  """Median device time of `fn` in ms, one pair of CUDA events per call."""
+def cuda_ms(torch, fn, reps=10, burst=10, warmup=3):
+  """Median device time of one call of `fn` in ms: a pair of CUDA events
+  around each burst of `burst` back-to-back calls, so that a call's host
+  work overlaps the previous call's kernel, over the count; the median of
+  `reps` bursts."""
   for _ in range(warmup):
     fn()
   times = []
@@ -99,10 +109,11 @@ def cuda_ms(torch, fn, reps=25, warmup=3):
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    fn()
+    for _ in range(burst):
+      fn()
     end.record()
     end.synchronize()
-    times.append(start.elapsed_time(end))
+    times.append(start.elapsed_time(end) / burst)
   times.sort()
   return times[len(times) // 2]
 
@@ -129,7 +140,8 @@ def main() -> int:
   from odin_tpu_torch.ops.features import FeatureConfig
   from odin_tpu_torch.ops.flash_attention import (flash_attention,
                                                   flash_attention_reference)
-  from odin_tpu_torch.ops.logmel import logmel, logmel_reference
+  from odin_tpu_torch.ops.logmel import (_launch, harmonic_frames, logmel,
+                                         logmel_reference)
   from odin_tpu_torch.preprocessing import batch_speech_features
 
   if not torch.cuda.is_available():
@@ -137,13 +149,15 @@ def main() -> int:
           "false); nothing was run", file=sys.stderr)
     return 2
 
-  # every kernel wrapper's launch counts: "flash_attention" counts the
-  # launches of both K2 kernels, "flash_attention_mma" the tensor-core
-  # kernel's share
+  # every kernel wrapper's launch counts: "logmel" counts the launches of
+  # both K1 kernels, "logmel_fft" the FFT kernel's share;
+  # "flash_attention" counts the launches of both K2 kernels,
+  # "flash_attention_mma" the tensor-core kernel's share
   counters = {"logmel": (logmel, "launches"),
+              "logmel_fft": (logmel, "fft_launches"),
               "flash_attention": (flash_attention, "launches"),
               "flash_attention_mma": (flash_attention, "mma_launches")}
-  sources = ["logmel", "flash_attention", "flash_attention_mma"]
+  sources = ["logmel", "logmel_fft", "flash_attention", "flash_attention_mma"]
   cuda = torch.device("cuda", 0)
 
   def reset_counts():
@@ -178,89 +192,117 @@ def main() -> int:
 
   with Phase("2 K1 logmel against its plain version"):
     gen = torch.Generator(device=cuda).manual_seed(SEED)
-    bases = cfg.device_bases(cuda)
-    window = bases["window"]
-    err = 0.0
-    for n in (n_main, 1000):
-      frames = (torch.randn(n, cfg.frame_length, device=cuda, generator=gen)
-                * 0.1 * window).contiguous()
-      got = logmel(frames, cfg)
-      want = logmel_reference(frames, bases["cos"], bases["sin"],
-                              bases["mel_t"], cfg.scale ** 2)
-      torch.cuda.synchronize()
-      if not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"logmel kernel gave non-finite values at N={n}")
-      e = float((got - want).abs().max())
-      log(f"logmel N={n}: max |kernel - plain| = {e:.6f} dB")
-      if e > LOGMEL_TOL_DB:
-        raise AssertionError(f"logmel kernel disagrees with its plain version "
-                             f"by {e} dB at N={n} (limit {LOGMEL_TOL_DB})")
-      err = max(err, e)
-    # n_fft 1024: 513 bins, two groups of the kernel's 288
+    # n_fft 1024 (513 bins) and Whisper's framing (n_fft 400: no power of
+    # two, so the dense kernel; 80 mels, filters from 0 Hz)
     big = FeatureConfig(frame_length=1024, step_length=256, n_fft=1024)
-    big_bases = big.device_bases(cuda)
-    frames = (torch.randn(n_main, big.frame_length, device=cuda,
-                          generator=gen) * 0.1 * big_bases["window"]
-              ).contiguous()
-    got = logmel(frames, big)
-    want = logmel_reference(frames, big_bases["cos"], big_bases["sin"],
-                            big_bases["mel_t"], big.scale ** 2)
-    torch.cuda.synchronize()
-    e = float((got - want).abs().max())
-    big_ms = cuda_ms(torch, lambda: logmel(frames, big))
-    log(f"logmel N={n_main} n_fft=1024 frame_length=1024: max |kernel - "
-        f"plain| = {e:.6f} dB, kernel_ms={big_ms:.4f}")
-    if not bool(torch.isfinite(got).all()) or e > LOGMEL_TOL_DB:
-      raise AssertionError(f"logmel kernel disagrees with its plain version "
-                           f"by {e} dB at n_fft 1024 (limit {LOGMEL_TOL_DB})")
-    err = max(err, e)
-    del frames, got, want
-    frames = (torch.randn(n_main, cfg.frame_length, device=cuda,
-                          generator=gen) * 0.1 * window).contiguous()
-    mel_t = bases["mel_t"]
-    scale_sq = cfg.scale ** 2
+    whisper = FeatureConfig(n_fft=400, n_mels=80, fmin=0.0)
 
-    def library():
-      spec = torch.fft.rfft(frames, n=cfg.n_fft)
-      power = (spec.real ** 2 + spec.imag ** 2) * scale_sq
-      return 10.0 * torch.log10(torch.clamp(power @ mel_t, min=1e-10))
+    def check(config, n, kernel):
+      """Both signals through `logmel`, which must launch `kernel`; the
+      largest difference from the plain version, in dB."""
+      bases = config.device_bases(cuda)
+      noise = (torch.randn(n, config.frame_length, device=cuda,
+                           generator=gen) * 0.1 * bases["window"]
+               ).contiguous()
+      err = 0.0
+      harmonic = harmonic_frames(n, config, seed=SEED + n, device=cuda)
+      for name, frames in (("white noise", noise), ("harmonic", harmonic)):
+        before = read_counts()
+        got = logmel(frames, config)
+        after = read_counts()
+        want = logmel_reference(frames, bases["cos"], bases["sin"],
+                                bases["mel_t"], config.scale ** 2)
+        torch.cuda.synchronize()
+        fft = after["logmel_fft"] - before["logmel_fft"]
+        if after["logmel"] - before["logmel"] != 1 or fft != (
+            kernel == "logmel_fft"):
+          raise AssertionError(f"logmel launched {after} after {before}, "
+                               f"not {kernel} once")
+        if not bool(torch.isfinite(got).all()):
+          raise AssertionError(f"{kernel} gave non-finite values")
+        e = float((got - want).abs().max())
+        log(f"{kernel} N={n} frame_length={config.frame_length} "
+            f"n_fft={config.n_fft} {name}: max |kernel - plain| = "
+            f"{e:.6f} dB (mel range {float(want.min()):.1f} to "
+            f"{float(want.max()):.1f} dB)")
+        if e > LOGMEL_TOL_DB:
+          raise AssertionError(f"{kernel} disagrees with its plain version "
+                               f"by {e} dB at N={n}, n_fft={config.n_fft} "
+                               f"on {name} (limit {LOGMEL_TOL_DB})")
+        err = max(err, e)
+      return err
 
-    lib_err = float((library() - logmel(frames, cfg)).abs().max())
-    kernel_ms = cuda_ms(torch, lambda: logmel(frames, cfg))
-    plain_ms = cuda_ms(torch, lambda: logmel_reference(
-        frames, bases["cos"], bases["sin"], mel_t, scale_sq))
-    library_ms = cuda_ms(torch, library)
-    # The bound is the function's own, not that of the kernel's dense-DFT
-    # algorithm: a real FFT of n_fft points (2.5 n log2 n flop, the usual
-    # count for real input) gives the spectrum, then the power (3 flop a
-    # bin), the mel product over the filters' nonzero weights (counted on
-    # this run's filter bank) and the log.  The bytes are the frames and
-    # the filter bank read once and the mels written once.
+    errs = {"logmel_fft": max(check(cfg, n_main, "logmel_fft"),
+                              check(cfg, 1000, "logmel_fft"),
+                              check(big, n_main, "logmel_fft")),
+            "logmel": check(whisper, n_main, "logmel")}
+
+    def k1_bound(config, n):
+      """The function's own bound, not that of a kernel's algorithm: a real
+      FFT of n_fft points (2.5 n log2 n flop, the usual count for real
+      input) gives the spectrum, then the power (3 flop a bin), the mel
+      product over the filters' nonzero weights (counted on this run's
+      filter bank) and the log.  The bytes are the frames and the filter
+      bank read once and the mels written once."""
+      n_freqs = config.n_fft // 2 + 1
+      mel_nnz = int(torch.count_nonzero(config.device_bases(cuda)["mel_t"]))
+      flops = n * (2.5 * config.n_fft * math.log2(config.n_fft) +
+                   3 * n_freqs + 2 * mel_nnz + config.n_mels)
+      nbytes = 4 * (n * (config.frame_length + config.n_mels) +
+                    n_freqs * config.n_mels)
+      ops_ms = flops / FP32_PEAK_FLOPS * 1e3
+      bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+      return (max(ops_ms, bytes_ms),
+              "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes,
+              mel_nnz)
+
+    def timings(config, kernel):
+      """The kernel, its plain version and rfft + mel on n_main frames of
+      white noise, with the bound, logged; returns the kernel's entry."""
+      bases = config.device_bases(cuda)
+      mel_t, scale_sq = bases["mel_t"], config.scale ** 2
+      frames = (torch.randn(n_main, config.frame_length, device=cuda,
+                            generator=gen) * 0.1 * bases["window"]
+                ).contiguous()
+
+      def library():
+        spec = torch.fft.rfft(frames, n=config.n_fft)
+        power = (spec.real ** 2 + spec.imag ** 2) * scale_sq
+        return 10.0 * torch.log10(torch.clamp(power @ mel_t, min=1e-10))
+
+      lib_err = float((library() - logmel(frames, config)).abs().max())
+      kernel_ms = cuda_ms(torch, lambda: logmel(frames, config))
+      plain_ms = cuda_ms(torch, lambda: logmel_reference(
+          frames, bases["cos"], bases["sin"], mel_t, scale_sq))
+      library_ms = cuda_ms(torch, library)
+      bound_ms, bound_by, flops, nbytes, mel_nnz = k1_bound(config, n_main)
+      log(f"{kernel} N={n_main} frame_length={config.frame_length} "
+          f"n_fft={config.n_fft}: kernel_ms={kernel_ms:.4f} "
+          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (rfft+mel, "
+          f"max diff {lib_err:.4f} dB) bound_ms={bound_ms:.4f} by {bound_by} "
+          f"({flops:.4g} flop, {nbytes / 1e6:.2f} MB; {mel_nnz} nonzero mel "
+          f"weights)")
+      return frames, dict(
+          name=kernel, route="cuda", source=f"odin_tpu_torch/csrc/{kernel}.cu",
+          replaces="odin_tpu/ops/pallas_features.py:32", launches=None,
+          max_abs_err=errs[kernel], ms=kernel_ms, plain_ms=plain_ms,
+          bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+
+    frames, report["logmel_fft"] = timings(cfg, "logmel_fft")
+    # the dense kernel at the same frames, the FFT kernel's predecessor
+    out = torch.empty(n_main, cfg.n_mels, device=cuda)
+    dense_ms = cuda_ms(torch, lambda: _launch("dense", frames, cfg, out))
     n_freqs = cfg.n_fft // 2 + 1
-    mel_nnz = int(torch.count_nonzero(mel_t))
-    fft_flops = 2.5 * cfg.n_fft * math.log2(cfg.n_fft)
-    flops = n_main * (fft_flops + 3 * n_freqs + 2 * mel_nnz + cfg.n_mels)
-    nbytes = 4 * (n_main * (cfg.frame_length + cfg.n_mels) +
-                  n_freqs * cfg.n_mels)
-    ops_ms = flops / FP32_PEAK_FLOPS * 1e3
-    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    # the bound of the kernel's own algorithm: dense real DFT, banded mel
-    dft_flops = n_main * (2 * cfg.frame_length * n_freqs * 2 +
-                          3 * n_freqs + 2 * mel_nnz + cfg.n_mels)
-    log(f"logmel N={n_main}: kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-        f"library_ms={library_ms:.4f} (rfft+mel, max diff {lib_err:.4f} dB) "
-        f"bound_ms={bound_ms:.4f} ({flops:.4g} flop, {nbytes / 1e6:.2f} MB; "
-        f"{mel_nnz} nonzero mel weights); dense-DFT algorithm's bound "
-        f"{dft_flops / FP32_PEAK_FLOPS * 1e3:.4f} ms ({dft_flops:.4g} flop)")
-    report["logmel"] = dict(
-        name="logmel", route="cuda", source="odin_tpu_torch/csrc/logmel.cu",
-        replaces="odin_tpu/ops/pallas_features.py:32", launches=None,
-        max_abs_err=err, ms=kernel_ms, plain_ms=plain_ms,
-        bound_ms=bound_ms,
-        bound_by="operations" if ops_ms >= bytes_ms else "bytes",
-        library_ms=library_ms)
+    dft_flops = n_main * 2 * cfg.frame_length * n_freqs * 2
+    log(f"logmel (dense) N={n_main} frame_length={cfg.frame_length} "
+        f"n_fft={cfg.n_fft}: kernel_ms={dense_ms:.4f}, its algorithm's bound "
+        f"{dft_flops / FP32_PEAK_FLOPS * 1e3:.4f} ms ({dft_flops:.4g} flop "
+        f"of dense DFT)")
     del frames
+    frames, _ = timings(big, "logmel_fft")
+    del frames
+    frames, report["logmel"] = timings(whisper, "logmel")
+    del frames, out
 
   with Phase("3 speech path: batch_speech_features"):
     rs = np.random.RandomState(SEED)
@@ -269,37 +311,52 @@ def main() -> int:
     utts = [(rs.randn(n) * 0.1 * 32768.0).clip(-32768, 32767).astype(np.int16)
             for n in lengths]
     feats = ("mspec", "mfcc", "vad")
-    reset_counts()
-    got = batch_speech_features(utts, cfg, features=feats, device="cuda")
-    counts = read_counts()
-    log(f"speech path launches: {counts}")
-    if counts["logmel"] < 1:
-      raise AssertionError("the speech path did not launch the logmel kernel")
-    report["logmel"]["launches"] = counts["logmel"]
-    want = batch_speech_features(utts, cfg, features=feats, device="cpu")
-    vad_agree = vad_total = 0
-    mspec_err = mfcc_err = 0.0
-    for g, w, n in zip(got, want, lengths):
-      if g["mspec"].shape != (cfg.n_frames(int(n)), cfg.n_mels):
-        raise AssertionError(f"mspec shape {g['mspec'].shape} for {n} samples")
-      for k in feats:
-        if g[k].shape != w[k].shape:
-          raise AssertionError(f"{k}: {g[k].shape} on the card, {w[k].shape} "
-                               "on the CPU")
-      if not (np.isfinite(g["mspec"]).all() and np.isfinite(g["mfcc"]).all()):
-        raise AssertionError("non-finite features on the card")
-      mspec_err = max(mspec_err, float(np.abs(g["mspec"] - w["mspec"]).max()))
-      mfcc_err = max(mfcc_err, float(np.abs(g["mfcc"] - w["mfcc"]).max()))
-      vad_agree += int((g["vad"] == w["vad"]).sum())
-      vad_total += g["vad"].size
-    log(f"card vs CPU: mspec max diff {mspec_err:.6f} dB, mfcc max diff "
-        f"{mfcc_err:.6f}, vad agreement {vad_agree}/{vad_total}")
-    if mspec_err > LOGMEL_TOL_DB:
-      raise AssertionError(f"mspec differs from the CPU by {mspec_err} dB")
-    if mfcc_err > 0.05:
-      raise AssertionError(f"mfcc differs from the CPU by {mfcc_err}")
-    if vad_agree < 0.999 * vad_total:
-      raise AssertionError(f"vad agrees on {vad_agree}/{vad_total} frames")
+
+    def speech_path(config, kernel):
+      """The utterances through batch_speech_features on the card, which
+      must launch `kernel` once for its one batch, against the CPU."""
+      reset_counts()
+      got = batch_speech_features(utts, config, features=feats,
+                                  device="cuda")
+      counts = read_counts()
+      log(f"speech path n_fft={config.n_fft} launches: {counts}")
+      fft = kernel == "logmel_fft"
+      if counts["logmel"] != 1 or counts["logmel_fft"] != fft:
+        raise AssertionError(f"the speech path at n_fft {config.n_fft} "
+                             f"launched {counts}, not {kernel} once")
+      report[kernel]["launches"] = counts["logmel_fft"] if fft else (
+          counts["logmel"] - counts["logmel_fft"])
+      want = batch_speech_features(utts, config, features=feats,
+                                   device="cpu")
+      vad_agree = vad_total = 0
+      mspec_err = mfcc_err = 0.0
+      for g, w, n in zip(got, want, lengths):
+        if g["mspec"].shape != (config.n_frames(int(n)), config.n_mels):
+          raise AssertionError(f"mspec shape {g['mspec'].shape} for {n} "
+                               "samples")
+        for k in feats:
+          if g[k].shape != w[k].shape:
+            raise AssertionError(f"{k}: {g[k].shape} on the card, "
+                                 f"{w[k].shape} on the CPU")
+        if not (np.isfinite(g["mspec"]).all() and
+                np.isfinite(g["mfcc"]).all()):
+          raise AssertionError("non-finite features on the card")
+        mspec_err = max(mspec_err,
+                        float(np.abs(g["mspec"] - w["mspec"]).max()))
+        mfcc_err = max(mfcc_err, float(np.abs(g["mfcc"] - w["mfcc"]).max()))
+        vad_agree += int((g["vad"] == w["vad"]).sum())
+        vad_total += g["vad"].size
+      log(f"card vs CPU at n_fft {config.n_fft}: mspec max diff "
+          f"{mspec_err:.6f} dB, mfcc max diff {mfcc_err:.6f}, vad agreement "
+          f"{vad_agree}/{vad_total}")
+      if mspec_err > LOGMEL_TOL_DB:
+        raise AssertionError(f"mspec differs from the CPU by {mspec_err} dB")
+      if mfcc_err > 0.05:
+        raise AssertionError(f"mfcc differs from the CPU by {mfcc_err}")
+      if vad_agree < 0.999 * vad_total:
+        raise AssertionError(f"vad agrees on {vad_agree}/{vad_total} frames")
+
+    speech_path(cfg, "logmel_fft")
     rounds = 10
     t_batch = host_times_s(torch, lambda: batch_speech_features(
         utts, cfg, features=feats, device="cuda"), rounds)[rounds // 2]
@@ -309,6 +366,7 @@ def main() -> int:
         f"frames in a padded batch of {n_main}, host to device copy "
         f"included, median of {rounds}): {n_valid / t_batch:.1f} "
         f"({t_batch * 1e3:.3f} ms per batch)")
+    speech_path(whisper, "logmel")
 
   with Phase("4 serving path: dSprites beta-VAE"):
     nets = dict(get_networks("dsprites", zdim=10))
@@ -419,10 +477,10 @@ def main() -> int:
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
         lib_err = float((sdpa(q, k, v).float() -
                          flash_attention(q, k, v).float()).abs().max())
-        kernel_ms = cuda_ms(torch, lambda: flash_attention(q, k, v), reps=10)
+        kernel_ms = cuda_ms(torch, lambda: flash_attention(q, k, v))
         plain_ms = cuda_ms(torch, lambda: flash_attention_reference(
-            q, k, v, D ** -0.5, False), reps=10)
-        library_ms = cuda_ms(torch, lambda: sdpa(q, k, v), reps=10)
+            q, k, v, D ** -0.5, False))
+        library_ms = cuda_ms(torch, lambda: sdpa(q, k, v))
         ops_ms = flops / peak[dtype] * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         bound_ms = max(ops_ms, bytes_ms)

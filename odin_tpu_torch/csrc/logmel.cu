@@ -1,7 +1,9 @@
 // K1: fused window-DFT-power-mel-log over tiles of frames, for sm_90a.
 //
 // Replaces `_logmel_kernel` (odin_tpu/ops/pallas_features.py:32-39, launched
-// by `logmel_pallas`).  For each windowed frame f (frame_length samples):
+// by `logmel_pallas`) where n_fft is not a power of two from 16 to 8192;
+// logmel_fft.cu, an FFT in shared memory, takes those (`kernel_route`,
+// ops/logmel.py).  For each windowed frame f (frame_length samples):
 //   re = f . cos,  im = f . sin          (frame_length x n_freqs real DFT)
 //   power = (re^2 + im^2) * scale_sq
 //   out = 10 log10(max(power . mel_t, 1e-10))   (unclipped; top-dB is outside)
@@ -18,8 +20,7 @@
 // flop, whose own bound is 0.157 ms.  On the card measured so far (NVIDIA
 // H100 80GB HBM3, 700 W power limit) this design takes about 0.49 ms, over
 // 30 times the function's bound; the times are in PERF.md.  Closing that
-// gap needs another algorithm (an FFT in shared memory), not a faster DFT;
-// it is left for later work.
+// gap needs another algorithm, not a faster DFT: logmel_fft.cu.
 //
 // Design: one block of 12 warps per tile of 32 frames, staged in shared
 // memory.  The warps form a 4 x 3 grid: a warp owns 8 frames and 96 bins

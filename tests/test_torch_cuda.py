@@ -21,7 +21,8 @@ from odin_tpu_torch.networks.attention import MultiHeadAttention
 from odin_tpu_torch.ops import features as tf
 from odin_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_reference)
-from odin_tpu_torch.ops.logmel import logmel, logmel_reference
+from odin_tpu_torch.ops.logmel import (harmonic_frames, logmel,
+                                       logmel_reference)
 
 MSPEC_ATOL = 0.01
 ATTN_ATOL = 2e-5
@@ -75,8 +76,7 @@ def test_logmel_kernel_small_config_on_card(cuda_device):
 
 
 def test_logmel_kernel_large_fft_on_card(cuda_device):
-  """n_fft 1024 and frame_length 1024: 513 bins, two groups of the
-  kernel's 288, one tile of whole frames."""
+  """n_fft 1024 and frame_length 1024: 513 bins, the FFT kernel."""
   cfg = tf.FeatureConfig(frame_length=1024, step_length=256, n_fft=1024)
   rs = np.random.RandomState(1)
   frames = torch.from_numpy((rs.randn(2, 333, cfg.frame_length) * 0.1).astype(
@@ -94,8 +94,8 @@ def test_logmel_kernel_large_fft_on_card(cuda_device):
 
 
 def test_logmel_kernel_long_frames_on_card(cuda_device):
-  """frame_length 4000 (n_fft 4096, 2049 bins): the frames are staged in
-  segments, the bins in 8 groups."""
+  """frame_length 4000 (n_fft 4096, 2049 bins, 80 mels): the FFT kernel,
+  one frame a group."""
   cfg = tf.FeatureConfig(frame_length=4000, step_length=1000, n_fft=4096,
                          n_mels=80)
   rs = np.random.RandomState(2)
@@ -110,15 +110,72 @@ def test_logmel_kernel_long_frames_on_card(cuda_device):
                              atol=MSPEC_ATOL)
 
 
+def _frames(kind, n, cfg, device):
+  """White noise (about equal power in every bin) or harmonic frames
+  (about 80 dB across the mel bands), windowed, fp32, from a seed."""
+  if kind == "harmonic":
+    return harmonic_frames(n, cfg, seed=n, device=device)
+  rs = np.random.RandomState(n)
+  return torch.from_numpy((rs.randn(n, cfg.frame_length) * 0.1).astype(
+      np.float32) * cfg.window_fn).to(device)
+
+
+def _held_to_plain(frames, cfg, device):
+  bases = cfg.device_bases(device)
+  before = (logmel.launches, logmel.fft_launches)
+  got = logmel(frames, cfg)
+  launched = (logmel.launches - before[0], logmel.fft_launches - before[1])
+  want = logmel_reference(frames, bases["cos"], bases["sin"], bases["mel_t"],
+                          cfg.scale ** 2)
+  torch.cuda.synchronize()
+  assert tuple(got.shape) == (frames.shape[0], cfg.n_mels)
+  assert torch.isfinite(got).all()
+  np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                             atol=MSPEC_ATOL)
+  return launched
+
+
+@pytest.mark.parametrize("n_frames", [1, 31, 1000, 25472])
+@pytest.mark.parametrize("kind", ["noise", "harmonic"])
+@pytest.mark.parametrize("frame_length,n_fft", [(400, 512), (201, 256),
+                                                (1024, 1024), (1600, 2048),
+                                                (400, 256)])
+def test_logmel_fft_kernel_matches_plain_on_card(cuda_device, frame_length,
+                                                 n_fft, kind, n_frames):
+  """The FFT kernel: frames shorter than n_fft (padded), as long, and
+  longer (folded), groups of frames with a ragged last one."""
+  cfg = tf.FeatureConfig(frame_length=frame_length,
+                         step_length=frame_length // 4, n_fft=n_fft)
+  frames = _frames(kind, n_frames, cfg, cuda_device)
+  assert _held_to_plain(frames, cfg, cuda_device) == (1, 1)
+
+
+@pytest.mark.parametrize("kind", ["noise", "harmonic"])
+@pytest.mark.parametrize("frame_length,n_fft,n_mels", [
+    (400, 400, 80), (600, 600, 40), (4000, 4000, 80)])
+def test_logmel_dense_kernel_for_other_n_fft_on_card(cuda_device,
+                                                     frame_length, n_fft,
+                                                     n_mels, kind):
+  """n_fft that is not a power of two launches the dense-DFT kernel, not
+  the FFT: one group of bins (400), two (600), and frames in segments with
+  eight groups (4000)."""
+  cfg = tf.FeatureConfig(frame_length=frame_length,
+                         step_length=frame_length // 4, n_fft=n_fft,
+                         n_mels=n_mels)
+  frames = _frames(kind, 333, cfg, cuda_device)
+  assert _held_to_plain(frames, cfg, cuda_device) == (1, 0)
+
+
 def test_speech_features_on_card_matches_cpu(cuda_device):
   rs = np.random.RandomState(9)
   y = (rs.randn(4, 16000) * 0.1 * 32768.0).clip(-32768, 32767).astype(
       np.int16)
   lengths = np.array([16000, 15000, 9000, 401])
   cfg = tf.FeatureConfig()
-  before = logmel.launches
+  before = (logmel.launches, logmel.fft_launches)
   got = tf.speech_features(y, cfg, lengths=lengths, device=cuda_device)
-  assert logmel.launches == before + 1
+  assert (logmel.launches, logmel.fft_launches) == (before[0] + 1,
+                                                    before[1] + 1)
   want = tf.speech_features(y, cfg, lengths=lengths, device="cpu")
   assert got["mspec"].device.type == "cuda"
   np.testing.assert_allclose(got["mspec"].cpu().numpy(),

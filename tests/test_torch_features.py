@@ -267,8 +267,8 @@ def test_batch_speech_features_spec_matches_jax():
 
 
 def test_logmel_large_fft_matches_jax():
-  """n_fft 1024 and frame_length 1024 (513 bins, two groups of the
-  kernel's bins): K1's plain version against JAX's plain branch."""
+  """n_fft 1024 and frame_length 1024 (513 bins): K1's plain version
+  against JAX's plain branch."""
   kw = dict(frame_length=1024, step_length=256, n_fft=1024)
   cfg, jcfg = tf.FeatureConfig(**kw), jf.FeatureConfig(**kw)
   y = _audio("float32", np.random.RandomState(13), (1, 8000))

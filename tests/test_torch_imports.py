@@ -31,8 +31,10 @@ def test_sources_exist():
     assert f"odin_tpu_torch/ops/{kernel}.py" in names
     assert (ROOT / "odin_tpu_torch" / "csrc" / f"{kernel}.cu").exists()
   assert "odin_tpu_torch/networks/attention.py" in names
-  # the 16-bit flash attention kernel, behind ops/flash_attention.py
-  assert (ROOT / "odin_tpu_torch" / "csrc" / "flash_attention_mma.cu").exists()
+  # the 16-bit flash attention kernel, behind ops/flash_attention.py, and
+  # K1's FFT kernel, behind ops/logmel.py
+  for source in ("flash_attention_mma.cu", "logmel_fft.cu"):
+    assert (ROOT / "odin_tpu_torch" / "csrc" / source).exists()
 
 
 @pytest.mark.parametrize("path", SOURCES,
