@@ -41,7 +41,21 @@ CPU:
      gradient, against the same module with ``flash=False`` on the card and
      against the CPU at T 1024, with host-timed forward and forward+backward
      steps; then the same layer cast to bf16 and to fp16 (the 16-bit kernel),
-     forward, against the fp32 layer beside ``flash=False`` in that dtype.
+     forward, against the fp32 layer beside ``flash=False`` in that dtype;
+  7. the training path: the full-width dSprites ``BetaVAE(beta=1)`` at batch
+     64, Adam at 1e-3 with NaN-skip: 3 steps on the card against the CPU
+     (gradients, losses, params) on the same batches and noise; 20 steps
+     through ``scan_steps`` (a CUDA graph) against 20 eager steps, in fp32
+     and in bf16 compute, with cuDNN's default algorithms; a batch
+     holding a NaN, eager and graphed, leaving params and moments bitwise
+     unchanged; 500 ``device_dataset_steps`` on 16,384 procedural dSprites
+     images resident on the card as uint8, the held-out loss falling below
+     half its start; then steps/s eager, graphed (500 steps a call, fp32 and
+     bf16 compute) and drawing batches on the card, with the capture times,
+     the
+     model FLOPs a step and their share of the card's peak, and a profile
+     of 20 graphed steps by kernel.  The path launches no kernel of this
+     port (cuDNN and cuBLAS run its convolutions and products).
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
 fp32 like the CPU.  Any failure raises and the script exits non-zero; it
@@ -127,6 +141,290 @@ def host_times_s(torch, fn, reps):
     torch.cuda.synchronize()
     times.append(time.perf_counter() - t0)
   return sorted(times)
+
+
+TRAIN_BATCH = 64  # bench.py's BATCH
+TRAIN_LR = 1e-3
+TRAIN_STEPS = 500  # bench.py's SCAN_STEPS: optimizer updates per call
+TRAIN_LOSS_RTOL = 1e-4  # card against CPU: float32 sums over 64 x 4,096 pixels
+TRAIN_GRAD_REL = 1e-4  # gradients: 1e-4·max|CPU| of each tensor
+# params after N Adam steps (tests/torch_training_common.py): every element
+# within 2·lr·N, all but 2e-5 of them within 1e-5; the rest are elements
+# whose gradient is small against its running RMS, where Adam magnifies
+# rounding differences (here: cuDNN's and the CPU's sums in another order)
+TRAIN_PARAM_ATOL = 1e-5
+TRAIN_FAR_SHARE = 2e-5
+# bf16 compute, graph against eager: the same kernels on the same inputs,
+# so they differ only where cuDNN sums in another order from run to run;
+# the gradients reach the fp32 master weights through a bf16 cast, where
+# such a difference can flip a rounding (2^-8 of the element), which moves
+# the loss's bf16 logits more than fp32's: the loss is held within 1e-3,
+# ten times the fp32 limit, and the params by the rule above
+TRAIN_BF16_LOSS_RTOL = 1e-3
+# the loss on 256 held-out images after 500 steps on dSprites must be below
+# half its value at the start (predicting the background rate alone gives
+# about 0.37 of the start, the sprites' pixels about 7 % of an image)
+TRAIN_LEARN_MARGIN = 0.5
+
+
+def params_apart(torch, got, want, n_steps):
+  """(largest |difference|, elements beyond TRAIN_PARAM_ATOL, elements) of
+  two {name: tensor} params after `n_steps` Adam steps; raises beyond the
+  rule above."""
+  worst, far, total = 0.0, 0, 0
+  for k, w in want.items():
+    d = (got[k].detach().cpu() - w.detach().cpu()).abs()
+    worst = max(worst, float(d.max()))
+    far += int((d > TRAIN_PARAM_ATOL).sum())
+    total += d.numel()
+  if worst > 2 * TRAIN_LR * n_steps + 1e-6 or far > TRAIN_FAR_SHARE * total:
+    raise AssertionError(f"params {worst} apart at most, {far} of {total} "
+                         f"elements beyond {TRAIN_PARAM_ATOL}")
+  return worst, far, total
+
+
+def train_flops(torch, vae, batch):
+  """Model FLOPs of one training step at `batch`, counted from the layer
+  shapes: 2 flops a multiply-add; the forward, the backward to the
+  weights (as many) and the backward to the inputs (as many, except for
+  the first layer, whose input is the data)."""
+  from odin_tpu_torch.networks.base import Conv, ConvTranspose, Dense
+  macs = []
+
+  def hook(module, args, out):
+    x = args[0]
+    if isinstance(module, Dense):
+      macs.append(x.numel() * module.units)
+    elif isinstance(module, Conv):
+      kh, kw = module.kernel_size
+      macs.append(out.numel() * kh * kw * x.shape[-1])
+    else:  # ConvTranspose: each input pixel scatters a kh x kw x out block
+      kh, kw = module.kernel_size
+      macs.append(x.numel() * kh * kw * module.filters)
+
+  handles = [m.register_forward_hook(hook) for m in vae.core.modules()
+             if isinstance(m, (Conv, ConvTranspose, Dense))]
+  with torch.no_grad():
+    x = torch.zeros(batch, 64, 64, 1, device=vae.device)
+    vae.decode(vae.encode(x).mean())
+  for h in handles:
+    h.remove()
+  fwd = 2.0 * sum(macs)
+  return fwd + fwd + (fwd - 2.0 * macs[0]), fwd
+
+
+def profile_steps(torch, fused, state, batches, eps):
+  """Device time of one call of `fused` by kernel, from torch.profiler:
+  (total device ms, [(name, ms)] largest first), or None where the trace
+  holds no device time."""
+  from torch.profiler import ProfilerActivity, profile
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    fused(state, batches, eps=eps)
+    torch.cuda.synchronize()
+  rows = []
+  for e in prof.key_averages():
+    if e.self_device_time_total > 0:
+      rows.append((e.key, e.self_device_time_total / 1e3))
+  rows.sort(key=lambda r: -r[1])
+  total = sum(ms for _, ms in rows)
+  return (total, rows) if total > 0 else None
+
+
+def training_path(torch, np, reset_counts, read_counts, smi):
+  """Phase 7: the beta-VAE training step on the card (see the docstring)."""
+  from odin_tpu_torch.bay.vi import BetaVAE
+  from odin_tpu_torch.fuel import dSprites
+  from odin_tpu_torch.networks import get_networks
+  from odin_tpu_torch.training import device_dataset_steps, scan_steps
+
+  cuda = torch.device("cuda", 0)
+  B, lr = TRAIN_BATCH, TRAIN_LR
+
+  def model(device):
+    vae = BetaVAE(beta=1.0, **get_networks("dsprites", zdim=10)).build(
+        seed=1, device=device)
+    return vae, vae.make_step_fn(learning_rate=lr, nan_policy="skip")
+
+  def sync_time(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+  # -- 7.1 the card against the CPU: 3 steps, same batches and noise
+  vae, step = model(cuda)
+  vae_cpu, step_cpu = model("cpu")
+  rs = np.random.RandomState(SEED)
+  xs = (rs.rand(3, B, 64, 64, 1) < 0.5).astype(np.float32)
+  epss = rs.randn(3, B, 10).astype(np.float32)
+  _, _, g = step.value_and_grad(vae.state, xs[0],
+                                eps=torch.from_numpy(epss[0]))
+  _, _, g_cpu = step_cpu.value_and_grad(vae_cpu.state, xs[0],
+                                        eps=torch.from_numpy(epss[0]))
+  grad_rel = max(float((g["vae"][k].cpu() - w).abs().max() / w.abs().max())
+                 for k, w in g_cpu["vae"].items())
+  log(f"gradients of step 1, card against CPU: max |diff| / max |CPU| over "
+      f"the {len(g_cpu['vae'])} tensors = {grad_rel:.3g} (limit "
+      f"{TRAIN_GRAD_REL})")
+  if not grad_rel <= TRAIN_GRAD_REL:
+    raise AssertionError(f"gradients differ from the CPU by {grad_rel}")
+  s, s_cpu = vae.state, vae_cpu.state
+  reset_counts()
+  for i in range(3):
+    s, m = step(s, xs[i], eps=torch.from_numpy(epss[i]))
+    s_cpu, m_cpu = step_cpu(s_cpu, xs[i], eps=torch.from_numpy(epss[i]))
+    loss, loss_cpu = float(m["loss"]), float(m_cpu["loss"])
+    log(f"step {i + 1}: loss {loss:.4f} on the card, {loss_cpu:.4f} on the "
+        f"CPU")
+    if not (math.isfinite(loss) and
+            abs(loss - loss_cpu) <= TRAIN_LOSS_RTOL * abs(loss_cpu)):
+      raise AssertionError(f"step {i + 1} loss {loss} against {loss_cpu}")
+  torch.cuda.synchronize()
+  log(f"training path launches (the step runs cuDNN and cuBLAS, no kernel "
+      f"of this port): {read_counts()}")
+  worst, far, total = params_apart(torch, s.params["vae"],
+                                   s_cpu.params["vae"], 3)
+  log(f"params after 3 steps, card against CPU: max |diff| {worst:.3g}, "
+      f"{far} of {total} beyond {TRAIN_PARAM_ATOL}")
+  if int(s.step) != 3 or int(s.opt_states["vae"]["count"]) != 3:
+    raise AssertionError("step or Adam count is not 3 after 3 steps")
+  del vae_cpu, step_cpu, s_cpu
+
+  # -- 7.2 graphed against eager on the card: 20 steps with cuDNN's
+  # default (non-deterministic) algorithms, as the timed graphs run them.
+  # The graph captures one step and replays it, so this k=20 graph holds
+  # the same step as the timed k=500 graphs of 7.5.
+  K = 20
+  gen = torch.Generator(device=cuda).manual_seed(SEED)
+  xk = (torch.rand(K, B, 64, 64, 1, device=cuda, generator=gen) < 0.5
+        ).float()
+  ek = torch.randn(K, B, 10, device=cuda, generator=gen)
+  start = vae.state
+  step16 = vae.make_step_fn(learning_rate=lr, compute_dtype=torch.bfloat16)
+  for name, fn in (("bf16 compute", step16), ("fp32", step)):
+    s_e = start
+    for i in range(K):
+      s_e, m_e = fn(s_e, xk[i], eps=ek[i])
+      if i == 0:
+        loss_1 = float(m_e["loss"])
+    fused20 = scan_steps(fn, K)
+    s_g, m_g = fused20(start, xk, eps=ek)
+    torch.cuda.synchronize()
+    loss_g, loss_e = float(m_g["loss"]), float(m_e["loss"])
+    rtol = TRAIN_LOSS_RTOL if name == "fp32" else TRAIN_BF16_LOSS_RTOL
+    worst, far, total = params_apart(torch, s_g.params["vae"],
+                                     s_e.params["vae"], K)
+    log(f"{K} steps {name}, CUDA graph against eager (cuDNN default "
+        f"algorithms): loss at step {K} {loss_g:.6f} / {loss_e:.6f} (limit "
+        f"rtol {rtol}; eager loss at step 1 {loss_1:.6f}), params max |diff| {worst:.3g} (limit "
+        f"{2 * lr * K:.3g}), {far} of {total} beyond {TRAIN_PARAM_ATOL}; "
+        f"capture {fused20.capture_seconds:.3f} s")
+    if not (math.isfinite(loss_g) and
+            abs(loss_g - loss_e) <= rtol * abs(loss_e)):
+      raise AssertionError(f"graphed {name} loss {loss_g} against {loss_e}")
+    if int(s_g.step) != K or int(s_g.skipped_updates) != 0:
+      raise AssertionError(f"graphed state at step {int(s_g.step)}")
+
+  # -- 7.3 NaN-skip on the card, eager and graphed
+  bad = xk[:1].clone()
+  bad[0, 3, 10, 20, 0] = float("nan")
+  fused1 = scan_steps(step, 1)
+  for name, (s_n, m_n) in (("eager", step(s_g, bad[0])),
+                           ("graphed", fused1(s_g, bad))):
+    torch.cuda.synchronize()
+    same = all(torch.equal(s_n.params["vae"][k], v)
+               for k, v in s_g.params["vae"].items())
+    same &= all(torch.equal(s_n.opt_states["vae"][n]["vae"][k], v)
+                for n in ("mu", "nu")
+                for k, v in s_g.opt_states["vae"][n]["vae"].items())
+    same &= torch.equal(s_n.opt_states["vae"]["count"],
+                        s_g.opt_states["vae"]["count"])
+    skipped = int(s_n.skipped_updates) - int(s_g.skipped_updates)
+    log(f"NaN batch, {name}: loss {float(m_n['loss'])}, params and moments "
+        f"unchanged {same}, skipped_updates +{skipped}, step "
+        f"{int(s_g.step)} -> {int(s_n.step)}")
+    if not same or skipped != 1 or int(s_n.step) != int(s_g.step) + 1:
+      raise AssertionError(f"the {name} step did not skip a NaN batch")
+
+  # where the device time goes: one call of the fp32 graph of 7.2 by kernel
+  prof = profile_steps(torch, fused20, start, xk, ek)
+  kernel_ms = None
+  if prof is None:
+    log("profile of 20 graphed steps: no device time in the trace (not "
+        "measured)")
+  else:
+    total_ms, rows = prof
+    kernel_ms = total_ms / K
+    log(f"profile of {K} graphed steps: {kernel_ms:.3f} ms of kernels a "
+        f"step; largest: " + "; ".join(
+            f"{name[:60]} {ms / K:.3f} ms ({100 * ms / total_ms:.1f} %)"
+            for name, ms in rows[:8]))
+  del fused20, fused1, s_e, s_g, s_n, xk, ek
+
+  # -- 7.4 learning on procedural dSprites resident on the card as uint8
+  t0 = time.perf_counter()
+  images = dSprites(n_samples=16384, seed=1).numpy("train", inc_labels=False)
+  held = dSprites(n_samples=256, seed=1).numpy("valid", inc_labels=False)
+  corpus = torch.from_numpy((images * 255).astype(np.uint8)).to(cuda)
+  log(f"dSprites: {len(images)} images rendered and on the card as uint8 "
+      f"({corpus.numel() / 1e6:.1f} MB) in {time.perf_counter() - t0:.2f} s")
+  vae2, step2 = model(cuda)
+  eval_fn = vae2.make_eval_fn()
+  before = float(eval_fn(vae2.state, held)["loss"])
+  fd = device_dataset_steps(step2, B, TRAIN_STEPS, seed=SEED)
+  reset_counts()
+  t_first, (s_d, m_d) = sync_time(lambda: fd(vae2.state, corpus))
+  log(f"device_dataset_steps launches: {read_counts()}")
+  after = float(eval_fn(s_d, held)["loss"])
+  log(f"held-out loss (256 images): {before:.2f} at step 0, {after:.2f} "
+      f"after {TRAIN_STEPS} steps (limit {TRAIN_LEARN_MARGIN} x start); "
+      f"last training loss {float(m_d['loss']):.2f}")
+  if not (math.isfinite(after) and after < TRAIN_LEARN_MARGIN * before):
+    raise AssertionError(f"the loss went from {before} to {after}")
+
+  # -- 7.5 steps/s at batch 64
+  flops, fwd_flops = train_flops(torch, vae, B)
+  log(f"model FLOPs a training step at batch {B}: {flops / 1e9:.3f} G "
+      f"(forward {fwd_flops / 1e9:.3f} G)")
+  x500 = (torch.rand(TRAIN_STEPS, B, 64, 64, 1, device=cuda, generator=gen)
+          < 0.5).float()
+
+  def rate(name, steps, seconds, peak, capture=None):
+    sps = steps / seconds
+    share = flops * sps / peak
+    log(f"train steps/s, {name}: {sps:.1f} ({1e3 / sps:.3f} ms a step; "
+        f"{100 * share:.2f} % of {peak / 1e12:.0f} TFLOP/s)" +
+        ("" if capture is None else f"; capture {capture:.3f} s"))
+
+  s = start
+  for i in range(3):  # warm-up
+    s, _ = step(s, x500[i])
+  n_eager = 50
+  t, _ = sync_time(lambda: [step(start, x500[i]) for i in range(n_eager)])
+  rate("eager, one step a call", n_eager, t, FP32_PEAK_FLOPS)
+
+  def graphed(name, fn, state, data, k, peak):
+    t_first, (st, _) = sync_time(lambda: fn(state, data))
+    t, _ = sync_time(lambda: [fn(st, data) for _ in range(3)])
+    rate(f"{name}, k={k}, 3 calls after one warm-up call", 3 * k, t, peak,
+         capture=fn.capture_seconds)
+    log(f"  first call {t_first:.3f} s (capture and {k} steps)")
+    return t / (3 * k)
+
+  t_step = graphed("scan_steps fp32", scan_steps(step, TRAIN_STEPS), start,
+                   x500, TRAIN_STEPS, FP32_PEAK_FLOPS)
+  if kernel_ms is not None:
+    log(f"  the card is busy {100 * kernel_ms / (1e3 * t_step):.1f} % of a "
+        f"graphed fp32 step ({kernel_ms:.3f} ms of kernels in the profile "
+        f"against {1e3 * t_step:.3f} ms a step)")
+  graphed("scan_steps bf16 compute", scan_steps(step16, TRAIN_STEPS),
+          start, x500, TRAIN_STEPS, BF16_PEAK_FLOPS)
+  t, _ = sync_time(lambda: fd(s_d, corpus))
+  rate(f"device_dataset_steps fp32 (uint8 corpus), k={TRAIN_STEPS}, 1 call"
+       f" after the learning call", TRAIN_STEPS, t, FP32_PEAK_FLOPS,
+       capture=fd.capture_seconds)
+  log(smi)
 
 
 def main() -> int:
@@ -628,6 +926,9 @@ def main() -> int:
             f"of {rounds}: forward flash=True {fwd * 1e3:.3f} ms, "
             f"flash=False {fwd_plain * 1e3:.3f} ms")
         del flash_16, plain_16, x16, out
+
+  with Phase("7 training path: beta-VAE dSprites training step"):
+    training_path(torch, np, reset_counts, read_counts, smi)
 
   log("kernels: " + "; ".join(
       f"{k} launches={v['launches']} ms={v['ms']:.4f} "

@@ -16,12 +16,15 @@ __all__ = ["DistributionDense"]
 
 class DistributionDense(nn.Module):
   """Dense(params_size) -> distribution builder.  With ``projection=False``
-  the input already holds the raw params."""
+  the input already holds the raw params.  `name` names the head's terms
+  in a VAE's metrics (``llk_<name>``, ``kl_<name>``)."""
 
   def __init__(self, event_shape: Sequence[int] = (), posterior: str = "normal",
                posterior_kwargs: Optional[Dict[str, Any]] = None,
-               projection: bool = True, use_bias: bool = True):
+               projection: bool = True, use_bias: bool = True,
+               name: Optional[str] = None):
     super().__init__()
+    self.name = name
     self.event_shape = tuple(int(i) for i in event_shape)
     self.posterior = posterior
     self.posterior_kwargs = dict(posterior_kwargs or {})

@@ -49,7 +49,7 @@ class RVconf:
     return DistributionDense(event_shape=self.event_shape,
                              posterior=self.posterior,
                              posterior_kwargs=dict(self.kwargs),
-                             projection=self.projection)
+                             projection=self.projection, name=self.name)
 
   def create_prior(self) -> Optional[Distribution]:
     if self.prior is not None:

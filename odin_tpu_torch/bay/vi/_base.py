@@ -1,15 +1,28 @@
-"""VariationalModel: the ELBO configuration every variational model carries
-(PyTorch port of the constructor of ``odin_tpu/bay/vi/_base.py:66-119``;
-the estimators come with the training slice)."""
+"""VariationalModel: the ELBO configuration and estimators every
+variational model carries (PyTorch port of ``odin_tpu/bay/vi/_base.py:66-119``:
+``elbo``, ``importance_weighted``, ``perplexity`` and ``_schedule``)."""
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import math
+from typing import Dict, Optional, Tuple, Union
+
+import torch
+
+from odin_tpu_torch.backend.interpolation import Interpolation
 
 __all__ = ["VariationalModel"]
 
 
+def _sum_dict(d: Dict[str, torch.Tensor]) -> torch.Tensor:
+  vals = list(d.values())
+  out = vals[0]
+  for v in vals[1:]:
+    out = out + v
+  return out
+
+
 class VariationalModel:
-  """Base for variational models: ELBO hyperparameters."""
+  """Base for variational models: ELBO hyperparameters and estimators."""
 
   def __init__(self,
                analytic: bool = False,
@@ -26,3 +39,33 @@ class VariationalModel:
     self.sample_shape = tuple(sample_shape)
     self.allow_negative_kl = bool(allow_negative_kl)
     self.name = name or type(self).__name__.lower()
+
+  def elbo(self, llk: Dict[str, torch.Tensor],
+           kl: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """``sum(llk) - sum(kl)``, elementwise over the batch."""
+    total_llk = _sum_dict(llk) if llk else torch.zeros(())
+    total_kl = _sum_dict(kl) if kl else torch.zeros(())
+    return total_llk - total_kl
+
+  @staticmethod
+  def importance_weighted(elbo_samples: torch.Tensor,
+                          axis: int = 0) -> torch.Tensor:
+    """IWAE bound: log-mean-exp over the sample axis."""
+    n = elbo_samples.shape[axis]
+    return torch.logsumexp(elbo_samples, dim=axis) - math.log(float(n))
+
+  @staticmethod
+  def perplexity(log_likelihood: torch.Tensor,
+                 n_words: torch.Tensor) -> torch.Tensor:
+    """``exp(-llk / n_words)``."""
+    return torch.exp(-log_likelihood / torch.clamp(torch.as_tensor(n_words),
+                                                   min=1.0))
+
+  @staticmethod
+  def _schedule(value, step) -> torch.Tensor:
+    """A coefficient at `step`: an ``Interpolation`` is called on the step
+    (a device tensor stays on its device, with no sync), a number becomes a
+    0-d float32 tensor."""
+    if isinstance(value, Interpolation):
+      return value(step)
+    return torch.tensor(value, dtype=torch.float32)

@@ -1,20 +1,43 @@
-"""VariationalAutoencoder of the port: build, encode, decode, reconstruct
-(PyTorch port of ``VAECore`` and parts of ``VariationalAutoencoder``,
-``odin_tpu/bay/vi/autoencoder/variational_autoencoder.py:55-101,193-310``).
-Training (``elbo_components``, ``fit``) comes with a later slice."""
+"""VariationalAutoencoder of the port: build, encode, decode, sample, the
+ELBO and its training step (PyTorch port of ``VAECore`` and
+``VariationalAutoencoder``,
+``odin_tpu/bay/vi/autoencoder/variational_autoencoder.py:55-466``).
+
+As in the JAX package the model holds its hyperparameters and a
+``TrainState``; every computation reads the params of a state
+(``torch.func.functional_call`` on the ``VAECore``), so that a state a
+training step returned serves once it is assigned to ``vae.state``.
+``vae.core.load_state_dict`` writes through to ``vae.state`` and
+``vae.core.state_dict()`` reads it.
+``fit`` and the trainer are not ported yet.
+"""
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+import copy
+import dataclasses
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 from torch import nn
 
 from odin_tpu_torch.bay.distributions import Distribution
+from odin_tpu_torch.bay.helpers import kl_divergence
 from odin_tpu_torch.bay.layers.dense_distribution import DistributionDense
 from odin_tpu_torch.bay.random_variable import RVconf
 from odin_tpu_torch.bay.vi._base import VariationalModel
 from odin_tpu_torch.device import resolve_device
+from odin_tpu_torch.training.core import (
+    EMA_KEY,
+    Noise,
+    TrainState,
+    TrainStep,
+    TrainStepFn,
+    as_noise,
+    build_train_step_fn,
+    extract_partitions,
+    make_optimizer,
+)
 
 __all__ = ["VAECore", "VariationalAutoencoder"]
 
@@ -25,6 +48,18 @@ def _as_head(head) -> DistributionDense:
   if isinstance(head, DistributionDense):
     return head
   raise ValueError(f"cannot interpret {head!r} as a distribution head")
+
+
+def _distribution_to(dist: Distribution, device: torch.device) -> Distribution:
+  """A shallow copy of `dist` (and of the distribution an ``Independent``
+  wraps) with its tensors moved to `device`."""
+  out = copy.copy(dist)
+  for k, v in vars(dist).items():
+    if isinstance(v, torch.Tensor):
+      setattr(out, k, v.to(device))
+    elif isinstance(v, Distribution):
+      setattr(out, k, _distribution_to(v, device))
+  return out
 
 
 class VAECore(nn.Module):
@@ -51,7 +86,12 @@ class VAECore(nn.Module):
   def decode(self, z) -> Distribution:
     return self.observation(self.decoder(z))
 
-  def forward(self, x):
+  def forward(self, x, method: Optional[str] = None):
+    """``method`` ('encode' or 'decode') calls that method, so that
+    ``functional_call`` can run either on given params; without it, x ->
+    (px at the posterior mean, qz)."""
+    if method is not None:
+      return getattr(self, method)(x)
     qz = self.encode(x)
     return self.decode(qz.mean()), qz
 
@@ -59,7 +99,9 @@ class VAECore(nn.Module):
 class VariationalAutoencoder(VariationalModel):
   """Vanilla VAE: ``vae = BetaVAE(**get_networks('dsprites')).build()``,
   then ``qz = vae.encode(x)``, ``px = vae.decode(z)``,
-  ``qz, px = vae.reconstruct(x)``.  Images are NHWC."""
+  ``qz, px = vae.reconstruct(x)``; training:
+  ``step = vae.make_step_fn()``, ``vae.state, metrics = step(vae.state,
+  x)``.  Images are NHWC."""
 
   def __init__(self,
                encoder: nn.Module,
@@ -84,6 +126,27 @@ class VariationalAutoencoder(VariationalModel):
                         _as_head(observation))
     self.input_shape = tuple(input_shape) if input_shape is not None else None
     self.device: Optional[torch.device] = None
+    self.state: Optional[TrainState] = None
+    self._priors: Dict[torch.device, Distribution] = {}
+    # ``self.state`` holds the params every computation reads; ``core``'s
+    # own parameters are only where weights are built and loaded, so
+    # loading a state_dict into ``core`` writes through to the state, and
+    # ``core.state_dict()`` reads the state's params
+    def loaded(module, incompatible_keys):
+      if self.state is not None:
+        self.state = self.state.replace(
+            params={**self.state.params, "vae": self._core_params()})
+
+    def saved(module, state_dict, prefix, local_metadata):
+      if self.state is not None:
+        for k, v in self.state.params["vae"].items():
+          state_dict[prefix + k] = v.detach()
+
+    self.core.register_load_state_dict_post_hook(loaded)
+    self.core.register_state_dict_post_hook(saved)
+
+  def _core_params(self) -> Dict[str, torch.Tensor]:
+    return {k: v.detach().clone() for k, v in self.core.named_parameters()}
 
   @property
   def zdim(self) -> int:
@@ -94,11 +157,20 @@ class VariationalAutoencoder(VariationalModel):
     return (self.latents_conf.create_prior() if self.latents_conf is not None
             else self.core.latents.prior)
 
+  def _prior_on(self, device: torch.device) -> Distribution:
+    """The latents prior with its parameters on `device`, built once per
+    device (so that a captured graph finds it made)."""
+    if device not in self._priors:
+      self._priors[device] = _distribution_to(self.latents_prior, device)
+    return self._priors[device]
+
   def build(self, input_shape: Optional[Sequence[int]] = None, seed: int = 1,
             device: Union[str, torch.device] = "cuda"
             ) -> "VariationalAutoencoder":
     """Create the parameters from `seed` (drawn on the CPU, so that a seed
-    gives the same weights on every device) and move them to `device`."""
+    gives the same weights on every device), move them to `device`, and
+    start ``self.state`` on them; the state's generator is seeded with
+    ``seed + 1``, as the JAX package keys its state."""
     if input_shape is not None:
       self.input_shape = tuple(i for i in input_shape if i is not None)
     if self.input_shape is None:
@@ -107,29 +179,205 @@ class VariationalAutoencoder(VariationalModel):
     self.core.build(self.input_shape, torch.Generator().manual_seed(seed))
     self.core.to(device).eval()
     self.device = device
+    self.state = TrainState(
+        params={"vae": self._core_params()},
+        opt_states={},
+        step=torch.zeros((), dtype=torch.int32, device=device),
+        rng=torch.Generator(device).manual_seed(seed + 1))
     return self
+
+  # -- apply ----------------------------------------------------------------
+  def _apply(self, params: Dict[str, Any], method: str, x):
+    return torch.func.functional_call(self.core, params["vae"], (x,),
+                                      {"method": method})
+
+  def _params_of(self) -> Dict[str, Any]:
+    if self.state is None:
+      raise RuntimeError("call build() first")
+    return self.state.params
 
   def _tensor(self, x) -> torch.Tensor:
     if self.device is None:
       raise RuntimeError("call build() first")
     return torch.as_tensor(x, dtype=torch.float32).to(self.device)
 
-  def encode(self, x) -> Distribution:
-    """x (B, H, W, C) -> qz."""
-    return self.core.encode(self._tensor(x))
+  def _generator(self, seed: int) -> torch.Generator:
+    return torch.Generator(self.device).manual_seed(seed)
 
-  def decode(self, z) -> Union[Distribution,
-                               Tuple[Distribution, Tuple[int, ...]]]:
+  # -- the reference's public API -------------------------------------------
+  def encode(self, x, params: Optional[Dict] = None) -> Distribution:
+    """x (B, H, W, C) -> qz."""
+    return self._apply(params or self._params_of(), "encode", self._tensor(x))
+
+  def decode(self, z, params: Optional[Dict] = None
+             ) -> Union[Distribution, Tuple[Distribution, Tuple[int, ...]]]:
     """z (B, zdim) -> px.  z with leading sample dims (S..., B, zdim) is
     decoded as (S·...·B, zdim) and returns ``(px, lead)``, ``lead`` the
     shape z had without its last dim, as in the JAX package."""
+    params = params or self._params_of()
     z = self._tensor(z)
     if z.ndim > 2:
       lead = tuple(z.shape[:-1])
-      return self.core.decode(z.reshape(-1, z.shape[-1])), lead
-    return self.core.decode(z)
+      return self._apply(params, "decode", z.reshape(-1, z.shape[-1])), lead
+    return self._apply(params, "decode", z)
 
-  def reconstruct(self, x) -> Tuple[Distribution, Distribution]:
-    """x -> (qz, px) through the posterior mean: encode, then decode E[z|x]."""
+  def __call__(self, x, seed: int = 0) -> Tuple[Distribution, Distribution]:
+    """x -> (px, qz): decode a sample of qz drawn from `seed`."""
     qz = self.encode(x)
-    return qz, self.core.decode(qz.mean())
+    z = qz.sample(generator=self._generator(seed))
+    return self.decode(z), qz
+
+  def reconstruct(self, x, params: Optional[Dict] = None
+                  ) -> Tuple[Distribution, Distribution]:
+    """x -> (qz, px) through the posterior mean: encode, then decode E[z|x]."""
+    params = params or self._params_of()
+    qz = self.encode(x, params)
+    return qz, self._apply(params, "decode", qz.mean())
+
+  def sample_prior(self, n: int = 1, seed: int = 0) -> torch.Tensor:
+    """z ~ p(z), (n, zdim)."""
+    return self._prior_on(self.device).sample((n,),
+                                              generator=self._generator(seed))
+
+  def sample_observation(self, n: int = 1, seed: int = 0) -> Distribution:
+    """px of n draws from the prior."""
+    return self.decode(self.sample_prior(n, seed))
+
+  # -- ELBO -----------------------------------------------------------------
+  def elbo_components(self, params, batch, rng, step, training: bool = False,
+                      mutables=None):
+    """-> (llk dict, kl dict, aux).  `rng` is a ``Noise``, a generator or
+    the noise itself: z is qz's reparameterised sample from
+    ``sample_shape + (B, zdim)`` standard normals."""
+    x, y = self._split_inputs(batch)
+    qz = self._apply(params, "encode", x)
+    mean = qz.mean()
+    eps = as_noise(rng).normal(
+        tuple(self.sample_shape) + tuple(qz.batch_shape) +
+        tuple(qz.event_shape), mean.dtype, mean.device)
+    z = qz.sample(self.sample_shape, eps=eps)
+    if self.sample_shape:
+      z_flat = z.reshape((-1, z.shape[-1]))
+      px = self._apply(params, "decode", z_flat)
+      n = int(np.prod(self.sample_shape))
+      llk_s = px.log_prob(x.repeat((n,) + (1,) * (x.ndim - 1)))
+      llk_x = llk_s.reshape(tuple(self.sample_shape) + (-1,)).mean(
+          dim=tuple(range(len(self.sample_shape))))
+    else:
+      px = self._apply(params, "decode", z)
+      llk_x = px.log_prob(x)
+    obs_name = self.core.observation.name or "observation"
+    llk = {f"llk_{obs_name}": llk_x}
+    kl_z = kl_divergence(qz, self._prior_on(mean.device),
+                         analytic=self.analytic,
+                         q_sample=z if not self.analytic else None,
+                         reverse=self.reverse, free_bits=self.free_bits)
+    lat_name = self.core.latents.name or "latents"
+    kl = {f"kl_{lat_name}": kl_z}
+    return llk, kl, dict(qz=qz, px=px, z=z, x=x, y=y)
+
+  @staticmethod
+  def _split_inputs(batch):
+    if isinstance(batch, (tuple, list)):
+      x = batch[0]
+      y = batch[1] if len(batch) > 1 else None
+    elif isinstance(batch, dict):
+      x = batch.get("inputs", batch.get("x"))
+      y = batch.get("labels", batch.get("y"))
+    else:
+      x, y = batch, None
+    return x, y
+
+  # -- training -------------------------------------------------------------
+  def _vae_loss(self, params, batch, rng, step, mutables):
+    llk, kl, _ = self.elbo_components(params, batch, rng, step,
+                                      training=True, mutables=mutables)
+    elbo = self.elbo(llk, kl)
+    loss = -torch.mean(elbo)
+    metrics = {k: torch.mean(v) for k, v in {**llk, **kl}.items()}
+    return loss, (metrics, mutables)
+
+  def train_steps(self) -> List[TrainStep]:
+    """One step over the 'vae' partition for the plain VAE."""
+    return [TrainStep(loss_fn=self._vae_loss, partitions=("vae",), name="vae")]
+
+  def optimizer_specs(self) -> Dict[str, Dict[str, Any]]:
+    """Per-partition optimizer overrides; a subclass hook."""
+    return {}
+
+  def make_step_fn(self,
+                   optimizer: str = "adam",
+                   learning_rate: Union[float, Callable] = 1e-3,
+                   clipnorm: Optional[float] = None,
+                   global_clipnorm: Optional[float] = None,
+                   nan_policy: str = "skip",
+                   train_params: Optional[Sequence[str]] = None,
+                   accum_steps: int = 1,
+                   compute_dtype: Optional[torch.dtype] = None,
+                   ema_decay: Optional[float] = None,
+                   remat: bool = False,
+                   keep_opt_states: bool = False,
+                   **opt_kwargs) -> TrainStepFn:
+    """The training step ``step(state, batch, eps=None) -> (state,
+    metrics)``; also starts the optimizer states on ``self.state``.
+
+    `train_params` restricts the update to the given param paths
+    (``('vae/decoder',)`` trains the decoder, the encoder frozen);
+    `keep_opt_states` resumes from the moments already in the state.  See
+    ``training.core.build_train_step_fn`` for `nan_policy`,
+    `accum_steps`, `compute_dtype`, `ema_decay` and `remat`.  For k steps
+    per call (a CUDA graph on the card) wrap it in ``scan_steps`` or
+    ``device_dataset_steps``."""
+    if self.state is None:
+      raise RuntimeError("call build() first")
+    specs = self.optimizer_specs()
+    steps = self.train_steps()
+    if train_params is not None:
+      if len(steps) != 1:
+        raise ValueError("train_params needs a single-TrainStep model")
+      steps = [dataclasses.replace(steps[0], partitions=tuple(train_params))]
+    optimizers = {}
+    for ts in steps:
+      opt_name = ts.optimizer or ts.partitions[0]
+      spec = specs.get(opt_name, {})
+      optimizers[opt_name] = make_optimizer(
+          spec.get("optimizer", optimizer),
+          spec.get("learning_rate", learning_rate),
+          clipnorm=spec.get("clipnorm", clipnorm),
+          global_clipnorm=spec.get("global_clipnorm", global_clipnorm),
+          **{**opt_kwargs, **spec.get("kwargs", {})})
+    opt_states = dict(self.state.opt_states) \
+        if keep_opt_states and self.state.opt_states else {}
+    for ts in steps:
+      opt_name = ts.optimizer or ts.partitions[0]
+      if opt_name not in opt_states:
+        sub = extract_partitions(self.state.params, ts.partitions)
+        opt_states[opt_name] = optimizers[opt_name].init(sub)
+    if ema_decay is not None:
+      opt_states[EMA_KEY] = self.state.params
+    self.state = self.state.replace(opt_states=opt_states)
+    return build_train_step_fn(steps, optimizers, nan_policy=nan_policy,
+                               accum_steps=accum_steps,
+                               compute_dtype=compute_dtype,
+                               ema_decay=ema_decay, remat=remat)
+
+  def make_eval_fn(self) -> Callable:
+    """``eval_fn(state, batch, eps=None) -> metrics``: the ELBO terms, the
+    ELBO and the loss, without gradients; the noise is drawn from a
+    generator seeded 0 unless `eps` is given."""
+
+    @torch.no_grad()
+    def eval_fn(state: TrainState, batch, eps=None):
+      batch = torch.as_tensor(batch).to(state.device)
+      rng = Noise(eps=eps) if eps is not None else Noise(
+          torch.Generator(state.device).manual_seed(0))
+      llk, kl, _ = self.elbo_components(state.params, batch, rng, state.step,
+                                        training=False,
+                                        mutables=state.mutables)
+      elbo = self.elbo(llk, kl)
+      m = {k: torch.mean(v) for k, v in {**llk, **kl}.items()}
+      m["elbo"] = torch.mean(elbo)
+      m["loss"] = -m["elbo"]
+      return m
+
+    return eval_fn

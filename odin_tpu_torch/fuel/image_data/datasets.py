@@ -1,0 +1,124 @@
+"""Procedural dSprites (a copy of the NumPy renderer and of ``dSprites``'s
+procedural branch, ``odin_tpu/fuel/image_data/datasets.py:203-395``).
+
+The images are rendered on the host from seeded factor draws, exactly as
+the JAX package renders them.  Not ported yet: the official ``.npz``
+loader, the full 737,280-image factor grid (``full_grid``) and
+``create_dataset``.
+"""
+from __future__ import annotations
+
+from typing import List, Optional, Tuple
+
+import numpy as np
+
+from odin_tpu_torch.fuel.dataset_base import get_partition
+
+__all__ = ["dSprites"]
+
+
+def _render_shapes2d(shape_id, scale, orientation, pos_x, pos_y,
+                     image_size: int = 64) -> np.ndarray:
+  """Vectorised renderer of dSprites-style binary sprites (square /
+  ellipse / heart) -> (n, image_size, image_size, 1) float32 in {0, 1}.
+
+  float32 throughout (an int / int division would promote to float64, far
+  slower elementwise); each sprite is rendered only with its own shape's
+  implicit function, in blocks of 512 sprites so that every temporary
+  stays near cache size."""
+  f32 = np.float32
+  shape_id = np.asarray(shape_id)
+  n = len(shape_id)
+  yy, xx = np.mgrid[0:image_size, 0:image_size].astype(f32)
+  yy = (yy / f32(image_size - 1)).ravel()[None]   # (1, P)
+  xx = (xx / f32(image_size - 1)).ravel()[None]
+  cx = np.asarray(pos_x, f32)[:, None]
+  cy = np.asarray(pos_y, f32)[:, None]
+  # sprite half-size in [0.06, 0.24]
+  s = np.asarray(scale, f32)[:, None] * f32(0.18) + f32(0.06)
+  th = np.asarray(orientation, f32)[:, None]
+  out = np.zeros((n, image_size * image_size), f32)
+  for sid in np.unique(shape_id):
+    all_rows = np.nonzero(shape_id == sid)[0]
+    for c0 in range(0, len(all_rows), 512):
+      rows = all_rows[c0:c0 + 512]
+      dx = xx - cx[rows]                 # (R, P)
+      dy = yy - cy[rows]
+      cth, sth = np.cos(th[rows]), np.sin(th[rows])
+      u = (cth * dx + sth * dy) / s[rows]
+      v = (cth * dy - sth * dx) / s[rows]
+      if sid == 0:
+        mask = (np.abs(u) <= 1.0) & (np.abs(v) <= 1.0)
+      elif sid == 1:
+        vv = v / f32(0.6)
+        mask = (u * u + vv * vv) <= 1.0
+      else:
+        # implicit heart curve: (x^2 + y^2 - 1)^3 - x^2 y^3 <= 0 (y up)
+        hu = u * f32(1.2)
+        hv = -v * f32(1.2) + f32(0.2)
+        hu2 = hu * hu
+        hv2 = hv * hv
+        t = hu2 + hv2 - f32(1.0)
+        mask = (t * t * t - hu2 * (hv2 * hv)) <= 0.0
+      out[rows] = mask
+  return out.reshape(n, image_size, image_size, 1)
+
+
+class dSprites:
+  """dSprites (Matthey et al.): 3 shapes x 6 scales x 40 orientations x
+  32 x 32 positions, rendered procedurally from `n_samples` random factor
+  draws per partition (seeded by `seed` and the partition)."""
+
+  factor_names = ["shape", "scale", "orientation", "pos_x", "pos_y"]
+  factor_sizes = [3, 6, 40, 32, 32]
+  _image_size = 64
+
+  def __init__(self, n_samples: int = 16384, seed: int = 1):
+    self.n_samples = int(n_samples)
+    self.seed = int(seed)
+    self._cache = {}
+
+  @property
+  def name(self) -> str:
+    return "dsprites"
+
+  @property
+  def shape(self) -> Tuple[int, int, int]:
+    return (self._image_size, self._image_size, 1)
+
+  @property
+  def labels(self) -> List[str]:
+    return list(self.factor_names)
+
+  def _sample_factors(self, n, rng):
+    return np.stack([rng.randint(0, k, n) for k in self.factor_sizes], -1)
+
+  def _factors_to_values(self, f):
+    shape_id = f[:, 0]
+    scale = f[:, 1] / max(self.factor_sizes[1] - 1, 1)
+    orient = f[:, 2] / self.factor_sizes[2] * 2 * np.pi
+    pos_x = 0.15 + 0.7 * f[:, 3] / max(self.factor_sizes[3] - 1, 1)
+    pos_y = 0.15 + 0.7 * f[:, 4] / max(self.factor_sizes[4] - 1, 1)
+    return shape_id, scale, orient, pos_x, pos_y
+
+  def render(self, factors: np.ndarray) -> np.ndarray:
+    """factors (n, 5) integer indices -> images (n, 64, 64, 1)."""
+    return _render_shapes2d(*self._factors_to_values(np.asarray(factors)),
+                            image_size=self._image_size)
+
+  def _load(self, partition: str):
+    key = get_partition(partition, train=0, valid=1, test=2)
+    if key not in self._cache:
+      rng = np.random.RandomState(self.seed + 123 * key)
+      f = self._sample_factors(self.n_samples, rng)
+      self._cache[key] = (self.render(f), f.astype("float32"))
+    return self._cache[key]
+
+  def numpy(self, partition: str = "train", n: Optional[int] = None,
+            inc_labels: bool = True):
+    """A partition as arrays: images (n, 64, 64, 1) float32 in {0, 1},
+    and the factor indices (n, 5) as float32 with `inc_labels`."""
+    x, y = self._load(partition)
+    if n is not None:
+      x, y = x[:n], y[:n]
+    return (x, y) if inc_labels else x

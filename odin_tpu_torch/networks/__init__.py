@@ -23,4 +23,5 @@ from odin_tpu_torch.networks.image_networks import (
     PackImageParams,
     dsprites_networks,
     get_networks,
+    get_optimizer_info,
 )

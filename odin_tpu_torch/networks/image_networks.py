@@ -1,8 +1,8 @@
 """Per-dataset architectures of the port (PyTorch port of
 ``odin_tpu/networks/image_networks.py``: ``_decoder_network`` :40,
 ``PackImageParams`` :59, ``_obs_distribution`` :77, ``dsprites_networks``
-:243-307, ``get_networks`` :488).  Only the plain decoder and the dSprites
-family are ported so far."""
+:243-307, ``get_networks`` :488, ``get_optimizer_info`` :512).  Only the
+plain decoder and the dSprites family are ported so far."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -12,6 +12,7 @@ import torch
 from torch import nn
 
 from odin_tpu_torch.bay.random_variable import RVconf
+from odin_tpu_torch.training.core import exponential_decay
 from odin_tpu_torch.networks.base import (
     CenterAt0,
     Conv,
@@ -22,7 +23,8 @@ from odin_tpu_torch.networks.base import (
     SequentialNetwork,
 )
 
-__all__ = ["PackImageParams", "dsprites_networks", "get_networks"]
+__all__ = ["PackImageParams", "dsprites_networks", "get_networks",
+           "get_optimizer_info"]
 
 
 def _decoder_network(layers, skip_generator: bool = False):
@@ -129,3 +131,44 @@ def get_networks(dataset_name, *, is_semi_supervised: bool = False,
       return fn(qz=qz, zdim=zdim, is_semi_supervised=is_semi_supervised,
                 is_hierarchical=is_hierarchical, **kwargs)
   raise ValueError(f"no network for dataset '{dataset_name}' in the port yet")
+
+
+_DSNAME_MAP = dict(halfmnist="mnist")
+
+
+def get_optimizer_info(dataset_name: str,
+                       batch_size: int = 64) -> Dict[str, Any]:
+  """Per-dataset training budget: ``max_iter`` and an exponential-decay
+  learning-rate schedule of the optimizer's update count (0.996 every
+  10,000 updates, staircase)."""
+  name = str(dataset_name).strip().lower()
+  name = _DSNAME_MAP.get(name, name)
+  decay_rate, decay_steps, init_lr = 0.996, 10000, 1e-3
+  if name == "halfmoons":
+    n_epochs, n_samples = 200, 3200
+  elif name == "mnist" or name == "binarizedmnist":
+    n_epochs, n_samples = 800, 55000
+  elif name == "fashionmnist":
+    n_epochs, n_samples = 1000, 55000
+  elif name == "omniglot":
+    n_epochs, n_samples = 1000, 19280
+  elif "svhn" in name:
+    n_epochs, n_samples = 2000, 69594
+  elif "cifar" in name:
+    n_epochs, n_samples, init_lr = 2500, 48000, 5e-4
+  elif "dsprites" in name:
+    n_epochs, n_samples = 400, 663552
+  elif "shapes3d" in name:
+    n_epochs, n_samples, init_lr = (250 if "small" in name else 400), 432000, 2e-4
+  elif "celeba" in name:
+    n_epochs, n_samples, init_lr = (2000 if "small" in name else 3000), 162770, 2e-4
+  elif "cortex" in name:
+    n_epochs, n_samples, init_lr = 500, 5000, 1e-4
+  elif "pbmc" in name:
+    n_epochs, n_samples, init_lr = 500, 5000, 1e-4
+  else:
+    raise NotImplementedError(f"no optimizer info for dataset '{dataset_name}'")
+  max_iter = int(n_samples / batch_size * n_epochs)
+  lr = exponential_decay(init_lr, transition_steps=decay_steps,
+                         decay_rate=decay_rate, staircase=True)
+  return dict(max_iter=max_iter, learning_rate=lr)

@@ -39,10 +39,13 @@ import numpy as np
 import torch
 from torch import nn
 
+from odin_tpu_torch.device import resolve_device
 from odin_tpu_torch.networks.attention import MultiHeadAttention
 from odin_tpu_torch.networks.base import Conv, ConvTranspose, Dense
+from odin_tpu_torch.training.core import EMA_KEY, TrainState
 
-__all__ = ["from_jax_params", "to_jax_params"]
+__all__ = ["from_jax_params", "to_jax_params", "from_jax_state",
+           "to_jax_state"]
 
 _PRIMITIVES = {"Conv_0": Conv, "ConvTranspose_0": ConvTranspose,
                "Dense_0": Dense}
@@ -78,6 +81,28 @@ def _kernel_to_flax(kind, weight: np.ndarray) -> np.ndarray:
   return weight.transpose(2, 3, 1, 0)
 
 
+def _port_leaf(path: Tuple[str, ...]):
+  """A flax leaf path -> (the port's dotted name, the primitive layer that
+  holds it or None)."""
+  *modules, leaf = path
+  if len(modules) >= 2 and modules[-2] == _MHA and \
+      modules[-1] in _MHA_PROJECTIONS:
+    modules = modules[:-2] + modules[-1:]
+  kind = _PRIMITIVES.get(modules[-1]) if modules else None
+  if kind is not None:
+    modules = modules[:-1]
+  names = []
+  for m in modules:
+    match = _LAYER.match(m)
+    names.extend(("layers", match.group(1)) if match else
+                 (_TO_PORT.get(m, m),))
+  if leaf == "kernel":
+    leaf = "weight"
+  elif leaf != "bias" and leaf not in _RAW:
+    raise ValueError(f"unexpected flax parameter {'/'.join(path)}")
+  return ".".join(names + [leaf]), kind
+
+
 def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
   """flax params (a nested dict of arrays; a VAE's ``{'vae': ...}`` tree or
   the tree of one module) -> a ``state_dict`` for the port's module."""
@@ -94,22 +119,27 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
       else:  # (F_in, H, D_h) -> (F_in, H·D_h); (H, D_h) -> (H·D_h,)
         value = value.reshape(value.shape[0], -1) if leaf == "kernel" \
             else value.reshape(-1)
-      modules = modules[:-2] + modules[-1:]
-    kind = _PRIMITIVES.get(modules[-1]) if modules else None
-    if kind is not None:
-      modules = modules[:-1]
-    names = []
-    for m in modules:
-      match = _LAYER.match(m)
-      names.extend(("layers", match.group(1)) if match else
-                   (_TO_PORT.get(m, m),))
+    name, kind = _port_leaf(path)
     if leaf == "kernel":
       value = _kernel_to_torch(kind, value)
-      leaf = "weight"
-    elif leaf != "bias" and leaf not in _RAW:
-      raise ValueError(f"unexpected flax parameter {'/'.join(path)}")
-    out[".".join(names + [leaf])] = torch.from_numpy(
-        value.astype(np.float32, order="C", copy=True))
+    out[name] = torch.from_numpy(value.astype(np.float32, order="C",
+                                              copy=True))
+  return out
+
+
+def _tree_to_flax(state_dict: Mapping[str, torch.Tensor],
+                  template: Mapping[str, Any]) -> Dict[str, Any]:
+  """The inverse of ``from_jax_params`` on a flax tree of the same layout
+  as `template`: each leaf of `template` read from `state_dict` by its
+  port name, transposed back and shaped as the template's leaf."""
+  out: Dict[str, Any] = {}
+  for path, value in _leaves(template):
+    name, kind = _port_leaf(path)
+    w = _numpy(state_dict[name])
+    if path[-1] == "kernel":
+      w = _kernel_to_flax(kind, w)
+    _node(out, path[:-1])[path[-1]] = np.ascontiguousarray(
+        w.reshape(value.shape)).astype(value.dtype)
   return out
 
 
@@ -140,7 +170,10 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
 
 def to_jax_params(module: nn.Module) -> Dict[str, Any]:
   """The inverse of ``from_jax_params`` for a built module of the port:
-  its parameters as a flax tree of numpy arrays."""
+  its parameters as a flax tree of numpy arrays, read from its
+  ``state_dict()`` (of a VAE's ``core``: the params of ``vae.state``)."""
+  sd = module.state_dict()
+  value = lambda *names: _numpy(sd[".".join(n for n in names if n)])
   tree: Dict[str, Any] = {}
   held = set()  # the Dense layers of a MultiHeadAttention
   for name, sub in module.named_modules():
@@ -150,15 +183,15 @@ def to_jax_params(module: nn.Module) -> Dict[str, Any]:
         dense = getattr(sub, proj)
         held.add(dense)
         node = _node(tree, _flax_path(name) + [_MHA, proj])
-        kernel = _numpy(dense.weight).T
+        kernel = value(name, proj, "weight").T
         if proj == "out":
           node["kernel"] = np.ascontiguousarray(kernel.reshape(
               heads + (kernel.shape[-1],)))
-          node["bias"] = _numpy(dense.bias)
+          node["bias"] = value(name, proj, "bias")
         else:
           node["kernel"] = np.ascontiguousarray(kernel.reshape(
               (kernel.shape[0],) + heads))
-          node["bias"] = _numpy(dense.bias).reshape(heads)
+          node["bias"] = value(name, proj, "bias").reshape(heads)
       continue
     if not isinstance(sub, (Conv, ConvTranspose, Dense)) or sub in held:
       continue
@@ -166,12 +199,100 @@ def to_jax_params(module: nn.Module) -> Dict[str, Any]:
     if not (isinstance(sub, Dense) and sub.bare):
       path.append(next(k for k, v in _PRIMITIVES.items() if type(sub) is v))
     node = _node(tree, path)
-    w = sub.weight.detach().cpu().numpy()
+    w = value(name, "weight")
     node["kernel"] = np.ascontiguousarray(_kernel_to_flax(type(sub), w))
     if sub.bias is not None:
-      node["bias"] = _numpy(sub.bias)
-  for name, param in module.named_parameters():
+      node["bias"] = value(name, "bias")
+  for name, _ in module.named_parameters():
     *owner, leaf = name.split(".")
     if leaf in _RAW:
-      _node(tree, _flax_path(".".join(owner)))[leaf] = _numpy(param)
+      _node(tree, _flax_path(".".join(owner)))[leaf] = value(name)
   return tree
+
+
+# ---------------------------------------------------------------------------
+# whole training states
+# ---------------------------------------------------------------------------
+def _optax_parts(node):
+  """The NamedTuple states inside an optax state (chains are tuples)."""
+  if hasattr(node, "_fields"):
+    yield node
+  elif isinstance(node, (tuple, list)):
+    for v in node:
+      yield from _optax_parts(v)
+
+
+def _tensor(a, device) -> torch.Tensor:
+  return torch.as_tensor(np.array(a)).to(device)
+
+
+def from_jax_state(state, device="cuda") -> TrainState:
+  """A JAX package ``TrainState`` (numpy or JAX arrays, e.g.
+  ``jax.device_get(vae.state)``) -> the port's ``TrainState`` on `device`:
+  the params, each optax Adam state (``count``, ``mu``, ``nu``, and the
+  schedule's count where the learning rate is a schedule), the EMA tree,
+  ``step`` and ``skipped_updates``.  The port draws its noise from a
+  ``torch.Generator``, seeded here with the last word of the JAX key."""
+  device = resolve_device(device)
+
+  def tree(t):
+    return {k: {n: v.to(device) for n, v in from_jax_params(sub).items()}
+            for k, sub in t.items()}
+
+  opt_states = {}
+  for name, opt in state.opt_states.items():
+    if name == EMA_KEY:
+      opt_states[name] = tree(opt)
+      continue
+    port = {}
+    for part in _optax_parts(opt):
+      if part._fields == ("count", "mu", "nu"):
+        port.update(count=_tensor(part.count, device), mu=tree(part.mu),
+                    nu=tree(part.nu))
+      elif part._fields == ("count",):
+        port["lr_count"] = _tensor(part.count, device)
+      elif part._fields:
+        raise NotImplementedError(f"optax state {type(part).__name__} is "
+                                  "not ported; only Adam's is")
+    opt_states[name] = port
+  if state.mutables:
+    raise NotImplementedError("mutable collections are not ported yet")
+  seed = int(np.asarray(state.rng).ravel()[-1])
+  return TrainState(params=tree(state.params), opt_states=opt_states,
+                    step=_tensor(state.step, device),
+                    rng=torch.Generator(device).manual_seed(seed),
+                    skipped_updates=_tensor(state.skipped_updates, device))
+
+
+def _optax_like(node, port):
+  """`node` (an optax state) with its Adam and schedule counts and moments
+  replaced from the port's optimizer state."""
+  if hasattr(node, "_fields"):
+    tree = lambda p, t: {k: _tree_to_flax(p[k], v) for k, v in t.items()}
+    if node._fields == ("count", "mu", "nu"):
+      return node._replace(count=_numpy(port["count"]),
+                           mu=tree(port["mu"], node.mu),
+                           nu=tree(port["nu"], node.nu))
+    if node._fields == ("count",):
+      return node._replace(count=_numpy(port["lr_count"]))
+    if node._fields:
+      raise NotImplementedError(f"optax state {type(node).__name__} is not "
+                                "ported; only Adam's is")
+    return node
+  if isinstance(node, (tuple, list)):
+    return type(node)(_optax_like(v, port) for v in node)
+  return node
+
+
+def to_jax_state(state: TrainState, template):
+  """The port's ``TrainState`` -> a JAX package ``TrainState`` shaped as
+  `template` (one of the JAX model's states, whose optax structure and PRNG
+  key it keeps), with numpy leaves."""
+  tree = lambda p, t: {k: _tree_to_flax(p[k], v) for k, v in t.items()}
+  opt_states = {}
+  for name, opt in template.opt_states.items():
+    opt_states[name] = (tree(state.opt_states[name], opt) if name == EMA_KEY
+                        else _optax_like(opt, state.opt_states[name]))
+  return template.replace(params=tree(state.params, template.params),
+                          opt_states=opt_states, step=_numpy(state.step),
+                          skipped_updates=_numpy(state.skipped_updates))

@@ -12,17 +12,28 @@ fp16 attention: the kernel and its plain version both accumulate in fp32
 and round once to the 16-bit type, so each output may differ by one
 rounding; the limit is two roundings of that output, 2^-6·|plain| in bf16
 and 2^-9·|plain| in fp16, beside 1e-5 for fp32 sums taken in another order.
+
+The training step (at the end): k steps from a CUDA graph against k eager
+steps with cuDNN's deterministic algorithms, which run the same kernels on
+the same inputs, so bitwise; a NaN batch skipped inside the graph; and a
+capture that fails raises.
 """
 import numpy as np
 import pytest
 import torch
 
+from odin_tpu_torch.bay.vi import BetaVAE
+from odin_tpu_torch.networks import get_networks
 from odin_tpu_torch.networks.attention import MultiHeadAttention
 from odin_tpu_torch.ops import features as tf
 from odin_tpu_torch.ops.flash_attention import (flash_attention,
                                                 flash_attention_reference)
 from odin_tpu_torch.ops.logmel import (harmonic_frames, logmel,
                                        logmel_reference)
+from odin_tpu_torch.training import (TrainState, TrainStep,
+                                     build_train_step_fn,
+                                     device_dataset_steps, make_optimizer,
+                                     scan_steps)
 
 MSPEC_ATOL = 0.01
 ATTN_ATOL = 2e-5
@@ -311,3 +322,126 @@ def test_flash_mha_on_card_matches_plain_and_cpu(cuda_device):
   np.testing.assert_allclose(got.cpu().numpy(), on_card.cpu().numpy(),
                              atol=ATTN_ATOL)
   np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), atol=1e-4)
+
+
+# -- the training step ------------------------------------------------------
+def _train_setup(device, **kwargs):
+  vae = BetaVAE(beta=1.0, **get_networks("dsprites", zdim=10)).build(
+      seed=1, device=device)
+  return vae, vae.make_step_fn(learning_rate=1e-3, **kwargs)
+
+
+def _train_inputs(device, k, b):
+  gen = torch.Generator(device=device).manual_seed(0)
+  x = (torch.rand(k, b, 64, 64, 1, generator=gen, device=device) < 0.5
+       ).float()
+  return x, torch.randn(k, b, 10, generator=gen, device=device)
+
+
+def test_graphed_steps_equal_eager_on_card(cuda_device):
+  """With cuDNN's deterministic algorithms the CUDA graph runs the eager
+  step's kernels on the same inputs: the params are equal bitwise.  A
+  state returned by one call keeps its values through the next call."""
+  torch.backends.cudnn.allow_tf32 = False
+  vae, step = _train_setup(cuda_device)
+  x, eps = _train_inputs(cuda_device, 4, 16)
+  torch.backends.cudnn.deterministic = True
+  try:
+    s = vae.state
+    for i in range(4):
+      s, m = step(s, x[i], eps=eps[i])
+    fused = scan_steps(step, 4)
+    g, gm = fused(vae.state, x, eps=eps)
+    torch.cuda.synchronize()
+    for k, v in s.params["vae"].items():
+      assert torch.equal(g.params["vae"][k], v), k
+    assert float(gm["loss"]) == float(m["loss"])
+    g2, _ = fused(g, x, eps=eps)
+    torch.cuda.synchronize()
+  finally:
+    torch.backends.cudnn.deterministic = False
+  assert fused.capture_seconds is not None
+  assert int(g.step) == 4 and int(g2.step) == 8
+  assert int(g2.opt_states["vae"]["count"]) == 8
+  for k, v in s.params["vae"].items():
+    assert torch.equal(g.params["vae"][k], v), k
+
+
+def test_device_dataset_graph_equals_eager_on_card(cuda_device):
+  torch.backends.cudnn.allow_tf32 = False
+  vae, step = _train_setup(cuda_device)
+  corpus = (torch.rand(100, 64, 64, 1, device=cuda_device) < 0.3).to(
+      torch.uint8) * 255
+  idx = torch.randint(0, 100, (3, 16), device=cuda_device)
+  _, eps = _train_inputs(cuda_device, 3, 16)
+  torch.backends.cudnn.deterministic = True
+  try:
+    outs = [device_dataset_steps(step, 16, 3, graph=graph)(
+        vae.state, corpus, indices=idx, eps=eps) for graph in (False, True)]
+    torch.cuda.synchronize()
+  finally:
+    torch.backends.cudnn.deterministic = False
+  (s_e, m_e), (s_g, m_g) = outs
+  for k, v in s_e.params["vae"].items():
+    assert torch.equal(s_g.params["vae"][k], v), k
+  assert float(m_g["loss"]) == float(m_e["loss"])
+  # drawn on the card: finite and counted
+  s, m = device_dataset_steps(step, 16, 3)(vae.state, corpus)
+  assert int(s.step) == 3 and np.isfinite(float(m["loss"]))
+
+
+@pytest.mark.parametrize("policy", ["skip", "stop"])
+def test_nan_skip_graphed_on_card(cuda_device, policy):
+  """Two batches holding a NaN through the graph: params and moments
+  bitwise unchanged, both updates counted as skipped."""
+  vae, step = _train_setup(cuda_device, nan_policy=policy)
+  x, _ = _train_inputs(cuda_device, 2, 8)
+  x[:, 0, 0, 0, 0] = float("nan")
+  s0 = vae.state
+  s, m = scan_steps(step, 2)(s0, x)
+  torch.cuda.synchronize()
+  assert int(s.skipped_updates) == 2 and int(s.step) == 2
+  assert int(s.opt_states["vae"]["count"]) == 0
+  for k, v in s0.params["vae"].items():
+    assert torch.equal(s.params["vae"][k], v), k
+  for name in ("mu", "nu"):
+    assert all(bool((t == 0).all())
+               for t in s.opt_states["vae"][name]["vae"].values())
+  assert ("nan_gradients" in m) == (policy == "stop")
+  if policy == "stop":
+    assert float(m["nan_gradients"]) == 1.0
+
+
+def test_training_state_stays_on_card(cuda_device):
+  vae, step = _train_setup(cuda_device)
+  s, m = step(vae.state, np.zeros((4, 64, 64, 1), np.float32))
+  tensors = [s.step, s.skipped_updates, *s.params["vae"].values(),
+             *s.opt_states["vae"]["mu"]["vae"].values(), *m.values()]
+  assert all(t.device.type == "cuda" for t in tensors)
+
+
+def test_failed_capture_raises_on_card(cuda_device):
+  """A step that syncs with the host cannot be captured: scan_steps
+  raises, and runs nothing eagerly in its place.  (Last in the file: a
+  failed capture may leave the card unusable for the process.)"""
+
+  def loss_fn(params, batch, rng, step, mutables):
+    loss = (params["p"]["w"] * batch).sum()
+    # float(): a host sync, legal eagerly but not inside a capture
+    if float(loss.detach()) > 1e30:
+      loss = loss * 0
+    return loss, ({}, mutables)
+
+  opt = make_optimizer("adam", 1e-3)
+  params = {"p": {"w": torch.ones(4, device=cuda_device)}}
+  state = TrainState(params=params, opt_states={"p": opt.init(params)},
+                     step=torch.zeros((), dtype=torch.int32,
+                                      device=cuda_device),
+                     rng=torch.Generator(cuda_device))
+  fn = build_train_step_fn([TrainStep(loss_fn, partitions=("p",))],
+                           {"p": opt})
+  batches = torch.ones(2, 4, device=cuda_device)
+  s, _ = fn(state, batches[0])  # eagerly it runs
+  assert int(s.step) == 1
+  with pytest.raises(RuntimeError, match="CUDA graph capture"):
+    scan_steps(fn, 2)(state, batches)

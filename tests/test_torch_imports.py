@@ -35,6 +35,11 @@ def test_sources_exist():
   # K1's FFT kernel, behind ops/logmel.py
   for source in ("flash_attention_mma.cu", "logmel_fft.cu"):
     assert (ROOT / "odin_tpu_torch" / "csrc" / source).exists()
+  # the training slice: its modules are among the sources checked below
+  for module in ("training/core.py", "bay/helpers.py",
+                 "backend/interpolation.py", "fuel/image_data/datasets.py",
+                 "fuel/dataset_base.py"):
+    assert f"odin_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -62,7 +67,9 @@ def _run(args, cwd, env=None):
 def test_importing_the_port_loads_no_jax():
   code = ("import sys, odin_tpu_torch.ops, odin_tpu_torch.preprocessing, "
           "odin_tpu_torch.bay.vi, odin_tpu_torch.networks, "
-          "odin_tpu_torch.serving, odin_tpu_torch.weights\n"
+          "odin_tpu_torch.serving, odin_tpu_torch.weights, "
+          "odin_tpu_torch.training, odin_tpu_torch.backend, "
+          "odin_tpu_torch.fuel, odin_tpu_torch.bay.helpers\n"
           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
           f"{FORBIDDEN!r})\nassert not bad, bad")
   res = _run(["-c", code], cwd=ROOT)
