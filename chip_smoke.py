@@ -9,21 +9,29 @@ points a user calls, and checks their outputs against the same calls on the
 CPU:
 
   1. device and build: the card's name and power limit, the nvcc build;
-  2. K1 (``ops/logmel.py``): its FFT kernel against ``logmel_reference``
-     at the speech path's shape (64 x 4 s = 25,472 frames of 400 samples,
-     n_fft 512), at a ragged 1,000 frames and at n_fft 1024 with 1024-sample
-     frames, and its dense-DFT kernel at n_fft 400 (Whisper's framing: 80
-     mels, no power of two), each on white noise and on ``harmonic_frames``
-     (about 80 dB across the mel bands), within 0.01 dB, with CUDA-event
-     timings of each kernel, the plain version and ``torch.fft.rfft`` + mel
-     (a yardstick the port never calls), and of the dense kernel at the
-     speech path's shape beside the FFT kernel (each timing: CUDA events
-     around bursts of 10 back-to-back calls, median of 10 bursts);
+  2. K1 (``ops/logmel.py``), its three kernels against
+     ``logmel_reference``: the FFT kernel at the speech path's shape (64 x
+     4 s = 25,472 frames of 400 samples, n_fft 512), at a ragged 1,000
+     frames, at n_fft 1024 with 1024-sample frames, with 1024-sample frames
+     folded into n_fft 512 and at n_fft 8192; the mixed-radix FFT kernel at
+     Whisper's framing (n_fft 400, 80 mels from 0 Hz: 25,472 frames and a
+     ragged 1,000), at n_fft 480 (30 ms at 16 kHz), 1200 (25 ms at 48
+     kHz) and 882 (20 ms at 44.1 kHz: odd n_fft/2), with 1000-sample frames
+     folded into n_fft 400 and 300-sample frames padded to it; the
+     dense-DFT kernel at n_fft 551 (25 ms at 22,050 Hz, 80 mels: 551 is
+     odd); each on white noise and on ``harmonic_frames`` (about 80 dB
+     across the mel bands), within 0.01 dB, with CUDA-event timings of each
+     kernel, the plain version and ``torch.fft.rfft`` + mel (a yardstick
+     the port never calls), and of the dense kernel at the FFT kernels'
+     shapes beside them (each timing: CUDA events around bursts of 10
+     back-to-back calls, median of 10 bursts);
   3. the speech path: ``batch_speech_features`` on 64 int16 utterances of
      2-4 s, against the same call on the CPU, and its rate in valid
      (unpadded) frames/s with the host-to-device copy, which launches the
      FFT kernel once for the batch; then the same utterances at Whisper's
-     framing, which launches the dense kernel once;
+     framing, which launches the mixed-radix kernel once, and at 25 ms
+     frames at 22,050 Hz (n_fft 551), which launches the dense kernel
+     once;
   4. the serving path: the full-width dSprites beta-VAE answering
      ``encode_mean``, ``decode_mean`` and ``reconstruct`` at batch 1 and
      256, against the same model on the CPU, with batch-1 latency and
@@ -438,7 +446,8 @@ def main() -> int:
   from odin_tpu_torch.ops.features import FeatureConfig
   from odin_tpu_torch.ops.flash_attention import (flash_attention,
                                                   flash_attention_reference)
-  from odin_tpu_torch.ops.logmel import (_launch, harmonic_frames, logmel,
+  from odin_tpu_torch.ops.logmel import (_launch, harmonic_frames,
+                                         kernel_route, logmel,
                                          logmel_reference)
   from odin_tpu_torch.preprocessing import batch_speech_features
 
@@ -448,14 +457,27 @@ def main() -> int:
     return 2
 
   # every kernel wrapper's launch counts: "logmel" counts the launches of
-  # both K1 kernels, "logmel_fft" the FFT kernel's share;
-  # "flash_attention" counts the launches of both K2 kernels,
-  # "flash_attention_mma" the tensor-core kernel's share
+  # the three K1 kernels, "logmel_fft" the power-of-two FFT kernel's share,
+  # "logmel_fft_mixed" the mixed-radix kernel's; "flash_attention" counts
+  # the launches of both K2 kernels, "flash_attention_mma" the tensor-core
+  # kernel's share
   counters = {"logmel": (logmel, "launches"),
               "logmel_fft": (logmel, "fft_launches"),
+              "logmel_fft_mixed": (logmel, "mixed_launches"),
               "flash_attention": (flash_attention, "launches"),
               "flash_attention_mma": (flash_attention, "mma_launches")}
-  sources = ["logmel", "logmel_fft", "flash_attention", "flash_attention_mma"]
+  sources = ["logmel", "logmel_fft", "logmel_fft_mixed", "flash_attention",
+             "flash_attention_mma"]
+  # the K1 kernel (and its counter) that each logmel route launches
+  k1_kernel = {"fft": "logmel_fft", "mixed": "logmel_fft_mixed",
+               "dense": "logmel"}
+
+  def k1_launched(before, after):
+    """{route: launches} of the K1 kernels between two read_counts()."""
+    d = {k: after[k] - before[k] for k in ("logmel", "logmel_fft",
+                                           "logmel_fft_mixed")}
+    return {"fft": d["logmel_fft"], "mixed": d["logmel_fft_mixed"],
+            "dense": d["logmel"] - d["logmel_fft"] - d["logmel_fft_mixed"]}
   cuda = torch.device("cuda", 0)
 
   def reset_counts():
@@ -488,12 +510,35 @@ def main() -> int:
   n_main = batch * cfg.n_frames(T)  # 25,472 frames: the speech path's shape
   report = {}
 
+  # Whisper's framing (n_fft 400, 80 mels, filters from 0 Hz: the
+  # mixed-radix kernel) and 25 ms frames at 22,050 Hz (n_fft 551, odd: the
+  # dense kernel)
+  whisper = FeatureConfig(n_fft=400, n_mels=80, fmin=0.0)
+  sr22k = FeatureConfig(sr=22050, frame_length=551, step_length=220,
+                        n_fft=551, n_mels=80, fmin=0.0)
+
   with Phase("2 K1 logmel against its plain version"):
     gen = torch.Generator(device=cuda).manual_seed(SEED)
-    # n_fft 1024 (513 bins) and Whisper's framing (n_fft 400: no power of
-    # two, so the dense kernel; 80 mels, filters from 0 Hz)
+    # n_fft 1024 (513 bins), 1024-sample frames folded into n_fft 512, and
+    # n_fft 8192 (the FFT kernel's largest, one block an SM)
     big = FeatureConfig(frame_length=1024, step_length=256, n_fft=1024)
-    whisper = FeatureConfig(n_fft=400, n_mels=80, fmin=0.0)
+    folded = FeatureConfig(frame_length=1024, step_length=256, n_fft=512)
+    widest = FeatureConfig(frame_length=8192, step_length=2048, n_fft=8192,
+                           n_mels=80)
+    n_widest = n_main // 8  # 3,184 frames of 8,192 samples
+    # the mixed-radix kernel's other framings: 30 ms at 16 kHz, 25 ms at
+    # 48 kHz, 20 ms at 44.1 kHz (n_fft/2 = 441, odd), and Whisper's n_fft
+    # with frames folded into it and padded to it
+    mixed_cfgs = [
+        FeatureConfig(frame_length=480, step_length=160, n_fft=480),
+        FeatureConfig(sr=48000, frame_length=1200, step_length=480,
+                      n_fft=1200),
+        FeatureConfig(sr=44100, frame_length=882, step_length=441,
+                      n_fft=882),
+        FeatureConfig(frame_length=1000, step_length=160, n_fft=400,
+                      n_mels=80, fmin=0.0),
+        FeatureConfig(frame_length=300, step_length=160, n_fft=400,
+                      n_mels=80, fmin=0.0)]
 
     def check(config, n, kernel):
       """Both signals through `logmel`, which must launch `kernel`; the
@@ -511,11 +556,10 @@ def main() -> int:
         want = logmel_reference(frames, bases["cos"], bases["sin"],
                                 bases["mel_t"], config.scale ** 2)
         torch.cuda.synchronize()
-        fft = after["logmel_fft"] - before["logmel_fft"]
-        if after["logmel"] - before["logmel"] != 1 or fft != (
-            kernel == "logmel_fft"):
-          raise AssertionError(f"logmel launched {after} after {before}, "
-                               f"not {kernel} once")
+        launched = k1_launched(before, after)
+        if launched != {r: int(k1_kernel[r] == kernel) for r in launched}:
+          raise AssertionError(f"logmel launched {launched}, not {kernel} "
+                               "once")
         if not bool(torch.isfinite(got).all()):
           raise AssertionError(f"{kernel} gave non-finite values")
         e = float((got - want).abs().max())
@@ -532,8 +576,14 @@ def main() -> int:
 
     errs = {"logmel_fft": max(check(cfg, n_main, "logmel_fft"),
                               check(cfg, 1000, "logmel_fft"),
-                              check(big, n_main, "logmel_fft")),
-            "logmel": check(whisper, n_main, "logmel")}
+                              check(big, n_main, "logmel_fft"),
+                              check(folded, n_main, "logmel_fft"),
+                              check(widest, n_widest, "logmel_fft")),
+            "logmel_fft_mixed": max(
+                [check(whisper, n_main, "logmel_fft_mixed"),
+                 check(whisper, 1000, "logmel_fft_mixed")] +
+                [check(c, n_main, "logmel_fft_mixed") for c in mixed_cfgs]),
+            "logmel": check(sr22k, n_main, "logmel")}
 
     def k1_bound(config, n):
       """The function's own bound, not that of a kernel's algorithm: a real
@@ -554,17 +604,23 @@ def main() -> int:
               "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes,
               mel_nnz)
 
-    def timings(config, kernel):
-      """The kernel, its plain version and rfft + mel on n_main frames of
-      white noise, with the bound, logged; returns the kernel's entry."""
+    def timings(config, kernel, n=n_main):
+      """The kernel, its plain version and rfft + mel on n frames of white
+      noise, with the bound, logged; returns the frames and the kernel's
+      entry."""
       bases = config.device_bases(cuda)
       mel_t, scale_sq = bases["mel_t"], config.scale ** 2
-      frames = (torch.randn(n_main, config.frame_length, device=cuda,
+      frames = (torch.randn(n, config.frame_length, device=cuda,
                             generator=gen) * 0.1 * bases["window"]
                 ).contiguous()
 
       def library():
-        spec = torch.fft.rfft(frames, n=config.n_fft)
+        x = frames
+        if config.frame_length > config.n_fft:  # fold, as JAX's bases do
+          x = torch.nn.functional.pad(x, (0, -config.frame_length %
+                                          config.n_fft))
+          x = x.view(n, -1, config.n_fft).sum(1)
+        spec = torch.fft.rfft(x, n=config.n_fft)
         power = (spec.real ** 2 + spec.imag ** 2) * scale_sq
         return 10.0 * torch.log10(torch.clamp(power @ mel_t, min=1e-10))
 
@@ -573,9 +629,10 @@ def main() -> int:
       plain_ms = cuda_ms(torch, lambda: logmel_reference(
           frames, bases["cos"], bases["sin"], mel_t, scale_sq))
       library_ms = cuda_ms(torch, library)
-      bound_ms, bound_by, flops, nbytes, mel_nnz = k1_bound(config, n_main)
-      log(f"{kernel} N={n_main} frame_length={config.frame_length} "
-          f"n_fft={config.n_fft}: kernel_ms={kernel_ms:.4f} "
+      bound_ms, bound_by, flops, nbytes, mel_nnz = k1_bound(config, n)
+      log(f"{kernel} N={n} frame_length={config.frame_length} "
+          f"n_fft={config.n_fft} n_mels={config.n_mels}: "
+          f"kernel_ms={kernel_ms:.4f} "
           f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (rfft+mel, "
           f"max diff {lib_err:.4f} dB) bound_ms={bound_ms:.4f} by {bound_by} "
           f"({flops:.4g} flop, {nbytes / 1e6:.2f} MB; {mel_nnz} nonzero mel "
@@ -586,21 +643,36 @@ def main() -> int:
           max_abs_err=errs[kernel], ms=kernel_ms, plain_ms=plain_ms,
           bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
+    def dense_beside(config, frames):
+      """The dense kernel on the frames an FFT kernel was timed on: its
+      predecessor on that route."""
+      out = torch.empty(frames.shape[0], config.n_mels, device=cuda)
+      dense_ms = cuda_ms(torch, lambda: _launch("dense", frames, config,
+                                                out))
+      dft_flops = (frames.shape[0] * 2 * config.frame_length *
+                   (config.n_fft // 2 + 1) * 2)
+      log(f"logmel (dense) N={frames.shape[0]} frame_length="
+          f"{config.frame_length} n_fft={config.n_fft}: kernel_ms="
+          f"{dense_ms:.4f}, its algorithm's bound "
+          f"{dft_flops / FP32_PEAK_FLOPS * 1e3:.4f} ms ({dft_flops:.4g} flop "
+          f"of dense DFT)")
+
     frames, report["logmel_fft"] = timings(cfg, "logmel_fft")
-    # the dense kernel at the same frames, the FFT kernel's predecessor
-    out = torch.empty(n_main, cfg.n_mels, device=cuda)
-    dense_ms = cuda_ms(torch, lambda: _launch("dense", frames, cfg, out))
-    n_freqs = cfg.n_fft // 2 + 1
-    dft_flops = n_main * 2 * cfg.frame_length * n_freqs * 2
-    log(f"logmel (dense) N={n_main} frame_length={cfg.frame_length} "
-        f"n_fft={cfg.n_fft}: kernel_ms={dense_ms:.4f}, its algorithm's bound "
-        f"{dft_flops / FP32_PEAK_FLOPS * 1e3:.4f} ms ({dft_flops:.4g} flop "
-        f"of dense DFT)")
+    dense_beside(cfg, frames)
     del frames
-    frames, _ = timings(big, "logmel_fft")
+    frames, report["logmel_fft_mixed"] = timings(whisper, "logmel_fft_mixed")
+    dense_beside(whisper, frames)
     del frames
-    frames, report["logmel"] = timings(whisper, "logmel")
-    del frames, out
+    for config, n in ((big, n_main), (folded, n_main),
+                      (widest, n_widest)):
+      frames, _ = timings(config, "logmel_fft", n)
+      del frames
+    for config in mixed_cfgs[:3]:
+      frames, _ = timings(config, "logmel_fft_mixed")
+      del frames
+    frames, report["logmel"] = timings(sr22k, "logmel")
+    del frames
+    torch.cuda.empty_cache()
 
   with Phase("3 speech path: batch_speech_features"):
     rs = np.random.RandomState(SEED)
@@ -618,12 +690,11 @@ def main() -> int:
                                   device="cuda")
       counts = read_counts()
       log(f"speech path n_fft={config.n_fft} launches: {counts}")
-      fft = kernel == "logmel_fft"
-      if counts["logmel"] != 1 or counts["logmel_fft"] != fft:
+      launched = k1_launched({k: 0 for k in counts}, counts)
+      if launched != {r: int(k1_kernel[r] == kernel) for r in launched}:
         raise AssertionError(f"the speech path at n_fft {config.n_fft} "
                              f"launched {counts}, not {kernel} once")
-      report[kernel]["launches"] = counts["logmel_fft"] if fft else (
-          counts["logmel"] - counts["logmel_fft"])
+      report[kernel]["launches"] = launched[kernel_route(config.n_fft)]
       want = batch_speech_features(utts, config, features=feats,
                                    device="cpu")
       vad_agree = vad_total = 0
@@ -664,7 +735,8 @@ def main() -> int:
         f"frames in a padded batch of {n_main}, host to device copy "
         f"included, median of {rounds}): {n_valid / t_batch:.1f} "
         f"({t_batch * 1e3:.3f} ms per batch)")
-    speech_path(whisper, "logmel")
+    speech_path(whisper, "logmel_fft_mixed")
+    speech_path(sr22k, "logmel")
 
   with Phase("4 serving path: dSprites beta-VAE"):
     nets = dict(get_networks("dsprites", zdim=10))

@@ -1,14 +1,19 @@
-"""K1: fused window-DFT-power-mel-log, two hand-written CUDA kernels.
+"""K1: fused window-DFT-power-mel-log, three hand-written CUDA kernels.
 
 ``logmel`` takes windowed frames and returns ``10·log10(max(mel power,
 1e-10))``, unclipped (top-dB applies outside with the per-utterance max).
-Both kernels replace ``_logmel_kernel`` (``odin_tpu/ops/pallas_features.py:
+The kernels replace ``_logmel_kernel`` (``odin_tpu/ops/pallas_features.py:
 32-39``); the configuration alone picks one (``kernel_route``):
 
 * ``csrc/logmel_fft.cu``, an fp32 real FFT in shared memory, where n_fft is
   a power of two from 16 to 8192 (every config of the repo: the default is
   512);
-* ``csrc/logmel.cu``, the dense real DFT, for every other n_fft.
+* ``csrc/logmel_fft_mixed.cu``, a mixed-radix fp32 real FFT (passes of
+  radix 16, 8, 4, 2, 3, 5 and 7), where n_fft is even, from 16 to 8192, and
+  n_fft/2 has no prime factor above 7 (Whisper's 400, and 320, 480, 882,
+  1200);
+* ``csrc/logmel.cu``, the dense real DFT, for every other n_fft (odd, a
+  prime factor of 11 or more in n_fft/2, or above 8192).
 
 On a CUDA tensor ``logmel`` launches the chosen kernel and raises if the
 launch fails; there is no fallback and no retry.  On a CPU tensor it runs
@@ -18,7 +23,8 @@ kernel's bound on the card and its design are noted in its CUDA source.
 from __future__ import annotations
 
 import ctypes
-from typing import TYPE_CHECKING, List, Tuple
+import functools
+from typing import TYPE_CHECKING, List, NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +35,7 @@ if TYPE_CHECKING:
   from odin_tpu_torch.ops.features import FeatureConfig
 
 __all__ = ["fft_plan", "fft_twiddles", "harmonic_frames", "kernel_route",
-           "logmel", "logmel_reference", "power_spectrum"]
+           "logmel", "logmel_reference", "mixed_geometry", "power_spectrum"]
 
 # the dense kernel's constants (csrc/logmel.cu); `_library` checks them
 CHUNK = 8  # kChunk: sample rows per staged chunk of the bases
@@ -38,6 +44,18 @@ TILE_FRAMES = 32  # kTileFrames: frames per block
 # the FFT kernel's range of n_fft, 2^4 .. 2^13 (csrc/logmel_fft.cu);
 # `_fft_library` checks it
 FFT_LOG2_RANGE = (4, 13)
+# the mixed-radix kernel's range of n_fft and its constants
+# (csrc/logmel_fft_mixed.cu); `_mixed_library` checks them
+MIXED_RANGE = (16, 8192)
+MIXED_THREADS = 256  # kThreads: threads a block
+# the points of a group (n_fft/2 * frames) at most, unless one frame has
+# more: about 96 KB of shared memory a block at n_fft 400, 2 blocks an SM
+# (tools/k1_mixed_ablation.py times groups of 2048-8192 points)
+MIXED_GROUP_POINTS = 4096
+# the kernel's layouts of a group's points in shared memory: point i at
+# float2 i, or at i ^ ((i // 16) % 16) (the bank pair swizzled within each
+# run of 16)
+MIXED_LAYOUTS = ("plain", "swizzled")
 
 
 def power_spectrum(frames: torch.Tensor, cos_b: torch.Tensor,
@@ -57,15 +75,28 @@ def logmel_reference(frames: torch.Tensor, cos_b: torch.Tensor,
   return 10.0 * torch.log10(torch.clamp(mel, min=1e-10))
 
 
+def _odd_part(m: int) -> int:
+  """m without its factors 2, 3, 5 and 7."""
+  for p in (2, 3, 5, 7):
+    while m % p == 0:
+      m //= p
+  return m
+
+
 def kernel_route(n_fft: int) -> str:
   """The K1 kernel that takes a config: ``"fft"`` where n_fft is a power of
-  two in the FFT kernel's range, else ``"dense"``.  The FFT kernel pads or
-  folds a frame of any length to n_fft samples, as the dense bases do, so
-  the frame length does not enter the choice."""
+  two in the FFT kernel's range, ``"mixed"`` where it is another even n_fft
+  in the mixed-radix kernel's range whose half has no prime factor above
+  7, else ``"dense"``.  The FFT kernels pad or fold a frame of any length to
+  n_fft samples, as the dense bases do, so the frame length does not enter
+  the choice."""
   lo, hi = FFT_LOG2_RANGE
   n_fft = int(n_fft)
   if n_fft > 0 and n_fft & (n_fft - 1) == 0 and 2 ** lo <= n_fft <= 2 ** hi:
     return "fft"
+  if (n_fft % 2 == 0 and MIXED_RANGE[0] <= n_fft <= MIXED_RANGE[1] and
+      _odd_part(n_fft // 2) == 1):
+    return "mixed"
   return "dense"
 
 
@@ -96,12 +127,24 @@ def harmonic_frames(n_frames: int, config: "FeatureConfig", seed: int,
 
 
 def fft_plan(n_fft: int) -> List[Tuple[int, int]]:
-  """The FFT kernel's passes over the M = n_fft/2-point complex FFT, as
-  (ns, R): a radix-R Stockham pass after passes that span ns points.  A
-  radix-2, 4 or 8 pass first takes the bits of M beyond a multiple of 4,
-  then radix-16 passes (csrc/logmel_fft.cu, `plan`)."""
-  log2_m = int(n_fft).bit_length() - 2
+  """The FFT kernels' passes over the M = n_fft/2-point complex FFT, as
+  (ns, R): a radix-R Stockham pass after passes that span ns points.  The
+  power of two in M comes first: a radix-2, 4 or 8 pass for its bits
+  beyond a multiple of 4, then radix-16 passes (csrc/logmel_fft.cu,
+  `first_radix`); then a pass of radix 3, 5 or 7 for each such factor of M,
+  in that order (csrc/logmel_fft_mixed.cu, `make_plan`).  M = 200 is 8·5·5,
+  M = 441 is 3·3·7·7."""
+  m = int(n_fft) // 2
+  if int(n_fft) % 2 or m < 1 or _odd_part(m) != 1:
+    raise ValueError(f"n_fft {n_fft} is odd, or n_fft/2 has a prime factor "
+                     "above 7")
+  log2_m = (m & -m).bit_length() - 1
   radices = ([1 << (log2_m % 4)] if log2_m % 4 else []) + [16] * (log2_m // 4)
+  odd = m >> log2_m
+  for p in (3, 5, 7):
+    while odd % p == 0:
+      radices.append(p)
+      odd //= p
   plan, ns = [], 1
   for radix in radices:
     plan.append((ns, radix))
@@ -110,24 +153,140 @@ def fft_plan(n_fft: int) -> List[Tuple[int, int]]:
 
 
 def fft_twiddle_index(n_fft: int) -> np.ndarray:
-  """The k of each entry exp(-2πi·k/n_fft) of the FFT kernel's twiddle
-  table, in the kernel's order (``twiddle_count``, csrc/logmel_fft.cu):
-  for each pass after the first (``fft_plan``), the twiddles
-  exp(-2πi·r·j/(ns·R)) for j < ns and r = 1 .. R-1, at (R-1)·j + r-1;
-  then the split step's exp(-2πi·k/n_fft) for k < n_fft/4."""
+  """The k of each entry exp(-2πi·k/n_fft) of the FFT kernels' twiddle
+  table, in the kernel's order: for each pass after the first
+  (``fft_plan``), the twiddles exp(-2πi·r·j/(ns·R)) for j < ns and
+  r = 1 .. R-1, at (R-1)·j + r-1 for the power-of-two kernel
+  (``twiddle_count``, csrc/logmel_fft.cu) and at (r-1)·ns + j for the
+  mixed-radix kernel (``make_plan``, csrc/logmel_fft_mixed.cu); then the
+  split step's exp(-2πi·k/n_fft) for k < (M + 1) // 2, M = n_fft/2
+  (n_fft/4 entries for even M)."""
+  n_fft = int(n_fft)
+  by_pass = "ij" if kernel_route(n_fft) == "fft" else "xy"
   parts = []
   for ns, radix in fft_plan(n_fft)[1:]:
-    j, r = np.meshgrid(np.arange(ns), np.arange(1, radix), indexing="ij")
+    j, r = np.meshgrid(np.arange(ns), np.arange(1, radix), indexing=by_pass)
     parts.append((r * j * (n_fft // (radix * ns))).ravel())
-  parts.append(np.arange(n_fft // 4))
+  parts.append(np.arange((n_fft // 2 + 1) // 2))
   return np.concatenate(parts).astype(np.int64)
 
 
 def fft_twiddles(n_fft: int) -> np.ndarray:
-  """The FFT kernel's twiddle table: (K, 2) float32 (real, imaginary),
+  """The FFT kernels' twiddle table: (K, 2) float32 (real, imaginary),
   computed in float64 and rounded once."""
   angle = -2.0 * np.pi * fft_twiddle_index(n_fft) / n_fft
   return np.stack([np.cos(angle), np.sin(angle)], axis=-1).astype(np.float32)
+
+
+def _rounds(butterflies: int) -> int:
+  return -(-butterflies // MIXED_THREADS)
+
+
+def _layout(i: np.ndarray, layout: int) -> np.ndarray:
+  """The float2 where the mixed-radix kernel keeps a group's point i
+  (``MIXED_LAYOUTS``; csrc/logmel_fft_mixed.cu, `at`)."""
+  return i ^ ((i >> 4) & 15) if layout else i
+
+
+def _wavefronts(addresses: np.ndarray, active: np.ndarray) -> int:
+  """Shared-memory wavefronts of warp accesses of one float2 a lane
+  ((warps, 32) float2 addresses; lanes where `active` is false take no
+  part): for each warp, the most distinct addresses that fall on one of the
+  16 pairs of 4-byte banks, summed over the warps."""
+  warp = np.broadcast_to(np.arange(addresses.shape[0])[:, None],
+                         addresses.shape)[active]
+  keys = np.unique(warp * (1 << 24) + addresses[active])
+  per_bank = np.unique((keys >> 24) * 16 + (keys & 15), return_counts=True)
+  worst = np.zeros(addresses.shape[0], np.int64)
+  np.maximum.at(worst, per_bank[0] // 16, per_bank[1])
+  return int(worst.sum())
+
+
+def _bank_cost(n_fft: int, group: int, layout: int) -> int:
+  """The wavefronts of a group's shared-memory reads and writes of points in
+  a layout: each Stockham pass after the first reads its points, every pass
+  writes its outputs (the first reads the staged frames), then the split
+  step reads Z[k] and Z[M-k]; in the kernel's thread map, a thread takes
+  butterflies idx, idx + MIXED_THREADS, ...."""
+  m = n_fft // 2
+  lane = np.arange(MIXED_THREADS)
+  total = 0
+
+  def cost(live, points):
+    return _wavefronts(_layout(points, layout).reshape(-1, 32),
+                       live.reshape(-1, 32))
+
+  for p, (ns, radix) in enumerate(fft_plan(n_fft)):
+    step = m // radix
+    idx = (lane[None, :] + MIXED_THREADS *
+           np.arange(_rounds(group * step))[:, None]).ravel()
+    live = idx < group * step
+    f, j = idx // step, idx % step
+    k = j % ns
+    for q in range(radix):
+      if p:
+        total += cost(live, f * m + j + q * step)
+      total += cost(live, f * m + (j - k) * radix + k + q * ns)
+  pairs = (m + 1) // 2
+  idx = (lane[None, :] + MIXED_THREADS *
+         np.arange(_rounds(group * pairs))[:, None]).ravel()
+  live = idx < group * pairs
+  f, k = idx // pairs, idx % pairs
+  total += cost(live, f * m + k) + cost(live, f * m + (m - k) % m)
+  return total
+
+
+class MixedGeometry(NamedTuple):
+  group: int  # frames a block transforms at once
+  layout: int  # an index into MIXED_LAYOUTS
+
+
+def _best_group(m: int, radices: List[int], points: int) -> int:
+  """The group of at most `points` points that gives the most frames for
+  the point slots its passes' rounds take, the largest among equals."""
+  best, group = 0.0, 1
+  for g in range(1, points // m + 1):
+    score = g / sum(_rounds(g * m // r) * r for r in radices)
+    if score >= best:
+      best, group = score, g
+  return group
+
+
+@functools.lru_cache(maxsize=None)
+def mixed_geometry(n_fft: int) -> MixedGeometry:
+  """(group, layout) of the mixed-radix kernel at n_fft.
+
+  * ``group``: the frames a block transforms at once, of at most
+    MIXED_GROUP_POINTS points (or one frame).  A pass of radix R has
+    group·M/R butterflies, which MIXED_THREADS threads take in rounds; the
+    group is the one that gives the most frames for the point slots its
+    passes' rounds take (``mixed_idle_shares``), the largest among equals.
+    At n_fft 400 (M = 200 = 8·5·5) it is 19 frames: 475, 760 and 760
+    butterflies in 2, 3 and 3 rounds.
+  * ``layout``: where the group's points lie in shared memory
+    (``MIXED_LAYOUTS``), the one whose passes and split step take the
+    fewest wavefronts (``_bank_cost``), the first among equals.  No one
+    layout suits every plan: a power-of-two first pass writes with a
+    stride of 2-16 points, which needs the swizzle, while an odd radix
+    writes with an odd stride, conflict-free as it is."""
+  n_fft = int(n_fft)
+  if kernel_route(n_fft) != "mixed":
+    raise ValueError(f"n_fft {n_fft} does not take the mixed-radix kernel")
+  m = n_fft // 2
+  radices = [radix for _, radix in fft_plan(n_fft)]
+  group = _best_group(m, radices, max(MIXED_GROUP_POINTS, m))
+  costs = [_bank_cost(n_fft, group, layout)
+           for layout in range(len(MIXED_LAYOUTS))]
+  return MixedGeometry(group, costs.index(min(costs)))
+
+
+def mixed_idle_shares(n_fft: int) -> List[float]:
+  """For each pass of the mixed-radix kernel at n_fft, the share of its
+  threads' butterfly slots that find no butterfly in a full group."""
+  group = mixed_geometry(n_fft).group
+  m = int(n_fft) // 2
+  return [1.0 - (group * m // r) / (MIXED_THREADS * _rounds(group * m // r))
+          for _, r in fft_plan(n_fft)]
 
 
 def _mel_bands(mel_t: torch.Tensor):
@@ -238,11 +397,47 @@ def _fft_library() -> ctypes.CDLL:
   return lib
 
 
+def _mixed_library() -> ctypes.CDLL:
+  lib = _build.load("logmel_fft_mixed")
+  fn = lib.odin_logmel_fft_mixed
+  if fn.argtypes is None:
+    limits = lib.odin_logmel_fft_mixed_limits
+    limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
+    limits.restype = None
+    lo, hi, threads = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    limits(ctypes.byref(lo), ctypes.byref(hi), ctypes.byref(threads))
+    plan = lib.odin_logmel_fft_mixed_plan
+    plan.argtypes = [ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    plan.restype = ctypes.c_int
+    count = lib.odin_logmel_fft_mixed_twiddle_count
+    count.argtypes = [ctypes.c_int]
+    count.restype = ctypes.c_int
+    radices = (ctypes.c_int * 12)()
+    agree = ((lo.value, hi.value) == MIXED_RANGE and
+             threads.value == MIXED_THREADS)
+    for n_fft in range(MIXED_RANGE[0] - 2, MIXED_RANGE[1] + 3):
+      passes = plan(n_fft, radices)
+      if kernel_route(n_fft) != "mixed":
+        agree = agree and passes == 0 and count(n_fft) == 0
+      else:
+        agree = (agree and list(radices[:passes]) ==
+                 [r for _, r in fft_plan(n_fft)] and
+                 count(n_fft) == len(fft_twiddle_index(n_fft)))
+      if not agree:
+        raise RuntimeError("csrc/logmel_fft_mixed.cu and ops/logmel.py "
+                           "disagree on the range of n_fft, the threads, the "
+                           f"plan or the twiddle table (at n_fft {n_fft})")
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+  return lib
+
+
 def _launch(kernel: str, frames: torch.Tensor, config: "FeatureConfig",
             out: torch.Tensor) -> None:
-  """Launches one K1 kernel, ``"fft"`` or ``"dense"``, on (n, frame_length)
-  CUDA frames into (n, n_mels) ``out`` on the current stream; raises if the
-  launch fails.  Counts nothing: ``logmel`` does."""
+  """Launches one K1 kernel, ``"fft"``, ``"mixed"`` or ``"dense"``, on
+  (n, frame_length) CUDA frames into (n, n_mels) ``out`` on the current
+  stream; raises if the launch fails.  Counts nothing: ``logmel`` does."""
   bases = config.device_bases(frames.device)
   n = frames.numel() // config.frame_length
   stream = torch.cuda.current_stream(frames.device).cuda_stream
@@ -253,6 +448,14 @@ def _launch(kernel: str, frames: torch.Tensor, config: "FeatureConfig",
           frames.data_ptr(), twiddles.data_ptr(), weights.data_ptr(),
           bands.data_ptr(), out.data_ptr(), n, config.frame_length,
           config.n_fft.bit_length() - 1, config.n_mels, weights.numel(),
+          float(config.scale ** 2), stream)
+    elif kernel == "mixed":
+      twiddles, weights, bands = fft_operands(bases, config.n_fft)
+      geometry = mixed_geometry(config.n_fft)
+      err = _mixed_library().odin_logmel_fft_mixed(
+          frames.data_ptr(), twiddles.data_ptr(), weights.data_ptr(),
+          bands.data_ptr(), out.data_ptr(), n, config.frame_length,
+          config.n_fft, config.n_mels, weights.numel(), *geometry,
           float(config.scale ** 2), stream)
     else:
       dft, bands = kernel_operands(bases)
@@ -270,8 +473,9 @@ def logmel(frames_windowed: torch.Tensor,
            config: "FeatureConfig") -> torch.Tensor:
   """(..., frame_length) fp32 contiguous windowed frames -> (..., n_mels).
 
-  ``logmel.launches`` counts the launches of both kernels,
-  ``logmel.fft_launches`` the FFT kernel's share."""
+  ``logmel.launches`` counts the launches of the three kernels,
+  ``logmel.fft_launches`` the power-of-two FFT kernel's share and
+  ``logmel.mixed_launches`` the mixed-radix kernel's."""
   frame_length = config.frame_length
   if frames_windowed.dtype != torch.float32:
     raise TypeError(f"logmel takes float32 frames, got {frames_windowed.dtype}")
@@ -297,8 +501,11 @@ def logmel(frames_windowed: torch.Tensor,
   logmel.launches += 1
   if kernel == "fft":
     logmel.fft_launches += 1
+  elif kernel == "mixed":
+    logmel.mixed_launches += 1
   return out
 
 
 logmel.launches = 0
 logmel.fft_launches = 0
+logmel.mixed_launches = 0

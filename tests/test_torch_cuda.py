@@ -18,10 +18,13 @@ steps with cuDNN's deterministic algorithms, which run the same kernels on
 the same inputs, so bitwise; a NaN batch skipped inside the graph; and a
 capture that fails raises.
 """
+import importlib
+
 import numpy as np
 import pytest
 import torch
 
+from odin_tpu_torch import _build
 from odin_tpu_torch.bay.vi import BetaVAE
 from odin_tpu_torch.networks import get_networks
 from odin_tpu_torch.networks.attention import MultiHeadAttention
@@ -34,6 +37,8 @@ from odin_tpu_torch.training import (TrainState, TrainStep,
                                      build_train_step_fn,
                                      device_dataset_steps, make_optimizer,
                                      scan_steps)
+
+k1 = importlib.import_module("odin_tpu_torch.ops.logmel")
 
 MSPEC_ATOL = 0.01
 ATTN_ATOL = 2e-5
@@ -131,11 +136,17 @@ def _frames(kind, n, cfg, device):
       np.float32) * cfg.window_fn).to(device)
 
 
+def _counts():
+  return (logmel.launches, logmel.fft_launches, logmel.mixed_launches)
+
+
 def _held_to_plain(frames, cfg, device):
+  """(launches, FFT launches, mixed-radix launches) of one `logmel` call,
+  held to the plain version at 0.01 dB."""
   bases = cfg.device_bases(device)
-  before = (logmel.launches, logmel.fft_launches)
+  before = _counts()
   got = logmel(frames, cfg)
-  launched = (logmel.launches - before[0], logmel.fft_launches - before[1])
+  launched = tuple(a - b for a, b in zip(_counts(), before))
   want = logmel_reference(frames, bases["cos"], bases["sin"], bases["mel_t"],
                           cfg.scale ** 2)
   torch.cuda.synchronize()
@@ -158,23 +169,113 @@ def test_logmel_fft_kernel_matches_plain_on_card(cuda_device, frame_length,
   cfg = tf.FeatureConfig(frame_length=frame_length,
                          step_length=frame_length // 4, n_fft=n_fft)
   frames = _frames(kind, n_frames, cfg, cuda_device)
-  assert _held_to_plain(frames, cfg, cuda_device) == (1, 1)
+  assert _held_to_plain(frames, cfg, cuda_device) == (1, 1, 0)
+
+
+@pytest.mark.parametrize("n_frames", [1, 31, 1000, 25472])
+@pytest.mark.parametrize("kind", ["noise", "harmonic"])
+@pytest.mark.parametrize("sr,frame_length,n_fft,n_mels", [
+    (16000, 400, 400, 80), (16000, 480, 480, 40), (48000, 1200, 1200, 40),
+    (44100, 882, 882, 40), (16000, 1000, 400, 40), (16000, 300, 400, 40)])
+def test_logmel_mixed_kernel_matches_plain_on_card(cuda_device, sr,
+                                                   frame_length, n_fft,
+                                                   n_mels, kind, n_frames):
+  """The mixed-radix kernel: Whisper's framing (n_fft 400, 80 mels from
+  0 Hz), 30 ms at 16 kHz, 25 ms at 48 kHz, 20 ms at 44.1 kHz (odd M, no
+  middle bin), frames longer than n_fft (folded) and shorter (padded),
+  groups of frames with a ragged last one."""
+  cfg = tf.FeatureConfig(sr=sr, frame_length=frame_length,
+                         step_length=frame_length // 4, n_fft=n_fft,
+                         n_mels=n_mels, fmin=0.0)
+  frames = _frames(kind, n_frames, cfg, cuda_device)
+  assert _held_to_plain(frames, cfg, cuda_device) == (1, 0, 1)
 
 
 @pytest.mark.parametrize("kind", ["noise", "harmonic"])
-@pytest.mark.parametrize("frame_length,n_fft,n_mels", [
-    (400, 400, 80), (600, 600, 40), (4000, 4000, 80)])
-def test_logmel_dense_kernel_for_other_n_fft_on_card(cuda_device,
+@pytest.mark.parametrize("sr,frame_length,n_fft,n_mels", [
+    (22050, 551, 551, 80), (22050, 1102, 1102, 40), (16000, 4004, 4004, 80)])
+def test_logmel_dense_kernel_for_other_n_fft_on_card(cuda_device, sr,
                                                      frame_length, n_fft,
                                                      n_mels, kind):
-  """n_fft that is not a power of two launches the dense-DFT kernel, not
-  the FFT: one group of bins (400), two (600), and frames in segments with
-  eight groups (4000)."""
-  cfg = tf.FeatureConfig(frame_length=frame_length,
+  """n_fft that neither FFT kernel takes launches the dense-DFT kernel:
+  one group of bins (551, odd: 25 ms at 22,050 Hz), two (1102: half of it
+  is 19·29), and frames in segments with seven groups (4004: half of it
+  has the factors 11 and 13)."""
+  cfg = tf.FeatureConfig(sr=sr, frame_length=frame_length,
                          step_length=frame_length // 4, n_fft=n_fft,
                          n_mels=n_mels)
   frames = _frames(kind, 333, cfg, cuda_device)
-  assert _held_to_plain(frames, cfg, cuda_device) == (1, 0)
+  assert _held_to_plain(frames, cfg, cuda_device) == (1, 0, 0)
+
+
+def test_logmel_mixed_kernel_back_to_back_on_card(cuda_device):
+  """Launches of the mixed-radix kernel queued back to back, at several
+  framings and ragged frame counts, each held to the plain version after
+  one synchronisation: groups staged while others are transformed, and
+  blocks of one launch beside those of the next."""
+  rs = np.random.RandomState(5)
+  cases = []
+  for sr, frame_length, n_fft in ((16000, 400, 400), (44100, 882, 882),
+                                  (48000, 1200, 1200), (16000, 1000, 400)):
+    cfg = tf.FeatureConfig(sr=sr, frame_length=frame_length,
+                           step_length=frame_length // 4, n_fft=n_fft,
+                           n_mels=40, fmin=0.0)
+    for n in rs.randint(1, 3000, size=12):
+      cases.append((cfg, _frames("noise", int(n), cfg, cuda_device)))
+  before = _counts()
+  outs = [logmel(frames, cfg) for cfg, frames in cases]
+  torch.cuda.synchronize()
+  assert tuple(a - b for a, b in zip(_counts(), before)) == (
+      len(cases), 0, len(cases))
+  for (cfg, frames), got in zip(cases, outs):
+    bases = cfg.device_bases(cuda_device)
+    want = logmel_reference(frames, bases["cos"], bases["sin"],
+                            bases["mel_t"], cfg.scale ** 2)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               atol=MSPEC_ATOL)
+
+
+def test_logmel_mixed_kernel_does_not_fall_back_on_card(cuda_device,
+                                                        monkeypatch):
+  """Where the mixed-radix library fails to load, `logmel` raises: it
+  launches neither the dense kernel nor the plain version instead."""
+  cfg = tf.FeatureConfig(n_fft=400, n_mels=80, fmin=0.0)
+  frames = _frames("noise", 100, cfg, cuda_device)
+  load, used = _build.load, []
+
+  def failing_load(name):
+    if name == "logmel_fft_mixed":
+      raise RuntimeError("nvcc failed on logmel_fft_mixed.cu")
+    return load(name)
+
+  def recorded(name):
+    def fn(*args, **kwargs):
+      used.append(name)
+      raise AssertionError(f"{name} was called")
+    return fn
+
+  monkeypatch.setattr(_build, "load", failing_load)
+  monkeypatch.setattr(k1, "_library", recorded("the dense kernel"))
+  monkeypatch.setattr(k1, "logmel_reference", recorded("the plain version"))
+  before = _counts()
+  with pytest.raises(RuntimeError, match="logmel_fft_mixed"):
+    logmel(frames, cfg)
+  assert _counts() == before and used == []
+
+
+def test_whisper_speech_features_on_card_launch_the_mixed_kernel(
+    cuda_device):
+  rs = np.random.RandomState(10)
+  y = (rs.randn(3, 16000) * 0.1 * 32768.0).clip(-32768, 32767).astype(
+      np.int16)
+  lengths = np.array([16000, 12000, 500])
+  cfg = tf.FeatureConfig(n_fft=400, n_mels=80, fmin=0.0)
+  before = _counts()
+  got = tf.speech_features(y, cfg, lengths=lengths, device=cuda_device)
+  assert tuple(a - b for a, b in zip(_counts(), before)) == (1, 0, 1)
+  want = tf.speech_features(y, cfg, lengths=lengths, device="cpu")
+  np.testing.assert_allclose(got["mspec"].cpu().numpy(),
+                             want["mspec"].numpy(), atol=MSPEC_ATOL)
 
 
 def test_speech_features_on_card_matches_cpu(cuda_device):

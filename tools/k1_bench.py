@@ -1,9 +1,11 @@
-"""K1's kernels on the card: times the FFT kernel (``csrc/logmel_fft.cu``),
-the dense-DFT kernel (``csrc/logmel.cu``), the plain version and
-``torch.fft.rfft`` + mel at the speech path's shape (25,472 frames of 400
-samples, n_fft 512) and at n_fft 1024 with 1024-sample frames, on white
-noise, with the FFT kernel's largest difference from the plain version on
-white noise and on ``harmonic_frames``.
+"""K1's kernels on the card: times the kernel that each config takes
+(``kernel_route``: ``csrc/logmel_fft.cu`` for a power-of-two n_fft,
+``csrc/logmel_fft_mixed.cu`` for n_fft 400), the dense-DFT kernel
+(``csrc/logmel.cu``), the plain version and ``torch.fft.rfft`` + mel at the
+speech path's shape (25,472 frames of 400 samples, n_fft 512), at n_fft
+1024 with 1024-sample frames and at Whisper's framing (n_fft 400, 80 mels
+from 0 Hz), on white noise, with the routed kernel's largest difference
+from the plain version on white noise and on ``harmonic_frames``.
 
 Run on a machine with an NVIDIA card and nvcc:
 
@@ -23,7 +25,9 @@ import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FRAMES = 25472  # 64 utterances of 4 s at 16 kHz, 400-sample frames, step 160
-SHAPES = ((400, 160, 512), (1024, 256, 1024))  # frame_length, step, n_fft
+# frame_length, step, n_fft, n_mels, fmin
+SHAPES = ((400, 160, 512, 40, 64.0), (1024, 256, 1024, 40, 64.0),
+          (400, 160, 400, 80, 0.0))
 
 
 def cuda_ms(torch, fn, reps=10, burst=10, warmup=3):
@@ -57,9 +61,10 @@ def run(root):
 
   torch.backends.cuda.matmul.allow_tf32 = False
   cuda = torch.device("cuda", 0)
-  for frame_length, step, n_fft in SHAPES:
+  for frame_length, step, n_fft, n_mels, fmin in SHAPES:
     cfg = FeatureConfig(frame_length=frame_length, step_length=step,
-                        n_fft=n_fft)
+                        n_fft=n_fft, n_mels=n_mels, fmin=fmin)
+    route = k1.kernel_route(n_fft)
     bases = cfg.device_bases(cuda)
     mel_t, scale_sq = bases["mel_t"], cfg.scale ** 2
     gen = torch.Generator(device=cuda).manual_seed(0)
@@ -79,15 +84,16 @@ def run(root):
 
     errs = []
     for frames in (noise, harmonic):
-      k1._launch("fft", frames, cfg, out)
+      k1._launch(route, frames, cfg, out)
       errs.append(float((out - plain(frames)).abs().max()))
     times = {name: cuda_ms(torch, fn) for name, fn in (
-        ("fft", lambda: k1._launch("fft", noise, cfg, out)),
+        (route, lambda: k1._launch(route, noise, cfg, out)),
         ("dense", lambda: k1._launch("dense", noise, cfg, out)),
         ("plain", lambda: plain(noise)), ("rfft+mel", library))}
-    print(f"{root}: N={FRAMES} frame_length={frame_length} n_fft={n_fft}: " +
+    print(f"{root}: N={FRAMES} frame_length={frame_length} n_fft={n_fft} "
+          f"n_mels={n_mels}: " +
           " ".join(f"{k}_ms={v:.4f}" for k, v in times.items()) +
-          f" fft max |kernel - plain| noise {errs[0]:.3g} dB, harmonic "
+          f" {route} max |kernel - plain| noise {errs[0]:.3g} dB, harmonic "
           f"{errs[1]:.3g} dB", flush=True)
 
 
