@@ -63,7 +63,23 @@ CPU:
      the
      model FLOPs a step and their share of the card's peak, and a profile
      of 20 graphed steps by kernel.  The path launches no kernel of this
-     port (cuDNN and cuBLAS run its convolutions and products).
+     port (cuDNN and cuBLAS run its convolutions and products);
+  8. the fit path, the README's training quickstart: ``get_dataset
+     ('dsprites')`` (16,384 procedural images), ``BetaVAE(beta=4.0,
+     **get_networks('dsprites', zdim=10)).build()`` on the card and
+     ``vae.fit(ds.create_dataset('train', batch_size=64, epochs=-1,
+     prefetch=2, to_device=cuda), ...)`` with a validation set every 100 or
+     500 steps, ``log.jsonl`` in a directory under ``build/`` and
+     non-blocking checkpoints: 300 steps at ``steps_per_call=1`` (a graph
+     of one step a call) and 1000 at ``steps_per_call=100`` (the held-out
+     loss below half its start), each log's records at the steps expected
+     and its last checkpoint restored bitwise equal to the state; then
+     ``fit_device_dataset`` 500 + 500 steps split by a checkpoint and
+     ``load_weights``, bitwise equal to 1000 unbroken steps (cuDNN's
+     deterministic algorithms); steps/s of each mode beside phase 7's
+     graphed step, and a host-fed step split into the pipeline's host
+     work, the pinned copy and the step.  ``max_iter`` is cut from the
+     quickstart's 10,000 so that the script stays inside its time limit.
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
 fp32 like the CPU.  Any failure raises and the script exits non-zero; it
@@ -433,6 +449,212 @@ def training_path(torch, np, reset_counts, read_counts, smi):
        f" after the learning call", TRAIN_STEPS, t, FP32_PEAK_FLOPS,
        capture=fd.capture_seconds)
   log(smi)
+  return t_step
+
+
+FIT_BATCH = 64  # the README quickstart's batch
+# the quickstart's max_iter is 10,000; the phase runs these counts so that
+# the whole script stays well inside its time limit
+FIT_K1_STEPS = 300
+FIT_K1_TIMED = 600
+FIT_K = 100
+FIT_STEPS = 1000
+FIT_DD_CALL = 500
+
+
+def fit_path(torch, np, reset_counts, read_counts, smi, graphed_s):
+  """Phase 8: the README quickstart's training through the port's entry
+  points (see the docstring)."""
+  import os
+  import pickle
+  import shutil
+  from odin_tpu_torch.bay.vi import BetaVAE
+  from odin_tpu_torch.fuel import dSprites, get_dataset
+  from odin_tpu_torch.networks import get_networks
+
+  cuda = torch.device("cuda", 0)
+  B = FIT_BATCH
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      f"fit_path_{os.getpid()}")
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+
+  def quickstart():
+    return BetaVAE(beta=4.0, **get_networks("dsprites", zdim=10)).build()
+
+  t0 = time.perf_counter()
+  ds = get_dataset("dsprites")
+  images, _ = ds.numpy("train")
+  valid = dSprites(n_samples=256, seed=1).create_dataset(
+      "valid", batch_size=B, epochs=1, shuffle=False, prefetch=0,
+      to_device=cuda)
+  held = dSprites(n_samples=256, seed=1).numpy("valid", inc_labels=False)
+  log(f"get_dataset('dsprites'): {len(images)} procedural images rendered in "
+      f"{time.perf_counter() - t0:.2f} s; validation: 256 images, 4 "
+      f"batches on the card")
+
+  def train():
+    return ds.create_dataset("train", batch_size=B, epochs=-1, prefetch=2,
+                             to_device=cuda)
+
+  def records(logdir):
+    with open(os.path.join(logdir, "log.jsonl")) as f:
+      return [json.loads(line) for line in f]
+
+  def same_state(a, b):
+    from odin_tpu_torch.training import state_to_host
+    ha, hb = state_to_host(a), state_to_host(b)
+    bad = []
+
+    def walk(x, y, path):
+      if isinstance(x, dict):
+        for k in x:
+          walk(x[k], y[k], f"{path}/{k}")
+      elif isinstance(x, torch.Tensor) and path != "/rng_state":
+        if not torch.equal(x, y):
+          bad.append(path)
+
+    walk(ha, hb, "")
+    return bad
+
+  # -- 8.1 steps_per_call=1: a graph of one step a call, host batches
+  # copied by the pipeline's thread; validation, logs, checkpoints
+  reset_counts()
+  vae = quickstart()
+  logdir = os.path.join(root, "k1")
+  tr = vae.fit(train(), valid=valid, max_iter=FIT_K1_STEPS, valid_freq=100,
+               logdir=logdir, logging_interval=0.0, checkpoint_freq=100,
+               steps_per_call=1, verbose=False)
+  recs = records(logdir)
+  train_steps = [r["step"] for r in recs if r["tag"] == "train"]
+  valid_steps = [r["step"] for r in recs if r["tag"] == "valid"]
+  log(f"fit k=1: {FIT_K1_STEPS} steps in {tr.total_time:.2f} s (capture "
+      f"{tr.capture_seconds:.3f} s); log.jsonl: {len(train_steps)} train "
+      f"records (steps 1..{train_steps[-1]}), valid at {valid_steps}")
+  if train_steps != list(range(1, FIT_K1_STEPS + 1)) or \
+      valid_steps != [100, 200, 300]:
+    raise AssertionError(f"log.jsonl has train {train_steps[:5]}... and "
+                         f"valid {valid_steps}")
+  back = tr.restore_checkpoint()
+  bad = same_state(back, vae.state)
+  log(f"checkpoint at step {int(back.step)} restored: "
+      f"{'bitwise equal to the state' if not bad else bad}")
+  if bad or int(back.step) != FIT_K1_STEPS:
+    raise AssertionError(f"the checkpoint differs from the state: {bad}")
+
+  def timed(k, steps):
+    """Seconds a step of a fit with no validation, no checkpoint and one
+    record (the first), so that nothing syncs the host with the card
+    between calls; the capture excluded."""
+    tr_t = quickstart().fit(train(), max_iter=steps, steps_per_call=k,
+                            logging_interval=1e9, verbose=False)
+    return (tr_t.total_time - tr_t.capture_seconds) / steps
+
+  k1_s = timed(1, FIT_K1_TIMED)
+
+  # -- 8.2 steps_per_call=100 for 1000 steps: learning, logs, checkpoint
+  vae2 = quickstart()
+  eval_fn = vae2.make_eval_fn()
+  before = float(eval_fn(vae2.state, held)["loss"])
+  logdir = os.path.join(root, "k100")
+  tr2 = vae2.fit(train(), valid=valid, max_iter=FIT_STEPS, valid_freq=500,
+                 logdir=logdir, logging_interval=0.0, checkpoint_freq=500,
+                 steps_per_call=FIT_K, verbose=False)
+  after = float(eval_fn(vae2.state, held)["loss"])
+  # a record every call reads the metrics, so the host waits for the
+  # card's 100 steps before it gathers the next 100 batches
+  k100_logged_s = (tr2.total_time - tr2.capture_seconds) / FIT_STEPS
+  recs = records(logdir)
+  train_steps = [r["step"] for r in recs if r["tag"] == "train"]
+  valid_steps = [r["step"] for r in recs if r["tag"] == "valid"]
+  log(f"fit k={FIT_K}: held-out loss (256 images) {before:.2f} at step 0, "
+      f"{after:.2f} after {FIT_STEPS} steps (limit {TRAIN_LEARN_MARGIN} x "
+      f"start); log.jsonl train at {train_steps}, valid at {valid_steps}; "
+      f"capture {tr2.capture_seconds:.3f} s")
+  if not (math.isfinite(after) and after < TRAIN_LEARN_MARGIN * before):
+    raise AssertionError(f"the loss went from {before} to {after}")
+  if train_steps != list(range(FIT_K, FIT_STEPS + 1, FIT_K)) or \
+      valid_steps != [500, 1000]:
+    raise AssertionError(f"log.jsonl has train {train_steps} and valid "
+                         f"{valid_steps}")
+  back = tr2.restore_checkpoint()
+  bad = same_state(back, vae2.state)
+  log(f"checkpoint at step {int(back.step)} restored: "
+      f"{'bitwise equal to the state' if not bad else bad}")
+  if bad or int(back.step) != FIT_STEPS:
+    raise AssertionError(f"the checkpoint differs from the state: {bad}")
+
+  k100_s = timed(FIT_K, FIT_STEPS)
+
+  # -- 8.3 fit_device_dataset: 2 x 500 steps split by a checkpoint against
+  # 1000 unbroken.  cuDNN's deterministic algorithms, so that both runs
+  # run the same kernels on the same inputs: the draws are keyed by the
+  # step count and the noise generator's state travels in the checkpoint,
+  # so the two are equal bitwise
+  corpus = (images * 255).astype(np.uint8)
+  kw = dict(batch_size=B, steps_per_call=FIT_DD_CALL, seed=SEED,
+            verbose=False)
+  ckpt = os.path.join(root, "dd_checkpoint")
+  torch.backends.cudnn.deterministic = True
+  try:
+    whole = quickstart().fit_device_dataset(corpus, n_steps=FIT_STEPS, **kw)
+    first = quickstart().fit_device_dataset(
+        corpus, n_steps=FIT_DD_CALL, checkpoint_path=ckpt,
+        checkpoint_freq=FIT_DD_CALL, **kw)
+    resumed = quickstart().load_weights(ckpt)
+    resumed.fit_device_dataset(corpus, n_steps=FIT_STEPS - FIT_DD_CALL,
+                               keep_opt_states=True, **kw)
+    torch.cuda.synchronize()
+  finally:
+    torch.backends.cudnn.deterministic = False
+  bad = same_state(resumed.state, whole.state)
+  log(f"fit_device_dataset: {FIT_DD_CALL} steps, checkpoint, load_weights, "
+      f"{FIT_STEPS - FIT_DD_CALL} more (keep_opt_states) against "
+      f"{FIT_STEPS} unbroken, cuDNN deterministic: "
+      f"{'bitwise equal' if not bad else f'{len(bad)} tensors differ'}; "
+      f"step {int(resumed.state.step)}, the noise generator's state "
+      f"{'equal' if torch.equal(resumed.state.rng.get_state(), whole.state.rng.get_state()) else 'differs'}")
+  if bad or not torch.equal(resumed.state.rng.get_state(),
+                            whole.state.rng.get_state()):
+    raise AssertionError(f"the resumed run differs: {bad[:5]}")
+  # its rate with cuDNN's default algorithms
+  vae3 = quickstart()
+  t0 = time.perf_counter()
+  vae3.fit_device_dataset(corpus, n_steps=FIT_STEPS, **kw)
+  torch.cuda.synchronize()
+  dd_s = (time.perf_counter() - t0 - vae3.capture_seconds) / FIT_STEPS
+
+  # -- 8.4 a host-fed step, split: the pipeline's host work, the pinned
+  # copy, the graphed step
+  pipe = ds.create_dataset("train", batch_size=B, epochs=-1, prefetch=0)
+  it = iter(pipe)
+  next(it)
+  n = 50
+  t0 = time.perf_counter()
+  host = [next(it) for _ in range(n)]
+  host_s = (time.perf_counter() - t0) / n
+  pinned = torch.from_numpy(host[0]).pin_memory()
+  dst = torch.empty(pinned.shape, device=cuda)
+  copy_ms = cuda_ms(torch, lambda: dst.copy_(pinned, non_blocking=True))
+  log(f"a host-fed step, split: pipeline on the host {1e3 * host_s:.3f} ms "
+      f"a batch (the gather of {B} shuffled rows of 64 x 64 x 1 fp32), "
+      f"pinned copy {copy_ms:.4f} ms ({pinned.numel() * 4 / 2**20:.2f} MiB; "
+      f"CUDA events), graphed step {1e3 * graphed_s:.3f} ms (phase 7); "
+      f"{smi}")
+  for name, sec in (("fit steps_per_call=1", k1_s),
+                    (f"fit steps_per_call={FIT_K}", k100_s),
+                    (f"fit steps_per_call={FIT_K} with a record every "
+                     f"call, validation and a checkpoint every 500 steps",
+                     k100_logged_s),
+                    (f"fit_device_dataset steps_per_call={FIT_DD_CALL}",
+                     dd_s),
+                    ("phase 7 scan_steps fp32 graphed", graphed_s)):
+    log(f"{name}: {1 / sec:.1f} steps/s ({1e3 * sec:.3f} ms a step), "
+        f"batch {B}, capture excluded; {smi}")
+  torch.cuda.synchronize()
+  log(f"fit path launches, all of phase 8 (the step runs cuDNN and cuBLAS, "
+      f"no kernel of this port): {read_counts()}")
+  shutil.rmtree(root, ignore_errors=True)
 
 
 def main() -> int:
@@ -1000,7 +1222,10 @@ def main() -> int:
         del flash_16, plain_16, x16, out
 
   with Phase("7 training path: beta-VAE dSprites training step"):
-    training_path(torch, np, reset_counts, read_counts, smi)
+    graphed_s = training_path(torch, np, reset_counts, read_counts, smi)
+
+  with Phase("8 fit path: the README quickstart's training"):
+    fit_path(torch, np, reset_counts, read_counts, smi, graphed_s)
 
   log("kernels: " + "; ".join(
       f"{k} launches={v['launches']} ms={v['ms']:.4f} "

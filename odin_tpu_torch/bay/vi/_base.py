@@ -1,16 +1,17 @@
 """VariationalModel: the ELBO configuration and estimators every
-variational model carries (PyTorch port of ``odin_tpu/bay/vi/_base.py:66-119``:
-``elbo``, ``importance_weighted``, ``perplexity`` and ``_schedule``)."""
+variational model carries (PyTorch port of ``odin_tpu/bay/vi/_base.py``:
+``traverse_dims``, ``elbo``, ``importance_weighted``, ``perplexity`` and
+``_schedule``)."""
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
 from odin_tpu_torch.backend.interpolation import Interpolation
 
-__all__ = ["VariationalModel"]
+__all__ = ["VariationalModel", "traverse_dims"]
 
 
 def _sum_dict(d: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -19,6 +20,38 @@ def _sum_dict(d: Dict[str, torch.Tensor]) -> torch.Tensor:
   for v in vals[1:]:
     out = out + v
   return out
+
+
+def traverse_dims(z: torch.Tensor,
+                  feature_indices: Optional[Sequence[int]] = None,
+                  min_val: float = -2.0,
+                  max_val: float = 2.0,
+                  n_traverse_points: int = 11,
+                  mode: str = "linear") -> torch.Tensor:
+  """Tile `z` (B, zdim) and sweep each selected latent dimension across
+  [min_val, max_val] ('linear') or across the quantiles of z
+  ('quantile'): (n_points * n_indices * B, zdim), ordered as [dim0's
+  sweep..., dim1's sweep...]."""
+  z = torch.as_tensor(z)
+  if z.ndim == 1:
+    z = z[None]
+  zdim = z.shape[-1]
+  if feature_indices is None:
+    feature_indices = list(range(zdim))
+  if mode == "linear":
+    pts = torch.linspace(min_val, max_val, n_traverse_points,
+                         dtype=z.dtype, device=z.device)
+  elif mode == "quantile":
+    pts = torch.quantile(z.reshape(-1), torch.linspace(
+        0.0, 1.0, n_traverse_points, dtype=z.dtype, device=z.device))
+  else:
+    raise ValueError(f"unknown traverse mode {mode}")
+  outs = []
+  for idx in feature_indices:
+    tiled = z[None].repeat(n_traverse_points, 1, 1)  # (P, B, zdim)
+    tiled[:, :, idx] = pts[:, None]
+    outs.append(tiled.reshape(-1, zdim))
+  return torch.cat(outs, dim=0)
 
 
 class VariationalModel:

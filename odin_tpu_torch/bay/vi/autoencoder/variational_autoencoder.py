@@ -8,13 +8,18 @@ As in the JAX package the model holds its hyperparameters and a
 (``torch.func.functional_call`` on the ``VAECore``), so that a state a
 training step returned serves once it is assigned to ``vae.state``.
 ``vae.core.load_state_dict`` writes through to ``vae.state`` and
-``vae.core.state_dict()`` reads it.
-``fit`` and the trainer are not ported yet.
+``vae.core.state_dict()`` reads it.  Training: ``fit`` (``Trainer.fit`` over
+``make_step_fn``) and ``fit_device_dataset`` (batches drawn on the card);
+``save_weights``/``load_weights`` keep the whole state, the noise
+generator's included.
 """
 from __future__ import annotations
 
 import copy
 import dataclasses
+import os
+import pickle
+import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -25,7 +30,7 @@ from odin_tpu_torch.bay.distributions import Distribution
 from odin_tpu_torch.bay.helpers import kl_divergence
 from odin_tpu_torch.bay.layers.dense_distribution import DistributionDense
 from odin_tpu_torch.bay.random_variable import RVconf
-from odin_tpu_torch.bay.vi._base import VariationalModel
+from odin_tpu_torch.bay.vi._base import VariationalModel, traverse_dims
 from odin_tpu_torch.device import resolve_device
 from odin_tpu_torch.training.core import (
     EMA_KEY,
@@ -33,11 +38,19 @@ from odin_tpu_torch.training.core import (
     TrainState,
     TrainStep,
     TrainStepFn,
+    _clone_state,
+    _to_device,
+    _tree_leaves,
     as_noise,
     build_train_step_fn,
+    device_dataset_steps,
     extract_partitions,
     make_optimizer,
+    state_from_host,
+    state_to_host,
 )
+from odin_tpu_torch.training.trainer import Trainer
+from odin_tpu_torch.utils import md5_checksum
 
 __all__ = ["VAECore", "VariationalAutoencoder"]
 
@@ -127,6 +140,7 @@ class VariationalAutoencoder(VariationalModel):
     self.input_shape = tuple(input_shape) if input_shape is not None else None
     self.device: Optional[torch.device] = None
     self.state: Optional[TrainState] = None
+    self.step = 0
     self._priors: Dict[torch.device, Distribution] = {}
     # ``self.state`` holds the params every computation reads; ``core``'s
     # own parameters are only where weights are built and loaded, so
@@ -242,6 +256,15 @@ class VariationalAutoencoder(VariationalModel):
   def sample_observation(self, n: int = 1, seed: int = 0) -> Distribution:
     """px of n draws from the prior."""
     return self.decode(self.sample_prior(n, seed))
+
+  def sample_traverse(self, x, feature_indices=None, min_val=-2.0,
+                      max_val=2.0, n_traverse_points: int = 11,
+                      mode: str = "linear", seed: int = 0):
+    """Encode x, sweep latent dims of the posterior mean
+    (``traverse_dims``), and decode the grid."""
+    z = self.encode(x).mean()
+    return self.decode(traverse_dims(z, feature_indices, min_val, max_val,
+                                     n_traverse_points, mode))
 
   # -- ELBO -----------------------------------------------------------------
   def elbo_components(self, params, batch, rng, step, training: bool = False,
@@ -368,7 +391,7 @@ class VariationalAutoencoder(VariationalModel):
 
     @torch.no_grad()
     def eval_fn(state: TrainState, batch, eps=None):
-      batch = torch.as_tensor(batch).to(state.device)
+      batch = _to_device(batch, state.device)
       rng = Noise(eps=eps) if eps is not None else Noise(
           torch.Generator(state.device).manual_seed(0))
       llk, kl, _ = self.elbo_components(state.params, batch, rng, state.step,
@@ -381,3 +404,180 @@ class VariationalAutoencoder(VariationalModel):
       return m
 
     return eval_fn
+
+  # -- training loops -------------------------------------------------------
+  def fit(self,
+          train,
+          valid=None,
+          max_iter: int = 1000,
+          optimizer: str = "adam",
+          learning_rate: Union[float, Callable] = 1e-3,
+          valid_freq: int = 0,
+          valid_interval: float = 0.0,
+          logdir: Optional[str] = None,
+          logging_interval: float = 5.0,
+          callbacks: Sequence[Callable] = (),
+          on_valid_end: Sequence[Callable] = (),
+          checkpoint_freq: int = 0,
+          nan_policy: str = "skip",
+          clipnorm: Optional[float] = None,
+          global_clipnorm: Optional[float] = None,
+          steps_per_call: int = 1,
+          verbose: bool = True,
+          **opt_kwargs) -> Trainer:
+    """Train on the batches of `train` through ``Trainer.fit``: every call
+    runs `steps_per_call` steps from a CUDA graph on the card (one step a
+    call at the default of 1); logging, validation and checkpoints happen
+    at that granularity.  Builds the model on the card from the first
+    batch's shape if it is not built.  Returns the trainer."""
+    if self.state is None:
+      x0, _ = self._split_inputs(next(iter(train)))
+      self.build(input_shape=tuple(x0.shape)[1:])
+    step_fn = self.make_step_fn(optimizer=optimizer,
+                                learning_rate=learning_rate,
+                                clipnorm=clipnorm,
+                                global_clipnorm=global_clipnorm,
+                                nan_policy=nan_policy, **opt_kwargs)
+    eval_fn = self.make_eval_fn() if valid is not None else None
+    trainer = Trainer(logdir=logdir, logging_interval=logging_interval,
+                      log_tag=self.name)
+    self.trainer = trainer
+    self.state = trainer.fit(train, step_fn, self.state, valid_ds=valid,
+                             valid_freq=valid_freq,
+                             valid_interval=valid_interval, eval_fn=eval_fn,
+                             max_iter=max_iter, callbacks=callbacks,
+                             on_valid_end=on_valid_end,
+                             checkpoint_freq=checkpoint_freq,
+                             steps_per_call=steps_per_call, verbose=verbose)
+    self.step = int(self.state.step)
+    return trainer
+
+  def fit_device_dataset(self,
+                         X,
+                         n_steps: int = 10000,
+                         batch_size: int = 256,
+                         learning_rate: Union[float, Callable] = 1e-3,
+                         optimizer: str = "adam",
+                         steps_per_call: int = 1000,
+                         seed: int = 0,
+                         verbose: bool = True,
+                         sample_fn: Optional[Callable] = None,
+                         keep_opt_states: bool = False,
+                         checkpoint_path: Optional[str] = None,
+                         checkpoint_freq: int = 0,
+                         **opt_kwargs) -> "VariationalAutoencoder":
+    """Train with the whole corpus `X` (an array, or a tuple of arrays with
+    a shared first axis) on the device and batches drawn there
+    (``device_dataset_steps``): one call, one CUDA graph replayed
+    `steps_per_call` times, with no host traffic in between.  The draws
+    are keyed by `seed` and the step count, so ``load_weights`` of a
+    checkpoint and ``keep_opt_states=True`` resume the run exactly.  Every
+    `checkpoint_freq` steps (and at the end) the whole state is written to
+    `checkpoint_path`, between calls, without a new capture."""
+    if self.state is None:
+      x0 = X[0] if not isinstance(X, (tuple, list)) else X[0][0]
+      self.build(input_shape=tuple(np.shape(x0)))
+    raw = self.make_step_fn(optimizer=optimizer, learning_rate=learning_rate,
+                            keep_opt_states=keep_opt_states, **opt_kwargs)
+    data = _to_device(tuple(X) if isinstance(X, (tuple, list)) else X,
+                      self.device)
+    k = min(int(steps_per_call), int(n_steps))
+    fused = device_dataset_steps(raw, int(batch_size), k, seed=seed,
+                                 sample_fn=sample_fn, donate=True)
+    state = self.state
+    done = last_ckpt = 0
+    t0 = time.time()
+    while done < n_steps:
+      state, metrics = fused(state, data)
+      done += k
+      if verbose:
+        m = {key: float(v) for key, v in metrics.items()}
+        rate = done / (time.time() - t0)
+        print(f"[{self.name}] #{done} " +
+              " ".join(f"{key}:{v:.4g}" for key, v in m.items()) +
+              f" steps_per_sec:{rate:.1f}", flush=True)
+      if (checkpoint_path and checkpoint_freq > 0 and
+          (done - last_ckpt >= checkpoint_freq or done >= n_steps)):
+        host = state_to_host(state)
+        _write_atomic(checkpoint_path, host)
+        last_ckpt = done
+        if verbose:
+          print(f"[{self.name}] checkpoint @ step {int(host['step'])} -> "
+                f"{checkpoint_path}", flush=True)
+    self.state = _clone_state(state)
+    self.step = int(self.state.step)
+    self.capture_seconds = fused.capture_seconds  # None off the card
+    return self
+
+  # -- marginal log prob ----------------------------------------------------
+  @torch.no_grad()
+  def marginal_log_prob(self, x, n_samples: int = 50, seed: int = 0,
+                        batch_size: Optional[int] = None, eps=None):
+    """Importance-sampled ``log p(x) ~ log 1/S sum p(x|z) p(z) / q(z|x)``
+    with S = `n_samples` posterior draws (from a generator seeded `seed`,
+    or `eps` (S, N, zdim) standard normals).  Returns (marginal llk,
+    reconstruction llk), each (N,)."""
+    params = self._params_of()
+    gen = self._generator(seed)
+
+    def one_batch(xb, eb):
+      qz = self._apply(params, "encode", xb)
+      mean = qz.mean()
+      if eb is None:
+        eb = torch.randn((n_samples,) + tuple(mean.shape), generator=gen,
+                         dtype=mean.dtype, device=mean.device)
+      z = qz.sample((n_samples,), eps=self._tensor(eb))  # (S, B, zdim)
+      px = self._apply(params, "decode", z.reshape(-1, z.shape[-1]))
+      lp_x = px.log_prob(xb.repeat((n_samples,) + (1,) * (xb.ndim - 1)))
+      lp_x = lp_x.reshape(n_samples, -1)
+      lp_z = self._prior_on(mean.device).log_prob(z)
+      iw = self.importance_weighted(lp_x + lp_z - qz.log_prob(z), axis=0)
+      return iw, torch.mean(lp_x, dim=0)
+
+    x = self._tensor(x)
+    if batch_size is None:
+      return one_batch(x, eps)
+    iws, recs = [], []
+    for i in range(0, x.shape[0], batch_size):
+      iw, rec = one_batch(x[i:i + batch_size],
+                          None if eps is None else eps[:, i:i + batch_size])
+      iws.append(iw)
+      recs.append(rec)
+    return torch.cat(iws), torch.cat(recs)
+
+  # -- persistence ----------------------------------------------------------
+  def save_weights(self, path: str):
+    """Pickle the whole state (``state_to_host``: params, optimizer states,
+    step, skipped updates, mutables and the noise generator's state)."""
+    if self.state is None:
+      raise RuntimeError("call build() first")
+    _write_atomic(path, state_to_host(self.state))
+
+  def load_weights(self, path: str) -> "VariationalAutoencoder":
+    """The state of ``save_weights`` (or of a checkpoint), on the model's
+    device; a model not built yet is built on the device the state was
+    saved from."""
+    with open(path, "rb") as f:
+      host = pickle.load(f)
+    if self.device is None:
+      self.build(device=host["device"])
+    self.state = state_from_host(host, self.device)
+    self.step = int(self.state.step)
+    return self
+
+  def md5_checksum(self) -> str:
+    """md5 of all the params, in the port's order."""
+    leaves = _tree_leaves(self._params_of())
+    return md5_checksum(np.concatenate(
+        [t.detach().cpu().numpy().ravel() for t in leaves]))
+
+  def __repr__(self):
+    return (f"{type(self).__name__}(zdim={self.zdim}, "
+            f"input_shape={self.input_shape}, step={self.step})")
+
+
+def _write_atomic(path: str, obj):
+  """Pickle `obj` to ``path + '.tmp'``, then rename it into place."""
+  with open(path + ".tmp", "wb") as f:
+    pickle.dump(obj, f)
+  os.replace(path + ".tmp", path)

@@ -1,3 +1,37 @@
-"""Datasets of the port (the procedural dSprites so far)."""
-from odin_tpu_torch.fuel.dataset_base import get_partition
-from odin_tpu_torch.fuel.image_data import dSprites
+"""Data layer of the port: the input pipeline and the datasets ported so
+far (procedural dSprites).  ``get_dataset`` raises for the JAX package's
+other datasets, which are not ported yet."""
+from typing import List, Type, Union
+
+from odin_tpu_torch.fuel.dataset_base import IterableDataset, get_partition
+from odin_tpu_torch.fuel.image_data import (ImageDataset, dSprites,
+                                            dSprites0, dSpritesSmall)
+from odin_tpu_torch.fuel.pipeline import DataPipeline
+
+__all__ = ["get_dataset", "get_all_dataset", "get_partition",
+           "IterableDataset", "ImageDataset", "DataPipeline", "dSprites",
+           "dSpritesSmall", "dSprites0"]
+
+_DATASETS = (dSprites, dSprites0, dSpritesSmall)
+
+
+def get_all_dataset(data_type: str = None) -> List[Type[IterableDataset]]:
+  """The dataset classes ported so far, optionally those of one
+  `data_type` ('image')."""
+  return sorted((c for c in _DATASETS
+                 if data_type is None or c.data_type.fget(c) == data_type),
+                key=lambda c: c.__name__)
+
+
+def get_dataset(name: Union[str, IterableDataset], **kwargs) -> IterableDataset:
+  """A dataset by its name (``'dsprites'``); a name of a dataset that is
+  not ported raises."""
+  if isinstance(name, IterableDataset):
+    return name
+  key = str(name).lower().replace("_", "").strip()
+  for cls in get_all_dataset():
+    if cls.__name__.lower() == key:
+      return cls(**kwargs)
+  raise NotImplementedError(
+      f"dataset '{name}' is not ported yet; the port has "
+      f"{[c.__name__ for c in get_all_dataset()]}")

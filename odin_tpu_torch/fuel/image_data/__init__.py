@@ -1,2 +1,4 @@
 """Image datasets of the port."""
-from odin_tpu_torch.fuel.image_data.datasets import dSprites
+from odin_tpu_torch.fuel.image_data._base import ImageDataset
+from odin_tpu_torch.fuel.image_data.datasets import (dSprites, dSprites0,
+                                                     dSpritesSmall)

@@ -1,10 +1,10 @@
 """Procedural dSprites (a copy of the NumPy renderer and of ``dSprites``'s
-procedural branch, ``odin_tpu/fuel/image_data/datasets.py:203-395``).
+procedural branch, ``odin_tpu/fuel/image_data/datasets.py:203-436``), with
+``dSpritesSmall`` and ``dSprites0``.
 
 The images are rendered on the host from seeded factor draws, exactly as
 the JAX package renders them.  Not ported yet: the official ``.npz``
-loader, the full 737,280-image factor grid (``full_grid``) and
-``create_dataset``.
+loader and the full 737,280-image factor grid (``full_grid``).
 """
 from __future__ import annotations
 
@@ -13,8 +13,9 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from odin_tpu_torch.fuel.dataset_base import get_partition
+from odin_tpu_torch.fuel.image_data._base import ImageDataset
 
-__all__ = ["dSprites"]
+__all__ = ["dSprites", "dSpritesSmall", "dSprites0"]
 
 
 def _render_shapes2d(shape_id, scale, orientation, pos_x, pos_y,
@@ -64,18 +65,26 @@ def _render_shapes2d(shape_id, scale, orientation, pos_x, pos_y,
   return out.reshape(n, image_size, image_size, 1)
 
 
-class dSprites:
+class dSprites(ImageDataset):
   """dSprites (Matthey et al.): 3 shapes x 6 scales x 40 orientations x
   32 x 32 positions, rendered procedurally from `n_samples` random factor
-  draws per partition (seeded by `seed` and the partition)."""
+  draws per partition (seeded by `seed` and the partition).  Labels are
+  the five factor indices as float32; ``create_dataset`` binarizes by
+  default."""
 
   factor_names = ["shape", "scale", "orientation", "pos_x", "pos_y"]
   factor_sizes = [3, 6, 40, 32, 32]
   _image_size = 64
 
-  def __init__(self, n_samples: int = 16384, seed: int = 1):
+  def __init__(self, n_samples: int = 16384, continuous_factors: bool = False,
+               path: Optional[str] = None, seed: int = 1,
+               full_grid: bool = False):
+    if path is not None or full_grid:
+      raise NotImplementedError("the official .npz file and the full factor "
+                                "grid of dSprites are not ported yet")
+    super().__init__(seed=seed)
+    self.continuous_factors = bool(continuous_factors)
     self.n_samples = int(n_samples)
-    self.seed = int(seed)
     self._cache = {}
 
   @property
@@ -117,8 +126,52 @@ class dSprites:
   def numpy(self, partition: str = "train", n: Optional[int] = None,
             inc_labels: bool = True):
     """A partition as arrays: images (n, 64, 64, 1) float32 in {0, 1},
-    and the factor indices (n, 5) as float32 with `inc_labels`."""
-    x, y = self._load(partition)
-    if n is not None:
-      x, y = x[:n], y[:n]
-    return (x, y) if inc_labels else x
+    and the labels with `inc_labels`."""
+    return super().numpy(partition, n, inc_labels)
+
+  def create_dataset(self, *args, **kwargs):
+    kwargs.setdefault("binarize", True)
+    return super().create_dataset(*args, **kwargs)
+
+
+class dSpritesSmall(dSprites):
+  """dSprites with 4,096 images a partition."""
+
+  def __init__(self, n_samples: int = 4096, **kwargs):
+    super().__init__(n_samples=n_samples, **kwargs)
+
+  @property
+  def name(self):
+    return "dspritessmall"
+
+
+class dSprites0(dSprites):
+  """dSprites with shape-only one-hot labels; `all_labels=True` keeps all
+  five factors as concatenated per-factor one-hots."""
+
+  def __init__(self, all_labels: bool = False, **kwargs):
+    kwargs.pop("continuous_factors", None)
+    super().__init__(**kwargs)
+    self.all_labels = bool(all_labels)
+
+  @property
+  def name(self):
+    return "dsprites0"
+
+  @property
+  def labels(self):
+    if self.all_labels:
+      return list(self.factor_names)
+    return ["square", "ellipse", "heart"]
+
+  def _onehot_factors(self, f):
+    return np.concatenate(
+        [np.eye(k, dtype="float32")[f[:, i].astype(int)]
+         for i, k in enumerate(self.factor_sizes)], -1)
+
+  def _load(self, partition: str):
+    x, y = super()._load(partition)
+    f = np.asarray(y)
+    if self.all_labels:
+      return x, self._onehot_factors(f)
+    return x, np.eye(3, dtype="float32")[f[:, 0].astype(int)]

@@ -1,6 +1,6 @@
 """Training-step machinery of the port (PyTorch port of
 ``odin_tpu/training/core.py``): ``TrainState``, ``TrainStep``, the
-optimizer, ``build_train_step_fn``, ``scan_steps`` and
+optimizers, ``build_train_step_fn``, ``scan_steps`` and
 ``device_dataset_steps``.
 
 The step keeps the JAX package's pure interface,
@@ -11,10 +11,11 @@ tensors and a step returns a new one, leaving its input as it was.
     ``state_dict`` of a module (``{'vae': {'encoder.layers.1.weight': ...}}``).
     A partition path ``'vae/decoder'`` selects the entries of ``'vae'``
     under ``decoder.``, with the prefix taken off.
-  * The optimizer is written as functions on tensors (not
-    ``torch.optim``), so that a step with non-finite gradients keeps the
-    old params and moments by a select on the device, with no sync.  Its
-    arithmetic runs on one flat vector of all the partition's params.
+  * The optimizers (optax's nine aliases) are written as functions on
+    tensors (not ``torch.optim``), so that a step with non-finite gradients
+    keeps the old params and moments by a select on the device, with no
+    sync.  Their arithmetic runs on one flat vector of all the partition's
+    params.
   * Noise: a step draws from the state's ``torch.Generator``, or takes the
     noise itself (``eps``), so that a test can feed the JAX package's draws.
   * On the card, ``scan_steps`` and ``device_dataset_steps`` run k steps
@@ -24,17 +25,20 @@ tensors and a step returns a new one, leaving its input as it was.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
-__all__ = ["TrainState", "TrainStep", "TrainStepFn", "Optimizer", "Noise",
-           "make_optimizer", "exponential_decay", "build_train_step_fn",
-           "scan_steps", "device_dataset_steps", "get_param_subtree",
-           "set_param_subtree", "extract_partitions", "merge_partitions",
-           "use_ema_params", "EMA_KEY"]
+__all__ = ["TrainState", "TrainStep", "TrainStepFn", "Optimizer", "Adam",
+           "AdamW", "SGD", "RMSProp", "Adagrad", "Adamax", "Lamb", "Lion",
+           "Noise", "make_optimizer", "exponential_decay",
+           "build_train_step_fn", "scan_steps", "device_dataset_steps",
+           "step_indices", "state_to_host", "state_from_host",
+           "get_param_subtree", "set_param_subtree", "extract_partitions",
+           "merge_partitions", "use_ema_params", "EMA_KEY"]
 
 EMA_KEY = "__ema__"
 _INT32_MAX = 2 ** 31 - 1
@@ -194,6 +198,42 @@ class _FlatSpec:
     return self.tree(self.split_list(flat))
 
 
+def state_to_host(state: TrainState) -> Dict[str, Any]:
+  """A checkpoint of `state` (what ``jax.device_get`` of a state is in the
+  JAX package): every tensor copied to the host, and the noise generator's
+  state, so that a state restored from it draws the noise an unbroken run
+  would.  Plain data: it pickles."""
+  cpu = lambda t: t.detach().to("cpu", copy=True)
+  return {"params": _tree_map(cpu, state.params),
+          "opt_states": _tree_map(cpu, state.opt_states),
+          "mutables": _tree_map(cpu, state.mutables),
+          "step": cpu(state.step),
+          "skipped_updates": cpu(state.skipped_updates),
+          "device": str(state.device),
+          "rng_state": state.rng.get_state(),
+          "rng_device": state.rng.device.type,
+          "rng_seed": state.rng.initial_seed()}
+
+
+def state_from_host(host: Dict[str, Any],
+                    device: Union[str, torch.device]) -> TrainState:
+  """The ``TrainState`` of a ``state_to_host`` checkpoint, on `device`.  The
+  generator's state carries over where the device type is the one it was
+  saved from; elsewhere the generator restarts from its first seed."""
+  device = torch.device(device)
+  to = lambda t: t.to(device, copy=True)
+  rng = torch.Generator(device)
+  if host["rng_device"] == device.type:
+    rng.set_state(host["rng_state"])
+  else:
+    rng.manual_seed(host["rng_seed"])
+  return TrainState(params=_tree_map(to, host["params"]),
+                    opt_states=_tree_map(to, host["opt_states"]),
+                    step=to(host["step"]), rng=rng,
+                    mutables=_tree_map(to, host["mutables"]),
+                    skipped_updates=to(host["skipped_updates"]))
+
+
 def use_ema_params(state: TrainState) -> TrainState:
   """The state with its params swapped for their exponential moving
   average (the step must have been built with ``ema_decay``)."""
@@ -288,34 +328,90 @@ def exponential_decay(init_value: float, transition_steps: int,
   return schedule
 
 
+def _safe_increment(count: torch.Tensor) -> torch.Tensor:
+  return torch.where(count < _INT32_MAX, count + 1, count)
+
+
+def _bias_correction(moment: torch.Tensor, decay: float,
+                     count: torch.Tensor) -> torch.Tensor:
+  """optax's ``tree_bias_correction``: ``moment / (1 - decay ** count)``."""
+  return moment / (1 - torch.pow(decay, count.to(torch.float32))).to(
+      moment.dtype)
+
+
+def _times(decay: float, t: torch.Tensor) -> torch.Tensor:
+  """``decay * t`` as JAX computes it: the Python float takes t's dtype
+  first (a weak type), so a 16-bit moment is scaled by a 16-bit decay."""
+  if t.dtype != torch.float32:
+    decay = float(torch.tensor(decay, dtype=t.dtype))
+  return decay * t
+
+
+def _dtype(dtype) -> Optional[torch.dtype]:
+  """A torch dtype from a torch dtype, a numpy/JAX dtype or its name."""
+  if dtype is None or isinstance(dtype, torch.dtype):
+    return dtype
+  name = getattr(dtype, "name", None) or getattr(dtype, "__name__", None) \
+      or str(dtype)
+  out = getattr(torch, str(name), None)
+  if not isinstance(out, torch.dtype):
+    raise ValueError(f"unknown dtype {dtype!r}")
+  return out
+
+
+def _segments(spec: "_FlatSpec", values: Sequence[torch.Tensor]
+              ) -> torch.Tensor:
+  """One 0-d value per leaf of `spec`, repeated over the leaf's elements
+  (device ops only, so that a CUDA graph can hold it)."""
+  return torch.cat([v.reshape(1).expand(n)
+                    for v, n in zip(values, spec.sizes)])
+
+
 class Optimizer:
-  """optax's ``chain(clip, clip_by_block_rms, clip_by_global_norm, adam)``
-  as functions on tensors.
+  """An optax alias chained after optax's clipping, as functions on one flat
+  vector of a partition's params.
 
   In optax's order: `clipvalue` clips each element, `clipnorm` each
   tensor's RMS on its own (``clip_by_block_rms``), `global_clipnorm` the
-  norm of all gradients together; then Adam (b1, b2, eps, eps_root as
-  ``optax.adam``) scales by the learning rate, a float or a schedule of
-  its own update count.  State: ``{'count', 'mu', 'nu'}``, plus
-  ``'lr_count'`` with a schedule; `mu` and `nu` are trees like the params.
+  norm of all gradients together; then the alias's transform (``_scale``),
+  then the learning rate, a float or a schedule of its own update count
+  (``'lr_count'`` in the state).  A state is ``{name: tensor or tree}``:
+  counts are 0-d int32 tensors, the moments trees like the params, named
+  as the fields of optax's states (``mu``, ``nu``, ``trace``,
+  ``sum_of_squares``).  A subclass is one optax alias.
   """
 
+  alias = ""
+  moments: Tuple[str, ...] = ()  # the state's trees, in optax's field order
+
   def __init__(self, learning_rate: Union[float, Callable] = 1e-3,
-               b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-               eps_root: float = 0.0, clipvalue: Optional[float] = None,
+               clipvalue: Optional[float] = None,
                clipnorm: Optional[float] = None,
                global_clipnorm: Optional[float] = None):
     self.learning_rate = learning_rate
-    self.b1, self.b2 = float(b1), float(b2)
-    self.eps, self.eps_root = float(eps), float(eps_root)
     self.clipvalue, self.clipnorm = clipvalue, clipnorm
     self.global_clipnorm = global_clipnorm
 
+  # -- the subclass's part ---------------------------------------------------
+  def _init_moments(self, params: Tree, device: torch.device) -> Tree:
+    """{state key: tree or 0-d tensor} of the alias's transform."""
+    return {}
+
+  def _scale(self, spec: "_FlatSpec", g: torch.Tensor, state: Tree,
+             p: torch.Tensor) -> Tuple[torch.Tensor, Tree]:
+    """(updates, new state entries) of the alias's transform before the
+    learning rate."""
+    return g, {}
+
+  def _after_lr(self, u: torch.Tensor, state: Tree,
+                new: Tree) -> torch.Tensor:
+    """What the alias chains after the learning rate (rmsprop's momentum)."""
+    return u
+
+  # -- optax's interface -----------------------------------------------------
   def init(self, params: Tree) -> Tree:
     device = _tree_leaves(params)[0].device
-    zeros = lambda: _tree_map(torch.zeros_like, params)
-    state = {"count": torch.zeros((), dtype=torch.int32, device=device),
-             "mu": zeros(), "nu": zeros()}
+    state = self._init_moments(params, device)
     if callable(self.learning_rate):
       state["lr_count"] = torch.zeros((), dtype=torch.int32, device=device)
     return state
@@ -324,21 +420,21 @@ class Optimizer:
              params: Optional[Tree] = None) -> Tuple[Tree, Tree]:
     """optax's ``update`` on trees: (updates, new state)."""
     spec = _FlatSpec(grads)
+    p = None if params is None else spec.cat(params)
     u, flat = self.flat_update(spec, spec.cat(grads),
-                               self.flatten_state(spec, state))
+                               self.flatten_state(spec, state), p)
     return spec.split(u), self.unflatten_state(spec, flat)
 
   @staticmethod
-  def flatten_state(spec: _FlatSpec, state: Tree) -> Tree:
-    return {k: (spec.cat(v) if k in ("mu", "nu") else v)
+  def flatten_state(spec: "_FlatSpec", state: Tree) -> Tree:
+    return {k: (spec.cat(v) if isinstance(v, dict) else v)
             for k, v in state.items()}
 
-  @staticmethod
-  def unflatten_state(spec: _FlatSpec, flat: Tree) -> Tree:
-    return {k: (spec.split(v) if k in ("mu", "nu") else v)
+  def unflatten_state(self, spec: "_FlatSpec", flat: Tree) -> Tree:
+    return {k: (spec.split(v) if k in self.moments else v)
             for k, v in flat.items()}
 
-  def _clip(self, spec: _FlatSpec, g: torch.Tensor) -> torch.Tensor:
+  def _clip(self, spec: "_FlatSpec", g: torch.Tensor) -> torch.Tensor:
     if self.clipvalue is not None:
       g = torch.clamp(g, -self.clipvalue, self.clipvalue)
     if self.clipnorm is not None:
@@ -353,32 +449,315 @@ class Optimizer:
                       (g / norm) * self.global_clipnorm)
     return g
 
-  def flat_update(self, spec: _FlatSpec, g: torch.Tensor,
-                  state: Tree) -> Tuple[torch.Tensor, Tree]:
-    """(flat updates, new flat state) from flat gradients."""
+  def flat_update(self, spec: "_FlatSpec", g: torch.Tensor, state: Tree,
+                  p: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Tree]:
+    """(flat updates, new flat state) from flat gradients and params."""
     g = self._clip(spec, g)
-    b1, b2 = self.b1, self.b2
-    mu = (1 - b1) * g + b1 * state["mu"]
-    nu = (1 - b2) * (g * g) + b2 * state["nu"]
-    count = state["count"]
-    count_inc = torch.where(count < _INT32_MAX, count + 1, count)
-    c = count_inc.to(torch.float32)
-    mu_hat = mu / (1 - torch.pow(b1, c))
-    nu_hat = nu / (1 - torch.pow(b2, c))
-    u = mu_hat / (torch.sqrt(nu_hat + self.eps_root) + self.eps)
-    new = {"count": count_inc, "mu": mu, "nu": nu}
+    u, new = self._scale(spec, g, state, p)
     if callable(self.learning_rate):
       lr_count = state["lr_count"]
       u = (-1 * self.learning_rate(lr_count)) * u
-      new["lr_count"] = torch.where(lr_count < _INT32_MAX, lr_count + 1,
-                                    lr_count)
+      new["lr_count"] = _safe_increment(lr_count)
     else:
       u = (-1 * self.learning_rate) * u
-    return u, new
+    return self._after_lr(u, state, new), new
 
 
-_NOT_PORTED = ("adamw", "sgd", "rmsprop", "adagrad", "adamax", "lamb", "lion",
-               "nadam")
+def _zeros(params: Tree, dtype=None) -> Tree:
+  return _tree_map(lambda t: torch.zeros_like(t, dtype=dtype), params)
+
+
+def _full(params: Tree, value: float) -> Tree:
+  return _tree_map(lambda t: torch.full_like(t, value), params)
+
+
+def _count(device) -> torch.Tensor:
+  return torch.zeros((), dtype=torch.int32, device=device)
+
+
+class _DecayedWeights:
+  """optax's ``add_decayed_weights(weight_decay, mask)``: ``g + wd * p`` on
+  the leaves `mask` selects (a tree of bools shaped as the params, or a
+  callable of the params tree giving one); a callable `weight_decay` is a
+  schedule of its own count (``'wd_count'``)."""
+
+  def _init_decay(self, weight_decay, mask):
+    self.weight_decay, self.mask = weight_decay, mask
+
+  def _decay_state(self, device) -> Tree:
+    return {"wd_count": _count(device)} if callable(self.weight_decay) else {}
+
+  def _decay(self, spec: "_FlatSpec", g: torch.Tensor, state: Tree,
+             p: torch.Tensor, new: Tree) -> torch.Tensor:
+    if p is None:
+      raise ValueError(f"{self.alias} needs the params in update()")
+    if callable(self.weight_decay):
+      s = self.weight_decay(state["wd_count"])
+      new["wd_count"] = state["wd_count"]  # optax never advances it
+    else:
+      s = self.weight_decay
+    decayed = g + s * p
+    if self.mask is None:
+      return decayed
+    mask = self.mask(spec.split(p)) if callable(self.mask) else self.mask
+    keep = torch.cat([torch.full((n,), bool(m), device=g.device)
+                      for m, n in zip(spec.leaves(mask), spec.sizes)])
+    return torch.where(keep, decayed, g)
+
+
+class Adam(Optimizer):
+  """``optax.adam`` (``nesterov=True``: ``optax.nadam``); `mu_dtype` keeps
+  the first moment in that dtype.  State: ``count``, ``mu``, ``nu``."""
+
+  alias = "adam"
+  moments = ("mu", "nu")
+
+  def __init__(self, learning_rate=1e-3, b1: float = 0.9, b2: float = 0.999,
+               eps: float = 1e-8, eps_root: float = 0.0, mu_dtype=None, *,
+               nesterov: bool = False, **clip):
+    super().__init__(learning_rate, **clip)
+    self.b1, self.b2 = float(b1), float(b2)
+    self.eps, self.eps_root = float(eps), float(eps_root)
+    self.mu_dtype = _dtype(mu_dtype)
+    self.nesterov = bool(nesterov)
+
+  def _init_moments(self, params, device):
+    return {"count": _count(device), "mu": _zeros(params, self.mu_dtype),
+            "nu": _zeros(params)}
+
+  def _scale(self, spec, g, state, p):
+    b1, b2 = self.b1, self.b2
+    mu = (1 - b1) * g + _times(b1, state["mu"])
+    nu = (1 - b2) * (g * g) + b2 * state["nu"]
+    count_inc = _safe_increment(state["count"])
+    if self.nesterov:
+      mu_hat = (b1 * _bias_correction(mu, b1, _safe_increment(count_inc)) +
+                (1 - b1) * _bias_correction(g, b1, count_inc))
+    else:
+      mu_hat = _bias_correction(mu, b1, count_inc)
+    nu_hat = _bias_correction(nu, b2, count_inc)
+    u = mu_hat / (torch.sqrt(nu_hat + self.eps_root) + self.eps)
+    if self.mu_dtype is not None:
+      mu = mu.to(self.mu_dtype)
+    return u, {"count": count_inc, "mu": mu, "nu": nu}
+
+
+class AdamW(_DecayedWeights, Adam):
+  """``optax.adamw``: Adam, then ``add_decayed_weights``."""
+
+  alias = "adamw"
+
+  def __init__(self, learning_rate=1e-3, b1=0.9, b2=0.999, eps=1e-8,
+               eps_root=0.0, mu_dtype=None, weight_decay=1e-4, mask=None, *,
+               nesterov: bool = False, **clip):
+    super().__init__(learning_rate, b1, b2, eps, eps_root, mu_dtype,
+                     nesterov=nesterov, **clip)
+    self._init_decay(weight_decay, mask)
+
+  def _init_moments(self, params, device):
+    return {**super()._init_moments(params, device),
+            **self._decay_state(device)}
+
+  def _scale(self, spec, g, state, p):
+    u, new = super()._scale(spec, g, state, p)
+    return self._decay(spec, u, state, p, new), new
+
+
+class Lamb(AdamW):
+  """``optax.lamb``: Adam, ``add_decayed_weights``, then
+  ``scale_by_trust_ratio`` (each tensor's update scaled by ``|p| / |u|``,
+  by 1 where either norm is 0)."""
+
+  alias = "lamb"
+
+  def __init__(self, learning_rate=1e-3, b1=0.9, b2=0.999, eps=1e-6,
+               eps_root=0.0, weight_decay=0.0, mask=None, **clip):
+    super().__init__(learning_rate, b1, b2, eps, eps_root,
+                     weight_decay=weight_decay, mask=mask, **clip)
+
+  def _scale(self, spec, g, state, p):
+    u, new = super()._scale(spec, g, state, p)
+    p_norm = torch.stack([torch.linalg.vector_norm(t)
+                          for t in spec.split_list(p)])
+    u_norm = torch.stack([torch.linalg.vector_norm(t)
+                          for t in spec.split_list(u)])
+    ratio = torch.where((p_norm == 0) | (u_norm == 0),
+                        torch.ones_like(p_norm), p_norm / u_norm)
+    return u * _segments(spec, ratio), new
+
+
+class Adamax(Optimizer):
+  """``optax.adamax``: ``mu_hat / max(|g| + eps, b2 * nu)``.  State:
+  ``count``, ``mu``, ``nu``."""
+
+  alias = "adamax"
+  moments = ("mu", "nu")
+
+  def __init__(self, learning_rate=1e-3, b1: float = 0.9, b2: float = 0.999,
+               eps: float = 1e-8, **clip):
+    super().__init__(learning_rate, **clip)
+    self.b1, self.b2, self.eps = float(b1), float(b2), float(eps)
+
+  def _init_moments(self, params, device):
+    return {"count": _count(device), "mu": _zeros(params),
+            "nu": _zeros(params)}
+
+  def _scale(self, spec, g, state, p):
+    count_inc = _safe_increment(state["count"])
+    mu = (1 - self.b1) * g + self.b1 * state["mu"]
+    nu = torch.maximum(torch.abs(g) + self.eps, self.b2 * state["nu"])
+    u = _bias_correction(mu, self.b1, count_inc) / nu
+    return u, {"count": count_inc, "mu": mu, "nu": nu}
+
+
+class Lion(_DecayedWeights, Optimizer):
+  """``optax.lion``: ``sign((1 - b1) g + b1 mu)``, the moment updated with
+  b2, then ``add_decayed_weights``.  State: ``count``, ``mu``."""
+
+  alias = "lion"
+  moments = ("mu",)
+
+  def __init__(self, learning_rate=1e-3, b1: float = 0.9, b2: float = 0.99,
+               mu_dtype=None, weight_decay=1e-3, mask=None, **clip):
+    super().__init__(learning_rate, **clip)
+    self.b1, self.b2 = float(b1), float(b2)
+    self.mu_dtype = _dtype(mu_dtype)
+    self._init_decay(weight_decay, mask)
+
+  def _init_moments(self, params, device):
+    return {"count": _count(device), "mu": _zeros(params, self.mu_dtype),
+            **self._decay_state(device)}
+
+  def _scale(self, spec, g, state, p):
+    m = state["mu"]
+    u = torch.sign((1.0 - self.b1) * g + _times(self.b1, m))
+    mu = (1 - self.b2) * g + _times(self.b2, m)
+    if self.mu_dtype is not None:
+      mu = mu.to(self.mu_dtype)
+    new = {"count": _safe_increment(state["count"]), "mu": mu}
+    return self._decay(spec, u, state, p, new), new
+
+
+class SGD(Optimizer):
+  """``optax.sgd``: with `momentum`, optax's ``trace`` (``trace = g +
+  momentum * trace``; `nesterov` steps by ``g + momentum * trace``), the
+  trace kept in `accumulator_dtype`.  State: ``trace`` with momentum."""
+
+  alias = "sgd"
+
+  def __init__(self, learning_rate=1e-3, momentum: Optional[float] = None,
+               nesterov: bool = False, accumulator_dtype=None, **clip):
+    super().__init__(learning_rate, **clip)
+    self.momentum = None if momentum is None else float(momentum)
+    self.nesterov = bool(nesterov)
+    self.accumulator_dtype = _dtype(accumulator_dtype)
+    self.moments = () if momentum is None else ("trace",)
+
+  def _init_moments(self, params, device):
+    if self.momentum is None:
+      return {}
+    return {"trace": _zeros(params, self.accumulator_dtype)}
+
+  def _scale(self, spec, g, state, p):
+    if self.momentum is None:
+      return g, {}
+    return _trace(g, state, self.momentum, self.nesterov,
+                  self.accumulator_dtype)
+
+
+def _trace(g, state, decay, nesterov, dtype=None):
+  """optax's ``trace``: (updates, {'trace': new trace})."""
+  t = g + _times(decay, state["trace"])
+  u = g + decay * t if nesterov else t
+  return u, {"trace": t if dtype is None else t.to(dtype)}
+
+
+class RMSProp(Optimizer):
+  """``optax.rmsprop``: ``scale_by_rms`` (``scale_by_stddev`` with
+  `centered`), the learning rate, then optax's ``trace`` with `momentum`.
+  State: ``nu`` (``mu`` too when centered; ``count`` with
+  `bias_correction`; ``trace`` with momentum)."""
+
+  alias = "rmsprop"
+
+  def __init__(self, learning_rate=1e-3, decay: float = 0.9,
+               eps: float = 1e-8, initial_scale: float = 0.0,
+               eps_in_sqrt: bool = True, centered: bool = False,
+               momentum: Optional[float] = None, nesterov: bool = False,
+               bias_correction: bool = False, **clip):
+    super().__init__(learning_rate, **clip)
+    self.decay, self.eps = float(decay), float(eps)
+    self.initial_scale = float(initial_scale)
+    self.eps_in_sqrt, self.centered = bool(eps_in_sqrt), bool(centered)
+    self.momentum = None if momentum is None else float(momentum)
+    self.nesterov, self.bias_correction = bool(nesterov), bool(bias_correction)
+    self.moments = (("mu", "nu") if centered else ("nu",)) + (
+        () if momentum is None else ("trace",))
+
+  def _init_moments(self, params, device):
+    state = {"count": _count(device)} if self.bias_correction else {}
+    if self.centered:
+      state["mu"] = _zeros(params)
+    state["nu"] = _full(params, self.initial_scale)
+    if self.momentum is not None:
+      state["trace"] = _zeros(params)
+    return state
+
+  def _scale(self, spec, g, state, p):
+    d = self.decay
+    nu = (1 - d) * (g * g) + d * state["nu"]
+    new = {"nu": nu}
+    if self.centered:
+      new["mu"] = mu = (1 - d) * g + d * state["mu"]
+    if self.bias_correction:
+      new["count"] = count_inc = _safe_increment(state["count"])
+      nu = _bias_correction(nu, d, count_inc)
+      if self.centered:
+        mu = _bias_correction(mu, d, count_inc)
+    if self.centered:
+      nu = nu - mu * mu
+    if self.eps_in_sqrt:
+      scaling = torch.rsqrt(nu + self.eps)
+    else:
+      scaling = 1 / (torch.sqrt(nu) + self.eps)
+    return scaling * g, new
+
+  def _after_lr(self, u, state, new):
+    if self.momentum is None:
+      return u
+    u, t = _trace(u, state, self.momentum, self.nesterov)
+    new.update(t)
+    return u
+
+
+class Adagrad(Optimizer):
+  """``optax.adagrad``: ``g * rsqrt(sum_of_squares + eps)`` (0 where the sum
+  is 0), the sum starting at `initial_accumulator_value`.  State:
+  ``sum_of_squares``."""
+
+  alias = "adagrad"
+  moments = ("sum_of_squares",)
+
+  def __init__(self, learning_rate=1e-3,
+               initial_accumulator_value: float = 0.1, eps: float = 1e-7,
+               **clip):
+    super().__init__(learning_rate, **clip)
+    self.initial_accumulator_value = float(initial_accumulator_value)
+    self.eps = float(eps)
+
+  def _init_moments(self, params, device):
+    return {"sum_of_squares": _full(params, self.initial_accumulator_value)}
+
+  def _scale(self, spec, g, state, p):
+    s = g * g + state["sum_of_squares"]
+    inv = torch.where(s > 0, torch.rsqrt(s + self.eps), 0.0)
+    return inv * g, {"sum_of_squares": s}
+
+
+_ALIASES = {"adam": Adam, "adamw": AdamW, "sgd": SGD, "rmsprop": RMSProp,
+            "adagrad": Adagrad, "adamax": Adamax, "lamb": Lamb, "lion": Lion,
+            "nadam": functools.partial(Adam, nesterov=True)}
 
 
 def make_optimizer(name: Union[str, Optimizer] = "adam",
@@ -387,23 +766,17 @@ def make_optimizer(name: Union[str, Optimizer] = "adam",
                    global_clipnorm: Optional[float] = None,
                    clipvalue: Optional[float] = None,
                    **kwargs) -> Optimizer:
-  """An ``Optimizer`` from its alias and the clipping options.  Only
-  ``'adam'`` is ported; the JAX package's other aliases raise."""
+  """An ``Optimizer`` from its alias (adam, adamw, sgd, rmsprop, adagrad,
+  adamax, lamb, lion, nadam: optax's functions of those names, with their
+  keywords and defaults) and the clipping options."""
   if isinstance(name, Optimizer):
     return name
   key = str(name).lower()
-  if key in _NOT_PORTED:
-    raise NotImplementedError(f"optimizer '{name}' is not ported yet; only "
-                              "'adam' is")
-  if key != "adam":
+  if key not in _ALIASES:
     raise ValueError(f"unknown optimizer '{name}'; available: "
-                     f"{sorted(_NOT_PORTED + ('adam',))}")
-  unknown = set(kwargs) - {"b1", "b2", "eps", "eps_root"}
-  if unknown:
-    raise NotImplementedError(f"adam options {sorted(unknown)} are not "
-                              "ported yet")
-  return Optimizer(learning_rate, clipvalue=clipvalue, clipnorm=clipnorm,
-                   global_clipnorm=global_clipnorm, **kwargs)
+                     f"{sorted(_ALIASES)}")
+  return _ALIASES[key](learning_rate, clipvalue=clipvalue, clipnorm=clipnorm,
+                       global_clipnorm=global_clipnorm, **kwargs)
 
 
 # ---------------------------------------------------------------------------
@@ -536,7 +909,7 @@ class TrainStepFn:
       opt = self.optimizers[opt_name]
       p = spec.cat(extract_partitions(params, ts.partitions))
       old = opt.flatten_state(spec, opt_states[opt_name])
-      u, new = opt.flat_update(spec, g, old)
+      u, new = opt.flat_update(spec, g, old, p)
       new_p = p + u
       if check:  # keep the old params and optimizer state, on the device
         finite = torch.isfinite(g).all()
@@ -662,8 +1035,8 @@ class _StepGraph:
     self._graph = None
 
   def run(self, state: TrainState, inputs: Dict[str, torch.Tensor], body,
-          generators: Sequence[torch.Generator], key) -> Tuple[TrainState,
-                                                                Dict]:
+          generators: Sequence[torch.Generator], key,
+          donate: bool = False) -> Tuple[TrainState, Dict]:
     key = (key, _signature(_state_leaves(state)), _signature(inputs),
            id(state.rng))
     if key != self._key:
@@ -674,8 +1047,8 @@ class _StepGraph:
     self._load(state, inputs)
     for _ in range(self.n_steps):
       self._graph.replay()
-    return (_clone_state(self.state),
-            {k: v.clone() for k, v in self._metrics.items()})
+    metrics = {k: v.clone() for k, v in self._metrics.items()}
+    return (self.state if donate else _clone_state(self.state)), metrics
 
   def _load(self, state: TrainState, inputs):
     _copy_into(_state_leaves(self.state), _state_leaves(state))
@@ -716,7 +1089,9 @@ class _StepGraph:
       if g is not default:
         graph.register_generator_state(g)
     try:
-      with torch.cuda.graph(graph):
+      # thread_local: an input pipeline's thread may pin memory and copy
+      # batches on its own stream while this thread captures
+      with torch.cuda.graph(graph, capture_error_mode="thread_local"):
         metrics = self._one_step(body)
     except Exception as e:
       raise RuntimeError(f"CUDA graph capture of the training step failed "
@@ -743,8 +1118,9 @@ class _KSteps:
   ``_StepGraph``; a subclass says how a step's batch is made."""
 
   def __init__(self, step_fn: TrainStepFn, n_steps: int,
-               graph: Optional[bool]):
+               graph: Optional[bool], donate: bool = False):
     self.step_fn, self.n_steps, self.graph = step_fn, int(n_steps), graph
+    self.donate = bool(donate)
     self._graph = _StepGraph(n_steps)
 
   @property
@@ -755,12 +1131,12 @@ class _KSteps:
            generators: Sequence[torch.Generator], key):
     """`inputs`: tensors with a leading axis of `n_steps`, None where not
     given (``'eps'`` injects the noise); ``batch_fn({name: the step's
-    slice})`` makes a step's batch."""
+    slice}, state)`` makes a step's batch."""
     inputs = {k: v for k, v in inputs.items() if v is not None}
 
     def one(s, at):
       noise = Noise(s.rng) if "eps" not in at else Noise(eps=at["eps"])
-      return self.step_fn.run(s, batch_fn(at), noise)
+      return self.step_fn.run(s, batch_fn(at, s), noise)
 
     if not _use_graph(self.graph, state):
       metrics = None
@@ -772,7 +1148,7 @@ class _KSteps:
     def body(s, slot):
       return one(s, {k: _at(static.inputs[k], slot) for k in inputs})
 
-    return static.run(state, inputs, body, generators, key)
+    return static.run(state, inputs, body, generators, key, self.donate)
 
 
 class _ScanSteps(_KSteps):
@@ -787,7 +1163,7 @@ class _ScanSteps(_KSteps):
                        f"{self.n_steps} steps, got {sorted(lead)}")
     names = [f"batch{i}" for i in range(len(_tree_leaves(batches)))]
 
-    def batch_fn(at):
+    def batch_fn(at, _):
       it = iter(at[n] for n in names)
       return _tree_map(lambda _: next(it), batches)
 
@@ -796,7 +1172,8 @@ class _ScanSteps(_KSteps):
 
 
 def scan_steps(step_fn: TrainStepFn, n_steps: int,
-               graph: Optional[bool] = None) -> _ScanSteps:
+               graph: Optional[bool] = None,
+               donate: bool = False) -> _ScanSteps:
   """`n_steps` updates per call: ``fused(state, batches, eps=None) ->
   (state, last_metrics)``, `batches` (and `eps`) with a leading axis of
   `n_steps`.
@@ -806,10 +1183,40 @@ def scan_steps(step_fn: TrainStepFn, n_steps: int,
   the first call and again when a shape changes, and a capture that fails
   raises.  The input state is copied into the graph's buffers and the
   returned state is a copy of them, so no call changes a state held from
-  an earlier one.  ``graph=False`` runs the steps eagerly; on the CPU they
-  are a loop.
+  an earlier one, unless `donate`: then the graph's own buffers are
+  returned and the next call, given that state back, copies nothing in
+  (the state a call returned holds only until the next call, as a state
+  donated to a ``jax.jit`` call).  ``graph=False`` runs the steps eagerly;
+  on the CPU they are a loop.
   """
-  return _ScanSteps(step_fn, n_steps, graph)
+  return _ScanSteps(step_fn, n_steps, graph, donate)
+
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(x):
+  """A 32-bit integer hash (xorshift-multiply rounds) of a Python int or an
+  int64 tensor holding values in [0, 2^32); the multipliers are below
+  2^31, so no int64 product overflows."""
+  x = x ^ (x >> 16)
+  x = (x * 0x7FEB352D) & _M32
+  x = x ^ (x >> 15)
+  x = (x * 0x2C1B3C6D) & _M32
+  return x ^ (x >> 16)
+
+
+def step_indices(seed: int, step, batch_size: int, n: int) -> torch.Tensor:
+  """The `batch_size` indices in [0, n) that ``device_dataset_steps``
+  draws at `step` (an int or a 0-d integer tensor, on the device the
+  indices are made on): a counter-based hash of (seed, step, i), so a draw
+  depends on nothing but the seed and the state's step count."""
+  step = torch.as_tensor(step).to(torch.int64)
+  key = _mix32((_mix32(int(seed) & _M32) + (step & _M32) * 0x9E3779B1)
+               & _M32)
+  i = torch.arange(int(batch_size), dtype=torch.int64, device=step.device)
+  h = _mix32((key + i * 0x85EBCA77) & _M32)
+  return _mix32(h ^ key) % int(n)
 
 
 class _DeviceDatasetSteps(_KSteps):
@@ -818,24 +1225,23 @@ class _DeviceDatasetSteps(_KSteps):
 
   def __init__(self, step_fn: TrainStepFn, batch_size: int, n_steps: int,
                seed: int, sample_fn: Optional[Callable],
-               graph: Optional[bool]):
-    super().__init__(step_fn, n_steps, graph)
+               graph: Optional[bool], donate: bool):
+    super().__init__(step_fn, n_steps, graph, donate)
     self.batch_size, self.seed = int(batch_size), int(seed)
     self.sample_fn = sample_fn
     self._generators: Dict[torch.device, torch.Generator] = {}
 
   def _generator(self, device: torch.device) -> torch.Generator:
     if device not in self._generators:
-      self._generators[device] = torch.Generator(device).manual_seed(self.seed)
+      self._generators[device] = torch.Generator(device)
     return self._generators[device]
 
-  def _batch(self, data, gen, idx):
+  def _batch(self, data, gen, idx, step):
     if self.sample_fn is not None:
       return self.sample_fn(gen, data)
     if idx is None:
-      n = _tree_leaves(data)[0].shape[0]
-      idx = torch.randint(0, n, (self.batch_size,), generator=gen,
-                          device=_tree_leaves(data)[0].device)
+      idx = step_indices(self.seed, step, self.batch_size,
+                         _tree_leaves(data)[0].shape[0])
     return _tree_map(lambda a: _dequantize(a.index_select(0, idx)), data)
 
   def __call__(self, state: TrainState, data, indices=None, eps=None):
@@ -844,6 +1250,9 @@ class _DeviceDatasetSteps(_KSteps):
     indices = _to_device(indices, device)
     eps = _to_device(eps, device)
     gen = self._generator(device)
+    if self.sample_fn is not None:  # keyed by the call's first step
+      gen.manual_seed(int(_mix32((_mix32(self.seed & _M32) +
+                                  int(state.step)) & _M32)))
     if indices is not None and tuple(indices.shape) != (self.n_steps,
                                                         self.batch_size):
       raise ValueError(f"indices need shape {(self.n_steps, self.batch_size)}"
@@ -852,24 +1261,31 @@ class _DeviceDatasetSteps(_KSteps):
     key = ("data", tuple(t.data_ptr() for t in _tree_leaves(data)),
            _signature(dict(_named_leaves(data))))
     return self._run(state, {"indices": indices, "eps": eps},
-                     lambda at: self._batch(data, gen, at.get("indices")),
+                     lambda at, s: self._batch(data, gen, at.get("indices"),
+                                               s.step),
                      [state.rng, gen], key)
 
 
 def device_dataset_steps(step_fn: TrainStepFn, batch_size: int, n_steps: int,
                          seed: int = 0, sample_fn: Optional[Callable] = None,
-                         graph: Optional[bool] = None) -> _DeviceDatasetSteps:
+                         graph: Optional[bool] = None,
+                         donate: bool = False) -> _DeviceDatasetSteps:
   """`n_steps` updates per call on batches drawn on the device from a
   corpus resident there: ``fused(state, data, indices=None, eps=None) ->
   (state, last_metrics)``.
 
-  Each step draws `batch_size` indices uniformly, with replacement, from a
-  generator seeded with `seed` (the JAX package keys its draws by the step
-  count, so the two streams differ), gathers them and dequantizes a uint8
-  corpus (``/255``) for that batch only.  `indices` (n_steps, batch_size)
-  injects the draws.  `sample_fn(generator, data) -> batch` replaces the
-  uniform gather.  On the card the steps run from a CUDA graph, as in
-  ``scan_steps``, which also says how states are copied.
+  Each step draws `batch_size` indices uniformly, with replacement, keyed
+  by `seed` and the state's step count alone (``step_indices``; the JAX
+  package keys its draws the same way, by ``fold_in(PRNGKey(seed),
+  step)``, with another generator), so a run split at any call boundary,
+  through a checkpoint or a new object, draws what an unbroken run draws.
+  It gathers them and dequantizes a uint8 corpus (``/255``) for that batch
+  only.  `indices` (n_steps, batch_size) injects the draws.
+  `sample_fn(generator, data) -> batch` replaces the uniform gather; its
+  generator is seeded from `seed` and the step count at the start of each
+  call, so its stream repeats where the calls start at the same steps.  On
+  the card the steps run from a CUDA graph, as in ``scan_steps``, which
+  also says how states are copied and what `donate` does.
   """
   return _DeviceDatasetSteps(step_fn, batch_size, n_steps, seed, sample_fn,
-                             graph)
+                             graph, donate)

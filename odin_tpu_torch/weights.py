@@ -42,7 +42,7 @@ from torch import nn
 from odin_tpu_torch.device import resolve_device
 from odin_tpu_torch.networks.attention import MultiHeadAttention
 from odin_tpu_torch.networks.base import Conv, ConvTranspose, Dense
-from odin_tpu_torch.training.core import EMA_KEY, TrainState
+from odin_tpu_torch.training.core import EMA_KEY, TrainState, _dtype
 
 __all__ = ["from_jax_params", "to_jax_params", "from_jax_state",
            "to_jax_state"]
@@ -165,7 +165,10 @@ def _node(tree: Dict[str, Any], path) -> Dict[str, Any]:
 
 
 def _numpy(t: torch.Tensor) -> np.ndarray:
-  return t.detach().cpu().numpy().copy()
+  t = t.detach().cpu()
+  if t.dtype == torch.bfloat16:  # numpy has no bfloat16: exact in float32
+    t = t.float()
+  return t.numpy().copy()
 
 
 def to_jax_params(module: nn.Module) -> Dict[str, Any]:
@@ -213,13 +216,27 @@ def to_jax_params(module: nn.Module) -> Dict[str, Any]:
 # ---------------------------------------------------------------------------
 # whole training states
 # ---------------------------------------------------------------------------
+# the state fields that the port names otherwise (by optax state type)
+_COUNT_NAMES = {"ScaleByScheduleState": "lr_count",
+                "WeightDecaySchedule": "wd_count"}
+
+
 def _optax_parts(node):
-  """The NamedTuple states inside an optax state (chains are tuples)."""
+  """The NamedTuple states inside an optax state (chains are tuples, a
+  masked transform's state holds its inner state)."""
   if hasattr(node, "_fields"):
-    yield node
+    if node._fields == ("inner_state",):
+      yield from _optax_parts(node.inner_state)
+    else:
+      yield node
   elif isinstance(node, (tuple, list)):
     for v in node:
       yield from _optax_parts(v)
+
+
+def _port_name(part, field: str) -> str:
+  return _COUNT_NAMES.get(type(part).__name__, field) if field == "count" \
+      else field
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -229,15 +246,21 @@ def _tensor(a, device) -> torch.Tensor:
 def from_jax_state(state, device="cuda") -> TrainState:
   """A JAX package ``TrainState`` (numpy or JAX arrays, e.g.
   ``jax.device_get(vae.state)``) -> the port's ``TrainState`` on `device`:
-  the params, each optax Adam state (``count``, ``mu``, ``nu``, and the
-  schedule's count where the learning rate is a schedule), the EMA tree,
+  the params, each optimizer's optax state (every field of every state in
+  the chain, by its optax name: ``count``, ``mu``, ``nu``, ``trace``,
+  ``sum_of_squares``; a schedule's count as ``lr_count``, a weight-decay
+  schedule's as ``wd_count``; moments keep their dtype), the EMA tree,
   ``step`` and ``skipped_updates``.  The port draws its noise from a
   ``torch.Generator``, seeded here with the last word of the JAX key."""
   device = resolve_device(device)
 
   def tree(t):
-    return {k: {n: v.to(device) for n, v in from_jax_params(sub).items()}
-            for k, sub in t.items()}
+    out = {}
+    for k, sub in t.items():
+      dtype = _dtype(next(v for _, v in _leaves(sub)).dtype)
+      out[k] = {n: v.to(device=device, dtype=dtype)
+                for n, v in from_jax_params(sub).items()}
+    return out
 
   opt_states = {}
   for name, opt in state.opt_states.items():
@@ -246,14 +269,10 @@ def from_jax_state(state, device="cuda") -> TrainState:
       continue
     port = {}
     for part in _optax_parts(opt):
-      if part._fields == ("count", "mu", "nu"):
-        port.update(count=_tensor(part.count, device), mu=tree(part.mu),
-                    nu=tree(part.nu))
-      elif part._fields == ("count",):
-        port["lr_count"] = _tensor(part.count, device)
-      elif part._fields:
-        raise NotImplementedError(f"optax state {type(part).__name__} is "
-                                  "not ported; only Adam's is")
+      for field in part._fields:
+        value = getattr(part, field)
+        port[_port_name(part, field)] = (tree(value) if isinstance(value, dict)
+                                         else _tensor(value, device))
     opt_states[name] = port
   if state.mutables:
     raise NotImplementedError("mutable collections are not ported yet")
@@ -265,20 +284,17 @@ def from_jax_state(state, device="cuda") -> TrainState:
 
 
 def _optax_like(node, port):
-  """`node` (an optax state) with its Adam and schedule counts and moments
-  replaced from the port's optimizer state."""
+  """`node` (an optax state) with every field replaced from the port's
+  optimizer state."""
   if hasattr(node, "_fields"):
+    if node._fields == ("inner_state",):
+      return node._replace(inner_state=_optax_like(node.inner_state, port))
     tree = lambda p, t: {k: _tree_to_flax(p[k], v) for k, v in t.items()}
-    if node._fields == ("count", "mu", "nu"):
-      return node._replace(count=_numpy(port["count"]),
-                           mu=tree(port["mu"], node.mu),
-                           nu=tree(port["nu"], node.nu))
-    if node._fields == ("count",):
-      return node._replace(count=_numpy(port["lr_count"]))
-    if node._fields:
-      raise NotImplementedError(f"optax state {type(node).__name__} is not "
-                                "ported; only Adam's is")
-    return node
+    return node._replace(**{
+        f: (tree(port[_port_name(node, f)], getattr(node, f))
+            if isinstance(getattr(node, f), dict)
+            else _numpy(port[_port_name(node, f)]))
+        for f in node._fields})
   if isinstance(node, (tuple, list)):
     return type(node)(_optax_like(v, port) for v in node)
   return node

@@ -15,7 +15,9 @@ and 2^-9·|plain| in fp16, beside 1e-5 for fp32 sums taken in another order.
 
 The training step (at the end): k steps from a CUDA graph against k eager
 steps with cuDNN's deterministic algorithms, which run the same kernels on
-the same inputs, so bitwise; a NaN batch skipped inside the graph; and a
+the same inputs, so bitwise; a NaN batch skipped inside the graph; the
+input pipeline's copies to the card; ``Trainer.fit`` graphed against eager
+steps and ``fit_device_dataset`` resumed from a checkpoint, bitwise; and a
 capture that fails raises.
 """
 import importlib
@@ -519,6 +521,85 @@ def test_training_state_stays_on_card(cuda_device):
   tensors = [s.step, s.skipped_updates, *s.params["vae"].values(),
              *s.opt_states["vae"]["mu"]["vae"].values(), *m.values()]
   assert all(t.device.type == "cuda" for t in tensors)
+
+
+def test_pipeline_prefetch_to_card_equals_cpu(cuda_device):
+  """Batches copied by the pipeline's thread (pinned, on a side stream)
+  equal the host batches, in order, also when the step runs meanwhile."""
+  from odin_tpu_torch.fuel import DataPipeline
+  rs = np.random.RandomState(0)
+  x = rs.rand(70, 64, 64, 1).astype(np.float32)
+  y = rs.randint(0, 3, 70)
+  kw = dict(batch_size=16, shuffle=True, epochs=3, seed=4, prefetch=3)
+  want = list(DataPipeline((x, y), **kw))
+  got = []
+  for b in DataPipeline((x, y), to_device=cuda_device, **kw):
+    assert all(t.device.type == "cuda" for t in b)
+    torch.matmul(torch.ones(512, 512, device=cuda_device),
+                 torch.ones(512, 512, device=cuda_device))
+    got.append([t.cpu().numpy() for t in b])
+  assert len(got) == len(want)
+  for g, w in zip(got, want):
+    for a, b in zip(g, w):
+      np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize("k", [1, 3])
+def test_graphed_fit_equals_eager_on_card(cuda_device, k):
+  """``Trainer.fit`` (a CUDA graph of one step, replayed k times a call)
+  against the same steps called eagerly, cuDNN deterministic: bitwise."""
+  from odin_tpu_torch.training import Trainer
+  torch.backends.cudnn.allow_tf32 = False
+  vae, step = _train_setup(cuda_device)
+  x, _ = _train_inputs(cuda_device, 6, 16)
+  batches = [x[i].cpu().numpy() for i in range(6)]
+  torch.backends.cudnn.deterministic = True
+  try:
+    rng = vae.state.rng.get_state()
+    s = vae.state
+    for b in batches:
+      s, m = step(s, b)
+    torch.cuda.synchronize()
+    vae.state.rng.set_state(rng)
+    g = Trainer().fit(iter(batches), step, vae.state, steps_per_call=k,
+                      verbose=False)
+    torch.cuda.synchronize()
+  finally:
+    torch.backends.cudnn.deterministic = False
+  assert int(g.step) == 6
+  for key, v in s.params["vae"].items():
+    assert torch.equal(g.params["vae"][key], v), key
+
+
+def test_fit_device_dataset_resumes_on_card(cuda_device, tmp_path):
+  """2 x 3 steps split by a checkpoint equal 6 unbroken, bitwise (cuDNN
+  deterministic): the draws are keyed by the step count, the noise
+  generator's state travels in the checkpoint."""
+  torch.backends.cudnn.allow_tf32 = False
+  corpus = (np.random.RandomState(1).rand(50, 64, 64, 1) < 0.3).astype(
+      np.uint8) * 255
+  kw = dict(batch_size=16, steps_per_call=3, seed=2, verbose=False)
+
+  def model():
+    return BetaVAE(beta=1.0, **get_networks("dsprites", zdim=10)).build(
+        seed=1, device=cuda_device)
+
+  torch.backends.cudnn.deterministic = True
+  try:
+    whole = model().fit_device_dataset(corpus, n_steps=6, **kw)
+    path = str(tmp_path / "ckpt")
+    model().fit_device_dataset(corpus, n_steps=3, checkpoint_path=path,
+                               checkpoint_freq=3, **kw)
+    resumed = model().load_weights(path)
+    resumed.fit_device_dataset(corpus, n_steps=3, keep_opt_states=True, **kw)
+    torch.cuda.synchronize()
+  finally:
+    torch.backends.cudnn.deterministic = False
+  assert int(resumed.state.step) == 6
+  for key, v in whole.state.params["vae"].items():
+    assert torch.equal(resumed.state.params["vae"][key], v), key
+  assert torch.equal(resumed.state.rng.get_state(),
+                     whole.state.rng.get_state())
 
 
 def test_failed_capture_raises_on_card(cuda_device):

@@ -40,6 +40,12 @@ def test_sources_exist():
                  "backend/interpolation.py", "fuel/image_data/datasets.py",
                  "fuel/dataset_base.py"):
     assert f"odin_tpu_torch/{module}" in names
+  # the trainer slice
+  for module in ("training/trainer.py", "training/callbacks.py",
+                 "training/early_stopping.py", "fuel/pipeline.py",
+                 "fuel/image_data/_base.py", "bay/vi/losses.py",
+                 "bay/vi/autoencoder/beta_vae.py", "utils.py"):
+    assert f"odin_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -69,7 +75,9 @@ def test_importing_the_port_loads_no_jax():
           "odin_tpu_torch.bay.vi, odin_tpu_torch.networks, "
           "odin_tpu_torch.serving, odin_tpu_torch.weights, "
           "odin_tpu_torch.training, odin_tpu_torch.backend, "
-          "odin_tpu_torch.fuel, odin_tpu_torch.bay.helpers\n"
+          "odin_tpu_torch.fuel, odin_tpu_torch.bay.helpers, "
+          "odin_tpu_torch.training.trainer, odin_tpu_torch.utils, "
+          "odin_tpu_torch.bay.vi.losses\n"
           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
           f"{FORBIDDEN!r})\nassert not bad, bad")
   res = _run(["-c", code], cwd=ROOT)
