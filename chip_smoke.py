@@ -79,7 +79,20 @@ CPU:
      deterministic algorithms); steps/s of each mode beside phase 7's
      graphed step, and a host-fed step split into the pipeline's host
      work, the pinned copy and the step.  ``max_iter`` is cut from the
-     quickstart's 10,000 so that the script stays inside its time limit.
+     quickstart's 10,000 so that the script stays inside its time limit;
+  9. the corpus path: the port's synthetic speaker corpus (64 speakers x 32
+     utterances of 8 s at 16 kHz, each cut to 4-8 s: 2048 int16 wav files,
+     written under ``build/`` by a child process while phases 2-8 run)
+     through ``DeviceCorpusProcessor`` at batch 64, one K1 launch a batch,
+     its store against ``batch_speech_features`` on the card for every
+     utterance and against the CPU for the first 128 files, its indices
+     and sums, the float16 transfer on 512 files, files/s, frames/s and the
+     phase split; ``validate_features``; ``calculate_pca`` on the card
+     against the CPU; ``AudioFeatureLoader`` on 256 files in both compats
+     against the CPU; 64 streams of 8 s through ``streaming_step`` in
+     chunks of 0.1 s against offline ``speech_features``, with the chunk
+     latency; Griffin-Lim (32 iterations) on 64 utterances of 2 s against
+     the CPU from a shared initial phase.
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
 fp32 like the CPU.  Any failure raises and the script exits non-zero; it
@@ -87,6 +100,7 @@ also exits non-zero, printing no result, where no CUDA card is visible.
 The last line is the JSON object ``{"ok": true, "device": {...}}``; the
 line before it is the ``{"kernels": [...]}`` summary.
 """
+import atexit
 import json
 import math
 import subprocess
@@ -657,6 +671,346 @@ def fit_path(torch, np, reset_counts, read_counts, smi, graphed_s):
   shutil.rmtree(root, ignore_errors=True)
 
 
+CORPUS_SR = 16000  # benchmarks/corpus_extraction_bench.py:32-34: 16 kHz, 8 s
+CORPUS_SECONDS = 8.0
+CORPUS_SPEAKERS = 64  # cut from the bench's 64 x 64 utterances
+CORPUS_UTTERANCES = 32
+CORPUS_BATCH = 64
+CORPUS_FEATURES = ("mspec", "mfcc_cmvn", "vad")
+CORPUS_CPU_FILES = 128  # held against the port on the CPU
+CORPUS_F16_FILES = 512  # the float16 transfer
+CORPUS_LOADER_FILES = 256  # AudioFeatureLoader
+CMVN_TOL = 5e-3  # tests/test_preprocessing.py:382, batch padding differs
+F16_RTOL, F16_ATOL = 2e-3, 2e-2  # tests/test_preprocessing.py:406
+VAD_SHARE = 0.999
+PCA_COMPONENTS = 20
+PCA_ATOL, PCA_RTOL = 1e-4, 1e-4
+STREAM_CHUNK = 1600  # 0.1 s at 16 kHz: 80 chunks a stream of 8 s
+# tests/test_ops_features.py:168-176, rtol 1e-4 beside each
+STREAM_LIMITS = (("spec", 1e-5), ("mspec", 1e-4), ("mfcc", 1e-4),
+                 ("energy", 1e-4), ("mspec_cmvn", 1e-3), ("mfcc_cmvn", 1e-3))
+# Griffin-Lim: Tacotron's framing at 16 kHz (50 ms frames, 12.5 ms hop)
+GL_FRAME, GL_HOP, GL_ITERS, GL_SECONDS = 800, 200, 32, 2.0
+GL_CPU_TOL = 1e-3
+GL_LIMIT = 0.15  # tests/test_ops_features.py:207-227
+
+
+def corpus_root():
+  import os
+  return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "corpus_path")
+
+
+def write_corpus(root):
+  """The corpus of phase 9, written by a child process while phases 2-8
+  run: the port's synthetic speaker corpus (64 speakers x 32 utterances of
+  8 s at 16 kHz), each utterance cut to a length drawn from 4-8 s with
+  numpy seed 0, as int16 wav files, and the first 64 uncut as int16
+  streams.  Needs no card."""
+  import os
+  import numpy as np
+  from odin_tpu_torch.fuel.audio_data import synth_speaker_corpus
+  from odin_tpu_torch.preprocessing.speech import save_wave
+  t0 = time.perf_counter()
+  utts, _ = synth_speaker_corpus(CORPUS_SPEAKERS, CORPUS_UTTERANCES, seed=0,
+                                 sr=CORPUS_SR, dur=CORPUS_SECONDS)
+  t_synth = time.perf_counter() - t0
+  lengths = np.random.RandomState(0).randint(
+      int(4 * CORPUS_SR), int(CORPUS_SECONDS * CORPUS_SR) + 1, len(utts))
+  wav = os.path.join(root, "wav")
+  os.makedirs(wav)
+  for i, (y, n) in enumerate(zip(utts, lengths)):
+    save_wave(os.path.join(wav, f"s{i // CORPUS_UTTERANCES:02d}_"
+                                f"u{i % CORPUS_UTTERANCES:02d}.wav"),
+              y[:n], CORPUS_SR)
+  streams = np.round(np.clip(np.stack(utts[:64]), -1, 1) * 32767.0)
+  np.save(os.path.join(root, "streams.npy"), streams.astype(np.int16))
+  with open(os.path.join(root, "written.json"), "w") as f:
+    json.dump({"synth_s": t_synth, "total_s": time.perf_counter() - t0}, f)
+
+
+def start_corpus_writer():
+  import os
+  import shutil
+  root = corpus_root()
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                           "--write-corpus", root])
+
+
+def corpus_path(torch, np, reset_counts, read_counts, smi, writer):
+  """Phase 9: corpus extraction, the AudioFeatureLoader, streaming features
+  and Griffin-Lim on the card (see the docstring)."""
+  import glob
+  import os
+  import shutil
+  from odin_tpu_torch.fuel import AudioFeatureLoader, Dataset
+  from odin_tpu_torch.ops import inversion, streaming_features as sf
+  from odin_tpu_torch.ops.features import FeatureConfig, speech_features
+  from odin_tpu_torch.preprocessing import (DeviceCorpusProcessor,
+                                            batch_speech_features,
+                                            calculate_pca, validate_features)
+  from odin_tpu_torch.preprocessing.speech import read_wave_raw
+
+  cuda = torch.device("cuda", 0)
+  cfg = FeatureConfig(sr=CORPUS_SR)
+  root = corpus_root()
+  t0 = time.perf_counter()
+  if writer.wait(timeout=600) != 0:
+    raise RuntimeError(f"the corpus writer exited with {writer.returncode}")
+  with open(os.path.join(root, "written.json")) as f:
+    written = json.load(f)
+  files = sorted(glob.glob(os.path.join(root, "wav", "*.wav")))
+  n_files = CORPUS_SPEAKERS * CORPUS_UTTERANCES
+  if len(files) != n_files:
+    raise AssertionError(f"{len(files)} wav files, not {n_files}")
+  raw = [read_wave_raw(f)[0] for f in files]
+  n_samples = np.array([len(y) for y in raw])
+  audio_s = float(n_samples.sum()) / CORPUS_SR
+  n_bytes = sum(os.path.getsize(f) for f in files)
+  log(f"corpus: {n_files} int16 wav files ({CORPUS_SPEAKERS} speakers x "
+      f"{CORPUS_UTTERANCES} utterances, cut to 4-8 s), {audio_s / 3600:.3f} "
+      f"h of audio, {n_bytes / 1e6:.1f} MB; written by a child process in "
+      f"{written['total_s']:.2f} s (synthesis {written['synth_s']:.2f} s) "
+      f"while phases 2-8 ran; waited {time.perf_counter() - t0:.2f} s")
+
+  def rates(name, ds, n, seconds_of_audio):
+    a = ds.attrs
+    wall = a["wallclock_sec"]
+    shares = ", ".join(f"{k} {v:.4f} s ({100 * v / wall:.1f} %)"
+                       for k, v in a["phase_sec"].items())
+    batches = -(-n // CORPUS_BATCH)
+    log(f"{name}: {n} files in {wall:.4f} s: {n / wall:.1f} files/s, "
+        f"{a['frames'] / wall:.1f} valid frames/s, "
+        f"{seconds_of_audio / wall:.1f} s of audio per second, "
+        f"{1e3 * wall / batches:.3f} ms a batch of {CORPUS_BATCH}; "
+        f"phase_sec: {shares}; {smi}")
+
+  def rows(ds, feat, n):
+    """The store's rows of `feat` for its first `n` files, in file order."""
+    idx = ds[f"indices_{feat}"]
+    end = max(idx[os.path.basename(f)][1] for f in files[:n])
+    return np.asarray(ds[feat][:end])
+
+  def agree(name, got, want):
+    """Two stores' mspec, mfcc_cmvn and vad rows: 0.01 dB, 5e-3, 99.9 %."""
+    e_mspec = float(np.abs(got["mspec"] - want["mspec"]).max())
+    cmvn_ok = np.allclose(got["mfcc_cmvn"], want["mfcc_cmvn"], rtol=CMVN_TOL,
+                          atol=CMVN_TOL)
+    e_cmvn = float(np.abs(got["mfcc_cmvn"] - want["mfcc_cmvn"]).max())
+    vad = float((got["vad"].ravel() == want["vad"].ravel()).mean())
+    log(f"{name}: mspec max diff {e_mspec:.6f} dB (limit {LOGMEL_TOL_DB}), "
+        f"mfcc_cmvn max diff {e_cmvn:.3g} (rtol {CMVN_TOL}, atol "
+        f"{CMVN_TOL}), vad agreement {vad:.6f} of "
+        f"{got['vad'].size} frames (limit {VAD_SHARE})")
+    if not (e_mspec <= LOGMEL_TOL_DB and cmvn_ok and vad >= VAD_SHARE):
+      raise AssertionError(f"{name}: the stores disagree")
+
+  # -- 9.1 DeviceCorpusProcessor on the card
+  store = os.path.join(root, "store")
+  reset_counts()
+  ds = DeviceCorpusProcessor(files, store, features=CORPUS_FEATURES,
+                             batch_size=CORPUS_BATCH, device="cuda").run()
+  counts = read_counts()
+  n_batches = -(-n_files // CORPUS_BATCH)
+  log(f"corpus path launches ({n_batches} batches): {counts}")
+  if counts["logmel"] != n_batches or counts["logmel_fft"] != n_batches:
+    raise AssertionError(f"the corpus path launched K1 {counts}, not once a "
+                         f"batch ({n_batches})")
+  rates("DeviceCorpusProcessor float32", ds, n_files, audio_s)
+
+  # the indices: each utterance's rows are n_frames of its length, in order
+  expected = cfg.n_frames(n_samples)
+  for feat in CORPUS_FEATURES:
+    idx = ds[f"indices_{feat}"]
+    spans = np.array([idx[os.path.basename(f)] for f in files])
+    if not (np.array_equal(spans[:, 1] - spans[:, 0], expected) and
+            np.array_equal(spans[1:, 0], spans[:-1, 1]) and
+            spans[0, 0] == 0 and spans[-1, 1] == len(ds[feat])):
+      raise AssertionError(f"indices_{feat} do not count each utterance's "
+                           "frames")
+  store_rows = {k: np.asarray(ds[k][:]) for k in CORPUS_FEATURES}
+  # the sums: the float64 sums of the stored rows
+  for feat in ("mspec", "mfcc_cmvn"):
+    r = store_rows[feat].astype(np.float64)
+    for i, want in ((1, r.sum(0)), (2, (r ** 2).sum(0))):
+      got = ds[f"{feat}_sum{i}"]
+      if not np.allclose(got, want, rtol=1e-9, atol=1e-6):
+        raise AssertionError(f"{feat}_sum{i} is not the sum of the rows")
+  log(f"indices: {len(files)} utterances, {len(store_rows['mspec'])} rows, "
+      f"each n_frames of its length; sum1/sum2 equal the float64 sums of "
+      "the rows (rtol 1e-9)")
+
+  # against batch_speech_features on the card, every utterance
+  ref = batch_speech_features(raw, cfg, batch_size=CORPUS_BATCH,
+                              features=CORPUS_FEATURES, device="cuda")
+  agree("store against batch_speech_features on the card, every utterance",
+        store_rows, {k: np.concatenate([r[k] for r in ref])
+                     for k in CORPUS_FEATURES})
+  del ref
+  # against the port on the CPU, the first files
+  t1 = time.perf_counter()
+  cpu = DeviceCorpusProcessor(files[:CORPUS_CPU_FILES],
+                              os.path.join(root, "cpu"),
+                              features=CORPUS_FEATURES,
+                              batch_size=CORPUS_BATCH, device="cpu").run()
+  log(f"the same on the CPU, {CORPUS_CPU_FILES} files: "
+      f"{time.perf_counter() - t1:.2f} s")
+  agree(f"store against the CPU's, the first {CORPUS_CPU_FILES} files",
+        {k: rows(ds, k, CORPUS_CPU_FILES) for k in CORPUS_FEATURES},
+        {k: np.asarray(cpu[k][:]) for k in CORPUS_FEATURES})
+  # the float16 transfer
+  f16 = DeviceCorpusProcessor(files[:CORPUS_F16_FILES],
+                              os.path.join(root, "f16"),
+                              features=CORPUS_FEATURES,
+                              batch_size=CORPUS_BATCH,
+                              transfer_dtype="float16", device="cuda").run()
+  rates("DeviceCorpusProcessor float16 transfer", f16, CORPUS_F16_FILES,
+        float(n_samples[:CORPUS_F16_FILES].sum()) / CORPUS_SR)
+  for feat in ("mspec", "mfcc_cmvn"):
+    got, want = np.asarray(f16[feat][:]), rows(ds, feat, CORPUS_F16_FILES)
+    e = float(np.abs(got - want).max())
+    log(f"float16 transfer {feat}: max diff {e:.4g} from float32 (rtol "
+        f"{F16_RTOL}, atol {F16_ATOL})")
+    if got.dtype != np.float32 or not np.allclose(got, want, rtol=F16_RTOL,
+                                                  atol=F16_ATOL):
+      raise AssertionError(f"the float16 transfer's {feat} is off")
+
+  # -- 9.2 validate_features and calculate_pca
+  report = validate_features(store, "mspec")
+  log(f"validate_features: {report}")
+  if report["n_nan"] or report["n_inf"] or report["n_utterances"] != n_files:
+    raise AssertionError(f"validate_features: {report}")
+  pcas = {}
+  for device in ("cuda", "cpu"):
+    t1 = time.perf_counter()
+    pcas[device] = calculate_pca(store, "mspec",
+                                 n_components=PCA_COMPONENTS, device=device)
+    log(f"calculate_pca on {device}: {time.perf_counter() - t1:.3f} s for "
+        f"{pcas[device].n_samples_seen_} rows x 40 in chunks of 8192")
+  card, host = pcas["cuda"], pcas["cpu"]
+  e_comp = float(np.abs(card.components_ - host.components_).max())
+  ev_ok = np.allclose(card.explained_variance_, host.explained_variance_,
+                      rtol=PCA_RTOL, atol=0)
+  log(f"PCA card against CPU: components max diff {e_comp:.3g} (limit "
+      f"{PCA_ATOL}), explained variance within rtol {PCA_RTOL}: {ev_ok}; "
+      f"explained variance ratio of {PCA_COMPONENTS} components "
+      f"{float(card.explained_variance_ratio_.sum()):.6f}")
+  if not (e_comp <= PCA_ATOL and ev_ok):
+    raise AssertionError("calculate_pca on the card differs from the CPU")
+  del store_rows
+
+  # -- 9.3 AudioFeatureLoader
+  sub = files[:CORPUS_LOADER_FILES]
+  for compat, feature, atol, rtol in (("odin", "mspec", LOGMEL_TOL_DB, 0.0),
+                                      ("tf", "mels", 2e-3, 1e-4)):
+    kw = dict(sr=CORPUS_SR, feature=feature, compat=compat,
+              max_duration=CORPUS_SECONDS)
+    reset_counts()
+    t1 = time.perf_counter()
+    got = AudioFeatureLoader(sub, device="cuda", **kw).numpy(
+        "all", inc_labels=False)
+    t_card = time.perf_counter() - t1
+    counts = read_counts()
+    want = AudioFeatureLoader(sub, device="cpu", **kw).numpy(
+        "all", inc_labels=False)
+    e = float(np.abs(got - want).max())
+    log(f"AudioFeatureLoader compat={compat} {feature} {got.shape}: "
+        f"{t_card:.3f} s on the card (decode included), max diff from the "
+        f"CPU {e:.4g} (rtol {rtol}, atol {atol}); launches {counts}")
+    want_launches = -(-CORPUS_LOADER_FILES // 64) if compat == "odin" else 0
+    if counts["logmel"] != want_launches or \
+        counts["logmel_fft"] != want_launches:
+      raise AssertionError(f"the loader launched K1 {counts}, not "
+                           f"{want_launches} times")
+    if not np.allclose(got, want, rtol=rtol, atol=atol):
+      raise AssertionError(f"AudioFeatureLoader compat={compat} differs "
+                           "from the CPU")
+
+  # -- 9.4 streaming: 64 streams of 8 s in chunks of 0.1 s
+  streams = np.load(os.path.join(root, "streams.npy"))
+  B, T = streams.shape
+  n_chunks = T // STREAM_CHUNK
+
+  def stream(timed):
+    state = sf.streaming_init(cfg, B, device="cuda")
+    outs, lat = [], []
+    for k in range(n_chunks):
+      t1 = time.perf_counter()
+      state, out = sf.streaming_step(
+          cfg, state, streams[:, k * STREAM_CHUNK:(k + 1) * STREAM_CHUNK])
+      out["mspec_raw"].cpu()  # the chunk's log-mels back on the host
+      lat.append(time.perf_counter() - t1)
+      if not timed:
+        outs.append(out)
+    return state, outs, lat
+
+  state, outs, _ = stream(False)
+  fin = sf.streaming_finalize(cfg, state, outs)
+  offline = speech_features(streams, cfg, device="cuda", use_pallas=False)
+  lead = sf.carry_samples(cfg) // cfg.step_length
+  F = offline["mspec"].shape[1]
+  mask = fin["frame_mask"].cpu().numpy()
+  if mask[:, :lead].any() or not mask[:, lead:lead + F].all():
+    raise AssertionError("streaming: the frame mask is off")
+  errs = {}
+  for key, atol in STREAM_LIMITS:
+    a = fin[key][:, lead:lead + F].cpu().numpy()
+    b = offline[key].cpu().numpy()
+    errs[key] = float(np.abs(a - b).max())
+    if not np.allclose(a, b, rtol=1e-4, atol=atol):
+      raise AssertionError(f"streaming {key} differs from offline by "
+                           f"{errs[key]}")
+  vad_equal = np.array_equal(fin["vad"][:, lead:lead + F].cpu().numpy(),
+                             offline["vad"].cpu().numpy())
+  log(f"streaming ({B} streams, {n_chunks} chunks of {STREAM_CHUNK} "
+      f"samples) against offline speech_features(use_pallas=False) on the "
+      f"card, max diff: " + ", ".join(f"{k} {v:.3g}" for k, v in
+                                      errs.items()) + f"; vad equal: "
+      f"{vad_equal}")
+  if not vad_equal:
+    raise AssertionError("the streaming VAD differs from the offline VAD")
+  lat = sorted(sum((stream(True)[2] for _ in range(3)), []))
+  log(f"streaming chunk latency, host to host ({len(lat)} chunks of 0.1 s "
+      f"for {B} streams): median {1e3 * lat[len(lat) // 2]:.3f} ms, p99 "
+      f"{1e3 * lat[int(0.99 * len(lat))]:.3f} ms; real-time factor "
+      f"{sum(lat) / 3 / (T / CORPUS_SR):.5f} (processing s per s of "
+      f"audio, all {B} streams together); {smi}")
+
+  # -- 9.5 Griffin-Lim
+  y = streams[:, :int(GL_SECONDS * CORPUS_SR)].astype(np.float32) / 32768.0
+  re, im = inversion.stft_device(y, GL_FRAME, GL_HOP, device="cpu")
+  mag = torch.sqrt(re * re + im * im)
+  phase = torch.rand(mag.shape, generator=torch.Generator().manual_seed(SEED))
+  phase = phase * (2 * math.pi)
+
+  def convergence(device):
+    m = mag.to(device)
+    t1 = time.perf_counter()
+    rec = inversion.griffin_lim_device(m, GL_FRAME, GL_HOP, GL_ITERS,
+                                       init_phase=phase, device=device)
+    if device == "cuda":
+      torch.cuda.synchronize()
+    seconds = time.perf_counter() - t1
+    r2, i2 = inversion.stft_device(rec, GL_FRAME, GL_HOP, device=device)
+    m2 = torch.sqrt(r2 * r2 + i2 * i2)[:, :m.shape[1]]
+    return float(torch.linalg.norm(m2 - m) / torch.linalg.norm(m)), seconds
+
+  convergence("cuda")  # warm-up
+  sc_card, t_card = convergence("cuda")
+  sc_cpu, t_cpu = convergence("cpu")
+  log(f"Griffin-Lim, {B} utterances of {GL_SECONDS} s, frames {GL_FRAME} "
+      f"hop {GL_HOP}, {GL_ITERS} iterations: spectral convergence "
+      f"{sc_card:.6f} on the card, {sc_cpu:.6f} on the CPU (limits: within "
+      f"{GL_CPU_TOL}, below {GL_LIMIT}); {1e3 * t_card:.3f} ms on the card, "
+      f"{1e3 * t_cpu:.3f} ms on the CPU; {smi}")
+  if abs(sc_card - sc_cpu) > GL_CPU_TOL or not sc_card < GL_LIMIT:
+    raise AssertionError("Griffin-Lim on the card does not converge as on "
+                         "the CPU")
+  shutil.rmtree(root, ignore_errors=True)
+
+
 def main() -> int:
   import numpy as np
   import torch
@@ -725,6 +1079,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all(sources)
     log(f"build: {time.perf_counter() - t0:.2f} s")
+  # phase 9's corpus is written by a child process while phases 2-8 run;
+  # it is stopped at exit whatever happens
+  writer = start_corpus_writer()
+  atexit.register(lambda: (writer.poll() is None and writer.kill(),
+                           writer.wait()))
 
   cfg = FeatureConfig()
   batch, seconds = 64, 4.0
@@ -1227,6 +1586,10 @@ def main() -> int:
   with Phase("8 fit path: the README quickstart's training"):
     fit_path(torch, np, reset_counts, read_counts, smi, graphed_s)
 
+  with Phase("9 corpus path: DeviceCorpusProcessor, AudioFeatureLoader, "
+             "streaming, Griffin-Lim"):
+    corpus_path(torch, np, reset_counts, read_counts, smi, writer)
+
   log("kernels: " + "; ".join(
       f"{k} launches={v['launches']} ms={v['ms']:.4f} "
       f"plain_ms={v['plain_ms']:.4f} library_ms={v['library_ms']:.4f} "
@@ -1242,4 +1605,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+  if sys.argv[1:2] == ["--write-corpus"]:
+    write_corpus(sys.argv[2])
+    sys.exit(0)
   sys.exit(main())

@@ -17,11 +17,15 @@ __all__ = ["RVconf"]
 @dataclasses.dataclass
 class RVconf:
   """Descriptor for a random-variable head, e.g.
-  ``RVconf(10, 'mvndiag', projection=True, name='latents')``."""
+  ``RVconf(10, 'mvndiag', projection=True, name='latents')``.  The fields
+  are the JAX package's, in its order; ``autoregressive`` and ``dropout``
+  are not ported yet and raise unless left at their defaults."""
 
   event_shape: Union[int, Sequence[int]] = ()
   posterior: str = "normal"
   projection: bool = True
+  autoregressive: bool = False
+  dropout: float = 0.0
   name: str = "variable"
   prior: Optional[Distribution] = None
   kwargs: Dict[str, Any] = dataclasses.field(default_factory=dict)
@@ -31,6 +35,10 @@ class RVconf:
       self.event_shape = (int(self.event_shape),)
     else:
       self.event_shape = tuple(int(i) for i in self.event_shape)
+    if self.autoregressive or self.dropout:
+      raise NotImplementedError(
+          "RVconf's autoregressive and dropout are not ported yet "
+          f"(autoregressive={self.autoregressive}, dropout={self.dropout})")
 
   @property
   def event_size(self) -> int:
@@ -41,15 +49,17 @@ class RVconf:
     spec = parse_distribution(self.posterior)
     return int(spec.params_size(self.event_size, **self.kwargs))
 
-  def create_posterior(self):
-    """The ``DistributionDense`` head of this variable."""
+  def create_posterior(self, name: Optional[str] = None):
+    """The ``DistributionDense`` head of this variable, named `name` (the
+    variable's own name by default)."""
     # imported here: the head depends on the network layers, whose package
     # imports this module through the image networks
     from odin_tpu_torch.bay.layers.dense_distribution import DistributionDense
     return DistributionDense(event_shape=self.event_shape,
                              posterior=self.posterior,
                              posterior_kwargs=dict(self.kwargs),
-                             projection=self.projection, name=self.name)
+                             projection=self.projection,
+                             name=name or self.name)
 
   def create_prior(self) -> Optional[Distribution]:
     if self.prior is not None:

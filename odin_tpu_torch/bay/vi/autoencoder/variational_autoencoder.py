@@ -40,7 +40,6 @@ from odin_tpu_torch.training.core import (
     TrainStepFn,
     _clone_state,
     _to_device,
-    _tree_leaves,
     as_noise,
     build_train_step_fn,
     device_dataset_steps,
@@ -55,9 +54,11 @@ from odin_tpu_torch.utils import md5_checksum
 __all__ = ["VAECore", "VariationalAutoencoder"]
 
 
-def _as_head(head) -> DistributionDense:
+def _as_head(head, default_name: str) -> DistributionDense:
+  """An ``RVconf`` becomes a head named by its role (`default_name`), as in
+  the JAX package; a given ``DistributionDense`` keeps its own name."""
   if isinstance(head, RVconf):
-    return head.create_posterior()
+    return head.create_posterior(name=default_name)
   if isinstance(head, DistributionDense):
     return head
   raise ValueError(f"cannot interpret {head!r} as a distribution head")
@@ -135,8 +136,8 @@ class VariationalAutoencoder(VariationalModel):
     if kwargs.get("labels") is not None:
       raise NotImplementedError("labels heads are not ported yet")
     self.latents_conf = latents if isinstance(latents, RVconf) else None
-    self.core = VAECore(encoder, decoder, _as_head(latents),
-                        _as_head(observation))
+    self.core = VAECore(encoder, decoder, _as_head(latents, "latents"),
+                        _as_head(observation, "observation"))
     self.input_shape = tuple(input_shape) if input_shape is not None else None
     self.device: Optional[torch.device] = None
     self.state: Optional[TrainState] = None
@@ -566,10 +567,23 @@ class VariationalAutoencoder(VariationalModel):
     return self
 
   def md5_checksum(self) -> str:
-    """md5 of all the params, in the port's order."""
-    leaves = _tree_leaves(self._params_of())
+    """md5 of all the params as the JAX package hashes them: the flax tree
+    of ``to_jax_params`` (flax's layouts), its leaves in flax's order (keys
+    sorted at every level), raveled and concatenated, so that the digest
+    names the same weights in both packages."""
+    from odin_tpu_torch.weights import to_jax_params
+
+    def leaves(tree):
+      for key in sorted(tree):
+        if isinstance(tree[key], dict):
+          yield from leaves(tree[key])
+        else:
+          yield tree[key]
+
+    self._params_of()  # raises before build()
+    tree = {"vae": to_jax_params(self.core)}
     return md5_checksum(np.concatenate(
-        [t.detach().cpu().numpy().ravel() for t in leaves]))
+        [np.asarray(v).ravel() for v in leaves(tree)]))
 
   def __repr__(self):
     return (f"{type(self).__name__}(zdim={self.zdim}, "

@@ -1,8 +1,14 @@
-"""Data layer of the port: the input pipeline and the datasets ported so
-far (procedural dSprites).  ``get_dataset`` raises for the JAX package's
+"""Data layer of the port: the input pipeline, the on-disk stores and the
+feature-store ``Dataset``, ``AudioFeatureLoader``, and the datasets ported
+so far (procedural dSprites).  ``get_dataset`` raises for the JAX package's
 other datasets, which are not ported yet."""
 from typing import List, Type, Union
 
+from odin_tpu_torch.fuel.audio_data import (AudioFeatureLoader,
+                                            synth_speaker_corpus)
+from odin_tpu_torch.fuel.databases import (MmapArray, MmapArrayWriter,
+                                           MmapDict, SQLiteDict, TableDict)
+from odin_tpu_torch.fuel.dataset import Dataset
 from odin_tpu_torch.fuel.dataset_base import IterableDataset, get_partition
 from odin_tpu_torch.fuel.image_data import (ImageDataset, dSprites,
                                             dSprites0, dSpritesSmall)
@@ -10,7 +16,9 @@ from odin_tpu_torch.fuel.pipeline import DataPipeline
 
 __all__ = ["get_dataset", "get_all_dataset", "get_partition",
            "IterableDataset", "ImageDataset", "DataPipeline", "dSprites",
-           "dSpritesSmall", "dSprites0"]
+           "dSpritesSmall", "dSprites0", "Dataset", "MmapDict", "SQLiteDict",
+           "MmapArray", "MmapArrayWriter", "TableDict", "AudioFeatureLoader",
+           "synth_speaker_corpus"]
 
 _DATASETS = (dSprites, dSprites0, dSpritesSmall)
 

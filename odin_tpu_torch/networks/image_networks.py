@@ -54,13 +54,14 @@ class PackImageParams(nn.Module):
 
 
 def _obs_distribution(input_shape: Tuple[int, ...], distribution: str):
-  """n_params + observation RVconf for an image likelihood."""
+  """n_params + the observation head (a ``DistributionDense`` named
+  'image', as the JAX package builds it) for an image likelihood."""
   if distribution != "bernoulli":
     raise NotImplementedError(f"image likelihood '{distribution}' is not "
                               "ported yet")
   n_params = 1
   observation = RVconf(input_shape, distribution, projection=False,
-                       name="image")
+                       name="image").create_posterior()
   return n_params, observation
 
 

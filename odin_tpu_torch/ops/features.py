@@ -10,8 +10,11 @@ hand-written CUDA kernel on the card, its plain PyTorch version on the CPU.
 ``use_pallas=False`` takes the JAX package's default branch, the plain
 matmul DFT, which also returns the power spectrum ``spec``.
 All functions are mask-aware (padded frames are excluded from the top-dB
-reference, CMVN and VAD statistics).  The tf.signal-compatible path of the
-JAX package is not ported yet.
+reference, CMVN and VAD statistics).
+
+The tf.signal-compatible path (``TFCompatConfig``, ``tf_mel_matrix``,
+``tf_signal_features``, ``odin_tpu/ops/features.py:261-409``) computes its
+DFT with plain fp32 products, as the JAX package does outside any kernel.
 """
 from __future__ import annotations
 
@@ -26,7 +29,8 @@ from odin_tpu_torch.ops.logmel import logmel, power_spectrum
 from odin_tpu_torch.preprocessing import signal as np_signal
 
 __all__ = ["FeatureConfig", "dft_bases", "frame_signal", "speech_features",
-           "ulaw_expand_device"]
+           "ulaw_expand_device", "TFCompatConfig", "tf_mel_matrix",
+           "tf_signal_features"]
 
 
 class FeatureConfig:
@@ -244,3 +248,155 @@ def speech_features(y, config: FeatureConfig, lengths=None,
   if config.delta_width:
     out["mfcc_delta"] = _batch_delta(out["mfcc"], config.delta_width)
   return out
+
+
+# ---------------------------------------------------------------------------
+# tf.signal-compatible path
+# ---------------------------------------------------------------------------
+class TFCompatConfig:
+  """Configuration of the tf.signal semantics of the original
+  ``AudioFeatureLoader``: periodic Hann window, no pre-emphasis or
+  centering, fft_length the next power of 2 of frame_length, HTK mel scale
+  (``tf.signal.linear_to_mel_weight_matrix``), dB with a per-utterance
+  top_DB floor, MFCC by the orthogonally scaled DCT-II of
+  ``tf.signal.mfccs_from_log_mel_spectrograms``.  A numeric path distinct
+  from ``FeatureConfig`` (Slaney mel, pre-emphasis)."""
+
+  def __init__(self,
+               frame_length: int = 256,
+               frame_step: int = 80,
+               fft_length: Optional[int] = None,
+               sample_rate: int = 8000,
+               power: float = 2.0,
+               top_DB: Optional[float] = 80.0,
+               num_mel_bins: int = 20,
+               num_cepstral: Optional[int] = None,
+               log_mels: bool = False,
+               lower_edge_hertz: float = 125.0,
+               upper_edge_hertz: float = 3800.0):
+    self.frame_length = int(frame_length)
+    self.frame_step = int(frame_step)
+    if fft_length is None:
+      fft_length = frame_length
+    # the smallest power of 2 enclosing frame_length
+    self.fft_length = 2 ** int(np.ceil(np.log2(fft_length)))
+    self.sample_rate = int(sample_rate)
+    self.power = float(power)
+    self.top_DB = None if top_DB is None else float(top_DB)
+    self.num_mel_bins = int(num_mel_bins)
+    self.num_cepstral = num_cepstral
+    self.log_mels = bool(log_mels)
+    self.lower_edge_hertz = float(lower_edge_hertz)
+    self.upper_edge_hertz = float(upper_edge_hertz)
+
+  @functools.cached_property
+  def window_fn(self) -> np.ndarray:
+    # tf.signal.hann_window: periodic by default
+    n = self.frame_length
+    return (0.5 - 0.5 * np.cos(2.0 * np.pi * np.arange(n) / n)) \
+        .astype(np.float32)
+
+  @functools.cached_property
+  def mel_weight(self) -> np.ndarray:
+    return tf_mel_matrix(self.num_mel_bins, self.fft_length // 2 + 1,
+                         self.sample_rate, self.lower_edge_hertz,
+                         self.upper_edge_hertz)
+
+  @functools.cached_property
+  def mfcc_basis(self) -> np.ndarray:
+    """`mfccs_from_log_mel_spectrograms`: the unnormalized DCT-II scaled by
+    1/sqrt(2*num_mel_bins), as one basis [num_mel_bins, n_out]."""
+    N = self.num_mel_bins
+    n = np.arange(N)[:, None]
+    k = np.arange(N)[None, :]
+    basis = 2.0 * np.cos(np.pi * k * (2.0 * n + 1.0) / (2.0 * N))
+    return (basis / np.sqrt(2.0 * N)).astype(np.float32)
+
+  def n_frames(self, n_samples: int) -> int:
+    # tf.signal.stft pad_end=False
+    return 1 + (n_samples - self.frame_length) // self.frame_step
+
+
+def _hertz_to_mel_htk(f):
+  return 2595.0 * np.log10(1.0 + np.asarray(f, np.float64) / 700.0)
+
+
+def tf_mel_matrix(num_mel_bins: int, num_spectrogram_bins: int,
+                  sample_rate: float, lower_edge_hertz: float,
+                  upper_edge_hertz: float) -> np.ndarray:
+  """NumPy mirror of `tf.signal.linear_to_mel_weight_matrix` (HTK mel scale,
+  first `bands_to_zero=1` spectrogram bin zeroed); shape
+  [num_spectrogram_bins, num_mel_bins]."""
+  bands_to_zero = 1
+  nyquist = sample_rate / 2.0
+  linear_freqs = np.linspace(0.0, nyquist,
+                             num_spectrogram_bins)[bands_to_zero:]
+  spec_mel = _hertz_to_mel_htk(linear_freqs)[:, None]
+  edges = np.linspace(_hertz_to_mel_htk(lower_edge_hertz),
+                      _hertz_to_mel_htk(upper_edge_hertz),
+                      num_mel_bins + 2)
+  lower, center, upper = edges[:-2][None, :], edges[1:-1][None, :], \
+      edges[2:][None, :]
+  lower_slopes = (spec_mel - lower) / (center - lower)
+  upper_slopes = (upper - spec_mel) / (upper - center)
+  w = np.maximum(0.0, np.minimum(lower_slopes, upper_slopes))
+  return np.pad(w, [[bands_to_zero, 0], [0, 0]]).astype(np.float32)
+
+
+def tf_signal_features(y, config: TFCompatConfig, lengths=None,
+                       device: Union[str, torch.device] = "cuda"
+                       ) -> Dict[str, torch.Tensor]:
+  """Batched tf.signal features on `device`: (B, T) or (T,) float audio
+  (numpy or tensor) with (B,) valid lengths.
+
+  Returns a dict of tensors: 'stft_re'/'stft_im', 'spec' (dB
+  magnitude^power), 'mels' (dB or log mel), 'mfcc', 'frame_mask'.  The
+  per-utterance top_DB floor reads only the valid frames."""
+  device = resolve_device(device)
+  y = torch.as_tensor(y).to(device)
+  if y.ndim == 1:
+    y = y[None]
+  y = y.to(torch.float32)
+  B, T = y.shape
+  n_frames = config.n_frames(T)
+  if lengths is None:
+    lengths = torch.full((B,), T, dtype=torch.int64, device=device)
+  else:
+    lengths = torch.as_tensor(lengths).to(device=device, dtype=torch.int64)
+  frame_ends = (torch.arange(n_frames, device=device) * config.frame_step +
+                config.frame_length)
+  mask = frame_ends[None, :] <= lengths[:, None]
+
+  as_tensor = lambda a: torch.from_numpy(
+      np.ascontiguousarray(a, np.float32)).to(device)
+  frames = frame_signal(y, config.frame_length, config.frame_step)
+  frames = frames * as_tensor(config.window_fn)
+  cos_b, sin_b = dft_bases(config.frame_length, config.fft_length)
+  re = torch.matmul(frames, as_tensor(cos_b))
+  im = torch.matmul(frames, as_tensor(sin_b))
+  mag = torch.sqrt(re * re + im * im)
+  if config.power > 1.0:
+    mag = mag ** config.power
+
+  def amplitude_to_db(s):
+    # the per-utterance max floor over the valid frames
+    multiplier = 10.0 if config.power == 2.0 else 20.0
+    s_db = multiplier * (torch.log(torch.clamp(s, min=1e-10)) /
+                         float(np.log(10.0)))
+    if config.top_DB is not None:
+      masked = torch.where(mask[..., None], s_db,
+                           torch.full((), -1e30, device=device))
+      ref = torch.amax(masked, dim=(-2, -1), keepdim=True)
+      s_db = torch.maximum(s_db, ref - config.top_DB)
+    return s_db
+
+  mel = torch.matmul(mag, as_tensor(config.mel_weight))
+  if config.log_mels:
+    mels = torch.log(mel + 1e-6)
+  else:
+    mels = amplitude_to_db(mel)
+  mfcc = torch.matmul(mels, as_tensor(config.mfcc_basis))
+  if config.num_cepstral is not None:
+    mfcc = mfcc[..., :int(config.num_cepstral)]
+  return dict(stft_re=re, stft_im=im, spec=amplitude_to_db(mag), mels=mels,
+              mfcc=mfcc, frame_mask=mask)

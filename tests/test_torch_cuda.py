@@ -19,6 +19,12 @@ the same inputs, so bitwise; a NaN batch skipped inside the graph; the
 input pipeline's copies to the card; ``Trainer.fit`` graphed against eager
 steps and ``fit_device_dataset`` resumed from a checkpoint, bitwise; and a
 capture that fails raises.
+
+The corpus path: ``DeviceCorpusProcessor`` on the card against the CPU at
+``pipeline_depth`` 1 and 3 and with large batches after small ones (the
+limits of tests/test_torch_corpus.py), one K1 launch per batch; streaming
+features and Griffin-Lim on the card against the CPU (the limits of
+tests/test_torch_streaming.py and tests/test_torch_inversion.py).
 """
 import importlib
 
@@ -600,6 +606,117 @@ def test_fit_device_dataset_resumes_on_card(cuda_device, tmp_path):
     assert torch.equal(resumed.state.params["vae"][key], v), key
   assert torch.equal(resumed.state.rng.get_state(),
                      whole.state.rng.get_state())
+
+
+def _corpus_files(root, lengths, seed=0):
+  """Int16 wav files of the synthetic speaker corpus cut to `lengths`."""
+  from odin_tpu_torch.fuel.audio_data import synth_speaker_corpus
+  from odin_tpu_torch.preprocessing.speech import save_wave
+  utts, _ = synth_speaker_corpus(1, len(lengths), seed=seed,
+                                 dur=max(lengths) / 16000)
+  return [save_wave(str(root / f"u{i:03d}.wav"), u[:n], 16000)
+          for i, (u, n) in enumerate(zip(utts, lengths))]
+
+
+def _stores_agree(card, cpu):
+  """The card's store against the CPU's: the indices equal, mspec within
+  0.01 dB, mfcc_cmvn within 5e-3 (tests/test_preprocessing.py:382), the
+  VAD equal on 99.9 % of the frames."""
+  assert sorted(card["indices_mspec"]) == sorted(cpu["indices_mspec"])
+  for feat in ("mspec", "mfcc_cmvn", "vad"):
+    for name in cpu[f"indices_{feat}"]:
+      assert card[f"indices_{feat}"][name] == cpu[f"indices_{feat}"][name]
+  np.testing.assert_allclose(np.asarray(card["mspec"][:]),
+                             np.asarray(cpu["mspec"][:]), rtol=0,
+                             atol=MSPEC_ATOL)
+  np.testing.assert_allclose(np.asarray(card["mfcc_cmvn"][:]),
+                             np.asarray(cpu["mfcc_cmvn"][:]), rtol=5e-3,
+                             atol=5e-3)
+  vad_card, vad_cpu = np.asarray(card["vad"][:]), np.asarray(cpu["vad"][:])
+  assert (vad_card == vad_cpu).mean() >= 0.999
+
+
+@pytest.mark.parametrize("depth", [1, 3])
+def test_corpus_processor_on_card_matches_cpu(cuda_device, tmp_path, depth):
+  """One K1 launch per batch; the card's store equals the CPU's."""
+  from odin_tpu_torch.preprocessing import DeviceCorpusProcessor
+  lengths = np.random.RandomState(depth).randint(8000, 48001, 22)
+  files = _corpus_files(tmp_path, lengths)
+  kw = dict(batch_size=8, pipeline_depth=depth)
+  before = _counts()
+  card = DeviceCorpusProcessor(files, str(tmp_path / "card"),
+                               device=cuda_device, **kw).run()
+  launched = tuple(a - b for a, b in zip(_counts(), before))
+  assert launched == (3, 3, 0)  # 22 files in batches of 8: the FFT kernel
+  cpu = DeviceCorpusProcessor(files, str(tmp_path / "cpu"), device="cpu",
+                              **kw).run()
+  _stores_agree(card, cpu)
+  assert card.attrs["phase_sec"]["device_wait"] >= 0.0
+
+
+def test_corpus_processor_large_batch_after_small_on_card(cuda_device,
+                                                          tmp_path):
+  """Batches of 0.25 s, then 6 s, then 0.25 s and 6 s again, three in
+  flight: a pinned buffer reused, or a result read, before its batch's
+  event has fired would show as a store that differs from the CPU's."""
+  from odin_tpu_torch.preprocessing import DeviceCorpusProcessor
+  lengths = np.concatenate([np.full(4, 4000), np.full(4, 96000),
+                            np.full(4, 4000), np.full(4, 96000),
+                            np.full(3, 4000)])
+  lengths = lengths - np.arange(len(lengths)) * 7
+  files = _corpus_files(tmp_path, lengths, seed=4)
+  kw = dict(batch_size=4, pipeline_depth=3)
+  card = DeviceCorpusProcessor(files, str(tmp_path / "card"),
+                               device=cuda_device, **kw).run()
+  cpu = DeviceCorpusProcessor(files, str(tmp_path / "cpu"), device="cpu",
+                              **kw).run()
+  _stores_agree(card, cpu)
+  f16 = DeviceCorpusProcessor(files, str(tmp_path / "f16"),
+                              device=cuda_device, transfer_dtype="float16",
+                              **kw).run()
+  np.testing.assert_allclose(np.asarray(f16["mspec"][:]),
+                             np.asarray(card["mspec"][:]), rtol=2e-3,
+                             atol=2e-2)
+
+
+def test_streaming_on_card_matches_cpu(cuda_device):
+  from odin_tpu_torch.ops import streaming_features as ts
+  cfg = tf.FeatureConfig()
+  y = (np.random.RandomState(2).randn(3, 16000) * 0.1).astype(np.float32)
+  fins = []
+  for device in (cuda_device, "cpu"):
+    state = ts.streaming_init(cfg, 3, device=device)
+    outs = []
+    for k in range(10):
+      state, o = ts.streaming_step(cfg, state, y[:, 1600 * k:1600 * (k + 1)])
+      outs.append(o)
+    fins.append({k: v.cpu().numpy()
+                 for k, v in ts.streaming_finalize(cfg, state, outs).items()})
+  card, cpu = fins
+  np.testing.assert_array_equal(card["frame_mask"], cpu["frame_mask"])
+  np.testing.assert_array_equal(card["vad"], cpu["vad"])
+  m = cpu["frame_mask"]
+  for key, atol in (("spec", 1e-5), ("mspec", 1e-4), ("mfcc", 1e-4),
+                    ("mspec_cmvn", 1e-3), ("mfcc_cmvn", 1e-3)):
+    np.testing.assert_allclose(card[key][m], cpu[key][m], rtol=1e-4,
+                               atol=atol, err_msg=key)
+
+
+def test_griffin_lim_on_card_matches_cpu(cuda_device):
+  from odin_tpu_torch.ops import inversion as ti
+  t = np.arange(8192) / 8000.0
+  y = np.stack([np.sin(2 * np.pi * 220 * t), np.sin(2 * np.pi * 330 * t)])
+  re, im = ti.stft_device(y.astype("f") * 0.3, 256, 64, device="cpu")
+  mag = torch.sqrt(re ** 2 + im ** 2)
+  phase = torch.rand(mag.shape, generator=torch.Generator().manual_seed(0))
+  phase = phase * (2 * np.pi)
+  card = ti.griffin_lim_device(mag, 256, 64, 32, init_phase=phase,
+                               device=cuda_device)
+  cpu = ti.griffin_lim_device(mag, 256, 64, 32, init_phase=phase,
+                              device="cpu")
+  assert card.device.type == "cuda"
+  np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=0,
+                             atol=1e-3)
 
 
 def test_failed_capture_raises_on_card(cuda_device):

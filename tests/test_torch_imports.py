@@ -46,6 +46,12 @@ def test_sources_exist():
                  "fuel/image_data/_base.py", "bay/vi/losses.py",
                  "bay/vi/autoencoder/beta_vae.py", "utils.py"):
     assert f"odin_tpu_torch/{module}" in names
+  # the corpus slice
+  for module in ("preprocessing/speech.py", "preprocessing/processor.py",
+                 "fuel/databases.py", "fuel/dataset.py",
+                 "fuel/audio_data.py", "ops/streaming_features.py",
+                 "ops/inversion.py", "ops/features.py"):
+    assert f"odin_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -77,7 +83,12 @@ def test_importing_the_port_loads_no_jax():
           "odin_tpu_torch.training, odin_tpu_torch.backend, "
           "odin_tpu_torch.fuel, odin_tpu_torch.bay.helpers, "
           "odin_tpu_torch.training.trainer, odin_tpu_torch.utils, "
-          "odin_tpu_torch.bay.vi.losses\n"
+          "odin_tpu_torch.bay.vi.losses, odin_tpu_torch.fuel.databases, "
+          "odin_tpu_torch.fuel.dataset, odin_tpu_torch.fuel.audio_data, "
+          "odin_tpu_torch.preprocessing.speech, "
+          "odin_tpu_torch.preprocessing.processor, "
+          "odin_tpu_torch.ops.streaming_features, "
+          "odin_tpu_torch.ops.inversion\n"
           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
           f"{FORBIDDEN!r})\nassert not bad, bad")
   res = _run(["-c", code], cwd=ROOT)
