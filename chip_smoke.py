@@ -92,7 +92,22 @@ CPU:
      against the CPU; 64 streams of 8 s through ``streaming_step`` in
      chunks of 0.1 s against offline ``speech_features``, with the chunk
      latency; Griffin-Lim (32 iterations) on 64 utterances of 2 s against
-     the CPU from a shared initial phase.
+     the CPU from a shared initial phase;
+ 10. the gym path, the README quickstart's evaluation, on phase 8's model
+     (``fit`` at ``steps_per_call=100``, 1000 steps):
+     ``DisentanglementGym(dataset=get_dataset('dsprites'), model=vae)
+     .run_model(n_samples=10000, partition='test')`` and ``write_report``
+     with the default scores and FID, no ``_error`` key; ``z_mean`` of the
+     first 2,000 images against the same model on the CPU within 1e-4,
+     the per-sample ELBO terms on the card's noise within rtol 1e-4;
+     every estimator on the card against the port's CPU path fed the
+     card's own latents (MIG to 1e-10, the FactorVAE votes exactly, the
+     beta-VAE score and accuracy probe to one prediction, SAP to two of
+     the test split, DCI to 1e-6 and one prediction, TC and FID to rtol
+     1e-4 on the first 2,000 rows, the unweighted KL to rtol 1e-4), with
+     the time of
+     ``run_model`` and of each score on both.  The Gym launches no kernel
+     of this port.
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
 fp32 like the CPU.  Any failure raises and the script exits non-zero; it
@@ -669,6 +684,210 @@ def fit_path(torch, np, reset_counts, read_counts, smi, graphed_s):
   log(f"fit path launches, all of phase 8 (the step runs cuDNN and cuBLAS, "
       f"no kernel of this port): {read_counts()}")
   shutil.rmtree(root, ignore_errors=True)
+  return vae2
+
+
+GYM_SAMPLES = 10000  # the README quickstart's run_model(n_samples=10000)
+# the CPU side of the comparisons that take longest there (run_model, SAP,
+# DCI, TC, FID) runs on the first rows only; PERF.md section 4 says so
+GYM_CPU_ROWS = 2000
+GYM_SCORES = ("elbo", "llk", "kl", "mig", "sap", "dci", "betavae",
+              "factorvae", "tc", "active_units", "fid")
+GYM_ZMEAN_ATOL = 1e-4  # card against CPU: cuDNN and the CPU sum apart
+GYM_RTOL = 1e-4  # TC, kl_unweighted, the ELBO terms, FID on the same inputs
+
+
+def gym_path(torch, np, reset_counts, read_counts, smi, vae):
+  """Phase 10: the README quickstart's evaluation, ``DisentanglementGym
+  (dataset=get_dataset('dsprites'), model=vae).run_model(n_samples=10000,
+  partition='test')`` and ``write_report()`` with the default scores and
+  FID, on the card, on phase 8's model; then the same model on the CPU
+  (``z_mean`` of the first rows), each estimator on the CPU fed the card's
+  own latents, and the time of ``run_model`` and of each score on both."""
+  import copy
+  from odin_tpu_torch.bay.helpers import map_distributions
+  from odin_tpu_torch.bay.vi import BetaVAE, DisentanglementGym
+  from odin_tpu_torch.fuel import get_dataset
+  from odin_tpu_torch.networks import get_networks
+
+  cuda = torch.device("cuda", 0)
+  cpu = torch.device("cpu")
+  t0 = time.perf_counter()
+  ds = get_dataset("dsprites")
+  ds.numpy("test")
+  log(f"get_dataset('dsprites') test partition: "
+      f"{time.perf_counter() - t0:.2f} s to render")
+
+  def timed(fn):
+    t = time.perf_counter()
+    out = fn()
+    if torch.cuda.is_available():
+      torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+  # -- 10.1 the quickstart's lines on the card: the main path
+  reset_counts()
+  gym = DisentanglementGym(dataset=ds, model=vae)
+  _, run_s = timed(lambda: gym.run_model(n_samples=GYM_SAMPLES,
+                                         partition="test"))
+  report, card_s, again_s = {}, {}, {}
+  for score in GYM_SCORES:
+    part, card_s[score] = timed(lambda: gym.write_report(scores=(score,)))
+    report.update(part)
+  counts = read_counts()
+  # a second call of each: the first pays one-time costs (cuSOLVER's and
+  # cuDNN's set-up, scipy's import)
+  for score in GYM_SCORES:
+    _, again_s[score] = timed(lambda: gym.write_report(scores=(score,)))
+  log(f"gym path launches (run_model and write_report; the path runs "
+      f"cuDNN, cuBLAS and torch's own kernels, none of this port's): "
+      f"{counts}")
+  errors = {k: v for k, v in report.items() if k.endswith("_error")}
+  bad = [k for k, v in report.items() if not k.endswith("_error") and
+         not math.isfinite(float(v))]
+  log("write_report on the card: " + ", ".join(
+      f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+      for k, v in report.items()))
+  if errors or bad:
+    raise AssertionError(f"write_report failed: {errors} {bad}")
+  if gym.z_mean.device.type != "cuda" or gym.z_mean.shape != (GYM_SAMPLES,
+                                                               10):
+    raise AssertionError(f"z_mean {tuple(gym.z_mean.shape)} on "
+                         f"{gym.z_mean.device}")
+
+  # -- 10.2 the same model on the CPU: z_mean of the first rows
+  cpu_vae = BetaVAE(beta=4.0, **get_networks("dsprites", zdim=10)).build(
+      device="cpu")
+  cpu_vae.core.load_state_dict({k: v.cpu() for k, v in
+                                vae.core.state_dict().items()})
+  cpu_gym = DisentanglementGym(dataset=ds, model=cpu_vae)
+  # the ELBO's noise the card drew for every batch (its generator seeded
+  # `seed`), given to the CPU
+  eps = torch.randn((gym.batch_size, 10), device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(gym.seed))
+  _, cpu_run_s = timed(lambda: cpu_gym.run_model(
+      n_samples=GYM_CPU_ROWS, partition="test", eps=eps.cpu()))
+  dz = float((gym.z_mean[:GYM_CPU_ROWS].cpu() - cpu_gym.z_mean).abs().max())
+  terms = []
+  for name, card_v, cpu_v in (
+      ("llk", gym.log_likelihood_values(), cpu_gym.log_likelihood_values()),
+      ("kl", gym.kl_divergence_values(), cpu_gym.kl_divergence_values())):
+    rel = float(((card_v[:GYM_CPU_ROWS].cpu() - cpu_v).abs() /
+                 cpu_v.abs().clamp(min=1e-6)).max())
+    terms.append((name, rel))
+  log(f"run_model: card {GYM_SAMPLES} images in {run_s:.3f} s, CPU "
+      f"{GYM_CPU_ROWS} in {cpu_run_s:.3f} s; first {GYM_CPU_ROWS} rows, "
+      f"card against CPU: z_mean {dz:.3e} (limit {GYM_ZMEAN_ATOL}), " +
+      ", ".join(f"{n} per sample rel {r:.3e}" for n, r in terms) +
+      f" (limit {GYM_RTOL})")
+  if not dz <= GYM_ZMEAN_ATOL or any(not r <= GYM_RTOL for _, r in terms):
+    raise AssertionError(f"run_model differs from the CPU: z_mean {dz}, "
+                         f"{terms}")
+
+  # -- 10.3 each estimator on the CPU, fed the card's own latents
+  def moved(device, rows=None):
+    """A copy of the card's Gym with its run on `device`, cut to `rows`."""
+    g = copy.copy(gym)
+    take = (lambda t: t.to(device)) if rows is None else (
+        lambda t: t[:rows].to(device))
+    g.device = device
+    g.model = vae if device.type == "cuda" else cpu_vae
+    g.qz = map_distributions(take, gym.qz)
+    g.px = map_distributions(take, gym.px)
+    for name in ("_z_mean", "_z_discrete", "_factors_t", "_llk_total",
+                 "_kl_total"):
+      setattr(g, name, take(getattr(gym, name)))
+    if rows is not None:
+      g.x_true = gym.x_true[:rows]
+      g.groundtruth = copy.copy(gym.groundtruth)
+      g.groundtruth.factors = gym.groundtruth.factors[:rows]
+      g.groundtruth.factors_original = \
+          gym.groundtruth.factors_original[:rows]
+    return g
+
+  class CardDraws:
+    """The card posterior's draws, handed to the CPU's scores: the seed
+    each score draws seeds the same generator on the card."""
+
+    def __init__(self, qz):
+      self.qz = qz
+
+    def mean(self):
+      return self.qz.mean().cpu()
+
+    def sample(self, sample_shape, generator):
+      g = torch.Generator(cuda).manual_seed(generator.initial_seed())
+      return self.qz.sample(sample_shape, generator=g).cpu()
+
+  full_cpu = moved(cpu)
+  small = {"card": moved(cuda, GYM_CPU_ROWS), "cpu": moved(cpu, GYM_CPU_ROWS)}
+  n_test = math.ceil(0.2 * GYM_CPU_ROWS)
+  n_test_full = math.ceil(0.2 * GYM_SAMPLES)
+  checks = []  # (name, card, cpu, limit, card s, cpu s, rows on the CPU)
+
+  def both(name, card_fn, cpu_fn, limit, rows):
+    a, sa = timed(card_fn)
+    b, sb = timed(cpu_fn)
+    checks.append((name, a, b, limit, sa, sb, rows))
+
+  for protocol in ("reference", "dlib"):
+    both(f"mig ({protocol})", lambda: gym.mig_score(protocol),
+         lambda: full_cpu.mig_score(protocol), 1e-10, GYM_SAMPLES)
+    both(f"factorvae ({protocol})",
+         lambda: gym.factorvae_score(protocol=protocol),
+         lambda: _with_qz(full_cpu, CardDraws(gym.qz),
+                          lambda: full_cpu.factorvae_score(
+                              protocol=protocol)), 0.0, GYM_SAMPLES)
+    n_votes = 2000 if protocol == "reference" else 5000
+    both(f"betavae ({protocol})",
+         lambda: gym.betavae_score(protocol=protocol),
+         lambda: _with_qz(full_cpu, CardDraws(gym.qz),
+                          lambda: full_cpu.betavae_score(protocol=protocol)),
+         1.0 / n_votes, GYM_SAMPLES)
+  both("sap", lambda: small["card"].sap_score(),
+       lambda: small["cpu"].sap_score(), 2.0 / n_test, GYM_CPU_ROWS)
+  both("dci", lambda: small["card"].dci_score(),
+       lambda: small["cpu"].dci_score(), (1e-6, 1e-6, 1.0 / n_test),
+       GYM_CPU_ROWS)
+  both("total_correlation", small["card"].total_correlation,
+       small["cpu"].total_correlation, GYM_RTOL, GYM_CPU_ROWS)
+  both("kl_unweighted", gym.kl_unweighted, full_cpu.kl_unweighted, GYM_RTOL,
+       GYM_SAMPLES)
+  both("accuracy_score", gym.accuracy_score, full_cpu.accuracy_score,
+       1.0 / n_test_full, GYM_SAMPLES)
+  both("fid", lambda: small["card"].frechet_inception_distance(),
+       lambda: small["cpu"].frechet_inception_distance(), GYM_RTOL,
+       GYM_CPU_ROWS)
+  failed = []
+  for name, a, b, limit, sa, sb, rows in checks:
+    a_t, b_t = np.atleast_1d(a), np.atleast_1d(b)
+    lim = np.atleast_1d(limit)
+    if name in ("total_correlation", "kl_unweighted", "fid"):
+      ok = np.all(np.abs(a_t - b_t) <= lim * np.abs(b_t))
+    else:
+      ok = np.all(np.abs(a_t - b_t) <= lim + 1e-12)
+    log(f"{name}: card {np.round(a_t, 6).tolist()} in {sa:.3f} s, CPU "
+        f"{np.round(b_t, 6).tolist()} in {sb:.3f} s ({rows} rows on the "
+        f"CPU), limit {np.atleast_1d(limit).tolist()}"
+        f"{'' if ok else '  FAILED'}")
+    if not ok:
+      failed.append(name)
+  log("gym scores on the card, write_report one score at a time, first "
+      "call / second call (s): " + ", ".join(
+          f"{k} {v:.3f} / {again_s[k]:.3f}" for k, v in card_s.items()) +
+      f"; run_model {run_s:.3f}; {smi}")
+  if failed:
+    raise AssertionError(f"the card's Gym differs from the CPU: {failed}")
+
+
+def _with_qz(gym, qz, fn):
+  """fn() with the Gym's posterior replaced by `qz` for its duration."""
+  kept = gym.qz
+  gym.qz = qz
+  try:
+    return fn()
+  finally:
+    gym.qz = kept
 
 
 CORPUS_SR = 16000  # benchmarks/corpus_extraction_bench.py:32-34: 16 kHz, 8 s
@@ -1584,11 +1803,14 @@ def main() -> int:
     graphed_s = training_path(torch, np, reset_counts, read_counts, smi)
 
   with Phase("8 fit path: the README quickstart's training"):
-    fit_path(torch, np, reset_counts, read_counts, smi, graphed_s)
+    trained = fit_path(torch, np, reset_counts, read_counts, smi, graphed_s)
 
   with Phase("9 corpus path: DeviceCorpusProcessor, AudioFeatureLoader, "
              "streaming, Griffin-Lim"):
     corpus_path(torch, np, reset_counts, read_counts, smi, writer)
+
+  with Phase("10 gym path: the README quickstart's DisentanglementGym"):
+    gym_path(torch, np, reset_counts, read_counts, smi, trained)
 
   log("kernels: " + "; ".join(
       f"{k} launches={v['launches']} ms={v['ms']:.4f} "

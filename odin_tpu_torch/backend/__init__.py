@@ -1,3 +1,4 @@
-"""Backend utilities of the port (the annealing schedules so far)."""
-from odin_tpu_torch.backend import interpolation
+"""Backend utilities of the port: the annealing schedules and the Fréchet
+distances."""
+from odin_tpu_torch.backend import interpolation, metrics
 from odin_tpu_torch.backend.interpolation import Interpolation

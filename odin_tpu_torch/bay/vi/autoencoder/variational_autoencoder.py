@@ -15,7 +15,6 @@ generator's included.
 """
 from __future__ import annotations
 
-import copy
 import dataclasses
 import os
 import pickle
@@ -27,7 +26,7 @@ import torch
 from torch import nn
 
 from odin_tpu_torch.bay.distributions import Distribution
-from odin_tpu_torch.bay.helpers import kl_divergence
+from odin_tpu_torch.bay.helpers import kl_divergence, map_distributions
 from odin_tpu_torch.bay.layers.dense_distribution import DistributionDense
 from odin_tpu_torch.bay.random_variable import RVconf
 from odin_tpu_torch.bay.vi._base import VariationalModel, traverse_dims
@@ -62,18 +61,6 @@ def _as_head(head, default_name: str) -> DistributionDense:
   if isinstance(head, DistributionDense):
     return head
   raise ValueError(f"cannot interpret {head!r} as a distribution head")
-
-
-def _distribution_to(dist: Distribution, device: torch.device) -> Distribution:
-  """A shallow copy of `dist` (and of the distribution an ``Independent``
-  wraps) with its tensors moved to `device`."""
-  out = copy.copy(dist)
-  for k, v in vars(dist).items():
-    if isinstance(v, torch.Tensor):
-      setattr(out, k, v.to(device))
-    elif isinstance(v, Distribution):
-      setattr(out, k, _distribution_to(v, device))
-  return out
 
 
 class VAECore(nn.Module):
@@ -176,7 +163,8 @@ class VariationalAutoencoder(VariationalModel):
     """The latents prior with its parameters on `device`, built once per
     device (so that a captured graph finds it made)."""
     if device not in self._priors:
-      self._priors[device] = _distribution_to(self.latents_prior, device)
+      self._priors[device] = map_distributions(lambda t: t.to(device),
+                                               self.latents_prior)
     return self._priors[device]
 
   def build(self, input_shape: Optional[Sequence[int]] = None, seed: int = 1,

@@ -25,6 +25,10 @@ The corpus path: ``DeviceCorpusProcessor`` on the card against the CPU at
 limits of tests/test_torch_corpus.py), one K1 launch per batch; streaming
 features and Griffin-Lim on the card against the CPU (the limits of
 tests/test_torch_streaming.py and tests/test_torch_inversion.py).
+
+The Gym: its estimators on the card against the CPU on the same latents
+(the boosted trees identical, their split search summing integers) and
+the whole Gym on the card against the same model on the CPU.
 """
 import importlib
 
@@ -717,6 +721,106 @@ def test_griffin_lim_on_card_matches_cpu(cuda_device):
   assert card.device.type == "cuda"
   np.testing.assert_allclose(card.cpu().numpy(), cpu.numpy(), rtol=0,
                              atol=1e-3)
+
+
+# -- the Gym's estimators and the Gym on the card --------------------------
+def _gym_data(n=1200, d=6, seed=0):
+  """Latents that mix dSprites-like factors (3, 6, 40, 32, 32 values)."""
+  rng = np.random.RandomState(seed)
+  sizes = (3, 6, 40, 32, 32)
+  f = np.stack([rng.randint(0, k, n) for k in sizes], 1)
+  mix = rng.rand(len(sizes), d) + np.eye(len(sizes), d)
+  z = (f / (np.array(sizes) - 1.0)) @ mix + 0.3 * rng.randn(n, d)
+  return z.astype(np.float32), f
+
+
+@pytest.mark.parametrize("column", [0, 2])
+def test_gradient_boosting_on_card_equals_cpu(cuda_device, column):
+  """The split search sums integers, so the trees are the same on the card
+  as on the CPU; importances within 1e-9 (float64 sums in another order),
+  the same predictions."""
+  from odin_tpu_torch.bay.vi.estimators import GradientBoostingClassifier
+  z, f = _gym_data()
+  fits = [GradientBoostingClassifier(n_estimators=10, random_state=1).fit(
+      torch.tensor(z).to(dev), torch.tensor(f[:, column]).to(dev))
+          for dev in (cuda_device, torch.device("cpu"))]
+  card, cpu = fits
+  for a, b in zip(card.trees_, cpu.trees_):
+    for key in ("feature", "is_split"):
+      np.testing.assert_array_equal(a[key].cpu().numpy(), b[key].numpy())
+    np.testing.assert_array_equal(a["threshold"].cpu().numpy(),
+                                  b["threshold"].numpy())
+  np.testing.assert_allclose(card.feature_importances_.cpu().numpy(),
+                             cpu.feature_importances_.numpy(), atol=1e-9)
+  np.testing.assert_array_equal(
+      card.predict(torch.tensor(z).to(cuda_device)).cpu().numpy(),
+      cpu.predict(torch.tensor(z)).numpy())
+
+
+def test_gym_estimators_on_card_equal_cpu(cuda_device):
+  """Logistic regression and the batched SVMs in float64 (1e-9 of the
+  largest coefficient), mutual information (1e-14), the bins, the
+  FactorVAE votes and the split rows exactly, on the card and the CPU."""
+  from odin_tpu_torch.bay.vi import downstream_metrics as dm
+  from odin_tpu_torch.bay.vi import estimators as E
+  from odin_tpu_torch.bay.vi.utils import discretizing
+  z, f = _gym_data()
+  zc, fc = torch.tensor(z), torch.tensor(f)
+  zg, fg = zc.to(cuda_device), fc.to(cuda_device)
+  for column in (0, 2):
+    a = E.LogisticRegression().fit(zg, fg[:, column]).coef_.cpu().numpy()
+    b = E.LogisticRegression().fit(zc, fc[:, column]).coef_.numpy()
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-9 * np.abs(b).max())
+  np.testing.assert_allclose(dm.sap_matrix(zg, fg).cpu().numpy(),
+                             dm.sap_matrix(zc, fc).numpy(), atol=1e-12)
+  np.testing.assert_array_equal(discretizing(zg, n_bins=20).cpu().numpy(),
+                                discretizing(zc, n_bins=20).numpy())
+  codes = discretizing(zc, n_bins=20)
+  np.testing.assert_allclose(
+      E.mutual_info_matrix(fg, codes.to(cuda_device)).cpu().numpy(),
+      E.mutual_info_matrix(fc, codes).numpy(), rtol=0, atol=1e-14)
+  kw = dict(n_mcmc=0, batch_size=64, n_samples=2000, seed=1,
+            return_model=True)
+  sg, lg = dm.factor_vae_score(zg, fg, **kw)
+  sc, lc = dm.factor_vae_score(zc, fc, **kw)
+  assert sg == sc
+  np.testing.assert_array_equal(lg.cpu().numpy(), lc.numpy())
+  assert dm.beta_vae_score(zg, fg, n_mcmc=0, seed=1) == pytest.approx(
+      dm.beta_vae_score(zc, fc, n_mcmc=0, seed=1), abs=1.0 / 10000)
+
+
+def test_gym_on_card_matches_cpu(cuda_device):
+  """``run_model`` and ``write_report`` (default scores and FID) on the
+  card against the same model on the CPU, TF32 off: ``z_mean`` within 1e-4
+  (cuDNN and the CPU sum the convolutions apart), no ``_error`` key, TC,
+  ``kl_unweighted`` and FID within rtol 1e-3 (their inputs differ at
+  1e-5), the same active units."""
+  from odin_tpu_torch.bay.vi import DisentanglementGym
+  from odin_tpu_torch.fuel import dSpritesSmall
+  ds = dSpritesSmall(n_samples=256)
+  reports, gyms = [], []
+  tf32 = torch.backends.cudnn.allow_tf32
+  torch.backends.cudnn.allow_tf32 = False  # fp32 convolutions, as the CPU
+  try:
+    for dev in (cuda_device, "cpu"):
+      vae = BetaVAE(beta=4.0, **get_networks("dsprites", zdim=4)).build(
+          seed=1, device=dev)
+      gym = DisentanglementGym(dataset=ds, model=vae, batch_size=64)
+      gym.run_model(n_samples=200, partition="test")
+      reports.append(gym.write_report(scores=(
+          "elbo", "llk", "kl", "mig", "sap", "dci", "betavae", "factorvae",
+          "tc", "active_units", "fid")))
+      gyms.append(gym)
+  finally:
+    torch.backends.cudnn.allow_tf32 = tf32
+  card, cpu = reports
+  assert gyms[0].z_mean.device.type == "cuda"
+  assert not [k for k in card if k.endswith("_error")], card
+  np.testing.assert_allclose(gyms[0].z_mean.cpu().numpy(),
+                             gyms[1].z_mean.numpy(), rtol=0, atol=1e-4)
+  for key in ("total_correlation", "kl_unweighted", "fid"):
+    assert card[key] == pytest.approx(cpu[key], rel=1e-3), key
+  assert card["n_active_units"] == cpu["n_active_units"]
 
 
 def test_failed_capture_raises_on_card(cuda_device):

@@ -1,6 +1,7 @@
 """The PyTorch port stands alone: odin_tpu_torch and chip_smoke.py import
-nothing of JAX and nothing of the JAX package, and chip_smoke.py fails,
-printing no result, where there is no CUDA card or no port beside it."""
+nothing of JAX, nothing of the JAX package and nothing of scikit-learn (the
+card's machine has none), and chip_smoke.py fails, printing no result,
+where there is no CUDA card or no port beside it."""
 import ast
 import os
 import pathlib
@@ -11,7 +12,7 @@ import sys
 import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "odin_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "odin_tpu", "sklearn")
 SOURCES = sorted((ROOT / "odin_tpu_torch").rglob("*.py")) + sorted(
     (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
@@ -52,6 +53,12 @@ def test_sources_exist():
                  "fuel/audio_data.py", "ops/streaming_features.py",
                  "ops/inversion.py", "ops/features.py"):
     assert f"odin_tpu_torch/{module}" in names
+  # the Gym slice
+  for module in ("bay/vi/estimators.py", "bay/vi/utils.py",
+                 "bay/vi/metrics.py", "bay/vi/downstream_metrics.py",
+                 "bay/vi/giga.py", "bay/vi/disentanglement_gym.py",
+                 "backend/metrics.py"):
+    assert f"odin_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -88,7 +95,12 @@ def test_importing_the_port_loads_no_jax():
           "odin_tpu_torch.preprocessing.speech, "
           "odin_tpu_torch.preprocessing.processor, "
           "odin_tpu_torch.ops.streaming_features, "
-          "odin_tpu_torch.ops.inversion\n"
+          "odin_tpu_torch.ops.inversion, odin_tpu_torch.bay.vi.estimators, "
+          "odin_tpu_torch.bay.vi.utils, odin_tpu_torch.bay.vi.metrics, "
+          "odin_tpu_torch.bay.vi.downstream_metrics, "
+          "odin_tpu_torch.bay.vi.giga, "
+          "odin_tpu_torch.bay.vi.disentanglement_gym, "
+          "odin_tpu_torch.backend.metrics\n"
           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
           f"{FORBIDDEN!r})\nassert not bad, bad")
   res = _run(["-c", code], cwd=ROOT)
