@@ -107,7 +107,23 @@ CPU:
      1e-4 on the first 2,000 rows, the unweighted KL to rtol 1e-4), with
      the time of
      ``run_model`` and of each score on both.  The Gym launches no kernel
-     of this port.
+     of this port;
+ 11. the speaker path, the README's speaker quickstart, on phase 9's 2048
+     wav files (64 speakers; utterances 0-19 train, 20-31 test):
+     ``batch_speech_features(raw, features=("mfcc_cmvn",))`` (one K1 launch
+     a batch of 64: 32), ``Ivector(nmix=512, tv_dim=100).fit_transform``
+     on the train split with its cache, ``transform`` of the test split,
+     ``Scorer(method="cosine", wccn=True)`` against the 64 speakers (EER,
+     minDCF, accuracy) and ``PLDA(n_phi=16, n_iter=8)``'s test x test
+     ``score_matrix`` (EER) and ``predict``; the UBM's llk rising over
+     the mixup levels, the cosine EER and PLDA accuracy within limits set
+     from the CPU at nmix 64; the card against the port's CPU path from
+     the same state on the first 128 files (a GMM E-step and
+     ``transform_batch`` within 1e-4, a T-matrix E-step and the i-vectors
+     within 3e-4, Scorer and PLDA fitted on the CPU from the card's
+     i-vectors within 1e-9 and the same EERs); a second ``Ivector`` on the
+     cache, bitwise the same i-vectors; each stage's time, and the
+     E-step alone at 512 mixtures x 60 dims over 1M frames on the card.
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
 fp32 like the CPU.  Any failure raises and the script exits non-zero; it
@@ -1227,7 +1243,347 @@ def corpus_path(torch, np, reset_counts, read_counts, smi, writer):
   if abs(sc_card - sc_cpu) > GL_CPU_TOL or not sc_card < GL_LIMIT:
     raise AssertionError("Griffin-Lim on the card does not converge as on "
                          "the CPU")
+  # the wav files stay for phase 11, which removes the corpus at its end
+  for name in ("store", "cpu", "f16"):
+    shutil.rmtree(os.path.join(root, name), ignore_errors=True)
+
+
+# phase 11: the README's speaker quickstart on phase 9's wav files
+SPK_NMIX = 512  # BASELINE.md:42, the JAX package's measured UBM
+SPK_TV_DIM = 100  # Ivector's default and the README's
+SPK_TMAT_ITERS = 10
+SPK_TRAIN = 20  # utterances 0-19 of each speaker train, 20-31 test
+SPK_PLDA = dict(n_phi=16, n_iter=8)  # examples/tidigits/ivec.py:58-59
+SPK_CPU_FILES = 128  # the card held against the port on the CPU
+# card against CPU from the same state, each over the CPU value's largest
+# magnitude.  The card's fp32 sums and the CPU's each lie about as far
+# from float64 as tools/speaker_recipe.py prints for the CPU at nmix 64 on
+# these files (GMM E-step and transform_batch 2e-7 to 8.1e-7, T-matrix
+# E-step and i-vectors 9.1e-7 to 2.3e-6); the limits are about 100x that:
+SPK_GMM_TOL = 1e-4  # GMM E-step and transform_batch: fp32 posteriors
+SPK_TMAT_TOL = 3e-4  # T-matrix E-step and i-vectors: fp32 Cholesky solves
+# cosine scores and PLDA llrs fitted on both in float64: i-vectors moved
+# by 2^-50 move the llrs by 2.1e-11 of their largest (the cosine scores
+# 1.7e-15); 1e-9 is 50x that
+SPK_SCORE_TOL = 1e-9
+# the recipe learns: limits fixed from the port's CPU run of the same
+# recipe at nmix 64 on the same files, before the first card run
+# (tools/speaker_recipe.py --nmix 64: cosine EER 0.1343, PLDA accuracy
+# 0.4219; chance is 0.5 and 1/64): the EER at most 1.5x the CPU's, the
+# accuracy at least half of it
+SPK_COSINE_EER_MAX = 0.2015
+SPK_PLDA_ACC_MIN = 0.2109
+# the E-step timed alone: BASELINE.md:42's 512 mixtures x 60 dims, 1M frames
+ESTEP_FRAMES, ESTEP_NMIX, ESTEP_DIM = 1_000_000, 512, 60
+
+
+def speaker_recipe(torch, np, files, device, nmix, path=None):
+  """The README's speaker lines on `device` over phase 9's wav files
+  (``sXX_uYY.wav``: speaker XX; utterances 0-19 train, 20-31 test):
+  ``batch_speech_features(raw, features=("mfcc_cmvn",))``,
+  ``Ivector(nmix, tv_dim=100).fit_transform`` on the train split and
+  ``transform`` on the test split, ``Scorer(method="cosine", wccn=True)``
+  against the speakers' models (EER, minDCF, closed-set accuracy), and
+  ``PLDA(n_phi=16, n_iter=8)``'s test x test ``score_matrix`` off the
+  diagonal (EER) and ``predict`` (accuracy).  Returns the results, the
+  fitted objects and the seconds of each stage; the GMM's and the
+  T-matrix's methods are timed through wrappers that synchronise."""
+  import os
+  import re
+  from odin_tpu_torch.backend import compute_EER, compute_minDCF, det_curve
+  from odin_tpu_torch.ml import PLDA, Ivector, Scorer
+  from odin_tpu_torch.preprocessing import batch_speech_features
+  from odin_tpu_torch.preprocessing.speech import read_wave_raw
+
+  sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+  ids = [re.match(r"s(\d+)_u(\d+)\.wav$", os.path.basename(f)).groups()
+         for f in files]
+  spk = np.array([int(s) for s, _ in ids])
+  train = np.array([int(u) < SPK_TRAIN for _, u in ids])
+  t0 = time.perf_counter()
+  raw = [read_wave_raw(f)[0] for f in files]
+  out = {"read_s": time.perf_counter() - t0, "calls": {}}
+
+  def timed(obj, prefix, name):
+    fn = getattr(obj, name)
+
+    def call(*args, **kwargs):
+      sync()
+      t = time.perf_counter()
+      result = fn(*args, **kwargs)
+      sync()
+      out["calls"].setdefault(f"{prefix}.{name}", []).append(
+          time.perf_counter() - t)
+      return result
+    setattr(obj, name, call)
+
+  def stage(name, fn):
+    sync()
+    t = time.perf_counter()
+    result = fn()
+    sync()
+    out[name + "_s"] = time.perf_counter() - t
+    return result
+
+  t0 = time.perf_counter()
+  feats = stage("features", lambda: [f["mfcc_cmvn"] for f in
+                                     batch_speech_features(
+                                         raw, features=("mfcc_cmvn",),
+                                         device=device)])
+  ivec = Ivector(path=path, nmix=nmix, tv_dim=SPK_TV_DIM,
+                 niter_tmat=SPK_TMAT_ITERS, device=device)
+  for obj, prefix, names in (
+      (ivec.gmm, "gmm", ("fit", "expectation", "transform_batch")),
+      (ivec.tmat, "tmat", ("fit", "expectation", "maximization",
+                           "transform"))):
+    for name in names:
+      timed(obj, prefix, name)
+  tr, te = np.flatnonzero(train), np.flatnonzero(~train)
+  x_train = stage("fit_transform", lambda: ivec.fit_transform(
+      [feats[i] for i in tr]))
+  x_test = stage("transform", lambda: ivec.transform([feats[i] for i in te]))
+  y_train, y_test = spk[tr], spk[te]
+  scorer = stage("scorer_fit", lambda: Scorer(
+      method="cosine", wccn=True, device=device).fit(x_train, y_train))
+  S = stage("scorer_score", lambda: scorer.score(x_test))
+  Pfa, Pmiss, _ = det_curve(
+      (y_test[:, None] == scorer.labels[None]).ravel(), S.reshape(-1))
+  cos_acc = float(np.mean(scorer.predict(x_test) == y_test))
+  plda = stage("plda_fit", lambda: PLDA(**SPK_PLDA, device=device).fit(
+      x_train, y_train))
+  P = stage("plda_score", lambda: plda.score_matrix(x_test, x_test))
+  off = ~np.eye(len(te), dtype=bool)
+  Qfa, Qmiss, _ = det_curve((y_test[:, None] == y_test[None])[off],
+                            P[torch.from_numpy(off).to(P.device)])
+  plda_acc = float(np.mean(plda.predict(x_test) == y_test))
+  out["wall_s"] = time.perf_counter() - t0
+  out.update(raw=raw, feats=feats, spk=spk, train=train, ivec=ivec,
+             x_train=x_train,
+             x_test=x_test, scorer=scorer, S=S, plda=plda, P=P,
+             cos_eer=compute_EER(Pfa, Pmiss),
+             cos_dcf=compute_minDCF(Pfa, Pmiss)[0], cos_acc=cos_acc,
+             plda_eer=compute_EER(Qfa, Qmiss), plda_acc=plda_acc,
+             n_frames=sum(len(f) for f in feats),
+             n_train_frames=sum(len(feats[i]) for i in tr))
+  return out
+
+
+def level_llks(history):
+  """The llk per frame of the last E-step of each mixup level."""
+  last = {}
+  for m, _, llk in history:
+    last[m] = llk
+  return [last[m] for m in sorted(last)]
+
+
+def speaker_path(torch, np, reset_counts, read_counts, smi):
+  """Phase 11: the README's speaker quickstart on the card (see the
+  docstring); returns K1's launches on the path."""
+  import glob
+  import os
+  import shutil
+  from odin_tpu_torch.backend import compute_EER, det_curve
+  from odin_tpu_torch.ml import GMM, PLDA, Ivector, Scorer, Tmatrix
+  from odin_tpu_torch.preprocessing import batch_speech_features
+
+  root = corpus_root()
+  files = sorted(glob.glob(os.path.join(root, "wav", "*.wav")))
+  if len(files) != CORPUS_SPEAKERS * CORPUS_UTTERANCES:
+    raise AssertionError(f"{len(files)} wav files of phase 9 left")
+  cache = os.path.join(root, "ivector")
+
+  # -- 11.1 the README's lines on the card: the main path
+  reset_counts()
+  r = speaker_recipe(torch, np, files, "cuda", SPK_NMIX, cache)
+  counts = read_counts()
+  n_batches = -(-len(files) // CORPUS_BATCH)
+  log(f"speaker path launches (batch_speech_features of {len(files)} "
+      f"files, {n_batches} batches of {CORPUS_BATCH}; the rest runs cuBLAS, "
+      f"cuSOLVER and torch's own kernels): {counts}")
+  if counts["logmel"] != n_batches or counts["logmel_fft"] != n_batches:
+    raise AssertionError(f"the speaker path launched K1 {counts}, not once "
+                         f"a batch ({n_batches})")
+  gmm, tmat = r["ivec"].gmm, r["ivec"].tmat
+  calls = r["calls"]
+  final = [t for t, (m, _, _) in zip(calls["gmm.expectation"],
+                                     gmm.llk_history) if m == SPK_NMIX]
+  est = sorted(final)[len(final) // 2]
+  fit_s = calls["gmm.fit"][0]
+  tm_iter = [a + b for a, b in zip(calls["tmat.expectation"],
+                                   calls["tmat.maximization"])]
+  tb_s = calls["gmm.transform_batch"][0]
+  n_train, n_test = int(r["train"].sum()), int((~r["train"]).sum())
+  tb_frames = r["n_train_frames"]
+  log(f"speaker recipe on the card, {len(files)} files, "
+      f"{r['n_frames']} frames of 20 dims ({tb_frames} train): read "
+      f"{r['read_s']:.3f} s; features {r['features_s']:.3f} s; GMM fit "
+      f"(nmix {SPK_NMIX}) {fit_s:.3f} s, {len(gmm.llk_history)} E-steps, "
+      f"{1e3 * est:.3f} ms an E-step at {SPK_NMIX} mixtures (median of "
+      f"{len(final)}), {tb_frames / est:.1f} frames/s; transform_batch "
+      f"{tb_frames / tb_s:.1f} frames/s ({1e3 * tb_s:.3f} ms for "
+      f"{n_train} utterances); T-matrix "
+      f"{1e3 * sorted(tm_iter)[len(tm_iter) // 2]:.3f} ms an EM iteration "
+      f"(median of {len(tm_iter)}), fit {calls['tmat.fit'][0]:.3f} s; "
+      f"i-vectors {n_test / r['transform_s']:.1f} utterances/s "
+      f"({r['transform_s']:.3f} s for {n_test}, statistics included; "
+      f"tmat.transform {1e3 * calls['tmat.transform'][-1]:.3f} ms); "
+      f"Scorer fit {1e3 * r['scorer_fit_s']:.3f} ms, score "
+      f"{1e3 * r['scorer_score_s']:.3f} ms; PLDA fit "
+      f"{1e3 * r['plda_fit_s']:.3f} ms, score_matrix "
+      f"{1e3 * r['plda_score_s']:.3f} ms; the recipe {r['wall_s']:.3f} s, "
+      f"features included; {smi}")
+  by_level = {}
+  for t, (m, _, _) in zip(calls["gmm.expectation"], gmm.llk_history):
+    by_level.setdefault(m, []).append(t)
+  log("GMM E-step ms by mixtures (median, count): " + ", ".join(
+      f"{m}: {1e3 * sorted(v)[len(v) // 2]:.3f} ({len(v)})"
+      for m, v in sorted(by_level.items())) + f"; the fit's other work "
+      f"{1e3 * (fit_s - sum(calls['gmm.expectation'][:len(gmm.llk_history)])):.3f}"
+      f" ms (parking, initialize, M-steps, mixups); {smi}")
+  log(f"speaker results on the card: cosine EER {r['cos_eer']:.6f}, "
+      f"minDCF {r['cos_dcf']:.6f}, accuracy {r['cos_acc']:.6f} "
+      f"({n_test} tests x 64 models); PLDA EER {r['plda_eer']:.6f} "
+      f"({n_test * (n_test - 1)} trials), accuracy {r['plda_acc']:.6f}")
+
+  # second calls: the first pays one-time costs (CUDA's lazy loading of
+  # each kernel, cuSOLVER's set-up); K1's launches here are not counted
+  def again(fn):
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t
+
+  ytr = r["spk"][r["train"]]
+  second = {
+      "features": again(lambda: batch_speech_features(
+          r["raw"], features=("mfcc_cmvn",), device="cuda")),
+      "Scorer fit": again(lambda: Scorer(method="cosine", wccn=True,
+                                         device="cuda").fit(r["x_train"],
+                                                            ytr)),
+      "Scorer score": again(lambda: r["scorer"].score(r["x_test"])),
+      "PLDA fit": again(lambda: PLDA(**SPK_PLDA, device="cuda").fit(
+          r["x_train"], ytr)),
+      "PLDA score_matrix": again(lambda: r["plda"].score_matrix(
+          r["x_test"], r["x_test"])),
+      "transform (768 test i-vectors)": again(lambda: r["ivec"].transform(
+          [f for f, t in zip(r["feats"], r["train"]) if not t]))}
+  log("second calls on the card: " + ", ".join(
+      f"{k} {1e3 * v:.3f} ms" for k, v in second.items()) + f"; {smi}")
+
+  # -- 11.2 the recipe learns
+  levels = level_llks(gmm.llk_history)
+  log("UBM llk per frame at the end of each mixup level: " +
+      ", ".join(f"{v:.4f}" for v in levels))
+  if not all(b > a for a, b in zip(levels, levels[1:])):
+    raise AssertionError("the UBM's llk does not rise over the levels")
+  if not (r["cos_eer"] <= SPK_COSINE_EER_MAX and
+          r["plda_acc"] >= SPK_PLDA_ACC_MIN):
+    raise AssertionError(f"the recipe did not learn: cosine EER "
+                         f"{r['cos_eer']} (limit {SPK_COSINE_EER_MAX}), "
+                         f"PLDA accuracy {r['plda_acc']} (limit "
+                         f"{SPK_PLDA_ACC_MIN})")
+
+  # -- 11.3 the card against the port's CPU path, from the same state
+  def apart(got, want):
+    got = torch.as_tensor(got).detach().cpu().double()
+    want = torch.as_tensor(want).detach().cpu().double()
+    return float((got - want).abs().max() / want.abs().max())
+
+  def hold(name, value, limit):
+    log(f"card against CPU, {name}: {value:.3e} (limit {limit})")
+    if not value <= limit:
+      raise AssertionError(f"{name}: the card is {value} from the CPU")
+
+  first = r["feats"][:SPK_CPU_FILES]
+  X = np.concatenate(first)
+  cpu_gmm = GMM.from_state(gmm.state(), device="cpu")
+  t0 = time.perf_counter()
+  want = cpu_gmm.expectation(X)
+  cpu_s = time.perf_counter() - t0
+  got = gmm.expectation(X)
+  for i, name in enumerate(("Z", "F", "S")):
+    hold(f"GMM E-step {name} ({len(X)} frames)", apart(got[i], want[i]),
+         SPK_GMM_TOL)
+  hold("GMM E-step llk (relative)", abs(got[3] - want[3]) / abs(want[3]),
+       SPK_GMM_TOL)
+  Zc, Fc = gmm.transform_batch(first)
+  Zh, Fh = cpu_gmm.transform_batch(first)
+  hold("transform_batch Z", apart(Zc, Zh), SPK_GMM_TOL)
+  hold("transform_batch F", apart(Fc, Fh), SPK_GMM_TOL)
+  cpu_tmat = Tmatrix(tv_dim=SPK_TV_DIM, gmm=cpu_gmm,
+                     device="cpu").load_state(tmat.state())
+  got = tmat.expectation(Zc, Fc)
+  want = cpu_tmat.expectation(Zc.cpu(), Fc.cpu())
+  hold("T-matrix E-step LU", apart(got[0], want[0]), SPK_TMAT_TOL)
+  hold("T-matrix E-step RU", apart(got[1], want[1]), SPK_TMAT_TOL)
+  hold("T-matrix E-step llk (relative)", abs(got[2] - want[2]) /
+       abs(want[2]), SPK_TMAT_TOL)
+  # the same Tm on both, so no sign to choose
+  hold(f"i-vectors of the first {SPK_CPU_FILES} files",
+       apart(tmat.transform((Zc, Fc)), cpu_tmat.transform((Zc.cpu(),
+                                                           Fc.cpu()))),
+       SPK_TMAT_TOL)
+  log(f"the CPU's GMM E-step on those {len(X)} frames: {cpu_s:.3f} s")
+  xtr, xte = r["x_train"].cpu(), r["x_test"].cpu()
+  ytr, yte = r["spk"][r["train"]], r["spk"][~r["train"]]
+  sc = Scorer(method="cosine", wccn=True, device="cpu").fit(xtr, ytr)
+  S = sc.score(xte)
+  hold("cosine scores (Scorer fitted on the CPU from the card's "
+       "i-vectors)", apart(r["S"], S), SPK_SCORE_TOL)
+  eer = compute_EER(*det_curve((yte[:, None] == sc.labels[None]).ravel(),
+                               S.reshape(-1))[:2])
+  pl = PLDA(**SPK_PLDA, device="cpu").fit(xtr, ytr)
+  P = pl.score_matrix(xte, xte)
+  hold("PLDA llrs (fitted on the CPU from the card's i-vectors)",
+       apart(r["P"], P), SPK_SCORE_TOL)
+  off = ~np.eye(len(yte), dtype=bool)
+  peer = compute_EER(*det_curve((yte[:, None] == yte[None])[off],
+                                P.numpy()[off])[:2])
+  log(f"EER from the CPU's scores: cosine {eer:.6f}, PLDA {peer:.6f}")
+  if eer != r["cos_eer"] or peer != r["plda_eer"]:
+    raise AssertionError("the CPU's scores give another EER")
+
+  # -- 11.4 the cache: a second Ivector reloads every stage
+  train = [f for f, t in zip(r["feats"], r["train"]) if t]
+  t0 = time.perf_counter()
+  again = Ivector(path=cache, nmix=SPK_NMIX, tv_dim=SPK_TV_DIM,
+                  niter_tmat=SPK_TMAT_ITERS, device="cuda")
+  reloaded = again.fit_transform(train)
+  test = [f for f, t in zip(r["feats"], r["train"]) if not t]
+  same_test = torch.equal(again.transform(test), r["x_test"])
+  log(f"cache: a second Ivector(path=...) reloaded {sorted(os.listdir(cache))}"
+      f" in {time.perf_counter() - t0:.3f} s (test i-vectors recomputed); "
+      f"bitwise equal: train {torch.equal(reloaded, r['x_train'])}, test "
+      f"{same_test}")
+  if again.gmm.llk_history or not torch.equal(reloaded, r["x_train"]) or \
+      not same_test:
+    raise AssertionError("the reloaded Ivector differs")
+
+  # -- 11.5 the E-step alone at BASELINE.md:42's shape, from a seed
+  g = torch.Generator(torch.device("cuda", 0)).manual_seed(SEED)
+  cuda = torch.device("cuda", 0)
+  big = GMM(nmix=ESTEP_NMIX, device="cuda")
+  big.mu = torch.randn((ESTEP_NMIX, ESTEP_DIM), generator=g, device=cuda)
+  big.sigma = 0.5 + torch.rand((ESTEP_NMIX, ESTEP_DIM), generator=g,
+                               device=cuda)
+  big.w = torch.full((ESTEP_NMIX,), 1.0 / ESTEP_NMIX, device=cuda)
+  big.ndim = ESTEP_DIM
+  frames = torch.randn((ESTEP_FRAMES, ESTEP_DIM), generator=g, device=cuda)
+  big.expectation(frames)  # warm-up
+  times = host_times_s(torch, lambda: big.expectation(frames), 5)
+  t = times[len(times) // 2]
+  # 4 matmuls of 2·M·D a frame (x² @ invᵀ, x @ (mu·inv)ᵀ, postᵀ @ x,
+  # postᵀ @ x²) and about 12 operations per frame and mixture beside them
+  flops = ESTEP_FRAMES * (8 * ESTEP_NMIX * ESTEP_DIM + 12 * ESTEP_NMIX)
+  log(f"GMM E-step {ESTEP_NMIX} mixtures x {ESTEP_DIM} dims over "
+      f"{ESTEP_FRAMES} frames on the card (batch_size "
+      f"{big.batch_size}): {1e3 * t:.3f} ms (median of {len(times)}, host "
+      f"clock, one sync), {ESTEP_FRAMES / t:.1f} frames/s, "
+      f"{flops / 1e9:.1f} GFLOP, {flops / t / 1e12:.3f} TFLOP/s = "
+      f"{100 * flops / t / FP32_PEAK_FLOPS:.2f} % of fp32 peak; {smi}")
   shutil.rmtree(root, ignore_errors=True)
+  return counts["logmel_fft"]
 
 
 def main() -> int:
@@ -1811,6 +2167,12 @@ def main() -> int:
 
   with Phase("10 gym path: the README quickstart's DisentanglementGym"):
     gym_path(torch, np, reset_counts, read_counts, smi, trained)
+
+  with Phase("11 speaker path: the README's speaker quickstart"):
+    k1 = speaker_path(torch, np, reset_counts, read_counts, smi)
+    log(f"K1 FFT launches on the main paths: speech (phase 3) "
+        f"{report['logmel_fft']['launches']}, speaker (phase 11) {k1}")
+    report["logmel_fft"]["launches"] += k1
 
   log("kernels: " + "; ".join(
       f"{k} launches={v['launches']} ms={v['ms']:.4f} "

@@ -29,6 +29,15 @@ module of its own in the port; ``Attention``'s ``position`` Dense is
 ``bare=True`` stands for one of flax's own ``nn.Dense`` layers (a head's
 ``projection``, ``Attention``'s and ``AttentionHeads``' projections), whose
 flax path has no ``Dense_0``.
+
+Classical ML (``ml``): ``from_jax_gmm`` / ``to_jax_gmm``,
+``from_jax_tmatrix`` / ``to_jax_tmatrix``, ``from_jax_plda`` /
+``to_jax_plda`` and ``from_jax_scorer`` / ``to_jax_scorer`` carry the numpy
+state of the JAX package's ``GMM``, ``Tmatrix``, ``PLDA`` and ``Scorer``
+(read from an object's attributes or from a mapping of the same names) into
+the port's objects on a device, and back as plain dicts of numpy arrays,
+which a JAX object takes with ``setattr`` (the normalizer's entries on its
+``normalizer``).
 """
 from __future__ import annotations
 
@@ -40,12 +49,15 @@ import torch
 from torch import nn
 
 from odin_tpu_torch.device import resolve_device
+from odin_tpu_torch.ml import GMM, PLDA, Scorer, Tmatrix, VectorNormalizer
 from odin_tpu_torch.networks.attention import MultiHeadAttention
 from odin_tpu_torch.networks.base import Conv, ConvTranspose, Dense
 from odin_tpu_torch.training.core import EMA_KEY, TrainState, _dtype
 
 __all__ = ["from_jax_params", "to_jax_params", "from_jax_state",
-           "to_jax_state"]
+           "to_jax_state", "from_jax_gmm", "to_jax_gmm", "from_jax_tmatrix",
+           "to_jax_tmatrix", "from_jax_plda", "to_jax_plda",
+           "from_jax_scorer", "to_jax_scorer"]
 
 _PRIMITIVES = {"Conv_0": Conv, "ConvTranspose_0": ConvTranspose,
                "Dense_0": Dense}
@@ -312,3 +324,104 @@ def to_jax_state(state: TrainState, template):
   return template.replace(params=tree(state.params, template.params),
                           opt_states=opt_states, step=_numpy(state.step),
                           skipped_updates=_numpy(state.skipped_updates))
+
+
+# ---------------------------------------------------------------------------
+# classical ML: GMM, T-matrix, PLDA, Scorer
+# ---------------------------------------------------------------------------
+def _get(src, name, default=None):
+  """`name` of a mapping or an object's attribute of that name."""
+  if isinstance(src, Mapping):
+    return src.get(name, default)
+  return getattr(src, name, default)
+
+
+def _host(x):
+  """A tensor as a numpy array; None and arrays as they are."""
+  return _numpy(x) if isinstance(x, torch.Tensor) else x
+
+
+def _f64(x, device):
+  return None if x is None else torch.as_tensor(
+      np.asarray(x), dtype=torch.float64).to(device)
+
+
+def from_jax_gmm(src, device="cuda") -> GMM:
+  """A JAX ``GMM`` (or the dict its ``save`` writes: ``{nmix, mu, sigma,
+  w, ndim}``) -> the port's ``GMM`` on `device`."""
+  return GMM.from_state({k: _get(src, k) for k in
+                         ("nmix", "mu", "sigma", "w", "ndim")}, device)
+
+
+def to_jax_gmm(gmm: GMM) -> Dict[str, Any]:
+  """``{nmix, mu, sigma, w, ndim}`` with numpy arrays."""
+  return gmm.state()
+
+
+def from_jax_tmatrix(src, gmm: GMM, device="cuda") -> Tmatrix:
+  """A JAX ``Tmatrix`` (or ``{tv_dim, Tm}``) -> the port's ``Tmatrix`` over
+  the port's `gmm`, on `device`."""
+  return Tmatrix(tv_dim=_get(src, "tv_dim"), gmm=gmm,
+                 device=device).load_state(
+                     {"tv_dim": _get(src, "tv_dim"), "Tm": _get(src, "Tm")})
+
+
+def to_jax_tmatrix(tmat: Tmatrix) -> Dict[str, Any]:
+  """``{tv_dim, Tm}``, Tm a float64 numpy array."""
+  return tmat.state()
+
+
+_NORMALIZER_FLAGS = ("centering", "wccn", "unit_length")
+
+
+def _normalizer_from(src, device) -> VectorNormalizer:
+  flags = {k: _get(src, k, d) for k, d in zip(_NORMALIZER_FLAGS,
+                                              (True, False, True))}
+  vn = VectorNormalizer(**flags, device=device)
+  vn.mean, vn.W = _f64(_get(src, "mean"), vn.device), _f64(_get(src, "W"),
+                                                           vn.device)
+  return vn
+
+
+def _normalizer_to(vn: VectorNormalizer) -> Dict[str, Any]:
+  out = {k: getattr(vn, k) for k in _NORMALIZER_FLAGS}
+  out.update(mean=_host(vn.mean), W=_host(vn.W))
+  return out
+
+
+def from_jax_plda(src, device="cuda") -> PLDA:
+  """A fitted JAX ``PLDA`` (or the dict ``to_jax_plda`` gives) -> the port's
+  ``PLDA`` on `device`: mean, Phi, Sigma, the class latents and classes,
+  and the normalizer's mean and W."""
+  Phi = np.asarray(_get(src, "Phi"))
+  plda = PLDA(n_phi=Phi.shape[1], device=device)
+  plda.normalizer = _normalizer_from(_get(src, "normalizer"), plda.device)
+  plda.mean, plda.Phi, plda.Sigma, plda._class_latents = (
+      _f64(_get(src, k), plda.device)
+      for k in ("mean", "Phi", "Sigma", "_class_latents"))
+  plda._trained_classes = _get(src, "_trained_classes")
+  return plda
+
+
+def to_jax_plda(plda: PLDA) -> Dict[str, Any]:
+  out = {k: _host(getattr(plda, k)) for k in
+         ("mean", "Phi", "Sigma", "_class_latents", "_trained_classes")}
+  out["normalizer"] = _normalizer_to(plda.normalizer)
+  return out
+
+
+def from_jax_scorer(src, device="cuda") -> Scorer:
+  """A fitted JAX cosine ``Scorer`` (or the dict ``to_jax_scorer`` gives)
+  -> the port's ``Scorer`` on `device`: labels, enroll and the
+  normalizer."""
+  scorer = Scorer(method=_get(src, "method", "cosine"), device=device)
+  scorer.normalizer = _normalizer_from(_get(src, "normalizer"),
+                                       scorer.device)
+  scorer.labels = _get(src, "labels")
+  scorer.enroll = _f64(_get(src, "enroll"), scorer.device)
+  return scorer
+
+
+def to_jax_scorer(scorer: Scorer) -> Dict[str, Any]:
+  return {"labels": scorer.labels, "enroll": _host(scorer.enroll),
+          "normalizer": _normalizer_to(scorer.normalizer)}

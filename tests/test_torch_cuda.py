@@ -29,6 +29,12 @@ tests/test_torch_streaming.py and tests/test_torch_inversion.py).
 The Gym: its estimators on the card against the CPU on the same latents
 (the boosted trees identical, their split search summing integers) and
 the whole Gym on the card against the same model on the CPU.
+
+Speaker recognition (``odin_tpu_torch.ml``): the GMM E-step,
+``transform_batch`` and the T-matrix E-step on the card against the CPU
+from the same state (fp32 sums in another order: 1e-5 of the largest
+value), the E-step unchanged bitwise by the caller's TF32 and through the
+streamed path; Scorer and PLDA in float64 (1e-10, 1e-8).
 """
 import importlib
 
@@ -821,6 +827,112 @@ def test_gym_on_card_matches_cpu(cuda_device):
   for key in ("total_correlation", "kl_unweighted", "fid"):
     assert card[key] == pytest.approx(cpu[key], rel=1e-3), key
   assert card["n_active_units"] == cpu["n_active_units"]
+
+
+def _speaker_data(n_utt=48, ndim=12):
+  """tests/test_ml.py's utterance layout (tests/torch_ml_common.py), and a
+  GMM of 16 mixtures fitted on it on the CPU."""
+  from odin_tpu_torch.ml import GMM
+  rng = np.random.RandomState(9)
+  phones = rng.randn(6, ndim).astype("f") * 4.0
+  shift = rng.randn(8, ndim).astype("f")
+  utts = [phones[rng.randint(0, 6, n)] + shift[i % 8] +
+          rng.randn(n, ndim).astype("f")
+          for i, n in enumerate(rng.randint(40, 300, n_utt))]
+  gmm = GMM(nmix=16, niter=2, batch_size=2048, device="cpu").fit(utts)
+  return utts, np.repeat(np.arange(8), n_utt // 8), gmm
+
+
+def _apart(got, want):
+  """max |got - want| over max |want|."""
+  got, want = got.detach().cpu().double(), want.detach().cpu().double()
+  return float((got - want).abs().max() / want.abs().max())
+
+
+def test_gmm_estep_on_card_matches_cpu(cuda_device, monkeypatch):
+  """One E-step and transform_batch on the card against the CPU from the
+  same state, within 1e-5 of the largest value (fp32 sums in another
+  order, tests/test_torch_gmm_tmat.py); the same bits with the caller's
+  TF32 on (the E-step turns it off) and through the streamed path (the
+  same chunks through pinned buffers)."""
+  from odin_tpu_torch.ml import GMM, gmm_tmat
+  utts, _, cpu = _speaker_data()
+  X = np.concatenate(utts)
+  card = GMM.from_state(cpu.state(), device=cuda_device)
+  card.batch_size = cpu.batch_size = 512
+  want = cpu.expectation(X)
+  got = card.expectation(X)
+  assert got[0].device.type == "cuda" and got[0].dtype == torch.float64
+  for g, w in zip(got[:3], want[:3]):
+    assert _apart(g, w) < 1e-5
+  assert got[3] == pytest.approx(want[3], rel=1e-6)
+  torch.backends.cuda.matmul.allow_tf32 = True
+  try:
+    tf32 = card.expectation(X)
+  finally:
+    torch.backends.cuda.matmul.allow_tf32 = False
+  for a, b in zip(tf32[:3], got[:3]):
+    assert torch.equal(a, b)
+  monkeypatch.setattr(gmm_tmat, "PARK_BYTES", 0)  # stream through 8 buffers
+  streamed = card.expectation(X)
+  for a, b in zip(streamed[:3], got[:3]):
+    assert torch.equal(a, b)
+  monkeypatch.undo()
+  for g, w in zip(card.transform_batch(utts), cpu.transform_batch(utts)):
+    assert g.device.type == "cuda" and _apart(g, w) < 1e-5
+
+
+def test_tmatrix_estep_on_card_matches_cpu(cuda_device):
+  """The T-matrix E-step (LU, RU, llk) and the i-vectors on the card
+  against the CPU from the same state, within 1e-5 (fp32 Cholesky solves
+  summed in another order); a precision that is not positive definite
+  gives NaN on the card as on the CPU (and as in JAX)."""
+  from odin_tpu_torch.ml import GMM, Tmatrix
+  utts, _, gmm = _speaker_data()
+  Z, F = gmm.transform_batch(utts)
+  cpu = Tmatrix(tv_dim=10, gmm=gmm, device="cpu").initialize()
+  cpu.fit((Z, F))
+  card = Tmatrix(tv_dim=10, gmm=GMM.from_state(gmm.state(), cuda_device),
+                 device=cuda_device).load_state(cpu.state())
+  LUc, RUc, lc = cpu.expectation(Z, F)
+  LU, RU, llk = card.expectation(Z, F)
+  assert LU.device.type == "cuda"
+  assert _apart(LU, LUc) < 1e-5 and _apart(RU, RUc) < 1e-5
+  assert llk == pytest.approx(lc, rel=1e-5)
+  assert _apart(card.transform((Z, F)), cpu.transform((Z, F))) < 1e-5
+  Z = Z.clone()
+  Z[3] = -1e6
+  assert np.isnan(card.expectation(Z, F)[2])
+  iv = card.transform((Z, F)).cpu()
+  assert torch.isnan(iv[3]).all() and not torch.isnan(iv[:3]).any()
+
+
+def test_scoring_and_plda_on_card_match_cpu(cuda_device):
+  """Scorer (cosine, WCCN) and PLDA fitted in float64 on the card against
+  the CPU: within 1e-10 (scores) and 1e-8 (PLDA's llrs), the same
+  predictions; ``det_curve`` of a CUDA tensor equals numpy's."""
+  from odin_tpu_torch.backend import det_curve
+  from odin_tpu_torch.ml import PLDA, Scorer
+  rng = np.random.RandomState(42)
+  centers = rng.randn(10, 20) * 3
+  X = np.concatenate([c + rng.randn(20, 20) for c in centers])
+  y = np.repeat(np.arange(10), 20)
+  Xte = np.concatenate([c + rng.randn(4, 20) for c in centers])
+  s_card = Scorer(device=cuda_device).fit(X, y)
+  s_cpu = Scorer(device="cpu").fit(X, y)
+  assert s_card.enroll.device.type == "cuda"
+  assert _apart(s_card.score(Xte), s_cpu.score(Xte)) < 1e-10
+  np.testing.assert_array_equal(s_card.predict(Xte), s_cpu.predict(Xte))
+  p_card = PLDA(n_phi=8, n_iter=8, device=cuda_device).fit(X, y)
+  p_cpu = PLDA(n_phi=8, n_iter=8, device="cpu").fit(X, y)
+  S = p_card.score_matrix(Xte, Xte)
+  assert _apart(S, p_cpu.score_matrix(Xte, Xte)) < 1e-8
+  np.testing.assert_array_equal(p_card.predict(Xte), p_cpu.predict(Xte))
+  same = (np.arange(40)[:, None] // 4 == np.arange(40)[None] // 4)
+  for got, want in zip(det_curve(torch.from_numpy(same.ravel()).to(
+      cuda_device), S.reshape(-1)), det_curve(same.ravel(),
+                                             S.cpu().numpy().ravel())):
+    np.testing.assert_array_equal(got, want)
 
 
 def test_failed_capture_raises_on_card(cuda_device):

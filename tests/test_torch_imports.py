@@ -59,6 +59,10 @@ def test_sources_exist():
                  "bay/vi/giga.py", "bay/vi/disentanglement_gym.py",
                  "backend/metrics.py"):
     assert f"odin_tpu_torch/{module}" in names
+  # the speaker-recognition slice
+  for module in ("ml/__init__.py", "ml/gmm_tmat.py", "ml/ivector.py",
+                 "ml/scoring.py", "ml/plda.py"):
+    assert f"odin_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -100,7 +104,9 @@ def test_importing_the_port_loads_no_jax():
           "odin_tpu_torch.bay.vi.downstream_metrics, "
           "odin_tpu_torch.bay.vi.giga, "
           "odin_tpu_torch.bay.vi.disentanglement_gym, "
-          "odin_tpu_torch.backend.metrics\n"
+          "odin_tpu_torch.backend.metrics, odin_tpu_torch.ml, "
+          "odin_tpu_torch.ml.gmm_tmat, odin_tpu_torch.ml.ivector, "
+          "odin_tpu_torch.ml.scoring, odin_tpu_torch.ml.plda\n"
           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
           f"{FORBIDDEN!r})\nassert not bad, bad")
   res = _run(["-c", code], cwd=ROOT)
