@@ -124,6 +124,28 @@ CPU:
      i-vectors within 1e-9 and the same EERs); a second ``Ivector`` on the
      cache, bitwise the same i-vectors; each stage's time, and the
      E-step alone at 512 mixtures x 60 dims over 1M frames on the card.
+ 12. the zoo path, on ``get_dataset('dsprites')`` and the full-width
+     ``get_networks('dsprites', zdim=10)`` (``vq_dsprites_networks`` for
+     the spatial VQ-VAE with an EMA codebook and restarts): for each of
+     Autoencoder, FactorVAE, Factor2VAE, DIPVAE i and ii, InfoVAE, MIVAE,
+     irmVAE, irmAE, HypersphericalVAE (vMF), PowersphericalVAE,
+     TwoStageVAE, VampriorVAE, VQVAE, StochasticVAE, ImputeVAE and
+     DistEncoder (on the factors), with BetaVAE as the yardstick: the ELBO
+     terms on the card against the CPU on the same params, batch and noise
+     (rtol 1e-4 of each term's largest magnitude), 300 steps of
+     ``vae.fit(..., steps_per_call=100)`` at batch 64 (128 for the two
+     FactorVAEs, which split it) with no update skipped and the held-out
+     loss below its start, steps/s (after a discarded warm-up fit), and
+     ``run_model`` with MIG on 2,000 test images (not for the VQ-VAE,
+     whose latents are a code map); then
+     FactorVAE at Kim & Mnih's dSprites setting (tc_coef 35, the 5 x 1000
+     discriminator) for 1000 steps, ``DisentanglementGym(dataset=ds,
+     model=vae).run_model(n_samples=10000, partition='test')`` and
+     ``write_report()`` with no ``_error`` key (MIG, SAP, DCI, beta-VAE
+     and FactorVAE scores printed); the vMF sampler's rejected rows (0)
+     and acceptance rate.  The path launches no kernel of this port.
+     ``python3 chip_smoke.py --zoo-profile [CLASS ...]`` runs only a
+     profile of the zoo's graphed steps (``zoo_profile``).
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
 fp32 like the CPU.  Any failure raises and the script exits non-zero; it
@@ -1586,6 +1608,301 @@ def speaker_path(torch, np, reset_counts, read_counts, smi):
   return counts["logmel_fft"]
 
 
+# phase 12: the unsupervised VAE zoo on dSprites
+ZOO_BATCH = 64
+ZOO_STEPS = 300  # each class's fit: 3 calls of ZOO_K graphed steps
+ZOO_K = 100
+ZOO_RTOL = 1e-4  # card against CPU: fp32 sums in another order, of each
+# ELBO term's largest magnitude over the batch
+ZOO_FACTOR_STEPS = 1000  # Kim & Mnih's dSprites setting, cut in length
+ZOO_FACTOR_TC = 35.0
+ZOO_GYM_ROWS = 2000  # each class's run_model and MIG
+ZOO_GYM_SAMPLES = 10000  # FactorVAE's, as phase 10
+
+
+def zoo_models():
+  """(name, factory, batch size, labelled batches) of every class of the
+  zoo slice on the full-width dSprites networks (zdim 10), with BetaVAE
+  as the yardstick of the steps' cost.  FactorVAE and Factor2VAE take
+  twice the batch, split between the ELBO and the discriminator."""
+  from odin_tpu_torch.bay import vi
+  from odin_tpu_torch.bay.random_variable import RVconf
+  from odin_tpu_torch.networks import get_networks, vq_dsprites_networks
+
+  def nets(*drop):
+    n = get_networks("dsprites", zdim=10)
+    for k in drop:
+      n.pop(k)
+    return n
+
+  b = ZOO_BATCH
+  return [
+      ("BetaVAE", lambda: vi.BetaVAE(beta=4.0, **nets()), b, False),
+      ("Autoencoder", lambda: vi.Autoencoder(**nets()), b, False),
+      ("FactorVAE", lambda: vi.FactorVAE(tc_coef=ZOO_FACTOR_TC, **nets()),
+       2 * b, False),
+      ("Factor2VAE", lambda: vi.Factor2VAE(tc_coef=ZOO_FACTOR_TC,
+                                           **nets("latents")), 2 * b, False),
+      ("DIPVAE-i", lambda: vi.DIPVAE(only_mean=True, **nets()), b, False),
+      ("DIPVAE-ii", lambda: vi.DIPVAE(only_mean=False, **nets()), b, False),
+      ("InfoVAE", lambda: vi.InfoVAE(**nets()), b, False),
+      ("MIVAE", lambda: vi.MIVAE(**nets()), b, False),
+      ("irmVAE", lambda: vi.irmVAE(**nets()), b, False),
+      ("irmAE", lambda: vi.irmAE(**nets()), b, False),
+      ("HypersphericalVAE", lambda: vi.HypersphericalVAE(**nets()), b, False),
+      ("PowersphericalVAE", lambda: vi.PowersphericalVAE(**nets()), b,
+       False),
+      ("TwoStageVAE", lambda: vi.TwoStageVAE(**nets()), b, False),
+      ("VampriorVAE", lambda: vi.VampriorVAE(**nets()), b, False),
+      ("VQVAE", lambda: vi.VQVAE(spatial=True, ema=True, restart_dead=True,
+                                 **vq_dsprites_networks()), b, False),
+      ("StochasticVAE", lambda: vi.StochasticVAE(**nets()), b, False),
+      ("ImputeVAE", lambda: vi.ImputeVAE(**nets()), b, False),
+      ("DistEncoder", lambda: vi.DistEncoder(
+          latents=RVconf(5, "mvndiag", name="targets"), **nets("latents")),
+       b, True),
+  ]
+
+
+def zoo_path(torch, np, reset_counts, read_counts, smi):
+  """Phase 12: each class of the zoo slice on procedural dSprites: its ELBO
+  terms on the card against the CPU, 300 steps of ``fit`` at
+  ``steps_per_call=100`` (the held-out loss below its start, no update
+  skipped, steps/s), ``run_model`` and MIG on 2,000 test images; then
+  FactorVAE at Kim & Mnih's dSprites setting (tc_coef 35, the 5 x 1000
+  discriminator) for 1000 steps and the Gym's default report on 10,000
+  test images; the vMF sampler's rejected rows and acceptance rate."""
+  from odin_tpu_torch.bay.distributions import sampling
+  from odin_tpu_torch.bay.vi import DisentanglementGym, FactorVAE
+  from odin_tpu_torch.fuel import dSprites, get_dataset
+  from odin_tpu_torch.networks import get_networks
+  from odin_tpu_torch.training import Noise
+
+  cuda = torch.device("cuda", 0)
+  cpu = torch.device("cpu")
+  t0 = time.perf_counter()
+  ds = get_dataset("dsprites")
+  ds.numpy("train")
+  ds.numpy("test")
+  held_x, held_y = dSprites(n_samples=256, seed=1).numpy("valid")
+  log(f"get_dataset('dsprites'): train and test rendered in "
+      f"{time.perf_counter() - t0:.2f} s; held out: 256 images")
+
+  def to(batch, device):
+    return tuple(torch.as_tensor(b).to(device) for b in batch) \
+        if isinstance(batch, tuple) else torch.as_tensor(batch).to(device)
+
+  def train(batch_size, labelled):
+    return ds.create_dataset("train", batch_size=batch_size, epochs=-1,
+                             prefetch=2, label_percent=labelled,
+                             to_device=cuda)
+
+  def held(batch_size, labelled):
+    x = held_x[:batch_size].astype(np.float32)
+    return (x, held_y[:batch_size].astype(np.float32)) if labelled else x
+
+  def term_errors(cpu_terms, card_terms):
+    out = {}
+    for k, v in cpu_terms.items():
+      c = card_terms[k].detach().float().cpu()
+      v = v.detach().float()
+      out[k] = float((c - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+    return out
+
+  # a discarded fit of the first class first, so that no class's rate
+  # carries the host pipeline's start-up (its first dataset, thread and
+  # pinned buffers) and cuDNN's first choice of algorithms
+  name, factory, bs, labelled = zoo_models()[0]
+  factory().build(seed=SEED).fit(train(bs, labelled), max_iter=ZOO_K,
+                                 steps_per_call=ZOO_K, logging_interval=1e9,
+                                 verbose=False)
+  sampling.reset_rejection_stats()
+  reset_counts()
+  rows = []
+  step_700 = {d: torch.tensor(700, dtype=torch.int32, device=d)
+              for d in (cpu, cuda)}
+  for name, factory, bs, labelled in zoo_models():
+    # -- 12.1 the card against the CPU: same params, batch and noise
+    t_class = time.perf_counter()
+    ref = factory().build(seed=SEED, device="cpu")
+    vae = factory().build(seed=SEED)
+    batch = held(bs, labelled)
+    noise = Noise(torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+      l0, k0, _ = ref.elbo_components(ref.state.params, to(batch, cpu), noise,
+                                      step_700[cpu],
+                                      mutables=dict(ref.state.mutables))
+      l1, k1, _ = vae.elbo_components(
+          vae.state.params, to(batch, cuda),
+          Noise(eps=[t.to(cuda) for t in noise.drawn]), step_700[cuda],
+          mutables=dict(vae.state.mutables))
+    errs = term_errors({**l0, **k0}, {**l1, **k1})
+    worst = max(errs.values())
+    if not worst <= ZOO_RTOL:
+      raise AssertionError(f"{name}: the card's ELBO terms differ from the "
+                           f"CPU's: {errs}")
+    # -- 12.2 fit: 300 steps, 100 a call
+    eval_fn = vae.make_eval_fn()
+    hb = to(batch, cuda)
+    start = float(eval_fn(vae.state, hb)["loss"])
+    tr = vae.fit(train(bs, labelled), max_iter=ZOO_STEPS,
+                 steps_per_call=ZOO_K, logging_interval=1e9, verbose=False)
+    end = float(eval_fn(vae.state, hb)["loss"])
+    skipped = int(vae.state.skipped_updates)
+    capture = tr.capture_seconds or 0.0  # None where nothing was captured
+    rate = ZOO_STEPS / (tr.total_time - capture)
+    if skipped or not end < start:
+      raise AssertionError(f"{name}: held-out loss {start:.6g} -> "
+                           f"{end:.6g}, {skipped} updates skipped")
+    # -- 12.3 the Gym: run_model and MIG (a VQ code map is no vector)
+    mig = float("nan")
+    if name != "VQVAE":
+      gym = DisentanglementGym(dataset=ds, model=vae)
+      gym.run_model(n_samples=ZOO_GYM_ROWS, partition="test")
+      mig = gym.mig_score()
+      if gym.z_mean.device.type != "cuda" or not math.isfinite(mig):
+        raise AssertionError(f"{name}: the Gym gave MIG {mig} on "
+                             f"{gym.z_mean.device}")
+    rows.append((name, bs, worst, start, end, rate, capture, mig,
+                 time.perf_counter() - t_class))
+    log(f"{name}: ELBO terms card vs CPU max rel {worst:.3e} (limit "
+        f"{ZOO_RTOL}); fit {ZOO_STEPS} steps at batch {bs}: held-out loss "
+        f"{start:.6g} -> {end:.6g}, skipped {skipped}, {rate:.1f} steps/s "
+        f"(capture {capture:.3f} s); MIG on {ZOO_GYM_ROWS} test "
+        f"images {mig:.4f}; {time.perf_counter() - t_class:.2f} s")
+    del ref, vae, tr
+  log(f"zoo steps/s at fit(steps_per_call={ZOO_K}), {ZOO_STEPS} steps each, "
+      f"after a discarded warm-up fit ({smi}): " + ", ".join(
+          f"{r[0]} {r[5]:.1f}" for r in rows))
+
+  # -- 12.4 FactorVAE at Kim & Mnih's dSprites setting, and the Gym
+  t0 = time.perf_counter()
+  vae = FactorVAE(tc_coef=ZOO_FACTOR_TC,
+                  **get_networks("dsprites", zdim=10)).build(seed=SEED)
+  tr = vae.fit(train(2 * ZOO_BATCH, False), max_iter=ZOO_FACTOR_STEPS,
+               steps_per_call=ZOO_K, logging_interval=1e9, verbose=False)
+  if int(vae.state.skipped_updates):
+    raise AssertionError(f"FactorVAE skipped "
+                         f"{int(vae.state.skipped_updates)} updates")
+  gym = DisentanglementGym(dataset=ds, model=vae)
+  gym.run_model(n_samples=ZOO_GYM_SAMPLES, partition="test")
+  report = gym.write_report()
+  errors = {k: v for k, v in report.items() if k.endswith("_error")}
+  bad = [k for k, v in report.items() if not k.endswith("_error") and
+         not math.isfinite(float(v))]
+  log(f"FactorVAE tc_coef {ZOO_FACTOR_TC}, 5 x 1000 discriminator: "
+      f"{ZOO_FACTOR_STEPS} steps at batch {2 * ZOO_BATCH} in "
+      f"{tr.total_time:.2f} s; write_report on {ZOO_GYM_SAMPLES} test "
+      f"images: " + ", ".join(
+          f"{k}={v:.6g}" if isinstance(v, float) else f"{k}={v}"
+          for k, v in report.items()) +
+      f"; {time.perf_counter() - t0:.2f} s")
+  if errors or bad:
+    raise AssertionError(f"FactorVAE's report failed: {errors} {bad}")
+  log("FactorVAE disentanglement scores: " + ", ".join(
+      f"{k} {report[k]:.4f}" for k in (
+          "mig", "sap", "dci_disentanglement", "dci_completeness",
+          "dci_informativeness", "betavae_score", "factorvae_score")))
+
+  # -- 12.5 the vMF sampler over the phase
+  stats = sampling.rejection_stats()
+  vmf = stats.get("vmf@cuda:0", {})
+  log(f"vMF sampler on the card: {vmf.get('rows', 0)} rows, "
+      f"{vmf.get('failed', 0)} rejected rows, acceptance rate "
+      f"{vmf.get('accepted', 0) / max(vmf.get('proposals', 1), 1):.4f} "
+      f"({vmf.get('proposals', 0)} proposals); all samplers: {stats}")
+  if not vmf.get("rows") or any(v["failed"] for v in stats.values()):
+    raise AssertionError(f"rejection samplers: {stats}")
+  log(f"zoo path launches (cuDNN, cuBLAS and torch's kernels, none of "
+      f"this port's): {read_counts()}")
+
+
+def zoo_profile(wanted) -> int:
+  """``python3 chip_smoke.py --zoo-profile [CLASS ...]``: where the zoo's
+  training steps spend the card's time, without the rest of the script.
+  Each class of ``zoo_models()`` (all, or BetaVAE and the ones named) as a
+  CUDA graph of its whole step, fed from batches already on the card, so
+  that no host pipeline stands in the way: random binary images from a
+  seed (the ops and their shapes do not depend on the values), fp32 with
+  TF32 off.  Prints, with the card's name and power limit, for each
+  class: ms a step of ``scan_steps(step, 50)`` (host clock around 3
+  synchronised calls after a warm-up, median), its ratio to BetaVAE's,
+  and under ``torch.profiler`` for one call of 10 graphed steps the
+  kernels a step, the device's busy time a step (the union of the
+  kernels' intervals) and the three kernels that take the most time."""
+  import numpy as np
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+
+  from odin_tpu_torch.training import scan_steps
+
+  if not torch.cuda.is_available():
+    print("chip_smoke --zoo-profile: no CUDA card visible", file=sys.stderr)
+    return 1
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, check=True).stdout.strip()
+  cuda = torch.device("cuda", 0)
+  rs = np.random.RandomState(SEED)
+  models = [m for m in zoo_models()
+            if not wanted or m[0] in wanted or m[0] == "BetaVAE"]
+
+  def busy(prof):
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    total, end = 0, None
+    for a, b in spans:
+      if end is None or a > end:
+        total += b - a
+        end = b
+      elif b > end:
+        total += b - end
+        end = b
+    return total / 1e3, len(spans)
+
+  base = None
+  for name, factory, bs, labelled in models:
+    vae = factory().build(seed=SEED)
+    step = vae.make_step_fn()
+    k = 50
+    x = torch.from_numpy((rs.rand(k, bs, 64, 64, 1) < 0.3).astype(
+        np.float32)).to(cuda)
+    batches = (x, torch.from_numpy(rs.rand(k, bs, 5).astype(
+        np.float32)).to(cuda)) if labelled else x
+    fused = scan_steps(step, k, donate=True)
+    state, _ = fused(vae.state, batches)
+    times = []
+    for _ in range(3):
+      torch.cuda.synchronize()
+      t = time.perf_counter()
+      state, _ = fused(state, batches)
+      torch.cuda.synchronize()
+      times.append(1e3 * (time.perf_counter() - t) / k)
+    ms = sorted(times)[1]
+    base = ms if base is None else base
+    short = scan_steps(step, 10, donate=True)
+    sub = tuple(b[:10] for b in batches) if labelled else batches[:10]
+    state, _ = short(state, sub)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      state, _ = short(state, sub)
+      torch.cuda.synchronize()
+    dev_ms, n = busy(prof)
+    top = sorted(((e.key, e.device_time_total / 1e3 / 10)
+                  for e in prof.key_averages()
+                  if e.device_time_total > 0), key=lambda t: -t[1])[:3]
+    log(f"{name} batch {bs}: {ms:.3f} ms a graphed step "
+        f"({ms / base:.2f}x BetaVAE's), {n / 10:.0f} kernels and "
+        f"{dev_ms / 10:.3f} ms of device time a step; top: " +
+        "; ".join(f"{key[:60]} {t:.3f} ms" for key, t in top) + f"; {smi}")
+    del vae, step, fused, short, state
+  return 0
+
+
 def main() -> int:
   import numpy as np
   import torch
@@ -2174,6 +2491,9 @@ def main() -> int:
         f"{report['logmel_fft']['launches']}, speaker (phase 11) {k1}")
     report["logmel_fft"]["launches"] += k1
 
+  with Phase("12 zoo path: the unsupervised VAE zoo on dSprites"):
+    zoo_path(torch, np, reset_counts, read_counts, smi)
+
   log("kernels: " + "; ".join(
       f"{k} launches={v['launches']} ms={v['ms']:.4f} "
       f"plain_ms={v['plain_ms']:.4f} library_ms={v['library_ms']:.4f} "
@@ -2192,4 +2512,6 @@ if __name__ == "__main__":
   if sys.argv[1:2] == ["--write-corpus"]:
     write_corpus(sys.argv[2])
     sys.exit(0)
+  if sys.argv[1:2] == ["--zoo-profile"]:
+    sys.exit(zoo_profile(sys.argv[2:]))
   sys.exit(main())

@@ -1,7 +1,9 @@
 """String alias registry of the port: alias -> (params_size, builder,
-default prior), for the families this slice serves through (PyTorch port of
-``odin_tpu/bay/distribution_alias.py``: ``_softplus`` :30, the normal,
-mvndiag and bernoulli builders :83,93,127, the default priors :282-305)."""
+default prior), for the families the port serves and trains through
+(PyTorch port of ``odin_tpu/bay/distribution_alias.py``: ``_softplus`` :30,
+the normal, mvndiag, bernoulli, onehot, deterministic, vdeterministic,
+vmf and powerspherical builders :83,93,127,147,208,212,263,271, and the
+default priors :282-305)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -81,6 +83,37 @@ def _bernoulli_builder(params, event_shape, **kw):
                 event_shape)
 
 
+def _onehot_builder(params, event_shape, **kw):
+  return D.OneHotCategorical(logits=_reshape_event(params, event_shape))
+
+
+def _deterministic_builder(params, event_shape, **kw):
+  return _indep(D.Deterministic(_reshape_event(params, event_shape)),
+                event_shape)
+
+
+def _vdeterministic_builder(params, event_shape, **kw):
+  return D.VectorDeterministic(_reshape_event(params, event_shape))
+
+
+def _unit_direction(params, d):
+  loc = params[..., :d]
+  return loc / torch.clamp(torch.linalg.vector_norm(loc, dim=-1,
+                                                   keepdim=True), min=1e-8)
+
+
+def _vmf_builder(params, event_shape, **kw):
+  d = _size(event_shape)
+  return D.VonMisesFisher(_unit_direction(params, d),
+                          _softplus(params[..., d]) + 1.0)
+
+
+def _powerspherical_builder(params, event_shape, **kw):
+  d = _size(event_shape)
+  return D.PowerSpherical(_unit_direction(params, d),
+                          _softplus(params[..., d]) + 1.0)
+
+
 def _std_normal_prior(event_shape, **kw):
   return _indep(D.Normal(torch.zeros(event_shape), torch.ones(event_shape)),
                 event_shape)
@@ -89,6 +122,14 @@ def _std_normal_prior(event_shape, **kw):
 def _mvndiag_prior(event_shape, **kw):
   d = _size(event_shape)
   return D.MultivariateNormalDiag(torch.zeros(d), torch.ones(d))
+
+
+def _onehot_prior(event_shape, **kw):
+  return D.OneHotCategorical(logits=torch.zeros(_size(event_shape)))
+
+
+def _sphere_prior(event_shape, **kw):
+  return D.SphericalUniform(_size(event_shape))
 
 
 def _no_prior(event_shape, **kw):
@@ -105,3 +146,14 @@ register_distribution_alias("mvndiag", DistSpec(
     "mvndiag", _n_params(2), _mvndiag_builder, _mvndiag_prior))
 register_distribution_alias("bernoulli", DistSpec(
     "bernoulli", _n_params(1), _bernoulli_builder, _no_prior))
+register_distribution_alias(("onehot",), DistSpec(
+    "onehot", _n_params(1), _onehot_builder, _onehot_prior))
+register_distribution_alias("deterministic", DistSpec(
+    "deterministic", _n_params(1), _deterministic_builder, _no_prior))
+register_distribution_alias("vdeterministic", DistSpec(
+    "vdeterministic", _n_params(1), _vdeterministic_builder, _no_prior))
+register_distribution_alias(("vonmisesfisher", "vmf"), DistSpec(
+    "vmf", lambda d, **kw: d + 1, _vmf_builder, _sphere_prior))
+register_distribution_alias(("powerspherical",), DistSpec(
+    "powerspherical", lambda d, **kw: d + 1, _powerspherical_builder,
+    _sphere_prior))

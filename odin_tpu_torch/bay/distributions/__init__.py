@@ -1,5 +1,5 @@
-"""Distribution library of the port (the families the dSprites beta-VAE
-serves through)."""
+"""Distribution library of the port: the families the VAEs of the port
+serve and train through."""
 from odin_tpu_torch.bay.distributions.base import (
     Distribution,
     Independent,
@@ -11,4 +11,17 @@ from odin_tpu_torch.bay.distributions.continuous import (
     MultivariateNormalDiag,
     Normal,
 )
-from odin_tpu_torch.bay.distributions.discrete import Bernoulli
+from odin_tpu_torch.bay.distributions.deterministic import (
+    Deterministic,
+    VectorDeterministic,
+)
+from odin_tpu_torch.bay.distributions.discrete import (
+    Bernoulli,
+    OneHotCategorical,
+)
+from odin_tpu_torch.bay.distributions.spherical import (
+    PowerSpherical,
+    SphericalUniform,
+    VonMisesFisher,
+)
+from odin_tpu_torch.bay.distributions.vector_quantizer import VectorQuantized

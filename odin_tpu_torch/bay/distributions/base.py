@@ -34,6 +34,16 @@ class Distribution:
              eps: Optional[torch.Tensor] = None) -> torch.Tensor:
     raise NotImplementedError
 
+  def sample_from(self, noise, sample_shape: Tuple[int, ...] = ()
+                  ) -> torch.Tensor:
+    """A sample whose draws come from a ``training.core.Noise``: one
+    normal of ``sample_shape + batch_shape + event_shape`` by default (a
+    reparameterised family); a family with other draws overrides it."""
+    mean = self.mean()
+    eps = noise.normal(tuple(sample_shape) + tuple(self.batch_shape) +
+                       tuple(self.event_shape), mean.dtype, mean.device)
+    return self.sample(sample_shape, eps=eps)
+
   def log_prob(self, x: torch.Tensor) -> torch.Tensor:
     raise NotImplementedError
 

@@ -1,4 +1,5 @@
-"""``Bernoulli`` of the port (``odin_tpu/bay/distributions/discrete.py:51``)."""
+"""``Bernoulli`` and ``OneHotCategorical`` of the port
+(``odin_tpu/bay/distributions/discrete.py:51,167``)."""
 from __future__ import annotations
 
 import torch
@@ -6,7 +7,7 @@ import torch.nn.functional as F
 
 from odin_tpu_torch.bay.distributions.base import Distribution, register_kl
 
-__all__ = ["Bernoulli"]
+__all__ = ["Bernoulli", "OneHotCategorical"]
 
 
 class Bernoulli(Distribution):
@@ -47,3 +48,63 @@ def _kl_bernoulli(q: Bernoulli, p: Bernoulli):
   lq1, lq0 = -F.softplus(-q.logits), -F.softplus(q.logits)
   lp1, lp0 = -F.softplus(-p.logits), -F.softplus(p.logits)
   return pq * (lq1 - lp1) + (1.0 - pq) * (lq0 - lp0)
+
+
+class OneHotCategorical(Distribution):
+  """One-hot categorical over the last axis of `logits` (normalised by
+  their logsumexp, as the JAX package keeps them); event_shape (K,)."""
+
+  def __init__(self, logits):
+    logits = torch.as_tensor(logits)
+    self.logits = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
+
+  @property
+  def batch_shape(self):
+    return self.logits.shape[:-1]
+
+  @property
+  def event_shape(self):
+    return self.logits.shape[-1:]
+
+  @property
+  def probs(self):
+    return F.softmax(self.logits, dim=-1)
+
+  def sample(self, sample_shape=(), generator=None, eps=None):
+    """One-hot of the Gumbel-max index over `eps` (uniforms shaped
+    ``sample_shape + logits.shape``), drawn from `generator` if not
+    given."""
+    shape = tuple(sample_shape) + tuple(self.logits.shape)
+    u = eps if eps is not None else torch.rand(
+        shape, generator=generator, dtype=self.logits.dtype,
+        device=self.logits.device)
+    gumbel = -torch.log(-torch.log(torch.clamp(u, 1e-20, 1.0)))
+    idx = torch.argmax(self.logits + gumbel, dim=-1)
+    return F.one_hot(idx, self.logits.shape[-1]).to(torch.float32)
+
+  def sample_from(self, noise, sample_shape=()):
+    shape = tuple(sample_shape) + tuple(self.logits.shape)
+    return self.sample(sample_shape, eps=noise.uniform(
+        shape, self.logits.dtype, self.logits.device))
+
+  def log_prob(self, x):
+    return torch.sum(x * self.logits, dim=-1)
+
+  def mean(self):
+    return self.probs
+
+  def mode(self):
+    return F.one_hot(torch.argmax(self.logits, dim=-1),
+                     self.logits.shape[-1]).to(torch.float32)
+
+  def variance(self):
+    p = self.probs
+    return p * (1.0 - p)
+
+  def entropy(self):
+    return -torch.sum(self.probs * self.logits, dim=-1)
+
+
+@register_kl(OneHotCategorical, OneHotCategorical)
+def _kl_onehot(q: OneHotCategorical, p: OneHotCategorical):
+  return torch.sum(q.probs * (q.logits - p.logits), dim=-1)

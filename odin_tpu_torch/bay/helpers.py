@@ -10,9 +10,12 @@ from typing import Callable, Optional, Sequence, Union
 
 import torch
 
-from odin_tpu_torch.bay.distributions import (Bernoulli, Distribution,
-                                              Independent,
-                                              MultivariateNormalDiag)
+from odin_tpu_torch.bay.distributions import (Bernoulli, Deterministic,
+                                              Distribution, Independent,
+                                              MultivariateNormalDiag,
+                                              OneHotCategorical,
+                                              PowerSpherical, VectorQuantized,
+                                              VonMisesFisher)
 from odin_tpu_torch.bay.distributions.base import (exact_kl,
                                                    kl_registry_lookup)
 
@@ -20,7 +23,9 @@ __all__ = ["kl_divergence", "concat_distributions", "map_distributions"]
 
 # the families a VAE of the port returns; JAX's ``Batchwise`` fallback for
 # any other mix waits with the rest of the distribution zoo
-_CONCAT_FAMILIES = (MultivariateNormalDiag, Bernoulli, Independent)
+_CONCAT_FAMILIES = (MultivariateNormalDiag, Bernoulli, Independent,
+                    Deterministic, OneHotCategorical, VonMisesFisher,
+                    PowerSpherical, VectorQuantized)
 
 
 def kl_divergence(q: Distribution,
@@ -93,8 +98,10 @@ def concat_distributions(distributions: Sequence[Distribution],
                          axis: int = 0) -> Distribution:
   """Concatenate same-family distributions along a batch axis (JAX's
   ``concat_distributions``, ``odin_tpu/bay/helpers.py:68``): their
-  parameters are concatenated.  ``MultivariateNormalDiag``, ``Bernoulli``
-  and ``Independent`` of those; another family raises."""
+  parameters are concatenated.  The families the port's VAEs return
+  (``MultivariateNormalDiag``, ``Bernoulli``, the point masses,
+  ``OneHotCategorical``, the spherical families, ``VectorQuantized``) and
+  ``Independent`` of those; another family raises."""
   distributions = list(distributions)
   if len(distributions) == 1:
     return distributions[0]

@@ -40,6 +40,13 @@ class RVconf:
           "RVconf's autoregressive and dropout are not ported yet "
           f"(autoregressive={self.autoregressive}, dropout={self.dropout})")
 
+  def copy(self, **overrides) -> "RVconf":
+    """A copy with some fields replaced."""
+    data = {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+    data["kwargs"] = dict(self.kwargs)
+    data.update(overrides)
+    return RVconf(**data)
+
   @property
   def event_size(self) -> int:
     return int(np.prod(self.event_shape)) if len(self.event_shape) else 1

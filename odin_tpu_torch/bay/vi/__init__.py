@@ -9,15 +9,39 @@ from odin_tpu_torch.bay.vi.utils import (
     split_ssl_inputs,
 )
 from odin_tpu_torch.bay.vi.autoencoder import (
+    MIVAE,
+    VAE,
+    VQVAE,
     AnnealingVAE,
+    Autoencoder,
     Beta10VAE,
     BetaCapacityVAE,
     BetaGammaVAE,
     BetaTCVAE,
     BetaVAE,
+    DIPVAE,
+    DistEncoder,
+    Factor2VAE,
+    FactorDiscriminator,
+    FactorVAE,
     Gamma10VAE,
+    HypersphericalVAE,
+    ImplicitRankMinimizer,
+    ImputeVAE,
+    InfoVAE,
+    PowersphericalVAE,
+    SemiFactor2VAE,
+    SemiFactorVAE,
+    StochasticVAE,
+    TwoStageVAE,
     VAECore,
+    VampriorVAE,
     VariationalAutoencoder,
+    VectorQuantizer,
+    get_all_vae,
+    get_vae,
+    irmAE,
+    irmVAE,
 )
 from odin_tpu_torch.bay.vi.disentanglement_gym import (
     DisentanglementGym,
@@ -26,7 +50,16 @@ from odin_tpu_torch.bay.vi.disentanglement_gym import (
     first_mean,
     plot_latent_stats,
 )
-from odin_tpu_torch.bay.vi.losses import total_correlation
+from odin_tpu_torch.bay.vi.losses import (
+    disentangled_inferred_prior_loss,
+    gaussian_kernel,
+    get_divergence,
+    linear_kernel,
+    maximum_mean_discrepancy,
+    pairwise_distances,
+    polynomial_kernel,
+    total_correlation,
+)
 from odin_tpu_torch.bay.vi.metrics import (
     Correlation,
     correlation_matrix,

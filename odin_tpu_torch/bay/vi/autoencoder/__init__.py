@@ -1,4 +1,17 @@
-"""The VAE zoo of the port (the beta-VAE family so far)."""
+"""The VAE zoo of the port and its registry (``get_vae``, ``get_all_vae``:
+the JAX package's lookup rules, ``odin_tpu/bay/vi/autoencoder/
+__init__.py:114-141``).  A class the JAX package registers that the port
+has not ported yet raises ``NotImplementedError`` naming the ROADMAP item
+that ports it."""
+import inspect
+from typing import Type, Union
+
+from odin_tpu_torch.bay.vi.autoencoder.variational_autoencoder import (
+    VAE,
+    Autoencoder,
+    VAECore,
+    VariationalAutoencoder,
+)
 from odin_tpu_torch.bay.vi.autoencoder.beta_vae import (
     AnnealingVAE,
     Beta10VAE,
@@ -8,7 +21,95 @@ from odin_tpu_torch.bay.vi.autoencoder.beta_vae import (
     BetaVAE,
     Gamma10VAE,
 )
-from odin_tpu_torch.bay.vi.autoencoder.variational_autoencoder import (
-    VAECore,
-    VariationalAutoencoder,
+from odin_tpu_torch.bay.vi.autoencoder.deterministic import DistEncoder
+from odin_tpu_torch.bay.vi.autoencoder.dip_vae import DIPVAE
+from odin_tpu_torch.bay.vi.autoencoder.factor_discriminator import (
+    FactorDiscriminator,
 )
+from odin_tpu_torch.bay.vi.autoencoder.factor_vae import (
+    Factor2VAE,
+    FactorVAE,
+    SemiFactor2VAE,
+    SemiFactorVAE,
+)
+from odin_tpu_torch.bay.vi.autoencoder.hyperbolic_vae import (
+    HypersphericalVAE,
+    PowersphericalVAE,
+)
+from odin_tpu_torch.bay.vi.autoencoder.info_vae import MIVAE, InfoVAE
+from odin_tpu_torch.bay.vi.autoencoder.irm_vae import (
+    ImplicitRankMinimizer,
+    irmAE,
+    irmVAE,
+)
+from odin_tpu_torch.bay.vi.autoencoder.stochastic_vae import (
+    ImputeVAE,
+    StochasticVAE,
+)
+from odin_tpu_torch.bay.vi.autoencoder.two_stage_vae import TwoStageVAE
+from odin_tpu_torch.bay.vi.autoencoder.vamprior import VampriorVAE
+from odin_tpu_torch.bay.vi.autoencoder.vq_vae import VQVAE, VectorQuantizer
+
+__all__ = [
+    "VariationalAutoencoder", "VAE", "VAECore", "Autoencoder", "BetaVAE",
+    "Beta10VAE", "BetaGammaVAE", "Gamma10VAE", "AnnealingVAE", "BetaTCVAE",
+    "BetaCapacityVAE", "FactorVAE", "Factor2VAE", "SemiFactorVAE",
+    "SemiFactor2VAE", "FactorDiscriminator", "DIPVAE", "InfoVAE", "MIVAE",
+    "ImplicitRankMinimizer", "irmVAE", "irmAE", "HypersphericalVAE",
+    "PowersphericalVAE", "TwoStageVAE", "VampriorVAE", "VQVAE",
+    "VectorQuantizer", "StochasticVAE", "ImputeVAE", "DistEncoder",
+    "get_vae", "get_all_vae",
+]
+
+_ITEM = "ROADMAP.md queue 1, item 5"
+# the JAX package's registered names (lower case) that wait, by the part
+# of ROADMAP's item that ports them
+_WAITING = {
+    **{k: f"{_ITEM} (labels heads and the semi-supervised family)" for k in (
+        "semifactorvae", "semifactor2vae", "multitaskvae", "skiptaskvae",
+        "multiheadvae", "m2vae", "conditionalm2vae", "structuredsemivae",
+        "reparamsm3vae", "semafovae", "remafovae", "semafod", "semafoh",
+        "semafop", "semafos", "semafosc", "semafosm", "semafot",
+        "auxiliaryvae")},
+    **{k: f"{_ITEM} (the hierarchical family)" for k in (
+        "hierarchicalvae", "laddervae", "unetvae", "punetvae",
+        "verydeepvae")},
+    **{k: f"{_ITEM} (the sequential family)" for k in (
+        "sequentialvae", "sequentialattentionvae", "variationalrnn")},
+    **{k: f"{_ITEM} (the grouped family)" for k in (
+        "groupvae", "multilevelvae", "adaptivevae", "weaklysupervisedvae")},
+    "cycleconsistentvae": f"{_ITEM} (the cycle-consistent VAE)",
+    "moevae": f"{_ITEM} (the mixture-of-experts VAE)",
+    **{k: f"{_ITEM} (the LDA family)" for k in (
+        "alda", "amortizedlda", "auxiliarylda", "nonlinearlda")},
+}
+
+
+def _zoo():
+  return {k.lower(): v for k, v in globals().items()
+          if inspect.isclass(v) and issubclass(v, VariationalAutoencoder)
+          and k.lower() not in _WAITING}
+
+
+def get_vae(name: Union[str, Type[VariationalAutoencoder]] = None):
+  """A VAE class by its case-insensitive name ('vae' may be left off:
+  ``get_vae('beta')`` is ``BetaVAE``); with no name, every ported class."""
+  if name is None:
+    return sorted(set(_zoo().values()), key=lambda c: c.__name__)
+  if inspect.isclass(name) and issubclass(name, VariationalAutoencoder):
+    return name
+  key = str(name).lower().replace("_", "")
+  zoo = _zoo()
+  for k in (key, key + "vae"):
+    if k in zoo:
+      return zoo[k]
+  for k in (key, key + "vae"):
+    if k in _WAITING:
+      raise NotImplementedError(f"'{name}' is not ported yet: "
+                                f"{_WAITING[k]}")
+  raise ValueError(f"cannot find VAE with name '{name}'; "
+                   f"available: {sorted(zoo)}")
+
+
+def get_all_vae():
+  return get_vae(None)

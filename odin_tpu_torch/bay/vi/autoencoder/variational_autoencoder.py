@@ -1,7 +1,7 @@
 """VariationalAutoencoder of the port: build, encode, decode, sample, the
-ELBO and its training step (PyTorch port of ``VAECore`` and
-``VariationalAutoencoder``,
-``odin_tpu/bay/vi/autoencoder/variational_autoencoder.py:55-466``).
+ELBO and its training steps (PyTorch port of ``VAECore``,
+``VariationalAutoencoder`` and ``Autoencoder``,
+``odin_tpu/bay/vi/autoencoder/variational_autoencoder.py:55-466,672-694``).
 
 As in the JAX package the model holds its hyperparameters and a
 ``TrainState``; every computation reads the params of a state
@@ -12,6 +12,15 @@ training step returned serves once it is assigned to ``vae.state``.
 ``make_step_fn``) and ``fit_device_dataset`` (batches drawn on the card);
 ``save_weights``/``load_weights`` keep the whole state, the noise
 generator's included.
+
+A model's params are partitions: ``'vae'`` (the core) and one for each of
+``extra_networks()`` (FactorVAE's ``'discriminator'``, TwoStageVAE's
+``'stage2'``, VampriorVAE's ``'pseudo_inputs'``); its buffers (BatchNorm's
+running statistics, a VQ codebook's EMA) are ``TrainState.mutables`` of
+the same partitions.  A module applied in training mode to a ``mutables``
+dict writes the new values of its partition's buffers into that dict
+(``_call``); each ``TrainStep`` may have its own optimizer
+(``optimizer_specs``).
 """
 from __future__ import annotations
 
@@ -26,11 +35,13 @@ import torch
 from torch import nn
 
 from odin_tpu_torch.bay.distributions import Distribution
+from odin_tpu_torch.bay.distributions.sampling import check_rejections
 from odin_tpu_torch.bay.helpers import kl_divergence, map_distributions
 from odin_tpu_torch.bay.layers.dense_distribution import DistributionDense
 from odin_tpu_torch.bay.random_variable import RVconf
 from odin_tpu_torch.bay.vi._base import VariationalModel, traverse_dims
 from odin_tpu_torch.device import resolve_device
+from odin_tpu_torch.networks.base import collecting_updates
 from odin_tpu_torch.training.core import (
     EMA_KEY,
     Noise,
@@ -38,6 +49,7 @@ from odin_tpu_torch.training.core import (
     TrainStep,
     TrainStepFn,
     _clone_state,
+    _mix32,
     _to_device,
     as_noise,
     build_train_step_fn,
@@ -50,17 +62,25 @@ from odin_tpu_torch.training.core import (
 from odin_tpu_torch.training.trainer import Trainer
 from odin_tpu_torch.utils import md5_checksum
 
-__all__ = ["VAECore", "VariationalAutoencoder"]
+__all__ = ["VAECore", "VariationalAutoencoder", "VAE", "Autoencoder"]
+
+# where a class or option that the JAX package has waits in ROADMAP.md
+LABELS_ITEM = "ROADMAP.md queue 1, item 5 (labels heads)"
 
 
-def _as_head(head, default_name: str) -> DistributionDense:
+def _as_head(head, default_name: str) -> nn.Module:
   """An ``RVconf`` becomes a head named by its role (`default_name`), as in
-  the JAX package; a given ``DistributionDense`` keeps its own name."""
+  the JAX package; a given module returning a distribution (a
+  ``DistributionDense``, VQ-VAE's ``VectorQuantizer``) is the head."""
   if isinstance(head, RVconf):
     return head.create_posterior(name=default_name)
-  if isinstance(head, DistributionDense):
+  if isinstance(head, nn.Module):
     return head
   raise ValueError(f"cannot interpret {head!r} as a distribution head")
+
+
+def _buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
+  return {k: v.detach().clone() for k, v in module.named_buffers()}
 
 
 class VAECore(nn.Module):
@@ -69,7 +89,7 @@ class VAECore(nn.Module):
   ``encoder/layers_1/Conv_0/kernel``; see ``odin_tpu_torch.weights``)."""
 
   def __init__(self, encoder: nn.Module, decoder: nn.Module,
-               latents: DistributionDense, observation: DistributionDense):
+               latents: nn.Module, observation: nn.Module):
     super().__init__()
     self.encoder = encoder
     self.decoder = decoder
@@ -121,7 +141,8 @@ class VariationalAutoencoder(VariationalModel):
                      sample_shape=sample_shape,
                      allow_negative_kl=allow_negative_kl, name=name)
     if kwargs.get("labels") is not None:
-      raise NotImplementedError("labels heads are not ported yet")
+      raise NotImplementedError(f"labels heads are not ported yet: "
+                                f"{LABELS_ITEM}")
     self.latents_conf = latents if isinstance(latents, RVconf) else None
     self.core = VAECore(encoder, decoder, _as_head(latents, "latents"),
                         _as_head(observation, "observation"))
@@ -129,6 +150,7 @@ class VariationalAutoencoder(VariationalModel):
     self.device: Optional[torch.device] = None
     self.state: Optional[TrainState] = None
     self.step = 0
+    self.extras: Dict[str, nn.Module] = {}
     self._priors: Dict[torch.device, Distribution] = {}
     # ``self.state`` holds the params every computation reads; ``core``'s
     # own parameters are only where weights are built and loaded, so
@@ -150,6 +172,11 @@ class VariationalAutoencoder(VariationalModel):
   def _core_params(self) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in self.core.named_parameters()}
 
+  def extra_networks(self) -> Dict[str, Tuple[nn.Module, Optional[tuple]]]:
+    """Further modules, each its own params partition: ``{name: (module,
+    the shape of one input without the batch dim, or None for a module
+    that takes no input)}``; a subclass hook."""
+    return {}
   @property
   def zdim(self) -> int:
     return int(np.prod(self.core.latents.event_shape))
@@ -170,9 +197,12 @@ class VariationalAutoencoder(VariationalModel):
   def build(self, input_shape: Optional[Sequence[int]] = None, seed: int = 1,
             device: Union[str, torch.device] = "cuda"
             ) -> "VariationalAutoencoder":
-    """Create the parameters from `seed` (drawn on the CPU, so that a seed
-    gives the same weights on every device), move them to `device`, and
-    start ``self.state`` on them; the state's generator is seeded with
+    """Create the parameters of every partition from `seed` (drawn on the
+    CPU, so that a seed gives the same weights on every device: the core
+    from a generator seeded `seed`, the i-th extra network from one seeded
+    by a hash of `seed` and i, as the JAX package splits a key for each),
+    move them to `device`, and start ``self.state`` on them with the
+    modules' buffers as its mutables; the state's generator is seeded with
     ``seed + 1``, as the JAX package keys its state."""
     if input_shape is not None:
       self.input_shape = tuple(i for i in input_shape if i is not None)
@@ -181,18 +211,70 @@ class VariationalAutoencoder(VariationalModel):
     device = resolve_device(device)
     self.core.build(self.input_shape, torch.Generator().manual_seed(seed))
     self.core.to(device).eval()
+    params = {"vae": self._core_params()}
+    mutables = {"vae": _buffers(self.core)}
+    self.extras = {}
+    for i, (name, (module, in_shape)) in enumerate(
+        self.extra_networks().items()):
+      gen = torch.Generator().manual_seed(int(_mix32(
+          (_mix32(int(seed) & 0xFFFFFFFF) + i + 1) & 0xFFFFFFFF)))
+      module.build(in_shape, gen)
+      module.to(device).eval()
+      self.extras[name] = module
+      params[name] = {k: v.detach().clone()
+                      for k, v in module.named_parameters()}
+      mutables[name] = _buffers(module)
     self.device = device
     self.state = TrainState(
-        params={"vae": self._core_params()},
+        params=params,
         opt_states={},
         step=torch.zeros((), dtype=torch.int32, device=device),
-        rng=torch.Generator(device).manual_seed(seed + 1))
+        rng=torch.Generator(device).manual_seed(seed + 1),
+        mutables={k: v for k, v in mutables.items() if v})
     return self
 
   # -- apply ----------------------------------------------------------------
-  def _apply(self, params: Dict[str, Any], method: str, x):
-    return torch.func.functional_call(self.core, params["vae"], (x,),
-                                      {"method": method})
+  @staticmethod
+  def _call(module: nn.Module, partition: str, params, args, kwargs=None,
+            training: bool = False, mutables: Optional[Dict] = None,
+            noise: Optional[Noise] = None):
+    """`module` on the tensors of `partition`: its params, and its buffers
+    from `mutables` (or the module's own).  In training mode with a
+    `mutables` dict, the buffers' new values (``record_update``) replace
+    ``mutables[partition]`` in that dict, as a flax ``apply(...,
+    mutable=...)`` returns them; `noise` is where such a layer draws."""
+    module.train(training)
+    tensors = dict(params[partition])
+    held = mutables.get(partition) if mutables else None
+    if held:
+      tensors.update(held)
+    with collecting_updates(noise) as updates:
+      out = torch.func.functional_call(module, tensors, tuple(args),
+                                       kwargs or {})
+    if training and held is not None and updates:
+      prefix = {id(m): name for name, m in module.named_modules()}
+      new = dict(held)
+      for (m, buf), value in updates.items():
+        new[f"{prefix[id(m)]}.{buf}" if prefix[id(m)] else buf] = value
+      mutables[partition] = new
+    return out
+
+  def _apply(self, params: Dict[str, Any], method: str, x,
+             training: bool = False, mutables: Optional[Dict] = None,
+             noise: Optional[Noise] = None):
+    """The core's `method` ('encode' or 'decode') on `params`."""
+    return self._call(self.core, "vae", params, (x,), {"method": method},
+                      training, mutables, noise)
+
+  def _apply_module(self, params: Dict[str, Any], name: str, *args,
+                    training: bool = False, mutables: Optional[Dict] = None,
+                    noise: Optional[Noise] = None,
+                    method: Optional[str] = None):
+    """The extra network `name` (its own partition) on `params`; `method`
+    is passed to its forward (a ``VAECore``'s 'encode' or 'decode')."""
+    return self._call(self.extras[name], name, params, args,
+                      None if method is None else {"method": method},
+                      training, mutables, noise)
 
   def _params_of(self) -> Dict[str, Any]:
     if self.state is None:
@@ -208,9 +290,13 @@ class VariationalAutoencoder(VariationalModel):
     return torch.Generator(self.device).manual_seed(seed)
 
   # -- the reference's public API -------------------------------------------
+  def _mutables(self) -> Dict:
+    return self.state.mutables if self.state is not None else {}
+
   def encode(self, x, params: Optional[Dict] = None) -> Distribution:
     """x (B, H, W, C) -> qz."""
-    return self._apply(params or self._params_of(), "encode", self._tensor(x))
+    return self._apply(params or self._params_of(), "encode", self._tensor(x),
+                       mutables=self._mutables())
 
   def decode(self, z, params: Optional[Dict] = None
              ) -> Union[Distribution, Tuple[Distribution, Tuple[int, ...]]]:
@@ -219,10 +305,12 @@ class VariationalAutoencoder(VariationalModel):
     shape z had without its last dim, as in the JAX package."""
     params = params or self._params_of()
     z = self._tensor(z)
+    mut = self._mutables()
     if z.ndim > 2:
       lead = tuple(z.shape[:-1])
-      return self._apply(params, "decode", z.reshape(-1, z.shape[-1])), lead
-    return self._apply(params, "decode", z)
+      return self._apply(params, "decode", z.reshape(-1, z.shape[-1]),
+                         mutables=mut), lead
+    return self._apply(params, "decode", z, mutables=mut)
 
   def __call__(self, x, seed: int = 0) -> Tuple[Distribution, Distribution]:
     """x -> (px, qz): decode a sample of qz drawn from `seed`."""
@@ -235,7 +323,8 @@ class VariationalAutoencoder(VariationalModel):
     """x -> (qz, px) through the posterior mean: encode, then decode E[z|x]."""
     params = params or self._params_of()
     qz = self.encode(x, params)
-    return qz, self._apply(params, "decode", qz.mean())
+    return qz, self._apply(params, "decode", qz.mean(),
+                           mutables=self._mutables())
 
   def sample_prior(self, n: int = 1, seed: int = 0) -> torch.Tensor:
     """z ~ p(z), (n, zdim)."""
@@ -259,28 +348,26 @@ class VariationalAutoencoder(VariationalModel):
   def elbo_components(self, params, batch, rng, step, training: bool = False,
                       mutables=None):
     """-> (llk dict, kl dict, aux).  `rng` is a ``Noise``, a generator or
-    the noise itself: z is qz's reparameterised sample from
-    ``sample_shape + (B, zdim)`` standard normals."""
+    the noise itself: z is qz's sample of ``sample_shape`` from it (for a
+    Gaussian posterior, ``sample_shape + (B, zdim)`` standard normals).
+    In training mode the modules' buffers move in `mutables`."""
     x, y = self._split_inputs(batch)
-    qz = self._apply(params, "encode", x)
-    mean = qz.mean()
-    eps = as_noise(rng).normal(
-        tuple(self.sample_shape) + tuple(qz.batch_shape) +
-        tuple(qz.event_shape), mean.dtype, mean.device)
-    z = qz.sample(self.sample_shape, eps=eps)
+    noise = as_noise(rng)
+    qz = self._apply(params, "encode", x, training, mutables, noise)
+    z = qz.sample_from(noise, self.sample_shape)
     if self.sample_shape:
       z_flat = z.reshape((-1, z.shape[-1]))
-      px = self._apply(params, "decode", z_flat)
+      px = self._apply(params, "decode", z_flat, training, mutables, noise)
       n = int(np.prod(self.sample_shape))
       llk_s = px.log_prob(x.repeat((n,) + (1,) * (x.ndim - 1)))
       llk_x = llk_s.reshape(tuple(self.sample_shape) + (-1,)).mean(
           dim=tuple(range(len(self.sample_shape))))
     else:
-      px = self._apply(params, "decode", z)
+      px = self._apply(params, "decode", z, training, mutables, noise)
       llk_x = px.log_prob(x)
     obs_name = self.core.observation.name or "observation"
     llk = {f"llk_{obs_name}": llk_x}
-    kl_z = kl_divergence(qz, self._prior_on(mean.device),
+    kl_z = kl_divergence(qz, self._prior_on(z.device),
                          analytic=self.analytic,
                          q_sample=z if not self.analytic else None,
                          reverse=self.reverse, free_bits=self.free_bits)
@@ -339,14 +426,23 @@ class VariationalAutoencoder(VariationalModel):
     ``training.core.build_train_step_fn`` for `nan_policy`,
     `accum_steps`, `compute_dtype`, `ema_decay` and `remat`.  For k steps
     per call (a CUDA graph on the card) wrap it in ``scan_steps`` or
-    ``device_dataset_steps``."""
+    ``device_dataset_steps``.
+
+    Each ``TrainStep`` updates with the optimizer it names (its first
+    partition by default), built from these arguments overridden by
+    ``optimizer_specs()[name]``; steps that name one optimizer share it and
+    its state, and each later step sees the params the earlier ones
+    updated."""
     if self.state is None:
       raise RuntimeError("call build() first")
     specs = self.optimizer_specs()
     steps = self.train_steps()
     if train_params is not None:
-      if len(steps) != 1:
-        raise ValueError("train_params needs a single-TrainStep model")
+      if len(steps) != 1:  # JAX's rule: whose partitions would it replace?
+        raise ValueError(
+            f"train_params override requires a single-TrainStep model; "
+            f"{type(self).__name__} trains the steps "
+            f"{[ts.name for ts in steps]}")
       steps = [dataclasses.replace(steps[0], partitions=tuple(train_params))]
     optimizers = {}
     for ts in steps:
@@ -385,11 +481,12 @@ class VariationalAutoencoder(VariationalModel):
           torch.Generator(state.device).manual_seed(0))
       llk, kl, _ = self.elbo_components(state.params, batch, rng, state.step,
                                         training=False,
-                                        mutables=state.mutables)
+                                        mutables=dict(state.mutables))
       elbo = self.elbo(llk, kl)
       m = {k: torch.mean(v) for k, v in {**llk, **kl}.items()}
       m["elbo"] = torch.mean(elbo)
       m["loss"] = -m["elbo"]
+      check_rejections()
       return m
 
     return eval_fn
@@ -439,6 +536,7 @@ class VariationalAutoencoder(VariationalModel):
                              checkpoint_freq=checkpoint_freq,
                              steps_per_call=steps_per_call, verbose=verbose)
     self.step = int(self.state.step)
+    check_rejections()
     return trainer
 
   def fit_device_dataset(self,
@@ -496,6 +594,7 @@ class VariationalAutoencoder(VariationalModel):
     self.state = _clone_state(state)
     self.step = int(self.state.step)
     self.capture_seconds = fused.capture_seconds  # None off the card
+    check_rejections()
     return self
 
   # -- marginal log prob ----------------------------------------------------
@@ -509,14 +608,17 @@ class VariationalAutoencoder(VariationalModel):
     params = self._params_of()
     gen = self._generator(seed)
 
+    mut = self._mutables()
+
     def one_batch(xb, eb):
-      qz = self._apply(params, "encode", xb)
+      qz = self._apply(params, "encode", xb, mutables=mut)
       mean = qz.mean()
       if eb is None:
         eb = torch.randn((n_samples,) + tuple(mean.shape), generator=gen,
                          dtype=mean.dtype, device=mean.device)
       z = qz.sample((n_samples,), eps=self._tensor(eb))  # (S, B, zdim)
-      px = self._apply(params, "decode", z.reshape(-1, z.shape[-1]))
+      px = self._apply(params, "decode", z.reshape(-1, z.shape[-1]),
+                       mutables=mut)
       lp_x = px.log_prob(xb.repeat((n_samples,) + (1,) * (xb.ndim - 1)))
       lp_x = lp_x.reshape(n_samples, -1)
       lp_z = self._prior_on(mean.device).log_prob(z)
@@ -556,9 +658,9 @@ class VariationalAutoencoder(VariationalModel):
 
   def md5_checksum(self) -> str:
     """md5 of all the params as the JAX package hashes them: the flax tree
-    of ``to_jax_params`` (flax's layouts), its leaves in flax's order (keys
-    sorted at every level), raveled and concatenated, so that the digest
-    names the same weights in both packages."""
+    of ``to_jax_params`` (flax's layouts) of every partition, its leaves in
+    flax's order (keys sorted at every level), raveled and concatenated, so
+    that the digest names the same weights in both packages."""
     from odin_tpu_torch.weights import to_jax_params
 
     def leaves(tree):
@@ -568,14 +670,43 @@ class VariationalAutoencoder(VariationalModel):
         else:
           yield tree[key]
 
-    self._params_of()  # raises before build()
+    params = self._params_of()  # raises before build()
     tree = {"vae": to_jax_params(self.core)}
+    for name, module in self.extras.items():
+      tree[name] = to_jax_params(module, params[name])
     return md5_checksum(np.concatenate(
         [np.asarray(v).ravel() for v in leaves(tree)]))
 
   def __repr__(self):
     return (f"{type(self).__name__}(zdim={self.zdim}, "
             f"input_shape={self.input_shape}, step={self.step})")
+
+
+VAE = VariationalAutoencoder
+
+
+class Autoencoder(VariationalAutoencoder):
+  """Deterministic autoencoder: the latents are a point mass
+  ('vdeterministic'), z is their value, and the KL term is 0."""
+
+  def __init__(self, latents=None, **kwargs):
+    if latents is None:
+      latents = RVconf(32, "vdeterministic", projection=True, name="latents")
+    elif isinstance(latents, RVconf):
+      latents = latents.copy(posterior="vdeterministic")
+    super().__init__(latents=latents, **kwargs)
+
+  def elbo_components(self, params, batch, rng, step, training=False,
+                      mutables=None):
+    x, y = self._split_inputs(batch)
+    noise = as_noise(rng)
+    qz = self._apply(params, "encode", x, training, mutables, noise)
+    z = qz.mean()
+    px = self._apply(params, "decode", z, training, mutables, noise)
+    llk = {"llk_observation": px.log_prob(x)}
+    kl = {"kl_latents": torch.zeros(z.shape[0], dtype=z.dtype,
+                                    device=z.device)}
+    return llk, kl, dict(qz=qz, px=px, z=z, x=x, y=y)
 
 
 def _write_atomic(path: str, obj):

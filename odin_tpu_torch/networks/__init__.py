@@ -10,11 +10,13 @@ from odin_tpu_torch.networks.attention import (
     create_attention_heads,
 )
 from odin_tpu_torch.networks.base import (
+    BatchNorm,
     CenterAt0,
     Conv,
     ConvTranspose,
     Dense,
     Flatten,
+    Lambda,
     Reshape,
     SequentialNetwork,
     get_activation,
@@ -24,4 +26,5 @@ from odin_tpu_torch.networks.image_networks import (
     dsprites_networks,
     get_networks,
     get_optimizer_info,
+    vq_dsprites_networks,
 )

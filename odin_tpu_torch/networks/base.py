@@ -7,10 +7,19 @@ it initialises; here every layer has ``build(in_shape, generator)``, which
 creates its parameters for one example of shape `in_shape` (batch dim
 excluded), draws them with flax's initialisers from `generator`, and
 returns the output shape.  ``SequentialNetwork.build`` chains them.
+
+State that is not a parameter (flax's mutable collections: BatchNorm's
+``batch_stats``, a VQ codebook's EMA statistics) lives in buffers, which
+a model carries in ``TrainState.mutables``.  A layer in training mode
+never writes its buffers: inside ``collecting_updates()`` it hands their
+new values to the dict the context yields (``record_update``), as a flax
+``apply(..., mutable=...)`` returns them.
 """
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 
 import numpy as np
@@ -20,8 +29,9 @@ from torch import nn
 
 __all__ = [
     "Dense", "Conv", "ConvTranspose", "Flatten", "Reshape", "CenterAt0",
-    "SequentialNetwork", "get_activation", "same_padding",
-    "conv_transpose_padding",
+    "Lambda", "BatchNorm", "SequentialNetwork", "get_activation",
+    "same_padding", "conv_transpose_padding", "collecting_updates",
+    "record_update", "layer_noise",
 ]
 
 Shape = Tuple[int, ...]
@@ -58,6 +68,41 @@ def get_activation(fn: Union[str, Callable, None]) -> Callable:
   if key not in _ACTIVATIONS:
     raise ValueError(f"unknown activation '{fn}'; available: {sorted(_ACTIVATIONS)}")
   return _ACTIVATIONS[key]
+
+
+class _Updates(threading.local):
+  updates: Optional[dict] = None
+  noise = None
+
+
+_UPDATES = _Updates()
+
+
+@contextlib.contextmanager
+def collecting_updates(noise=None):
+  """Inside, layers in training mode hand the new values of their buffers
+  to the yielded dict, keyed by (module, buffer name); `noise` (a
+  ``training.core.Noise``) is where such a layer draws from
+  (``layer_noise``)."""
+  saved = (_UPDATES.updates, _UPDATES.noise)
+  _UPDATES.updates, _UPDATES.noise = {}, noise
+  try:
+    yield _UPDATES.updates
+  finally:
+    _UPDATES.updates, _UPDATES.noise = saved
+
+
+def record_update(module: nn.Module, name: str, value: torch.Tensor):
+  """The new value of `module`'s buffer `name` (dropped outside
+  ``collecting_updates``, as flax drops an update to an immutable
+  collection's copy)."""
+  if _UPDATES.updates is not None:
+    _UPDATES.updates[(module, name)] = value
+
+
+def layer_noise():
+  """The ``Noise`` of the enclosing ``collecting_updates``, or None."""
+  return _UPDATES.noise
 
 
 def _pair(v) -> Tuple[int, int]:
@@ -261,6 +306,58 @@ class CenterAt0(nn.Module):
     if self.div_255:
       x = x / 255.0
     return 2.0 * x - 1.0
+
+
+class Lambda(nn.Module):
+  """A function of the input as a layer (it holds no parameters)."""
+
+  def __init__(self, fn: Callable):
+    super().__init__()
+    self.fn = fn
+
+  def build(self, in_shape: Shape, generator=None) -> Shape:
+    return tuple(self.fn(torch.zeros((1,) + tuple(in_shape))).shape[1:])
+
+  def forward(self, x):
+    return self.fn(x)
+
+
+class BatchNorm(nn.Module):
+  """flax's ``BatchNorm`` over the last axis (momentum 0.99, epsilon
+  1e-5): params ``scale`` and ``bias``; running ``mean`` and ``var`` in
+  buffers, flax's ``batch_stats`` collection.  In training mode it
+  normalises by the batch's statistics (the variance as ``E[x^2] -
+  E[x]^2``, clipped at 0, flax's fast variance) and hands the moved
+  running averages to ``record_update``; in eval mode it uses the running
+  ones."""
+
+  collection = "batch_stats"
+
+  def __init__(self, momentum: float = 0.99, epsilon: float = 1e-5):
+    super().__init__()
+    self.momentum = float(momentum)
+    self.epsilon = float(epsilon)
+
+  def build(self, in_shape: Shape, generator=None) -> Shape:
+    c = int(in_shape[-1])
+    self.scale = nn.Parameter(torch.ones(c))
+    self.bias = nn.Parameter(torch.zeros(c))
+    self.register_buffer("mean", torch.zeros(c))
+    self.register_buffer("var", torch.ones(c))
+    return tuple(in_shape)
+
+  def forward(self, x):
+    if self.training:
+      axes = tuple(range(x.ndim - 1))
+      mean = torch.mean(x, dim=axes)
+      var = torch.clamp(torch.mean(x * x, dim=axes) - mean * mean, min=0.0)
+      m = self.momentum
+      record_update(self, "mean", m * self.mean + (1 - m) * mean)
+      record_update(self, "var", m * self.var + (1 - m) * var)
+    else:
+      mean, var = self.mean, self.var
+    mul = torch.rsqrt(var + self.epsilon) * self.scale
+    return (x - mean) * mul + self.bias
 
 
 class SequentialNetwork(nn.Module):

@@ -1,8 +1,9 @@
 """Per-dataset architectures of the port (PyTorch port of
 ``odin_tpu/networks/image_networks.py``: ``_decoder_network`` :40,
 ``PackImageParams`` :59, ``_obs_distribution`` :77, ``dsprites_networks``
-:243-307, ``get_networks`` :488, ``get_optimizer_info`` :512).  Only the
-plain decoder and the dSprites family are ported so far."""
+:243-307, ``vq_dsprites_networks`` :314-346, ``get_networks`` :488,
+``get_optimizer_info`` :512).  Only the plain decoder and the dSprites
+family are ported so far."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -23,8 +24,8 @@ from odin_tpu_torch.networks.base import (
     SequentialNetwork,
 )
 
-__all__ = ["PackImageParams", "dsprites_networks", "get_networks",
-           "get_optimizer_info"]
+__all__ = ["PackImageParams", "dsprites_networks", "vq_dsprites_networks",
+           "get_networks", "get_optimizer_info"]
 
 
 def _decoder_network(layers, skip_generator: bool = False):
@@ -116,6 +117,35 @@ def dsprites_networks(qz: str = "mvndiag",
 
 dspritessmall_networks = dsprites_networks
 dsprites0_networks = dsprites_networks
+
+
+def vq_dsprites_networks(activation="elu", centerize_image: bool = True,
+                         **kwargs) -> Dict[str, Any]:
+  """Map-preserving networks for the spatial VQ-VAE: the encoder stops at
+  the 8x8 feature map (no Flatten, no Dense) and the decoder takes the
+  quantized 8x8 code map.  For ``VQVAE(spatial=True, ...)``."""
+  n_channels = int(kwargs.get("n_channels", 1))
+  input_shape = (64, 64, n_channels)
+  w = int(kwargs.get("width", 1))
+  n_params, observation = _obs_distribution(
+      input_shape, kwargs.get("distribution", "bernoulli"))
+  encoder = SequentialNetwork((
+      CenterAt0(enable=centerize_image),
+      Conv(32 * w, 4, 2, activation),   # 32, 32, 32w
+      Conv(32 * w, 4, 2, activation),   # 16, 16, 32w
+      Conv(64 * w, 4, 2, activation),   # 8, 8, 64w
+      Conv(64 * w, 3, 1, activation),   # 8, 8, 64w (the map is kept)
+  ))
+  decoder = _decoder_network((
+      Conv(64 * w, 3, 1, activation),           # 8, 8, 64w
+      ConvTranspose(64 * w, 4, 2, activation),  # 16, 16, 64w
+      ConvTranspose(32 * w, 4, 2, activation),  # 32, 32, 32w
+      ConvTranspose(32 * w, 4, 2, activation),  # 64, 64, 32w
+      Conv(n_channels * n_params, 1, 1, None),
+      PackImageParams(n_params),
+  ))
+  return dict(encoder=encoder, decoder=decoder, latents=None,
+              observation=observation, input_shape=input_shape)
 
 
 def get_networks(dataset_name, *, is_semi_supervised: bool = False,

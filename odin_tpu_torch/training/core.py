@@ -247,9 +247,15 @@ def use_ema_params(state: TrainState) -> TrainState:
 # ---------------------------------------------------------------------------
 class Noise:
   """Where a step's random draws come from: a ``torch.Generator``, or the
-  injected `eps` tensors, handed out in order.  ``rewind`` makes the next
-  draws repeat the ones made so far, so that a forward recomputed for the
-  backward (``remat``) sees the same noise."""
+  injected `eps` tensors, handed out in order.  ``rewind(mark)`` makes the
+  next draws repeat the ones made since ``mark()`` was taken, so that a
+  forward recomputed for the backward (``remat``) sees the same noise,
+  while the next training step of the iteration draws anew.
+
+  A draw of any kind (``normal``, ``uniform``, ``randint``, ``log_gamma``,
+  or a sampler of the caller's through ``draw``) takes the next injected
+  tensor whole, so a test hands a step the JAX package's draws in the
+  order the step makes them."""
 
   def __init__(self, generator: Optional[torch.Generator] = None, eps=None):
     if generator is None and eps is None:
@@ -260,8 +266,10 @@ class Noise:
     self._drawn: List[torch.Tensor] = []
     self._cursor = 0
 
-  def normal(self, shape, dtype: torch.dtype,
-             device: torch.device) -> torch.Tensor:
+  def draw(self, shape, dtype: torch.dtype, device: torch.device,
+           make: Callable[[torch.Generator], torch.Tensor]) -> torch.Tensor:
+    """The next draw of `shape`: the next injected tensor, or
+    ``make(generator)``."""
     shape = tuple(int(i) for i in shape)
     if self._cursor < len(self._drawn):
       out = self._drawn[self._cursor]
@@ -273,8 +281,7 @@ class Noise:
         out = torch.as_tensor(self._eps[self._cursor]).to(device=device,
                                                           dtype=dtype)
       else:
-        out = torch.randn(shape, generator=self.generator, dtype=dtype,
-                          device=device)
+        out = make(self.generator)
       self._drawn.append(out)
     if tuple(out.shape) != shape:
       raise ValueError(f"eps has shape {tuple(out.shape)}, the draw needs "
@@ -282,8 +289,44 @@ class Noise:
     self._cursor += 1
     return out
 
-  def rewind(self):
-    self._cursor = 0
+  def normal(self, shape, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    return self.draw(shape, dtype, device, lambda g: torch.randn(
+        tuple(shape), generator=g, dtype=dtype, device=device))
+
+  def uniform(self, shape, dtype: torch.dtype,
+              device: torch.device) -> torch.Tensor:
+    """Uniforms in [0, 1)."""
+    return self.draw(shape, dtype, device, lambda g: torch.rand(
+        tuple(shape), generator=g, dtype=dtype, device=device))
+
+  def randint(self, low: int, high: int, shape,
+              device: torch.device) -> torch.Tensor:
+    """int64 integers in [low, high)."""
+    return self.draw(shape, torch.int64, device, lambda g: torch.randint(
+        int(low), int(high), tuple(shape), generator=g, device=device))
+
+  def log_gamma(self, alpha, shape, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """log Gamma(alpha, 1) variates (`alpha` a float or a tensor broadcast
+    to `shape`), from a fixed number of proposal rounds
+    (``bay.distributions.sampling``)."""
+    from odin_tpu_torch.bay.distributions.sampling import sample_log_gamma
+    return self.draw(shape, dtype, device, lambda g: sample_log_gamma(
+        g, alpha, shape, dtype, device))
+
+  @property
+  def drawn(self) -> List[torch.Tensor]:
+    """The draws made so far, in order: ``Noise(eps=noise.drawn)`` replays
+    them (on another device too)."""
+    return list(self._drawn)
+
+  def mark(self) -> int:
+    """The position of the next draw."""
+    return self._cursor
+
+  def rewind(self, mark: int = 0):
+    self._cursor = mark
 
   def split(self, n: int) -> List["Noise"]:
     """One source for each of `n` microbatches: the generator shared, or
@@ -828,8 +871,11 @@ class TrainStepFn:
 
   def __call__(self, state: TrainState, batch,
                eps=None) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    return self.run(state, _to_device(batch, state.device),
-                    Noise(state.rng) if eps is None else Noise(eps=eps))
+    from odin_tpu_torch.bay.distributions.sampling import check_rejections
+    out = self.run(state, _to_device(batch, state.device),
+                   Noise(state.rng) if eps is None else Noise(eps=eps))
+    check_rejections()
+    return out
 
   def value_and_grad(self, state: TrainState, batch, eps=None):
     """(loss, metrics, gradients) of the first TrainStep at `state`, the
@@ -844,15 +890,19 @@ class TrainStepFn:
   def _value_and_grad(self, ts: TrainStep, params: Tree, spec: _FlatSpec,
                       leaves, batch, noise: Noise, step, mutables):
     req = [t.detach().requires_grad_() for t in leaves]
+    start = noise.mark()
 
     def loss_of(*ls):
-      noise.rewind()
+      noise.rewind(start)
       full = merge_partitions(params, spec.tree(ls))
       mb = batch
       if self.compute_dtype is not None:
         full = _cast_floats(full, self.compute_dtype)
         mb = _cast_floats(mb, self.compute_dtype)
-      loss, (metrics, mut) = ts.loss_fn(full, mb, noise, step, mutables)
+      # a loss writes the new values of its partitions' mutables into the
+      # dicts it is given: each call gets its own
+      mut = {k: dict(v) for k, v in mutables.items()}
+      loss, (metrics, mut) = ts.loss_fn(full, mb, noise, step, mut)
       return loss, metrics, mut
 
     with torch.enable_grad():
@@ -866,7 +916,7 @@ class TrainStepFn:
                   for t, gr in zip(leaves, grads)])
     return (loss.detach().to(torch.float32),
             {k: v.detach().to(torch.float32) for k, v in metrics.items()},
-            g, mut)
+            g, _tree_map(torch.Tensor.detach, mut))
 
   def _grads(self, ts: TrainStep, params: Tree, batch, noise: Noise, step,
              mutables):

@@ -23,9 +23,11 @@ Attention (``networks.attention``):
   * ``Attention``'s raw parameter ``v_add`` keeps its name and shape.
 
 Path rules: flax's ``layers_<i>`` is ``layers.<i>``; the primitive a
-wrapper layer holds (``Conv_0``, ``ConvTranspose_0``, ``Dense_0``) has no
-module of its own in the port; ``Attention``'s ``position`` Dense is
-``position_proj``; ``kernel`` is ``weight``.  A ``Dense`` built with
+wrapper layer holds (``Conv_0``, ``ConvTranspose_0``, ``Dense_0``,
+``BatchNorm_0``) has no module of its own in the port; ``Attention``'s
+``position`` Dense is ``position_proj``; ``kernel`` is ``weight``; a
+parameter a module holds itself (``v_add``, a VQ ``codebook``, VampPrior's
+``pseudo_inputs``) keeps its name.  A ``Dense`` built with
 ``bare=True`` stands for one of flax's own ``nn.Dense`` layers (a head's
 ``projection``, ``Attention``'s and ``AttentionHeads``' projections), whose
 flax path has no ``Dense_0``.
@@ -51,20 +53,25 @@ from torch import nn
 from odin_tpu_torch.device import resolve_device
 from odin_tpu_torch.ml import GMM, PLDA, Scorer, Tmatrix, VectorNormalizer
 from odin_tpu_torch.networks.attention import MultiHeadAttention
-from odin_tpu_torch.networks.base import Conv, ConvTranspose, Dense
+from odin_tpu_torch.networks.base import BatchNorm, Conv, ConvTranspose, Dense
 from odin_tpu_torch.training.core import EMA_KEY, TrainState, _dtype
 
-__all__ = ["from_jax_params", "to_jax_params", "from_jax_state",
-           "to_jax_state", "from_jax_gmm", "to_jax_gmm", "from_jax_tmatrix",
+__all__ = ["from_jax_params", "to_jax_params", "from_jax_mutables",
+           "to_jax_mutables", "from_jax_state", "to_jax_state",
+           "from_jax_gmm", "to_jax_gmm", "from_jax_tmatrix",
            "to_jax_tmatrix", "from_jax_plda", "to_jax_plda",
            "from_jax_scorer", "to_jax_scorer"]
 
 _PRIMITIVES = {"Conv_0": Conv, "ConvTranspose_0": ConvTranspose,
-               "Dense_0": Dense}
+               "Dense_0": Dense, "BatchNorm_0": BatchNorm}
 _LAYER = re.compile(r"^layers_(\d+)$")
 _MHA = "MultiHeadDotProductAttention_0"
 _MHA_PROJECTIONS = ("query", "key", "value", "out")
-_RAW = ("v_add",)  # parameters held by a module itself, not by a Dense
+# parameters held by a module itself, not by a Dense
+_RAW = ("v_add", "codebook", "pseudo_inputs")
+_PARAM_LEAVES = ("bias", "scale") + _RAW
+# the leaves of flax's mutable collections (batch_stats, vq_stats)
+_STAT_LEAVES = ("mean", "var", "codebook", "counts", "means")
 _TO_PORT = {"position": "position_proj"}
 _TO_FLAX = {v: k for k, v in _TO_PORT.items()}
 
@@ -93,9 +100,9 @@ def _kernel_to_flax(kind, weight: np.ndarray) -> np.ndarray:
   return weight.transpose(2, 3, 1, 0)
 
 
-def _port_leaf(path: Tuple[str, ...]):
+def _port_leaf(path: Tuple[str, ...], leaves=_PARAM_LEAVES):
   """A flax leaf path -> (the port's dotted name, the primitive layer that
-  holds it or None)."""
+  holds it or None); `leaves` are the leaf names kept as they are."""
   *modules, leaf = path
   if len(modules) >= 2 and modules[-2] == _MHA and \
       modules[-1] in _MHA_PROJECTIONS:
@@ -108,10 +115,10 @@ def _port_leaf(path: Tuple[str, ...]):
     match = _LAYER.match(m)
     names.extend(("layers", match.group(1)) if match else
                  (_TO_PORT.get(m, m),))
-  if leaf == "kernel":
+  if leaf == "kernel" and leaves is _PARAM_LEAVES:
     leaf = "weight"
-  elif leaf != "bias" and leaf not in _RAW:
-    raise ValueError(f"unexpected flax parameter {'/'.join(path)}")
+  elif leaf not in leaves:
+    raise ValueError(f"unexpected flax leaf {'/'.join(path)}")
   return ".".join(names + [leaf]), kind
 
 
@@ -183,11 +190,13 @@ def _numpy(t: torch.Tensor) -> np.ndarray:
   return t.numpy().copy()
 
 
-def to_jax_params(module: nn.Module) -> Dict[str, Any]:
+def to_jax_params(module: nn.Module,
+                  params: Mapping[str, torch.Tensor] = None) -> Dict[str, Any]:
   """The inverse of ``from_jax_params`` for a built module of the port:
-  its parameters as a flax tree of numpy arrays, read from its
-  ``state_dict()`` (of a VAE's ``core``: the params of ``vae.state``)."""
-  sd = module.state_dict()
+  its parameters as a flax tree of numpy arrays, read from `params` (a
+  partition of a state) or from its ``state_dict()`` (of a VAE's
+  ``core``: the params of ``vae.state``)."""
+  sd = module.state_dict() if params is None else params
   value = lambda *names: _numpy(sd[".".join(n for n in names if n)])
   tree: Dict[str, Any] = {}
   held = set()  # the Dense layers of a MultiHeadAttention
@@ -208,6 +217,11 @@ def to_jax_params(module: nn.Module) -> Dict[str, Any]:
               (kernel.shape[0],) + heads))
           node["bias"] = value(name, proj, "bias").reshape(heads)
       continue
+    if isinstance(sub, BatchNorm):
+      node = _node(tree, _flax_path(name) + ["BatchNorm_0"])
+      node["scale"] = value(name, "scale")
+      node["bias"] = value(name, "bias")
+      continue
     if not isinstance(sub, (Conv, ConvTranspose, Dense)) or sub in held:
       continue
     path = _flax_path(name)
@@ -222,6 +236,48 @@ def to_jax_params(module: nn.Module) -> Dict[str, Any]:
     *owner, leaf = name.split(".")
     if leaf in _RAW:
       _node(tree, _flax_path(".".join(owner)))[leaf] = value(name)
+  return tree
+
+
+def from_jax_mutables(mutables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
+  """flax's mutable collections of a module (``{'batch_stats': ...}``,
+  ``{'vq_stats': ...}``) -> its buffers by the port's dotted names (the
+  collection level dropped: ``vq_stats/latents/codebook`` is
+  ``latents.codebook``)."""
+  out = {}
+  for _, tree in mutables.items():
+    for path, value in _leaves(tree):
+      name, _ = _port_leaf(path, _STAT_LEAVES)
+      out[name] = torch.from_numpy(value.astype(np.float32, order="C",
+                                                copy=True))
+  return out
+
+
+def _buffer_paths(module: nn.Module):
+  """(collection, flax path, the port's dotted name) of every buffer of a
+  module that holds a flax collection (``BatchNorm``, an EMA
+  ``VectorQuantizer``)."""
+  for name, sub in module.named_modules():
+    collection = getattr(sub, "collection", None)
+    if collection is None:
+      continue
+    path = _flax_path(name) + (["BatchNorm_0"] if isinstance(sub, BatchNorm)
+                               else [])
+    for buf, _ in sub.named_buffers(recurse=False):
+      yield collection, path + [buf], f"{name}.{buf}" if name else buf
+
+
+def to_jax_mutables(module: nn.Module,
+                    buffers: Mapping[str, torch.Tensor] = None
+                    ) -> Dict[str, Any]:
+  """The inverse of ``from_jax_mutables``: `buffers` (a partition of a
+  state's mutables; the module's own by default) as flax collections of
+  numpy arrays."""
+  sd = dict(module.named_buffers()) if buffers is None else buffers
+  tree: Dict[str, Any] = {}
+  for collection, path, name in _buffer_paths(module):
+    _node(tree.setdefault(collection, {}), path[:-1])[path[-1]] = \
+        _numpy(sd[name])
   return tree
 
 
@@ -262,8 +318,11 @@ def from_jax_state(state, device="cuda") -> TrainState:
   the chain, by its optax name: ``count``, ``mu``, ``nu``, ``trace``,
   ``sum_of_squares``; a schedule's count as ``lr_count``, a weight-decay
   schedule's as ``wd_count``; moments keep their dtype), the EMA tree,
-  ``step`` and ``skipped_updates``.  The port draws its noise from a
-  ``torch.Generator``, seeded here with the last word of the JAX key."""
+  the mutable collections (the core's, the port's ``'vae'`` partition),
+  ``step`` and ``skipped_updates``.  Every params partition (``'vae'``
+  and the extra networks') and every optimizer (one per name) carries
+  over.  The port draws its noise from a ``torch.Generator``, seeded here
+  with the last word of the JAX key."""
   device = resolve_device(device)
 
   def tree(t):
@@ -286,12 +345,15 @@ def from_jax_state(state, device="cuda") -> TrainState:
         port[_port_name(part, field)] = (tree(value) if isinstance(value, dict)
                                          else _tensor(value, device))
     opt_states[name] = port
+  mutables = {}
   if state.mutables:
-    raise NotImplementedError("mutable collections are not ported yet")
+    mutables["vae"] = {k: v.to(device) for k, v in
+                       from_jax_mutables(state.mutables).items()}
   seed = int(np.asarray(state.rng).ravel()[-1])
   return TrainState(params=tree(state.params), opt_states=opt_states,
                     step=_tensor(state.step, device),
                     rng=torch.Generator(device).manual_seed(seed),
+                    mutables=mutables,
                     skipped_updates=_tensor(state.skipped_updates, device))
 
 
@@ -314,15 +376,23 @@ def _optax_like(node, port):
 
 def to_jax_state(state: TrainState, template):
   """The port's ``TrainState`` -> a JAX package ``TrainState`` shaped as
-  `template` (one of the JAX model's states, whose optax structure and PRNG
-  key it keeps), with numpy leaves."""
+  `template` (one of the JAX model's states, whose optax structure,
+  collections and PRNG key it keeps), with numpy leaves.  JAX keeps no
+  mutables of an extra network, so only the ``'vae'`` partition's go."""
   tree = lambda p, t: {k: _tree_to_flax(p[k], v) for k, v in t.items()}
   opt_states = {}
   for name, opt in template.opt_states.items():
     opt_states[name] = (tree(state.opt_states[name], opt) if name == EMA_KEY
                         else _optax_like(opt, state.opt_states[name]))
+  mutables: Dict[str, Any] = {}
+  for collection, sub in (template.mutables or {}).items():
+    for path, value in _leaves(sub):
+      name, _ = _port_leaf(path, _STAT_LEAVES)
+      _node(mutables.setdefault(collection, {}), path[:-1])[path[-1]] = \
+          _numpy(state.mutables["vae"][name]).astype(value.dtype)
   return template.replace(params=tree(state.params, template.params),
                           opt_states=opt_states, step=_numpy(state.step),
+                          mutables=mutables,
                           skipped_updates=_numpy(state.skipped_updates))
 
 

@@ -30,6 +30,11 @@ The Gym: its estimators on the card against the CPU on the same latents
 (the boosted trees identical, their split search summing integers) and
 the whole Gym on the card against the same model on the CPU.
 
+The VAE zoo: each class's ELBO terms on the card against the CPU from
+the same params and noise (1e-4 of each term's largest magnitude), and 3
+graphed steps against 3 eager ones, bitwise, for the classes whose step
+moves mutables or draws from a rejection sampler.
+
 Speaker recognition (``odin_tpu_torch.ml``): the GMM E-step,
 ``transform_batch`` and the T-matrix E-step on the card against the CPU
 from the same state (fp32 sums in another order: 1e-5 of the largest
@@ -933,6 +938,100 @@ def test_scoring_and_plda_on_card_match_cpu(cuda_device):
       cuda_device), S.reshape(-1)), det_curve(same.ravel(),
                                              S.cpu().numpy().ravel())):
     np.testing.assert_array_equal(got, want)
+
+
+# ---------------------------------------------------------------------------
+# the VAE zoo (chip_smoke.py phase 12 at a test's size)
+# ---------------------------------------------------------------------------
+def _zoo_model(name, device, seed=0):
+  from odin_tpu_torch.bay import vi
+  from odin_tpu_torch.bay.random_variable import RVconf
+  from odin_tpu_torch.networks import vq_dsprites_networks
+  nets = get_networks("dsprites", zdim=10)
+  make = {
+      "FactorVAE": lambda: vi.FactorVAE(tc_coef=35.0, **nets),
+      "FactorVAE-bn": lambda: vi.FactorVAE(batchnorm=True,
+                                           discriminator_units=(256, 256),
+                                           **nets),
+      "Factor2VAE": lambda: vi.Factor2VAE(
+          **{k: v for k, v in nets.items() if k != "latents"}),
+      "DIPVAE": lambda: vi.DIPVAE(**nets),
+      "InfoVAE": lambda: vi.InfoVAE(**nets),
+      "MIVAE": lambda: vi.MIVAE(**nets),
+      "HypersphericalVAE": lambda: vi.HypersphericalVAE(**nets),
+      "PowersphericalVAE": lambda: vi.PowersphericalVAE(**nets),
+      "TwoStageVAE": lambda: vi.TwoStageVAE(**nets),
+      "VampriorVAE": lambda: vi.VampriorVAE(**nets),
+      "VQVAE": lambda: vi.VQVAE(spatial=True, ema=True, restart_dead=True,
+                                **vq_dsprites_networks()),
+      "StochasticVAE": lambda: vi.StochasticVAE(**nets),
+      "irmAE": lambda: vi.irmAE(**nets),
+  }[name]
+  return make().build(seed=seed, device=device)
+
+
+ZOO_CARD = ["FactorVAE", "Factor2VAE", "DIPVAE", "InfoVAE", "MIVAE",
+            "HypersphericalVAE", "PowersphericalVAE", "TwoStageVAE",
+            "VampriorVAE", "VQVAE", "StochasticVAE", "irmAE"]
+
+
+@pytest.mark.parametrize("name", ZOO_CARD)
+def test_zoo_elbo_on_card_matches_cpu(cuda_device, name):
+  """The same params (built from one seed), batch and noise (the CPU's
+  draws replayed on the card): each ELBO term within 1e-4 of its largest
+  magnitude over the batch."""
+  from odin_tpu_torch.training import Noise
+  torch.backends.cudnn.allow_tf32 = False
+  cpu = torch.device("cpu")
+  ref, vae = _zoo_model(name, cpu), _zoo_model(name, cuda_device)
+  x = (np.random.RandomState(0).rand(32, 64, 64, 1) < 0.3).astype(np.float32)
+  noise = Noise(torch.Generator().manual_seed(0))
+  step = torch.tensor(700, dtype=torch.int32)
+  with torch.no_grad():
+    l0, k0, _ = ref.elbo_components(ref.state.params, torch.from_numpy(x),
+                                    noise, step,
+                                    mutables=dict(ref.state.mutables))
+    l1, k1, _ = vae.elbo_components(
+        vae.state.params, torch.from_numpy(x).to(cuda_device),
+        Noise(eps=[t.to(cuda_device) for t in noise.drawn]),
+        step.to(cuda_device), mutables=dict(vae.state.mutables))
+  for k, v in {**l0, **k0}.items():
+    got = {**l1, **k1}[k].cpu()
+    assert float((got - v).abs().max()) <= 1e-4 * float(v.abs().max()), k
+
+
+@pytest.mark.parametrize("name", ["FactorVAE-bn", "VQVAE", "HypersphericalVAE",
+                                  "PowersphericalVAE", "TwoStageVAE"])
+def test_zoo_graphed_steps_equal_eager_on_card(cuda_device, name):
+  """3 steps from a CUDA graph against 3 eager steps from the same
+  generator state, cuDNN deterministic: bitwise, the mutables (BatchNorm's
+  statistics, the EMA codebook) and every optimizer's state included;
+  every rejection sampler accepted every row."""
+  from odin_tpu_torch.bay.distributions import sampling
+  from odin_tpu_torch.training.core import _state_leaves
+  torch.backends.cudnn.allow_tf32 = False
+  vae = _zoo_model(name, cuda_device)
+  step = vae.make_step_fn()
+  bs = 64 if name.startswith("Factor") else 32
+  batches = torch.from_numpy((np.random.RandomState(1).rand(
+      3, bs, 64, 64, 1) < 0.3).astype(np.float32)).to(cuda_device)
+  torch.backends.cudnn.deterministic = True
+  try:
+    rng = vae.state.rng.get_state()
+    s = vae.state
+    for i in range(3):
+      s, m = step(s, batches[i])
+    vae.state.rng.set_state(rng)
+    g, mg = scan_steps(step, 3)(vae.state, batches)
+    torch.cuda.synchronize()
+  finally:
+    torch.backends.cudnn.deterministic = False
+  want, got = _state_leaves(s), _state_leaves(g)
+  assert set(got) == set(want)
+  for k in want:
+    assert torch.equal(got[k], want[k]), k
+  assert int(g.skipped_updates) == 0
+  sampling.check_rejections()
 
 
 def test_failed_capture_raises_on_card(cuda_device):

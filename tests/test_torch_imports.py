@@ -63,6 +63,23 @@ def test_sources_exist():
   for module in ("ml/__init__.py", "ml/gmm_tmat.py", "ml/ivector.py",
                  "ml/scoring.py", "ml/plda.py"):
     assert f"odin_tpu_torch/{module}" in names
+  # the VAE zoo slice
+  for module in ("bay/distributions/spherical.py",
+                 "bay/distributions/sampling.py",
+                 "bay/distributions/deterministic.py",
+                 "bay/distributions/vector_quantizer.py",
+                 "bay/vi/autoencoder/factor_discriminator.py",
+                 "bay/vi/autoencoder/factor_vae.py",
+                 "bay/vi/autoencoder/dip_vae.py",
+                 "bay/vi/autoencoder/info_vae.py",
+                 "bay/vi/autoencoder/irm_vae.py",
+                 "bay/vi/autoencoder/hyperbolic_vae.py",
+                 "bay/vi/autoencoder/two_stage_vae.py",
+                 "bay/vi/autoencoder/vamprior.py",
+                 "bay/vi/autoencoder/vq_vae.py",
+                 "bay/vi/autoencoder/stochastic_vae.py",
+                 "bay/vi/autoencoder/deterministic.py"):
+    assert f"odin_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,

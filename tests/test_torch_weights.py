@@ -1,7 +1,10 @@
 """The flax -> torch weight bridge (odin_tpu_torch.weights), one test per
 layout rule: each holds one flax layer of odin_tpu.networks and its port
 layer, on the same weights and inputs, to atol 1e-5 (fp32 sums taken in a
-different order)."""
+different order).  Then whole training states of the zoo carried both
+ways, exactly: extra params partitions, one optimizer state per name, and
+the mutable collections (BatchNorm's batch_stats, a VQ codebook's
+vq_stats)."""
 import numpy as np
 import pytest
 import torch
@@ -252,3 +255,98 @@ def test_to_jax_params_follows_the_bare_flag_not_the_name():
   assert set(tree["loc"]) == {"Dense_0"}
   assert set(tree["other"]) == {"kernel", "bias"}
   m.load_state_dict(from_jax_params(tree), strict=True)
+
+
+# ---------------------------------------------------------------------------
+# the zoo's states: partitions, optimizers and mutables
+# ---------------------------------------------------------------------------
+def _states_equal(a, b):
+  want, got = _flat(jax.device_get(a)), _flat(jax.device_get(b))
+  assert set(got) == set(want)
+  for k in want:
+    np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+
+
+def _jax_state_after_a_step(cls, **kwargs):
+  from torch_zoo_common import B, binary_images, make_pair
+  jvae, vae = make_pair(cls, **kwargs)
+  step = jax.jit(jvae.make_step_fn(jit=False))
+  js, _ = step(jvae.state, binary_images(2 * B, 0))
+  return jvae, vae, jax.device_get(js)
+
+
+@pytest.mark.parametrize("cls,kwargs,partitions,optimizers", [
+    ("FactorVAE", dict(discriminator_units=(8,)), {"vae", "discriminator"},
+     {"vae", "discriminator"}),
+    ("VampriorVAE", dict(n_components=3), {"vae", "pseudo_inputs"},
+     {"vae"}),
+    ("TwoStageVAE", dict(stage2_units=8), {"vae", "stage2"},
+     {"vae", "stage2"}),
+    ("VQVAE", dict(n_codes=8, ema=True), {"vae"}, {"vae"}),
+])
+def test_zoo_state_round_trips_exactly(cls, kwargs, partitions, optimizers):
+  """JAX -> port -> JAX is exact, and the port's state steps on."""
+  from odin_tpu_torch.weights import from_jax_state, to_jax_state
+  from torch_zoo_common import B, binary_images
+  jvae, vae, js = _jax_state_after_a_step(cls, **kwargs)
+  state = from_jax_state(js, device="cpu")
+  assert set(state.params) == partitions
+  assert set(state.opt_states) == optimizers
+  if cls == "FactorVAE":  # the discriminator's Adam, its count and moments
+    disc = state.opt_states["discriminator"]
+    assert int(disc["count"]) == 1
+    assert set(disc["mu"]) == {"discriminator"}
+  if cls == "VQVAE":
+    assert set(state.mutables) == {"vae"}
+    assert set(state.mutables["vae"]) == {
+        "latents.codebook", "latents.counts", "latents.means"}
+  _states_equal(to_jax_state(state, js), js)
+  vae.state = state
+  s, m = vae.make_step_fn(keep_opt_states=True)(state, binary_images(2 * B, 1))
+  assert int(s.step) == 2 and torch.isfinite(m[next(iter(m))])
+
+
+def test_port_state_round_trips_through_jax():
+  """port -> JAX -> port is exact for a state the port's step made, its
+  EMA codebook included."""
+  from odin_tpu_torch.weights import from_jax_state, to_jax_state
+  from torch_zoo_common import B, binary_images
+  jvae, vae, js = _jax_state_after_a_step("VQVAE", n_codes=8, ema=True)
+  s, _ = vae.make_step_fn()(vae.state, binary_images(B, 2))
+  back = from_jax_state(to_jax_state(s, js), device="cpu")
+  for tree in ("params", "mutables"):
+    got, want = getattr(back, tree), getattr(s, tree)
+    assert set(got) == set(want)
+    for p in want:
+      assert set(got[p]) == set(want[p])
+      for k in want[p]:
+        torch.testing.assert_close(got[p][k], want[p][k], rtol=0, atol=0)
+  assert int(back.opt_states["vae"]["count"]) == 1
+
+
+def test_mutables_of_a_batchnorm_network_round_trip():
+  from odin_tpu.bay.vi.autoencoder.factor_discriminator import (
+      FactorDiscriminator as JaxDiscriminator)
+  from odin_tpu_torch.bay.vi.autoencoder import FactorDiscriminator
+  from odin_tpu_torch.weights import from_jax_mutables, to_jax_mutables
+  jd = JaxDiscriminator(units=(6, 6), batchnorm=True)
+  variables = jax.device_get(jd.init(jax.random.PRNGKey(0), jnp.ones((2, 3))))
+  stats = {"batch_stats": jax.tree_util.tree_map(
+      lambda a: a + np.arange(a.size, dtype=a.dtype).reshape(a.shape),
+      variables["batch_stats"])}
+  d = FactorDiscriminator(units=(6, 6), batchnorm=True)
+  d.build((3,))
+  d.load_state_dict({**from_jax_params(variables["params"]),
+                     **from_jax_mutables(stats)}, strict=True)
+  _states_equal(to_jax_mutables(d), stats)
+  _states_equal(to_jax_params(d), variables["params"])
+
+
+def test_lambda_layer_holds_no_params_and_matches_flax():
+  net = jb.SequentialNetwork((jb.Dense(5), jb.Lambda(jnp.tanh), jb.Dense(3)))
+  got, want, params, layer = _pair(
+      net, tb.SequentialNetwork([tb.Dense(5), tb.Lambda(torch.tanh),
+                                 tb.Dense(3)]), (4,))
+  assert set(params) == {"layers_0", "layers_2"}
+  assert list(layer.layers[1].parameters()) == []
+  np.testing.assert_allclose(got, want, atol=ATOL)
