@@ -145,7 +145,31 @@ CPU:
      and FactorVAE scores printed); the vMF sampler's rejected rows (0)
      and acceptance rate.  The path launches no kernel of this port.
      ``python3 chip_smoke.py --zoo-profile [CLASS ...]`` runs only a
-     profile of the zoo's graphed steps (``zoo_profile``).
+     profile of the zoo's graphed steps (``zoo_profile``), the
+     semi-supervised classes' too.
+ 13. the semi path, on (x, y, mask) batches of ``create_dataset("train",
+     batch_size=64, label_percent=0.1, oversample_ratio=0.5,
+     to_device=cuda)``: for each of MultitaskVAE, SkiptaskVAE,
+     MultiheadVAE, M2VAE, ConditionalM2VAE, StructuredSemiVAE,
+     reparamsM3VAE, auxiliaryVAE, SemafoVAE, RemafoVAE, semafod, semafoh,
+     semafos, semafosm, semafosc, semafop, semafot, SemiFactorVAE and
+     SemiFactor2VAE on ``get_networks('dsprites', zdim=10,
+     is_semi_supervised=True)`` (``semi_models``: the factors' Gaussian
+     head, or a one-hot head over the x position in 4 bins for the classes
+     whose objective needs class probabilities): the ELBO terms on the
+     card against the CPU (rtol 1e-4 of each term's largest magnitude),
+     200 steps of ``fit`` at ``steps_per_call=100`` (JAX's defaults: the
+     Semafo family's MI term trains from step 1,000) with no update
+     skipped and the held-out loss below its start, the labels head's
+     log-likelihood of 256 held-out labelled images above its value
+     before training, steps/s, ``run_model`` and MIG on 2,000 test
+     images; then M2VAE and ConditionalM2VAE on ``HalfMoons`` with the
+     one-hot head for 1000 steps: ``classify`` accuracy on the 320 test
+     points of at least 0.95, and ConditionalM2's ``marginal_elbo`` within
+     1e-5 of the explicit sum over the two one-hot labels on the card.
+     The path launches no kernel of this port.  ``python3 chip_smoke.py
+     --semi-rehearsal [...]`` runs the phase on the CPU at a chosen size
+     (``semi_rehearsal``).
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
 fp32 like the CPU.  Any failure raises and the script exits non-zero; it
@@ -1817,10 +1841,372 @@ def zoo_path(torch, np, reset_counts, read_counts, smi):
       f"this port's): {read_counts()}")
 
 
+# phase 13: the semi-supervised family on dSprites, and M2 on the half-moons
+SEMI_BATCH = 64
+SEMI_STEPS = 200  # each class's fit: 2 calls of SEMI_K graphed steps
+SEMI_K = 100
+SEMI_LABELLED = 0.1  # label_percent: 1,638 of the 16,384 train images
+SEMI_OVERSAMPLE = 0.5  # the labelled rows of each batch: 32 of 64
+# the Semi-Factor pair's supervised term reads the second half of its batch
+# (the discriminator's), so 96 of its 128 rows are labelled, 32 of them in
+# that half; at 0.5 the half holds no labelled row
+SEMI_FACTOR_OVERSAMPLE = 0.75
+SEMI_RTOL = ZOO_RTOL  # card against CPU, of each term's largest magnitude
+SEMI_HELD = 256  # held-out labelled images for the labels head
+SEMI_GYM_ROWS = 2000
+MOONS_STEPS = 1000  # the half-moons M2 pair: 10 calls of SEMI_K steps
+MOONS_ACC_MIN = 0.95  # classify() accuracy on the 320 test points (the
+# CPU rehearsal's: 1.0 for both classes after 1000 steps)
+MOONS_RTOL = 1e-5  # marginal_elbo against the explicit sum, on the card
+
+
+SEMI_POSITIONS = 4  # the categorical classes' labels: pos_x in 4 bins
+
+
+def position_dsprites(np, **kwargs):
+  """dSprites whose labels are the sprite's horizontal position in
+  SEMI_POSITIONS bins of 8 of its 32 positions, one-hot (the same images
+  as ``dSprites(**kwargs)``)."""
+  from odin_tpu_torch.fuel import dSprites
+
+  class dSpritesPosition(dSprites):
+
+    @property
+    def name(self):
+      return "dspritesposition"
+
+    @property
+    def labels(self):
+      return [f"pos_x_{i}" for i in range(SEMI_POSITIONS)]
+
+    def _load(self, partition):
+      x, f = super()._load(partition)
+      bins = (f[:, 3] * SEMI_POSITIONS // self.factor_sizes[3]).astype(int)
+      return x, np.eye(SEMI_POSITIONS, dtype=np.float32)[bins]
+
+  return dSpritesPosition(**kwargs)
+
+
+def semi_models():
+  """(name, factory, batch size, labels, labelled share of a batch) of
+  every class of the
+  semi-supervised slice on the full-width dSprites networks (zdim 10) with
+  their labels head.  The Multitask and Semafo families regress dSprites'
+  5 factor indices with the networks' Gaussian head ('factors'); the
+  classes whose objective reads the labels head as class probabilities
+  (the M2 family, ADGM) and the Semi-Factor pair, whose supervised term
+  is a softmax cross-entropy, take one-hot labels of the sprite's
+  horizontal position ('position', ``position_dsprites``) and a one-hot
+  head.  The Semi-Factor pair takes twice the batch, split between the
+  ELBO and the discriminator, with SEMI_FACTOR_OVERSAMPLE of it
+  labelled."""
+  from odin_tpu_torch.bay import vi
+  from odin_tpu_torch.bay.random_variable import RVconf
+  from odin_tpu_torch.networks import get_networks
+
+  def nets(*drop, shape=False):
+    n = get_networks("dsprites", zdim=10, is_semi_supervised=True)
+    if shape:
+      n["labels"] = RVconf(SEMI_POSITIONS, "onehot", projection=True,
+                           name="position")
+    for k in drop:
+      n.pop(k)
+    return n
+
+  b, r = SEMI_BATCH, SEMI_OVERSAMPLE
+  factor = dict(n_labels=SEMI_POSITIONS, tc_coef=ZOO_FACTOR_TC)
+  return [
+      ("MultitaskVAE", lambda: vi.MultitaskVAE(**nets()), b, "dsprites", r),
+      ("SkiptaskVAE", lambda: vi.SkiptaskVAE(**nets()), b, "dsprites", r),
+      ("MultiheadVAE", lambda: vi.MultiheadVAE(**nets()), b, "dsprites", r),
+      ("M2VAE", lambda: vi.M2VAE(**nets(shape=True)), b, "position", r),
+      ("ConditionalM2VAE", lambda: vi.ConditionalM2VAE(**nets(shape=True)),
+       b, "position", r),
+      ("StructuredSemiVAE", lambda: vi.StructuredSemiVAE(
+          **nets("latents", shape=True)), b, "position", r),
+      ("reparamsM3VAE", lambda: vi.reparamsM3VAE(**nets(shape=True)), b,
+       "position", r),
+      ("auxiliaryVAE", lambda: vi.auxiliaryVAE(**nets(shape=True)), b,
+       "position", r),
+      ("SemafoVAE", lambda: vi.SemafoVAE(**nets()), b, "dsprites", r),
+      ("RemafoVAE", lambda: vi.RemafoVAE(**nets()), b, "dsprites", r),
+      ("semafod", lambda: vi.semafod(**nets()), b, "dsprites", r),
+      ("semafoh", lambda: vi.semafoh(**nets()), b, "dsprites", r),
+      ("semafos", lambda: vi.semafos(**nets()), b, "dsprites", r),
+      ("semafosm", lambda: vi.semafosm(**nets()), b, "dsprites", r),
+      ("semafosc", lambda: vi.semafosc(**nets()), b, "dsprites", r),
+      ("semafop", lambda: vi.semafop(**nets()), b, "dsprites", r),
+      ("semafot", lambda: vi.semafot(**nets()), b, "dsprites", r),
+      ("SemiFactorVAE", lambda: vi.SemiFactorVAE(**factor, **nets("labels")),
+       2 * b, "position", SEMI_FACTOR_OVERSAMPLE),
+      ("SemiFactor2VAE", lambda: vi.SemiFactor2VAE(
+          **factor, **nets("labels", "latents")), 2 * b, "position",
+       SEMI_FACTOR_OVERSAMPLE),
+  ]
+
+
+def semi_batch(np, x, y, n, share=SEMI_OVERSAMPLE):
+  """The first n rows of (x, y) as an (x, y, mask) batch whose first
+  ``round(share * n)`` rows are labelled and whose other rows' labels are
+  zeros, as ``create_dataset(label_percent=...)`` makes them."""
+  x, y = x[:n].astype(np.float32), y[:n].astype(np.float32).copy()
+  k = int(round(share * n))
+  mask = np.zeros(n, np.float32)
+  mask[:k] = 1
+  y[k:] = 0
+  return x, y, mask
+
+
+def semi_path(torch, np, reset_counts, read_counts, smi):
+  """Phase 13: each of the 19 classes of the semi-supervised slice on
+  procedural dSprites (``semi_models``), trained on (x, y, mask) batches of
+  ``create_dataset(label_percent=0.1, oversample_ratio=0.5)``: its ELBO
+  terms on the card against the CPU on the same params, batch and noise;
+  200 steps of ``fit`` at ``steps_per_call=100`` (the held-out loss below
+  its start, no update skipped, steps/s); the labels head's log-likelihood of 256
+  held-out labelled images above its value before training; ``run_model``
+  and MIG on 2,000 test images.  Then M2VAE and ConditionalM2VAE on the
+  half-moons with the one-hot head: ``classify`` accuracy on the test
+  split, and ConditionalM2's ``marginal_elbo`` on the card equal to the
+  explicit sum over the two one-hot labels."""
+  from odin_tpu_torch.bay import vi
+  from odin_tpu_torch.bay.vi import DisentanglementGym
+  from odin_tpu_torch.fuel import HalfMoons, dSprites, get_dataset
+  from odin_tpu_torch.networks import halfmoons_networks
+  from odin_tpu_torch.training import Noise
+
+  cuda = torch.device("cuda", 0)
+  cpu = torch.device("cpu")
+  t0 = time.perf_counter()
+  data = {"dsprites": get_dataset("dsprites"),
+          "position": position_dsprites(np)}
+  held = {"dsprites": dSprites(n_samples=SEMI_HELD, seed=1).numpy("valid"),
+          "position": position_dsprites(np, n_samples=SEMI_HELD,
+                                        seed=1).numpy("valid")}
+  for ds in data.values():
+    ds.numpy("train")
+  data["dsprites"].numpy("test")
+  log(f"dSprites (factor labels and position labels) train and test "
+      f"rendered in "
+      f"{time.perf_counter() - t0:.2f} s; held out: {SEMI_HELD} labelled "
+      f"images of each")
+
+  def to(batch, device):
+    return tuple(torch.as_tensor(b).to(device) for b in batch)
+
+  def train(ds, batch_size, share=SEMI_OVERSAMPLE):
+    return ds.create_dataset("train", batch_size=batch_size, epochs=-1,
+                             prefetch=2, label_percent=SEMI_LABELLED,
+                             oversample_ratio=share, to_device=cuda)
+
+  def term_errors(cpu_terms, card_terms):
+    out = {}
+    for k, v in cpu_terms.items():
+      c = card_terms[k].detach().float().cpu()
+      v = v.detach().float()
+      out[k] = float((c - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+    return out
+
+  @torch.no_grad()
+  def labels_llk(vae, x, y):
+    return float(vae.predict_labels(x).log_prob(
+        torch.as_tensor(y).to(cuda)).mean())
+
+  reset_counts()
+  rows = []
+  step_700 = {d: torch.tensor(700, dtype=torch.int32, device=d)
+              for d in (cpu, cuda)}
+  for name, factory, bs, dname, share in semi_models():
+    # -- 13.1 the card against the CPU: same params, batch and noise
+    t_class = time.perf_counter()
+    hx, hy = held[dname]
+    batch = semi_batch(np, hx, hy, bs, share)
+    ref = factory().build(seed=SEED, device="cpu")
+    vae = factory().build(seed=SEED)
+    noise = Noise(torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+      l0, k0, _ = ref.elbo_components(ref.state.params, to(batch, cpu), noise,
+                                      step_700[cpu],
+                                      mutables=dict(ref.state.mutables))
+      l1, k1, _ = vae.elbo_components(
+          vae.state.params, to(batch, cuda),
+          Noise(eps=[t.to(cuda) for t in noise.drawn]), step_700[cuda],
+          mutables=dict(vae.state.mutables))
+    errs = term_errors({**l0, **k0}, {**l1, **k1})
+    worst = max(errs.values())
+    if not worst <= SEMI_RTOL:
+      raise AssertionError(f"{name}: the card's ELBO terms differ from the "
+                           f"CPU's: {errs}")
+    del ref
+    # -- 13.2 fit: 200 steps, 100 a call, on (x, y, mask) batches
+    eval_fn = vae.make_eval_fn()
+    hb = to(batch, cuda)
+    start = float(eval_fn(vae.state, hb)["loss"])
+    llk0 = labels_llk(vae, hx, hy)
+    tr = vae.fit(train(data[dname], bs, share), max_iter=SEMI_STEPS,
+                 steps_per_call=SEMI_K, logging_interval=1e9, verbose=False)
+    end = float(eval_fn(vae.state, hb)["loss"])
+    llk1 = labels_llk(vae, hx, hy)
+    skipped = int(vae.state.skipped_updates)
+    capture = tr.capture_seconds or 0.0
+    rate = SEMI_STEPS / (tr.total_time - capture)
+    if skipped or not end < start or not llk1 > llk0:
+      raise AssertionError(
+          f"{name}: held-out loss {start:.6g} -> {end:.6g}, labels head's "
+          f"log-likelihood {llk0:.6g} -> {llk1:.6g}, {skipped} updates "
+          f"skipped")
+    # -- 13.3 the Gym: run_model and MIG on dSprites' test images
+    gym = DisentanglementGym(dataset=data["dsprites"], model=vae)
+    gym.run_model(n_samples=SEMI_GYM_ROWS, partition="test")
+    mig = gym.mig_score()
+    if gym.z_mean.device.type != "cuda" or not math.isfinite(mig):
+      raise AssertionError(f"{name}: the Gym gave MIG {mig} on "
+                           f"{gym.z_mean.device}")
+    rows.append((name, rate))
+    log(f"{name} on {dname}: ELBO terms card vs CPU max rel {worst:.3e} "
+        f"(limit {SEMI_RTOL}); fit {SEMI_STEPS} steps at batch {bs} "
+        f"({int(round(share * bs))} labelled): held-out loss "
+        f"{start:.6g} -> {end:.6g}, skipped {skipped}, labels head's "
+        f"log-likelihood of {SEMI_HELD} held-out images {llk0:.6g} -> "
+        f"{llk1:.6g}, {rate:.1f} steps/s (capture {capture:.3f} s); MIG on "
+        f"{SEMI_GYM_ROWS} test images {mig:.4f}; "
+        f"{time.perf_counter() - t_class:.2f} s")
+    del vae, tr, gym
+  log(f"semi-supervised steps/s at fit(steps_per_call={SEMI_K}), "
+      f"{SEMI_STEPS} steps each ({smi}): " +
+      ", ".join(f"{n} {r:.1f}" for n, r in rows))
+
+  # -- 13.4 M2 and ConditionalM2 on the half-moons, the one-hot head
+  moons = HalfMoons()
+  x_test, y_test = moons.numpy("test")
+  for name in ("M2VAE", "ConditionalM2VAE"):
+    t1 = time.perf_counter()
+    vae = getattr(vi, name)(**halfmoons_networks(
+        is_semi_supervised=True)).build(seed=SEED)
+    tr = vae.fit(train(moons, SEMI_BATCH), max_iter=MOONS_STEPS,
+                 steps_per_call=SEMI_K, logging_interval=1e9, verbose=False)
+    with torch.no_grad():
+      pred = vae.classify(x_test).mean().argmax(-1).cpu().numpy()
+    acc = float(np.mean(pred == y_test))
+    skipped = int(vae.state.skipped_updates)
+    msg = (f"{name} on the half-moons: {MOONS_STEPS} steps at batch "
+           f"{SEMI_BATCH} in {tr.total_time:.2f} s, skipped {skipped}; "
+           f"classify accuracy on {len(y_test)} test points {acc:.4f} "
+           f"(limit {MOONS_ACC_MIN})")
+    if skipped or not acc >= MOONS_ACC_MIN:
+      raise AssertionError(msg)
+    if name == "ConditionalM2VAE":
+      xs, ys = moons.numpy("valid")
+      b = semi_batch(np, xs, np.eye(2, dtype=np.float32)[ys], SEMI_BATCH)
+      xb, yb, mb = to(b, cuda)
+      params = vae.state.params
+      noise = Noise(torch.Generator(cuda).manual_seed(SEED))
+      with torch.no_grad():
+        llk, kl, aux = vae.elbo_components(params, (xb, yb, mb), noise,
+                                           vae.state.step)
+        eps = noise.drawn[0]  # (B·K, zdim): row b·K + k is (b, label k)
+        w = mb[:, None] * yb + (1 - mb[:, None]) * aux["qy"].mean()
+        explicit = torch.zeros_like(llk["marginal_elbo"])
+        for k in range(2):
+          onehot = torch.zeros_like(yb)
+          onehot[:, k] = 1
+          lx, kz, *_ = vae._components_xy(params, xb, onehot,
+                                          Noise(eps=[eps[k::2]]), False,
+                                          None)
+          explicit = explicit + w[:, k] * (lx - kz)
+      err = float((llk["marginal_elbo"] - explicit).abs().max()) / max(
+          float(explicit.abs().max()), 1e-30)
+      msg += (f"; marginal_elbo against the explicit sum over the 2 one-hot "
+              f"labels on the card: max rel {err:.3e} (limit {MOONS_RTOL})")
+      if not err <= MOONS_RTOL:
+        raise AssertionError(msg)
+    log(msg + f"; {time.perf_counter() - t1:.2f} s; {smi}")
+    del vae, tr
+  log(f"semi path launches (cuDNN, cuBLAS and torch's kernels, none of "
+      f"this port's): {read_counts()}")
+
+
+def semi_rehearsal(argv) -> int:
+  """``python3 chip_smoke.py --semi-rehearsal [--steps 40] [--k 20]
+  [--gym-rows 200] [--moons-steps 200] [--n-samples 2048]
+  [--labels position|shape] [--steps-without-mi N] [--factor-oversample R]
+  [CLASS ...]``: phase 13 (``semi_path``) on the
+  CPU at a chosen size, to rehearse it before a card run and to set its
+  limits.  The phase's code runs with the card swapped for the CPU:
+  dSprites has `--n-samples` images a partition (16,384 on the card), each
+  class trains `--steps` steps at `--k` a call, the Gym reads
+  `--gym-rows` test images and the half-moons pair trains
+  `--moons-steps` steps; ``--labels shape`` gives the categorical classes
+  dSprites0's one-hot shapes (3 classes) in place of the x position in 4
+  bins; ``--steps-without-mi`` moves the Semafo family's MI gate and
+  ``--factor-oversample`` the Semi-Factor pair's labelled share.  The
+  phase's checks run as they are."""
+  import argparse
+  import inspect
+
+  import numpy as np
+  import torch
+
+  from odin_tpu_torch.fuel import dSprites0
+  from odin_tpu_torch.fuel.image_data import datasets
+
+  ap = argparse.ArgumentParser(prog="chip_smoke.py --semi-rehearsal")
+  ap.add_argument("--steps", type=int, default=40)
+  ap.add_argument("--k", type=int, default=20)
+  ap.add_argument("--gym-rows", type=int, default=200)
+  ap.add_argument("--moons-steps", type=int, default=200)
+  ap.add_argument("--n-samples", type=int, default=2048)
+  ap.add_argument("--labels", choices=("position", "shape"),
+                  default="position")
+  ap.add_argument("--steps-without-mi", type=int, default=None)
+  ap.add_argument("--factor-oversample", type=float,
+                  default=SEMI_FACTOR_OVERSAMPLE)
+  ap.add_argument("classes", nargs="*")
+  args = ap.parse_args(argv)
+  init = datasets.dSprites.__init__
+
+  def sized(self, n_samples=None, **kwargs):
+    init(self, n_samples=n_samples or args.n_samples, **kwargs)
+
+  datasets.dSprites.__init__ = sized
+  src = inspect.getsource(semi_path)
+  src = src.replace('torch.device("cuda", 0)', 'torch.device("cpu")')
+  src = src.replace(".build(seed=SEED)", '.build(seed=SEED, device="cpu")')
+  src = src.replace('device.type != "cuda"', 'device.type != "cpu"')
+  scope = dict(globals())
+  scope.update(SEMI_STEPS=args.steps, SEMI_K=args.k,
+               SEMI_GYM_ROWS=args.gym_rows, MOONS_STEPS=args.moons_steps)
+  for env in (scope, globals()):
+    env["SEMI_FACTOR_OVERSAMPLE"] = args.factor_oversample
+    if args.labels == "shape":
+      env["SEMI_POSITIONS"] = 3
+      env["position_dsprites"] = lambda np, **kwargs: dSprites0(**kwargs)
+
+  def gated(factory):
+    def make():
+      vae = factory()
+      if hasattr(vae, "steps_without_mi"):  # read at every step
+        vae.steps_without_mi = args.steps_without_mi
+      return vae
+    return make
+
+  models = [(n, f if args.steps_without_mi is None else gated(f), b, d, r)
+            for n, f, b, d, r in semi_models()
+            if not args.classes or n in args.classes]
+  scope["semi_models"] = lambda: models
+  exec(src, scope)
+  t0 = time.perf_counter()
+  scope["semi_path"](torch, np, lambda: None, lambda: {},
+                     "CPU rehearsal, no card")
+  log(f"phase 13 rehearsed on the CPU in {time.perf_counter() - t0:.2f} s")
+  return 0
+
+
 def zoo_profile(wanted) -> int:
   """``python3 chip_smoke.py --zoo-profile [CLASS ...]``: where the zoo's
   training steps spend the card's time, without the rest of the script.
-  Each class of ``zoo_models()`` (all, or BetaVAE and the ones named) as a
+  Each class of ``zoo_models()`` and ``semi_models()`` (all, or BetaVAE
+  and the ones named; the semi-supervised ones on (x, y, mask) batches) as a
   CUDA graph of its whole step, fed from batches already on the card, so
   that no host pipeline stands in the way: random binary images from a
   seed (the ops and their shapes do not depend on the values), fp32 with
@@ -1846,7 +2232,33 @@ def zoo_profile(wanted) -> int:
                        text=True, check=True).stdout.strip()
   cuda = torch.device("cuda", 0)
   rs = np.random.RandomState(SEED)
-  models = [m for m in zoo_models()
+
+  def batches_of(labels):
+    """k steps' batches of bs images: x alone, (x, the 5 factors) for a
+    labelled class, (x, y, mask) for a semi-supervised one (y dSprites'
+    factors or one-hot positions, the first half labelled)."""
+    def make(k, bs):
+      x = torch.from_numpy((rs.rand(k, bs, 64, 64, 1) < 0.3).astype(
+          np.float32)).to(cuda)
+      if not labels:
+        return x
+      if labels is True:
+        return x, torch.from_numpy(rs.rand(k, bs, 5).astype(
+            np.float32)).to(cuda)
+      if labels == "position":
+        y = np.eye(SEMI_POSITIONS, dtype=np.float32)[rs.randint(
+            0, SEMI_POSITIONS, (k, bs))]
+      else:
+        y = rs.randint(0, 40, (k, bs, 5)).astype(np.float32)
+      mask = np.zeros((k, bs), np.float32)
+      mask[:, :bs // 2] = 1
+      y[:, bs // 2:] = 0
+      return x, torch.from_numpy(y).to(cuda), torch.from_numpy(mask).to(cuda)
+    return make
+
+  models = [(n, f, bs, batches_of(lab)) for n, f, bs, lab in zoo_models()]
+  models += [(n, f, bs, batches_of(ds)) for n, f, bs, ds, _ in semi_models()]
+  models = [m for m in models
             if not wanted or m[0] in wanted or m[0] == "BetaVAE"]
 
   def busy(prof):
@@ -1864,14 +2276,11 @@ def zoo_profile(wanted) -> int:
     return total / 1e3, len(spans)
 
   base = None
-  for name, factory, bs, labelled in models:
+  for name, factory, bs, make_batches in models:
     vae = factory().build(seed=SEED)
     step = vae.make_step_fn()
     k = 50
-    x = torch.from_numpy((rs.rand(k, bs, 64, 64, 1) < 0.3).astype(
-        np.float32)).to(cuda)
-    batches = (x, torch.from_numpy(rs.rand(k, bs, 5).astype(
-        np.float32)).to(cuda)) if labelled else x
+    batches = make_batches(k, bs)
     fused = scan_steps(step, k, donate=True)
     state, _ = fused(vae.state, batches)
     times = []
@@ -1884,7 +2293,8 @@ def zoo_profile(wanted) -> int:
     ms = sorted(times)[1]
     base = ms if base is None else base
     short = scan_steps(step, 10, donate=True)
-    sub = tuple(b[:10] for b in batches) if labelled else batches[:10]
+    sub = tuple(b[:10] for b in batches) if isinstance(batches, tuple) \
+        else batches[:10]
     state, _ = short(state, sub)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -2494,6 +2904,9 @@ def main() -> int:
   with Phase("12 zoo path: the unsupervised VAE zoo on dSprites"):
     zoo_path(torch, np, reset_counts, read_counts, smi)
 
+  with Phase("13 semi path: the semi-supervised VAE family on dSprites"):
+    semi_path(torch, np, reset_counts, read_counts, smi)
+
   log("kernels: " + "; ".join(
       f"{k} launches={v['launches']} ms={v['ms']:.4f} "
       f"plain_ms={v['plain_ms']:.4f} library_ms={v['library_ms']:.4f} "
@@ -2514,4 +2927,6 @@ if __name__ == "__main__":
     sys.exit(0)
   if sys.argv[1:2] == ["--zoo-profile"]:
     sys.exit(zoo_profile(sys.argv[2:]))
+  if sys.argv[1:2] == ["--semi-rehearsal"]:
+    sys.exit(semi_rehearsal(sys.argv[2:]))
   sys.exit(main())

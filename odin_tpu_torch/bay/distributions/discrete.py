@@ -78,14 +78,20 @@ class OneHotCategorical(Distribution):
     u = eps if eps is not None else torch.rand(
         shape, generator=generator, dtype=self.logits.dtype,
         device=self.logits.device)
-    gumbel = -torch.log(-torch.log(torch.clamp(u, 1e-20, 1.0)))
-    idx = torch.argmax(self.logits + gumbel, dim=-1)
-    return F.one_hot(idx, self.logits.shape[-1]).to(torch.float32)
+    return self._gumbel_max(-torch.log(-torch.log(torch.clamp(u, 1e-20,
+                                                              1.0))))
 
   def sample_from(self, noise, sample_shape=()):
+    """One-hot of the Gumbel-max index over the noise's Gumbel variates
+    (``sample_shape + logits.shape``), as ``jax.random.categorical``
+    draws."""
     shape = tuple(sample_shape) + tuple(self.logits.shape)
-    return self.sample(sample_shape, eps=noise.uniform(
-        shape, self.logits.dtype, self.logits.device))
+    return self._gumbel_max(noise.gumbel(shape, self.logits.dtype,
+                                         self.logits.device))
+
+  def _gumbel_max(self, gumbel):
+    idx = torch.argmax(self.logits + gumbel, dim=-1)
+    return F.one_hot(idx, self.logits.shape[-1]).to(torch.float32)
 
   def log_prob(self, x):
     return torch.sum(x * self.logits, dim=-1)

@@ -12,7 +12,7 @@ import torch
 
 from odin_tpu_torch.bay.distributions import (Bernoulli, Deterministic,
                                               Distribution, Independent,
-                                              MultivariateNormalDiag,
+                                              MultivariateNormalDiag, Normal,
                                               OneHotCategorical,
                                               PowerSpherical, VectorQuantized,
                                               VonMisesFisher)
@@ -23,7 +23,7 @@ __all__ = ["kl_divergence", "concat_distributions", "map_distributions"]
 
 # the families a VAE of the port returns; JAX's ``Batchwise`` fallback for
 # any other mix waits with the rest of the distribution zoo
-_CONCAT_FAMILIES = (MultivariateNormalDiag, Bernoulli, Independent,
+_CONCAT_FAMILIES = (MultivariateNormalDiag, Normal, Bernoulli, Independent,
                     Deterministic, OneHotCategorical, VonMisesFisher,
                     PowerSpherical, VectorQuantized)
 
@@ -99,7 +99,7 @@ def concat_distributions(distributions: Sequence[Distribution],
   """Concatenate same-family distributions along a batch axis (JAX's
   ``concat_distributions``, ``odin_tpu/bay/helpers.py:68``): their
   parameters are concatenated.  The families the port's VAEs return
-  (``MultivariateNormalDiag``, ``Bernoulli``, the point masses,
+  (``MultivariateNormalDiag``, ``Normal``, ``Bernoulli``, the point masses,
   ``OneHotCategorical``, the spherical families, ``VectorQuantized``) and
   ``Independent`` of those; another family raises."""
   distributions = list(distributions)

@@ -73,6 +73,12 @@ class VariationalModel:
     self.allow_negative_kl = bool(allow_negative_kl)
     self.name = name or type(self).__name__.lower()
 
+  @classmethod
+  def is_semi_supervised(cls) -> bool:
+    """Whether the model trains on (x, y[, mask]) batches; the
+    semi-supervised families override it."""
+    return False
+
   def elbo(self, llk: Dict[str, torch.Tensor],
            kl: Dict[str, torch.Tensor]) -> torch.Tensor:
     """``sum(llk) - sum(kl)``, elementwise over the batch."""

@@ -11,6 +11,11 @@ from odin_tpu_torch.bay.vi.autoencoder.variational_autoencoder import (
     Autoencoder,
     VAECore,
     VariationalAutoencoder,
+    masked_mean_llk,
+)
+from odin_tpu_torch.bay.vi.autoencoder.auxiliary_vae import (
+    AuxiliaryVAE,
+    auxiliaryVAE,
 )
 from odin_tpu_torch.bay.vi.autoencoder.beta_vae import (
     AnnealingVAE,
@@ -20,6 +25,13 @@ from odin_tpu_torch.bay.vi.autoencoder.beta_vae import (
     BetaTCVAE,
     BetaVAE,
     Gamma10VAE,
+)
+from odin_tpu_torch.bay.vi.autoencoder.conditional_vae import (
+    ConditionalM2VAE,
+    M2VAE,
+    PriorRegressor,
+    StructuredSemiVAE,
+    reparamsM3VAE,
 )
 from odin_tpu_torch.bay.vi.autoencoder.deterministic import DistEncoder
 from odin_tpu_torch.bay.vi.autoencoder.dip_vae import DIPVAE
@@ -42,6 +54,22 @@ from odin_tpu_torch.bay.vi.autoencoder.irm_vae import (
     irmAE,
     irmVAE,
 )
+from odin_tpu_torch.bay.vi.autoencoder.multitask_vae import (
+    MultiheadVAE,
+    MultitaskVAE,
+    SkiptaskVAE,
+)
+from odin_tpu_torch.bay.vi.autoencoder.semafo_vae import (
+    RemafoVAE,
+    SemafoVAE,
+    semafod,
+    semafoh,
+    semafop,
+    semafos,
+    semafosc,
+    semafosm,
+    semafot,
+)
 from odin_tpu_torch.bay.vi.autoencoder.stochastic_vae import (
     ImputeVAE,
     StochasticVAE,
@@ -58,19 +86,17 @@ __all__ = [
     "ImplicitRankMinimizer", "irmVAE", "irmAE", "HypersphericalVAE",
     "PowersphericalVAE", "TwoStageVAE", "VampriorVAE", "VQVAE",
     "VectorQuantizer", "StochasticVAE", "ImputeVAE", "DistEncoder",
-    "get_vae", "get_all_vae",
+    "masked_mean_llk", "MultitaskVAE", "SkiptaskVAE",
+    "MultiheadVAE", "M2VAE", "ConditionalM2VAE", "StructuredSemiVAE",
+    "PriorRegressor", "reparamsM3VAE", "auxiliaryVAE", "AuxiliaryVAE",
+    "SemafoVAE", "RemafoVAE", "semafod", "semafoh", "semafos", "semafosm",
+    "semafosc", "semafop", "semafot", "get_vae", "get_all_vae",
 ]
 
 _ITEM = "ROADMAP.md queue 1, item 5"
 # the JAX package's registered names (lower case) that wait, by the part
 # of ROADMAP's item that ports them
 _WAITING = {
-    **{k: f"{_ITEM} (labels heads and the semi-supervised family)" for k in (
-        "semifactorvae", "semifactor2vae", "multitaskvae", "skiptaskvae",
-        "multiheadvae", "m2vae", "conditionalm2vae", "structuredsemivae",
-        "reparamsm3vae", "semafovae", "remafovae", "semafod", "semafoh",
-        "semafop", "semafos", "semafosc", "semafosm", "semafot",
-        "auxiliaryvae")},
     **{k: f"{_ITEM} (the hierarchical family)" for k in (
         "hierarchicalvae", "laddervae", "unetvae", "punetvae",
         "verydeepvae")},

@@ -7,7 +7,11 @@ half, the discriminator step (the 'discriminator' partition, real codes
 against ``permute_dims`` codes) on the second, each with its own optimizer
 and its own NaN-skip inside one step function (one CUDA graph on the
 card).  The discriminator's Adam runs at lr 1e-4 with b1 0.5, b2 0.9.
-``SemiFactorVAE`` and ``SemiFactor2VAE`` need the labels heads and raise.
+``SemiFactorVAE`` and ``SemiFactor2VAE`` (``factor_vae.py:170-199,
+275-291``) give the discriminator `n_labels` more outputs, and the
+discriminator's half of an (x, y, mask) batch adds its supervised term.
+As in the JAX package that half is the second one, so that with the
+labelled rows first in every batch the ELBO's half is the labelled one.
 """
 from __future__ import annotations
 
@@ -15,6 +19,7 @@ from typing import List, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from odin_tpu_torch.bay.distributions import MultivariateNormalDiag
 from odin_tpu_torch.bay.helpers import kl_divergence
@@ -24,9 +29,6 @@ from odin_tpu_torch.bay.vi.autoencoder.factor_discriminator import (
     FactorDiscriminator,
     dtc_loss_logits,
     total_correlation_logits,
-)
-from odin_tpu_torch.bay.vi.autoencoder.variational_autoencoder import (
-    LABELS_ITEM,
 )
 from odin_tpu_torch.bay.vi.utils import permute_dims
 from odin_tpu_torch.training.core import (TrainStep, _tree_leaves, _tree_map,
@@ -144,7 +146,16 @@ class FactorVAE(AnnealingVAE):
     zperm_logit = self._discriminator_logits(params, z_perm, True, mutables,
                                              noise)
     loss = dtc_loss_logits(z_logit, zperm_logit)
-    return loss, ({"dtc_loss": loss}, mutables)
+    metrics = {"dtc_loss": loss}
+    sup = self._supervised_loss(params, z, y, mutables, noise)
+    if sup is not None:
+      loss = loss + sup
+      metrics["supv_loss"] = sup
+    return loss, (metrics, mutables)
+
+  def _supervised_loss(self, params, z, y, mutables, noise):
+    """The discriminator's supervised term (SemiFactorVAE), or None."""
+    return None
 
   # -- training ----------------------------------------------------------------
   def _vae_half_loss(self, params, batch, rng, step, mutables):
@@ -224,17 +235,65 @@ class Factor2VAE(FactorVAE):
 
 
 class SemiFactorVAE(FactorVAE):
-  """Semi-supervised FactorVAE: not ported yet (its discriminator's label
-  units need the labels heads)."""
+  """Semi-supervised FactorVAE: the discriminator gains `n_labels` label
+  logits (``1 + n_labels`` outputs, reduced by `ss_strategy` for the TC
+  estimate), and its step adds ``-alpha * mean(sum(y * log_softmax))``
+  of its half's labels."""
 
-  def __init__(self, *args, **kwargs):
-    raise NotImplementedError(f"SemiFactorVAE is not ported yet: "
-                              f"{LABELS_ITEM}")
+  def __init__(self,
+               n_labels: int = 10,
+               alpha: float = 10.0,
+               ss_strategy: str = "logsumexp",
+               **kwargs):
+    self.n_labels = int(n_labels)
+    self.alpha = float(alpha)
+    kwargs.setdefault("n_discriminator_outputs", 1 + self.n_labels)
+    super().__init__(ss_strategy=ss_strategy, **kwargs)
+
+  @classmethod
+  def is_semi_supervised(cls) -> bool:
+    return True
+
+  def label_logits(self, z, params=None, training=False, mutables=None,
+                   noise=None):
+    """The discriminator's label logits of the codes z."""
+    logits = self._apply_module(params or self._params_of(), "discriminator",
+                                z, training=training, mutables=mutables,
+                                noise=noise)
+    return logits[..., 1:1 + self.n_labels]
+
+  def predict_labels(self, x, params=None):
+    """The labels' one-hot categorical from the discriminator's label
+    logits at the posterior mean of x (its log_prob(y) is the supervised
+    term's ``sum(y * log_softmax)``)."""
+    from odin_tpu_torch.bay.distributions import OneHotCategorical
+    params = params or self._params_of()
+    z = self._tc_slice(self.encode(x, params).mean())
+    return OneHotCategorical(logits=self.label_logits(
+        z, params, mutables=self._mutables()))
+
+  def _supervised_loss(self, params, z, y, mutables, noise):
+    if y is None:
+      return None
+    log_p = F.log_softmax(self.label_logits(z, params, True, mutables, noise),
+                          dim=-1)
+    y = y.reshape(y.shape[0], -1)[:, :self.n_labels]
+    return -self.alpha * torch.mean(torch.sum(y * log_p, dim=-1))
 
 
-class SemiFactor2VAE(Factor2VAE):
-  """Semi-supervised Factor2VAE: not ported yet (the labels heads)."""
+class SemiFactor2VAE(SemiFactorVAE, Factor2VAE):
+  """Semi-supervised Factor2VAE: the discriminator's label logits, like
+  its TC logit, see only the ``factors`` latent."""
 
-  def __init__(self, *args, **kwargs):
-    raise NotImplementedError(f"SemiFactor2VAE is not ported yet: "
-                              f"{LABELS_ITEM}")
+  def __init__(self,
+               latents: Optional[RVconf] = None,
+               factors: Optional[RVconf] = None,
+               n_labels: int = 10,
+               alpha: float = 10.0,
+               **kwargs):
+    if latents is None:
+      latents = RVconf(5, "mvndiag", projection=True, name="latents")
+    if factors is None:
+      factors = RVconf(5, "mvndiag", projection=True, name="factors")
+    super().__init__(latents=latents, factors=factors, n_labels=n_labels,
+                     alpha=alpha, **kwargs)

@@ -1,7 +1,9 @@
 """VariationalAutoencoder of the port: build, encode, decode, sample, the
 ELBO and its training steps (PyTorch port of ``VAECore``,
 ``VariationalAutoencoder`` and ``Autoencoder``,
-``odin_tpu/bay/vi/autoencoder/variational_autoencoder.py:55-466,672-694``).
+``SemiSupervisedVAE``,
+``odin_tpu/bay/vi/autoencoder/variational_autoencoder.py:55-466,606-694``;
+``masked_mean_llk`` of ``multitask_vae.py:37-44``).
 
 As in the JAX package the model holds its hyperparameters and a
 ``TrainState``; every computation reads the params of a state
@@ -21,6 +23,12 @@ the same partitions.  A module applied in training mode to a ``mutables``
 dict writes the new values of its partition's buffers into that dict
 (``_call``); each ``TrainStep`` may have its own optimizer
 (``optimizer_specs``).
+
+An optional labels head (``labels=RVconf(...)``) reads the latents or, for
+a model with ``skip_decoder = False``, the decoder's hidden state; the
+choice is fixed when the core is made, so that the head's width is known.
+Semi-supervised batches are ``(x, y, mask)``, mask 1 on the labelled rows
+(``_split_inputs(batch, mask=True)``).
 """
 from __future__ import annotations
 
@@ -62,10 +70,20 @@ from odin_tpu_torch.training.core import (
 from odin_tpu_torch.training.trainer import Trainer
 from odin_tpu_torch.utils import md5_checksum
 
-__all__ = ["VAECore", "VariationalAutoencoder", "VAE", "Autoencoder"]
+__all__ = ["VAECore", "VariationalAutoencoder", "VAE", "Autoencoder",
+           "SemiSupervisedVAE", "masked_mean_llk"]
 
-# where a class or option that the JAX package has waits in ROADMAP.md
-LABELS_ITEM = "ROADMAP.md queue 1, item 5 (labels heads)"
+
+def masked_mean_llk(llk: torch.Tensor,
+                    mask: Optional[torch.Tensor]) -> torch.Tensor:
+  """Per-row `llk` scaled so that its batch mean is the mean over the
+  labelled rows (``mask`` 1) alone; 0 on a batch with no labelled row
+  (the sum of the mask is floored at 1).  No mask: `llk` as it is."""
+  if mask is None:
+    return llk
+  mask = mask.reshape(-1).to(llk.dtype)
+  denom = torch.clamp(torch.sum(mask), min=1.0)
+  return llk * mask * (mask.shape[0] / denom)
 
 
 def _as_head(head, default_name: str) -> nn.Module:
@@ -84,22 +102,32 @@ def _buffers(module: nn.Module) -> Dict[str, torch.Tensor]:
 
 
 class VAECore(nn.Module):
-  """encoder -> latents head; decoder -> observation head.  Its parameter
-  names follow the flax tree (``encoder.layers.1.weight`` is
+  """encoder -> latents head; decoder -> observation head; an optional
+  labels head on the latents (`labels_input` 'latents') or on the
+  decoder's hidden state ('decoder_hidden').  Its parameter names follow
+  the flax tree (``encoder.layers.1.weight`` is
   ``encoder/layers_1/Conv_0/kernel``; see ``odin_tpu_torch.weights``)."""
 
   def __init__(self, encoder: nn.Module, decoder: nn.Module,
-               latents: nn.Module, observation: nn.Module):
+               latents: nn.Module, observation: nn.Module,
+               labels: Optional[nn.Module] = None,
+               labels_input: str = "latents"):
     super().__init__()
     self.encoder = encoder
     self.decoder = decoder
     self.latents = latents
     self.observation = observation
+    self.labels = labels
+    self.labels_input = labels_input
 
   def build(self, input_shape, generator=None):
     h = self.encoder.build(tuple(input_shape), generator)
     z = self.latents.build(h, generator)
-    self.observation.build(self.decoder.build(z, generator), generator)
+    hd = self.decoder.build(z, generator)
+    self.observation.build(hd, generator)
+    if self.labels is not None:
+      self.labels.build(z if self.labels_input == "latents" else hd,
+                        generator)
 
   def encode(self, x) -> Distribution:
     return self.latents(self.encoder(x))
@@ -107,13 +135,19 @@ class VAECore(nn.Module):
   def decode(self, z) -> Distribution:
     return self.observation(self.decoder(z))
 
-  def forward(self, x, method: Optional[str] = None):
-    """``method`` ('encode' or 'decode') calls that method, so that
-    ``functional_call`` can run either on given params; without it, x ->
-    (px at the posterior mean, qz)."""
+  def decoder_hidden(self, z) -> torch.Tensor:
+    return self.decoder(z)
+
+  def predict_labels(self, h) -> Distribution:
+    return self.labels(h)
+
+  def forward(self, *args, method: Optional[str] = None):
+    """``method`` (any method's name: 'encode', 'decode', ...) calls that
+    method on `args`, so that ``functional_call`` can run it on given
+    params; without it, x -> (px at the posterior mean, qz)."""
     if method is not None:
-      return getattr(self, method)(x)
-    qz = self.encode(x)
+      return getattr(self, method)(*args)
+    qz = self.encode(args[0])
     return self.decode(qz.mean()), qz
 
 
@@ -129,6 +163,7 @@ class VariationalAutoencoder(VariationalModel):
                decoder: nn.Module,
                latents: Union[RVconf, DistributionDense],
                observation: Union[RVconf, DistributionDense],
+               labels: Union[RVconf, DistributionDense, None] = None,
                input_shape: Optional[Tuple[int, ...]] = None,
                analytic: bool = False,
                reverse: bool = True,
@@ -140,12 +175,15 @@ class VariationalAutoencoder(VariationalModel):
     super().__init__(analytic=analytic, reverse=reverse, free_bits=free_bits,
                      sample_shape=sample_shape,
                      allow_negative_kl=allow_negative_kl, name=name)
-    if kwargs.get("labels") is not None:
-      raise NotImplementedError(f"labels heads are not ported yet: "
-                                f"{LABELS_ITEM}")
+    self.encoder_net = encoder
+    self.decoder_net = decoder
     self.latents_conf = latents if isinstance(latents, RVconf) else None
-    self.core = VAECore(encoder, decoder, _as_head(latents, "latents"),
-                        _as_head(observation, "observation"))
+    self.labels_conf = labels if isinstance(labels, RVconf) else None
+    self.latents_head = _as_head(latents, "latents")
+    self.observation_head = _as_head(observation, "observation")
+    self.labels_head = _as_head(labels, "labels") if labels is not None \
+        else None
+    self.core = self._build_core()
     self.input_shape = tuple(input_shape) if input_shape is not None else None
     self.device: Optional[torch.device] = None
     self.state: Optional[TrainState] = None
@@ -168,6 +206,14 @@ class VariationalAutoencoder(VariationalModel):
 
     self.core.register_load_state_dict_post_hook(loaded)
     self.core.register_state_dict_post_hook(saved)
+
+  def _build_core(self) -> nn.Module:
+    """The core of the partition 'vae'; a subclass hook.  The labels head
+    reads the latents unless the model sets ``skip_decoder = False``."""
+    labels_input = "latents" if getattr(self, "skip_decoder", True) \
+        else "decoder_hidden"
+    return VAECore(self.encoder_net, self.decoder_net, self.latents_head,
+                   self.observation_head, self.labels_head, labels_input)
 
   def _core_params(self) -> Dict[str, torch.Tensor]:
     return {k: v.detach().clone() for k, v in self.core.named_parameters()}
@@ -263,7 +309,14 @@ class VariationalAutoencoder(VariationalModel):
              training: bool = False, mutables: Optional[Dict] = None,
              noise: Optional[Noise] = None):
     """The core's `method` ('encode' or 'decode') on `params`."""
-    return self._call(self.core, "vae", params, (x,), {"method": method},
+    return self._core(params, method, x, training=training,
+                      mutables=mutables, noise=noise)
+
+  def _core(self, params: Dict[str, Any], method: str, *args,
+            training: bool = False, mutables: Optional[Dict] = None,
+            noise: Optional[Noise] = None):
+    """The core's `method` on `params`, with any number of arguments."""
+    return self._call(self.core, "vae", params, args, {"method": method},
                       training, mutables, noise)
 
   def _apply_module(self, params: Dict[str, Any], name: str, *args,
@@ -376,16 +429,21 @@ class VariationalAutoencoder(VariationalModel):
     return llk, kl, dict(qz=qz, px=px, z=z, x=x, y=y)
 
   @staticmethod
-  def _split_inputs(batch):
+  def _split_inputs(batch, mask: bool = False):
+    """(x, y) of a batch: x alone, a tuple ``(x, y[, mask])`` or a dict
+    (``inputs``/``x``, ``labels``/``y``, ``mask``); y is None where the
+    batch has none.  With `mask`, (x, y, mask), mask None where absent."""
     if isinstance(batch, (tuple, list)):
       x = batch[0]
       y = batch[1] if len(batch) > 1 else None
+      m = batch[2] if len(batch) > 2 else None
     elif isinstance(batch, dict):
       x = batch.get("inputs", batch.get("x"))
       y = batch.get("labels", batch.get("y"))
+      m = batch.get("mask")
     else:
-      x, y = batch, None
-    return x, y
+      x, y, m = batch, None, None
+    return (x, y, m) if mask else (x, y)
 
   # -- training -------------------------------------------------------------
   def _vae_loss(self, params, batch, rng, step, mutables):
@@ -683,6 +741,37 @@ class VariationalAutoencoder(VariationalModel):
 
 
 VAE = VariationalAutoencoder
+
+
+class SemiSupervisedVAE(VariationalAutoencoder):
+  """Base for users subclassing the semi-supervised surface: marks the
+  class semi-supervised and carries the merging of unsupervised and
+  supervised objectives and the zeroing of an empty labelled batch.  The
+  semi-supervised classes of the port (M2VAE, MultitaskVAE, SemafoVAE,
+  SemiFactorVAE, ...) keep the same contract through
+  ``is_semi_supervised``."""
+
+  @classmethod
+  def is_semi_supervised(cls) -> bool:
+    return True
+
+  @staticmethod
+  def ignore_empty(is_empty, loss_dict):
+    """Every term of `loss_dict` zeroed where `is_empty` (a boolean tensor,
+    no host sync)."""
+    return {k: torch.where(torch.as_tensor(is_empty, device=v.device),
+                           torch.zeros_like(v), v)
+            for k, v in loss_dict.items()}
+
+  @staticmethod
+  def merge_objectives(llk_uns, kl_uns, llk_sup, kl_sup):
+    """The unsupervised terms under ``uns/`` and the batch means of the
+    supervised ones under ``sup/``: (llk, kl)."""
+    llk = {**{f"uns/{k}": v for k, v in llk_uns.items()},
+           **{f"sup/{k}": torch.mean(v) for k, v in llk_sup.items()}}
+    kl = {**{f"uns/{k}": v for k, v in kl_uns.items()},
+          **{f"sup/{k}": torch.mean(v) for k, v in kl_sup.items()}}
+    return llk, kl
 
 
 class Autoencoder(VariationalAutoencoder):

@@ -1,4 +1,5 @@
 """Image datasets of the port."""
 from odin_tpu_torch.fuel.image_data._base import ImageDataset
-from odin_tpu_torch.fuel.image_data.datasets import (dSprites, dSprites0,
-                                                     dSpritesSmall)
+from odin_tpu_torch.fuel.image_data.datasets import (HalfMoons, dSprites,
+                                                     dSprites0, dSpritesSmall,
+                                                     make_moons)

@@ -1,6 +1,8 @@
 """Procedural dSprites (a copy of the NumPy renderer and of ``dSprites``'s
 procedural branch, ``odin_tpu/fuel/image_data/datasets.py:203-436``), with
-``dSpritesSmall`` and ``dSprites0``.
+``dSpritesSmall`` and ``dSprites0``; the 2-D ``HalfMoons`` (``:671-700``),
+whose points ``make_moons`` draws as scikit-learn's function of that name
+does, without scikit-learn.
 
 The images are rendered on the host from seeded factor draws, exactly as
 the JAX package renders them.  Not ported yet: the official ``.npz``
@@ -15,7 +17,8 @@ import numpy as np
 from odin_tpu_torch.fuel.dataset_base import get_partition
 from odin_tpu_torch.fuel.image_data._base import ImageDataset
 
-__all__ = ["dSprites", "dSpritesSmall", "dSprites0"]
+__all__ = ["dSprites", "dSpritesSmall", "dSprites0", "HalfMoons",
+           "make_moons"]
 
 
 def _render_shapes2d(shape_id, scale, orientation, pos_x, pos_y,
@@ -175,3 +178,62 @@ class dSprites0(dSprites):
     if self.all_labels:
       return x, self._onehot_factors(f)
     return x, np.eye(3, dtype="float32")[f[:, 0].astype(int)]
+
+
+def make_moons(n_samples: int = 100, shuffle: bool = True,
+               noise: Optional[float] = None, random_state: int = None):
+  """Two interleaving half circles: (X (n, 2) float64, y (n,) int64), the
+  same arrays as ``sklearn.datasets.make_moons`` for the same arguments
+  (its draws from a ``RandomState(random_state)``: the shuffle's
+  permutation, then the noise)."""
+  n_out = n_samples // 2
+  n_in = n_samples - n_out
+  rng = random_state if isinstance(random_state, np.random.RandomState) \
+      else np.random.RandomState(random_state)
+  t_out, t_in = np.linspace(0, np.pi, n_out), np.linspace(0, np.pi, n_in)
+  x = np.vstack([np.append(np.cos(t_out), 1 - np.cos(t_in)),
+                 np.append(np.sin(t_out), 1 - np.sin(t_in) - 0.5)]).T
+  y = np.hstack([np.zeros(n_out, dtype=np.int64),
+                 np.ones(n_in, dtype=np.int64)])
+  if shuffle:
+    order = np.arange(n_samples)
+    rng.shuffle(order)
+    x, y = x[order], y[order]
+  if noise is not None:
+    x = x + rng.normal(scale=noise, size=x.shape)
+  return x, y
+
+
+class HalfMoons(ImageDataset):
+  """The 2-D two-moons toy: `n_samples` points with Gaussian `noise`, 80 %
+  train, 10 % valid, 10 % test; labels the moon (one-hot in
+  ``create_dataset``)."""
+
+  def __init__(self, n_samples: int = 3200, noise: float = 0.05,
+               seed: int = 1):
+    super().__init__(seed=seed)
+    x, y = make_moons(n_samples=n_samples, noise=noise, random_state=seed)
+    self._x = x.astype("float32")
+    self._y = y.astype("int64")
+
+  @property
+  def name(self) -> str:
+    return "halfmoons"
+
+  @property
+  def shape(self) -> Tuple[int]:
+    return (2,)
+
+  @property
+  def labels(self) -> List[str]:
+    return ["moon0", "moon1"]
+
+  def normalize255(self, x: np.ndarray) -> np.ndarray:
+    return np.asarray(x, "float32")
+
+  def _load(self, partition: str):
+    n = len(self._x)
+    sl = get_partition(partition, train=slice(0, int(0.8 * n)),
+                       valid=slice(int(0.8 * n), int(0.9 * n)),
+                       test=slice(int(0.9 * n), n))
+    return self._x[sl], self._y[sl]

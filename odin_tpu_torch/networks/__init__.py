@@ -26,5 +26,14 @@ from odin_tpu_torch.networks.image_networks import (
     dsprites_networks,
     get_networks,
     get_optimizer_info,
+    halfmoons_networks,
     vq_dsprites_networks,
+)
+from odin_tpu_torch.networks.conditional_embedding import (
+    DictionaryEmbedding,
+    IdentityEmbedding,
+    ProjectionEmbedding,
+    RepetitionEmbedding,
+    SequentialEmbedding,
+    get_embedding,
 )

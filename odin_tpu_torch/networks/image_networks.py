@@ -1,9 +1,10 @@
 """Per-dataset architectures of the port (PyTorch port of
 ``odin_tpu/networks/image_networks.py``: ``_decoder_network`` :40,
 ``PackImageParams`` :59, ``_obs_distribution`` :77, ``dsprites_networks``
-:243-307, ``vq_dsprites_networks`` :314-346, ``get_networks`` :488,
-``get_optimizer_info`` :512).  Only the plain decoder and the dSprites
-family are ported so far."""
+:243-307, ``vq_dsprites_networks`` :314-346, ``halfmoons_networks``
+:420-444, ``get_networks`` :488, ``get_optimizer_info`` :512).  Only the
+plain decoder, the dSprites family and the half-moons MLPs are ported so
+far; ``is_semi_supervised`` adds their labels heads."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -25,7 +26,7 @@ from odin_tpu_torch.networks.base import (
 )
 
 __all__ = ["PackImageParams", "dsprites_networks", "vq_dsprites_networks",
-           "get_networks", "get_optimizer_info"]
+           "halfmoons_networks", "get_networks", "get_optimizer_info"]
 
 
 def _decoder_network(layers, skip_generator: bool = False):
@@ -75,10 +76,11 @@ def dsprites_networks(qz: str = "mvndiag",
                       skip_generator: bool = False,
                       **kwargs) -> Dict[str, Any]:
   """Networks for 64x64 images: conv 32-32-64-64 stride 2, kernel 4, proj
-  128, and the mirror-image transposed-conv decoder."""
-  if is_semi_supervised or kwargs.get("space_to_depth"):
-    raise NotImplementedError("semi-supervised heads and space_to_depth are "
-                              "not ported yet")
+  128, and the mirror-image transposed-conv decoder.  With
+  `is_semi_supervised`, a labels head regressing the 5 factors with a
+  Gaussian ('factors'; `n_factors` of them)."""
+  if kwargs.get("space_to_depth"):
+    raise NotImplementedError("space_to_depth is not ported yet")
   n_channels = int(kwargs.get("n_channels", 1))
   input_shape = (64, 64, n_channels)
   zdim = 10 if zdim is None else int(zdim)
@@ -106,13 +108,17 @@ def dsprites_networks(qz: str = "mvndiag",
       Conv(n_channels * n_params, 1, 1, None),
       PackImageParams(n_params),
   ), skip_generator)
-  return dict(
+  networks = dict(
       encoder=encoder,
       decoder=decoder,
       latents=RVconf((zdim,), qz, projection=True, name="latents"),
       observation=observation,
       input_shape=input_shape,
   )
+  if is_semi_supervised:
+    networks["labels"] = RVconf(int(kwargs.get("n_factors", 5)), "gaussian",
+                                projection=True, name="factors")
+  return networks
 
 
 dspritessmall_networks = dsprites_networks
@@ -146,6 +152,30 @@ def vq_dsprites_networks(activation="elu", centerize_image: bool = True,
   ))
   return dict(encoder=encoder, decoder=decoder, latents=None,
               observation=observation, input_shape=input_shape)
+
+
+def halfmoons_networks(qz: str = "mvndiag",
+                       zdim: Optional[int] = None,
+                       activation="relu",
+                       is_semi_supervised: bool = False,
+                       is_hierarchical: bool = False,
+                       **kwargs) -> Dict[str, Any]:
+  """MLPs for the 2-D half-moons: three Dense(64) each way, a Gaussian
+  observation ('moons'); with `is_semi_supervised`, a one-hot labels head
+  over the two moons ('labels')."""
+  zdim = 2 if zdim is None else int(zdim)
+  networks = dict(
+      encoder=SequentialNetwork(tuple(Dense(64, activation)
+                                      for _ in range(3))),
+      decoder=SequentialNetwork(tuple(Dense(64, activation)
+                                      for _ in range(3))),
+      latents=RVconf((zdim,), qz, projection=True, name="latents"),
+      observation=RVconf((2,), "gaussian", projection=True, name="moons"),
+      input_shape=(2,),
+  )
+  if is_semi_supervised:
+    networks["labels"] = RVconf(2, "onehot", projection=True, name="labels")
+  return networks
 
 
 def get_networks(dataset_name, *, is_semi_supervised: bool = False,

@@ -252,7 +252,8 @@ class Noise:
   forward recomputed for the backward (``remat``) sees the same noise,
   while the next training step of the iteration draws anew.
 
-  A draw of any kind (``normal``, ``uniform``, ``randint``, ``log_gamma``,
+  A draw of any kind (``normal``, ``uniform``, ``gumbel``, ``randint``,
+  ``log_gamma``,
   or a sampler of the caller's through ``draw``) takes the next injected
   tensor whole, so a test hands a step the JAX package's draws in the
   order the step makes them."""
@@ -299,6 +300,15 @@ class Noise:
     """Uniforms in [0, 1)."""
     return self.draw(shape, dtype, device, lambda g: torch.rand(
         tuple(shape), generator=g, dtype=dtype, device=device))
+
+  def gumbel(self, shape, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """Standard Gumbel variates, ``-log(-log u)`` of uniforms u in
+    (tiny, 1) (the noise of a Gumbel-max categorical draw)."""
+    tiny = torch.finfo(dtype).tiny
+    return self.draw(shape, dtype, device, lambda g: -torch.log(-torch.log(
+        torch.rand(tuple(shape), generator=g, dtype=dtype,
+                   device=device).clamp_(min=tiny))))
 
   def randint(self, low: int, high: int, shape,
               device: torch.device) -> torch.Tensor:

@@ -27,7 +27,8 @@ wrapper layer holds (``Conv_0``, ``ConvTranspose_0``, ``Dense_0``,
 ``BatchNorm_0``) has no module of its own in the port; ``Attention``'s
 ``position`` Dense is ``position_proj``; ``kernel`` is ``weight``; a
 parameter a module holds itself (``v_add``, a VQ ``codebook``, VampPrior's
-``pseudo_inputs``) keeps its name.  A ``Dense`` built with
+``pseudo_inputs``, a label embedder's ``table/embedding``, the four vectors
+of M3's ``regressor``) keeps its name.  A ``Dense`` built with
 ``bare=True`` stands for one of flax's own ``nn.Dense`` layers (a head's
 ``projection``, ``Attention``'s and ``AttentionHeads``' projections), whose
 flax path has no ``Dense_0``.
@@ -67,8 +68,11 @@ _PRIMITIVES = {"Conv_0": Conv, "ConvTranspose_0": ConvTranspose,
 _LAYER = re.compile(r"^layers_(\d+)$")
 _MHA = "MultiHeadDotProductAttention_0"
 _MHA_PROJECTIONS = ("query", "key", "value", "out")
-# parameters held by a module itself, not by a Dense
-_RAW = ("v_add", "codebook", "pseudo_inputs")
+# parameters held by a module itself, not by a Dense: attention's v_add, a
+# VQ codebook, VampPrior's pseudo-inputs, a label embedder's lookup table
+# (flax's ``nn.Embed``), M3's learned prior
+_RAW = ("v_add", "codebook", "pseudo_inputs", "embedding", "diag_loc_true",
+        "diag_loc_false", "diag_scale_true", "diag_scale_false")
 _PARAM_LEAVES = ("bias", "scale") + _RAW
 # the leaves of flax's mutable collections (batch_stats, vq_stats)
 _STAT_LEAVES = ("mean", "var", "codebook", "counts", "means")

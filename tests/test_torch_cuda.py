@@ -35,6 +35,12 @@ the same params and noise (1e-4 of each term's largest magnitude), and 3
 graphed steps against 3 eager ones, bitwise, for the classes whose step
 moves mutables or draws from a rejection sampler.
 
+The semi-supervised family: 4 graphed steps that cross the Semafo MI
+term's gate against 4 eager ones, bitwise (semafos on dSprites, two
+TrainSteps on one optimizer; SemafoVAE on the half-moons, Gumbel draws on
+the card), and ConditionalM2VAE's tiling: its marginal ELBO against the
+explicit sum over the classes on the card and against the CPU.
+
 Speaker recognition (``odin_tpu_torch.ml``): the GMM E-step,
 ``transform_batch`` and the T-matrix E-step on the card against the CPU
 from the same state (fp32 sums in another order: 1e-5 of the largest
@@ -1032,6 +1038,114 @@ def test_zoo_graphed_steps_equal_eager_on_card(cuda_device, name):
     assert torch.equal(got[k], want[k]), k
   assert int(g.skipped_updates) == 0
   sampling.check_rejections()
+
+
+# ---------------------------------------------------------------------------
+# the semi-supervised family (chip_smoke.py phase 13 at a test's size)
+# ---------------------------------------------------------------------------
+def _semi_batches(np_rs, name, k, bs):
+  if name.endswith("moons"):
+    x = np_rs.randn(k, bs, 2).astype(np.float32)
+    y = np.eye(2, dtype=np.float32)[np_rs.randint(0, 2, (k, bs))]
+  else:
+    x = (np_rs.rand(k, bs, 64, 64, 1) < 0.3).astype(np.float32)
+    y = np_rs.randint(0, 40, (k, bs, 5)).astype(np.float32)
+  mask = np.zeros((k, bs), np.float32)
+  mask[:, :bs // 2] = 1
+  mask[1] = 0  # the second batch has no labelled row
+  y[mask == 0] = 0
+  return x, y, mask
+
+
+@pytest.mark.parametrize("name", ["semafos", "SemafoVAE-moons"])
+def test_semi_graphed_steps_straddling_the_gate_equal_eager_on_card(
+    cuda_device, name):
+  """4 steps from one CUDA graph against 4 eager steps from the same
+  generator state, the MI term's gate (``steps_without_mi``) at step 2,
+  the second batch with no labelled row (its labels term 0, not NaN),
+  cuDNN deterministic: bitwise, every optimizer's state included (semafos
+  trains two TrainSteps on one optimizer; the half-moons' one-hot head
+  draws Gumbel noise on the card)."""
+  from odin_tpu_torch.bay import vi
+  from odin_tpu_torch.networks import halfmoons_networks
+  from odin_tpu_torch.training.core import _state_leaves
+  torch.backends.cudnn.allow_tf32 = False
+  if name == "semafos":
+    nets = get_networks("dsprites", zdim=10, is_semi_supervised=True)
+    vae = vi.semafos(steps_without_mi=2, **nets)
+  else:
+    vae = vi.SemafoVAE(steps_without_mi=2,
+                       **halfmoons_networks(is_semi_supervised=True))
+  vae.build(seed=0, device=cuda_device)
+  step = vae.make_step_fn()
+  batches = tuple(torch.from_numpy(a).to(cuda_device) for a in
+                  _semi_batches(np.random.RandomState(1), name, 4, 32))
+  torch.backends.cudnn.deterministic = True
+  try:
+    rng = vae.state.rng.get_state()
+    s = vae.state
+    for i in range(4):
+      s, m = step(s, tuple(b[i] for b in batches))
+    vae.state.rng.set_state(rng)
+    g, mg = scan_steps(step, 4)(vae.state, batches)
+    torch.cuda.synchronize()
+  finally:
+    torch.backends.cudnn.deterministic = False
+  want, got = _state_leaves(s), _state_leaves(g)
+  assert set(got) == set(want)
+  for k in want:
+    assert torch.equal(got[k], want[k]), k
+  assert int(g.step) == 4 and int(g.skipped_updates) == 0
+  assert sorted(mg) == sorted(m)
+
+
+def test_conditional_m2_tiling_on_card(cuda_device):
+  """ConditionalM2VAE on the full-width dSprites networks with a one-hot
+  head over 3 shapes: each image tiled once per class through the encoder
+  and the decoder; ``marginal_elbo`` on the card equal to the explicit sum
+  over the one-hot labels on the card (1e-5 of its largest magnitude), and
+  every term to the CPU's from the same params and noise (1e-4)."""
+  from odin_tpu_torch.bay import vi
+  from odin_tpu_torch.bay.random_variable import RVconf
+  from odin_tpu_torch.training import Noise
+  torch.backends.cudnn.allow_tf32 = False
+
+  def model(device):
+    nets = get_networks("dsprites", zdim=10, is_semi_supervised=True)
+    nets["labels"] = RVconf(3, "onehot", projection=True, name="shape")
+    return vi.ConditionalM2VAE(**nets).build(seed=0, device=device)
+
+  rs = np.random.RandomState(2)
+  x = (rs.rand(32, 64, 64, 1) < 0.3).astype(np.float32)
+  y = np.eye(3, dtype=np.float32)[rs.randint(0, 3, 32)]
+  mask = (np.arange(32) < 16).astype(np.float32)
+  y[16:] = 0
+  cpu = torch.device("cpu")
+  ref, vae = model(cpu), model(cuda_device)
+  noise = Noise(torch.Generator().manual_seed(0))
+  with torch.no_grad():
+    l0, _, _ = ref.elbo_components(ref.state.params, tuple(
+        torch.from_numpy(a) for a in (x, y, mask)), noise, 0)
+    xb, yb, mb = (torch.from_numpy(a).to(cuda_device) for a in (x, y, mask))
+    eps = noise.drawn[0].to(cuda_device)
+    assert eps.shape[0] == 32 * 3
+    l1, kl, aux = vae.elbo_components(vae.state.params, (xb, yb, mb),
+                                      Noise(eps=[eps]), 0)
+    assert not kl
+    w = mb[:, None] * yb + (1 - mb[:, None]) * aux["qy"].mean()
+    explicit = torch.zeros(32, device=cuda_device)
+    for k in range(3):
+      onehot = torch.zeros_like(yb)
+      onehot[:, k] = 1
+      lx, kz, *_ = vae._components_xy(vae.state.params, xb, onehot,
+                                      Noise(eps=[eps[k::3]]), False, None)
+      explicit += w[:, k] * (lx - kz)
+  got = l1["marginal_elbo"]
+  assert float((got - explicit).abs().max()) <= \
+      1e-5 * float(explicit.abs().max())
+  for k, v in l0.items():
+    assert float((l1[k].cpu() - v).abs().max()) <= \
+        1e-4 * float(v.abs().max()), k
 
 
 def test_failed_capture_raises_on_card(cuda_device):

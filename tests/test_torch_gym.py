@@ -222,8 +222,15 @@ def test_concat_distributions_matches_jax():
     concat_distributions([pd.Bernoulli(torch.tensor(logits[0])),
                           pd.MultivariateNormalDiag(torch.tensor(locs[0]),
                                                     torch.tensor(scales[0]))])
+  # a Normal (M3's joint posterior, an Independent Normal) concatenates
+  got = concat_distributions([pd.Independent(pd.Normal(
+      torch.tensor(l), torch.tensor(s)), 1) for l, s in zip(locs, scales)])
+  want = jconcat([jd.Independent(jd.Normal(jnp.asarray(l), jnp.asarray(s)),
+                                 1) for l, s in zip(locs, scales)])
+  np.testing.assert_array_equal(got.stddev().numpy(),
+                                np.asarray(want.stddev()))
   with pytest.raises(NotImplementedError):
-    concat_distributions([pd.Normal(torch.zeros(2), torch.ones(2))] * 2)
+    concat_distributions([pd.SphericalUniform(4)] * 2)
 
 
 def test_ground_truth_matches_jax():

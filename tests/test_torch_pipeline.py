@@ -134,7 +134,7 @@ def test_get_dataset_lists_only_what_is_ported():
   assert isinstance(get_dataset("dsprites"), dSprites)
   assert isinstance(get_dataset("dSprites_Small", n_samples=8), dSpritesSmall)
   assert [c.__name__ for c in get_all_dataset()] == \
-      ["dSprites", "dSprites0", "dSpritesSmall"]
+      ["HalfMoons", "dSprites", "dSprites0", "dSpritesSmall"]
   assert get_all_dataset("image") == get_all_dataset()
   for name in ("mnist", "shapes3d", "nope"):
     with pytest.raises(NotImplementedError, match="not ported yet"):

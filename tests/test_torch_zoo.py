@@ -20,7 +20,7 @@ import odin_tpu.bay.vi.autoencoder as jax_zoo
 import odin_tpu_torch.bay.vi as port_vi
 from odin_tpu_torch.bay.vi import autoencoder as port_zoo
 from torch_zoo_common import (B, binary_images, elbo_matches_jax, make_pair,
-                              step_matches_jax)
+                              step_matches_jax, tiny_networks)
 
 torch.set_num_threads(2)
 
@@ -45,7 +45,11 @@ PORTED = sorted([
     "betacapacityvae", "factorvae", "factor2vae", "dipvae", "infovae",
     "mivae", "irmvae", "irmae", "hypersphericalvae", "powersphericalvae",
     "twostagevae", "vampriorvae", "vqvae", "stochasticvae", "imputevae",
-    "distencoder"])
+    "distencoder", "semifactorvae", "semifactor2vae", "multitaskvae",
+    "skiptaskvae", "multiheadvae", "m2vae", "conditionalm2vae",
+    "structuredsemivae", "reparamsm3vae", "auxiliaryvae", "semafovae",
+    "remafovae", "semafod", "semafoh", "semafos", "semafosm", "semafosc",
+    "semafop", "semafot"])
 
 
 def test_every_ported_name_resolves_to_its_class():
@@ -75,8 +79,13 @@ def test_unknown_names_raise_value_error():
 
 @pytest.mark.parametrize("cls", ["SemiFactorVAE", "SemiFactor2VAE"])
 def test_semi_factor_classes_raise_naming_the_roadmap(cls):
-  with pytest.raises(NotImplementedError, match="queue 1, item 5"):
-    getattr(port_zoo, cls)()
+  """Ported with the semi-supervised family: the registry names no ROADMAP
+  item for them any more, and they build with the discriminator's label
+  outputs."""
+  assert cls.lower() not in port_zoo._WAITING
+  vae = getattr(port_zoo, cls)(n_labels=3, discriminator_units=(8,),
+                               **tiny_networks("torch")).build(device="cpu")
+  assert vae.discriminator.n_outputs == 4
 
 
 def test_train_params_is_an_error_only_with_several_steps():

@@ -12,7 +12,9 @@ across with ``to_jax_params``/``to_jax_mutables``.
 a function is traced or run: ``jax.random.normal``, ``uniform`` and
 ``randint`` as they come out, ``jax.random.beta`` as the two log-Gamma
 variates it forms its value from (what ``PowerSpherical`` of the port
-draws), and ``VonMisesFisher._sample_w`` as the cosines it returns (a
+draws), ``jax.random.categorical`` as the Gumbel variates whose argmax
+with the logits it returns (what ``OneHotCategorical.sample_from`` of the
+port draws), and ``VonMisesFisher._sample_w`` as the cosines it returns (a
 rejection loop the port runs otherwise).  ``jit_with_draws(fn)`` returns
 them beside fn's output from one jitted call.  The port's ``Noise(eps=
 draws)`` hands them out in the same order.
@@ -132,10 +134,23 @@ def jax_draws():
     return [jax.random.loggamma(key_a, a, shape, dtype),
             jax.random.loggamma(key_b, b, shape, dtype)]
 
+  def categorical_post(out, key, logits, axis=-1, shape=None, replace=True,
+                       mode=None):
+    # jax.random.categorical with replacement: the argmax of logits plus
+    # Gumbel noise of (sample dims..., logits' shape), drawn from the key
+    assert replace and axis == -1
+    logits = jnp.asarray(logits)
+    batch = jnp.shape(logits)[:-1]
+    shape = batch if shape is None else tuple(shape)
+    full = shape[:len(shape) - len(batch)] + jnp.shape(logits)
+    return [jax.lax.stop_gradient(jax.random.gumbel(
+        key, full, logits.dtype, mode=mode))]
+
   as_is = lambda out, *a, **k: [jax.lax.stop_gradient(out)]
   for name in ("normal", "uniform", "randint"):
     wrap(jax.random, name, as_is)
   wrap(jax.random, "beta", beta_post)
+  wrap(jax.random, "categorical", categorical_post)
   wrap(JaxVMF, "_sample_w", as_is)
   try:
     yield rec
