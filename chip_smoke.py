@@ -169,7 +169,40 @@ CPU:
      1e-5 of the explicit sum over the two one-hot labels on the card.
      The path launches no kernel of this port.  ``python3 chip_smoke.py
      --semi-rehearsal [...]`` runs the phase on the CPU at a chosen size
-     (``semi_rehearsal``).
+     (``semi_rehearsal``);
+ 14. the hier path, on ``get_dataset('dsprites')`` and the full-width
+     ``get_networks('dsprites', zdim=10)`` with JAX's ``hierarchy`` spec
+     (one rung on the 16 x 16 states, kernel 8, stride 4): for each of
+     HierarchicalVAE (LadderVAE) with a BiConv, a parallel and a BiDense
+     rung, UnetVAE, PUnetVAE and VeryDeepVAE on images, and GroupVAE,
+     MultiLevelVAE, AdaptiveVAE (group and multilevel) and
+     WeaklySupervisedVAE (match, rank, restricted) on pairs rendered by
+     ``dSprites.render`` from factor rows (``dsprites_pairs``: k = Rnd of
+     the five factors changed, one changed, the x position changed with
+     y = which is larger, shape and scale shared and given), BetaVAE the
+     yardstick, each at JAX's defaults but PUnetVAE and the BiDense
+     ladder trained with ``global_clipnorm=10`` (``hier_models``): the
+     ELBO terms (each rung's ``kl_ladder{i}``, ``pair_loss``) on the card
+     against the CPU (rtol 1e-4 of each term's largest magnitude), the
+     grouped models' mean count of shared dimensions equal (a row that a
+     tie decides is reported), the kernels and device time of a graphed
+     step beside BetaVAE's, 200 steps of ``fit`` at
+     ``steps_per_call=100`` at batch 64 (64 pairs) with no update skipped
+     and the held-out loss below its start, steps/s, ``run_model`` and MIG
+     on 2,000 test images (unpaired for the grouped family), for the
+     hierarchical models the Gym's KL of a batch equal to the sum of the
+     model's own KL terms and ``sample_observation`` finite; then
+     UnetVAE(skip_sample_dropout=1.0)'s training decode equal to its
+     generation decode, bitwise with cuDNN's deterministic algorithms.
+     The path launches no kernel of this port.  ``python3 chip_smoke.py
+     --hier-rehearsal [...]`` runs the phase on the CPU at a chosen size
+     (``hier_rehearsal``).
+
+Run with no argument, it runs every phase: the whole check.  ``python3
+chip_smoke.py --phases 1,14`` runs the phases named, phase 1 (the build)
+always, and every phase whose results a named one reads
+(``PHASE_NEEDS``: 3 reads 2, 6 reads 5, 8 reads 7, 10 reads 8, 11 reads 2
+and 9); its ``kernels`` line lists only the kernels those phases timed.
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
 fp32 like the CPU.  Any failure raises and the script exits non-zero; it
@@ -2126,6 +2159,345 @@ def semi_path(torch, np, reset_counts, read_counts, smi):
       f"this port's): {read_counts()}")
 
 
+# phase 14: the hierarchical and grouped families on dSprites
+HIER_BATCH = 64  # images, or pairs for the grouped family
+HIER_STEPS = 200  # each class's fit: 2 calls of HIER_K graphed steps
+HIER_K = 100
+HIER_RTOL = ZOO_RTOL  # card against CPU, of each term's largest magnitude
+HIER_GYM_ROWS = 2000  # run_model and MIG (unpaired for the grouped family)
+HIER_PAIRS = 2048  # pairs rendered for each pairing protocol
+HIER_TIE = 1e-4  # a shared-dimension decision within this share of the
+# row's largest symmetric KL of its threshold is a tie
+HIER_KL_RTOL = 1e-6  # the Gym's KL against the model's own KL terms
+
+
+def hier_models():
+  """(name, factory, pairing protocol or None, the training step's
+  options) of every class of the slice on the full-width dSprites
+  networks (zdim 10) with JAX's ``hierarchy`` spec, at JAX's defaults,
+  BetaVAE first as the yardstick: the ladder with each rung kind, the
+  U-Nets, VeryDeepVAE, and the grouped family on pairs ('rnd': k of the
+  five factors changed, k uniform in 1-4; 'match': one changed; 'rank':
+  the x position changed, y = x1's is larger; 'restricted': shape and
+  scale shared and given as y, scaled to [0, 1]).  PUnetVAE and the
+  BiDense ladder train with ``global_clipnorm=10``: without it their
+  Dense ladder heads on the flattened 16 x 16 states spike the gradient
+  (a KL against a prior whose scale the decoder learns); PUnetVAE's
+  latents' scale hits its floor and its loss diverges within 200 steps,
+  in JAX too (PERF.md §6)."""
+  from odin_tpu_torch.bay import vi
+  from odin_tpu_torch.networks import get_networks
+
+  def nets(latents=None):
+    n = get_networks("dsprites", zdim=10)
+    if latents is not None:
+      n["hierarchy"] = tuple(dict(h, latents=latents)
+                             for h in n["hierarchy"])
+    return n
+
+  return [
+      ("BetaVAE", lambda: vi.BetaVAE(beta=4.0, **nets()), None, {}),
+      ("HierarchicalVAE", lambda: vi.HierarchicalVAE(**nets()), None, {}),
+      ("HierarchicalVAE-parallel",
+       lambda: vi.HierarchicalVAE(**nets("parallel")), None, {}),
+      ("HierarchicalVAE-bidense",
+       lambda: vi.HierarchicalVAE(**nets("bidense")), None,
+       dict(global_clipnorm=10.0)),
+      ("UnetVAE", lambda: vi.UnetVAE(**nets()), None, {}),
+      ("PUnetVAE", lambda: vi.PUnetVAE(**nets()), None,
+       dict(global_clipnorm=10.0)),
+      ("VeryDeepVAE", lambda: vi.VeryDeepVAE(**nets()), None, {}),
+      ("GroupVAE", lambda: vi.GroupVAE(**nets()), "rnd", {}),
+      ("MultiLevelVAE", lambda: vi.MultiLevelVAE(**nets()), "rnd", {}),
+      ("AdaptiveVAE-group",
+       lambda: vi.AdaptiveVAE(base_method="group", **nets()), "rnd", {}),
+      ("AdaptiveVAE-multilevel",
+       lambda: vi.AdaptiveVAE(base_method="multilevel", **nets()), "rnd", {}),
+      ("WeaklySupervisedVAE-match",
+       lambda: vi.WeaklySupervisedVAE(strategy="match", **nets()), "match", {}),
+      ("WeaklySupervisedVAE-rank",
+       lambda: vi.WeaklySupervisedVAE(strategy="rank", **nets()), "rank", {}),
+      ("WeaklySupervisedVAE-restricted",
+       lambda: vi.WeaklySupervisedVAE(strategy="restricted", **nets()),
+       "restricted", {}),
+  ]
+
+
+def dsprites_pairs(np, protocol, n, seed):
+  """`n` pairs of dSprites images rendered by the port's ``dSprites.render``
+  from factor rows (the pairs of JAX's tests/test_vae_zoo.py:141-228,
+  which the JAX package has no sampler for): (x1, x2, y or None), float32
+  arrays, by the protocol of ``hier_models``."""
+  from odin_tpu_torch.fuel import dSprites
+  ds = dSprites(n_samples=1)
+  sizes = np.asarray(ds.factor_sizes)
+  rs = np.random.RandomState(seed)
+  f1 = ds._sample_factors(n, rs)
+  f2 = f1.copy()
+  for i in range(n):
+    if protocol == "rank":
+      changed = [3]
+    elif protocol == "match":
+      changed = rs.choice(5, 1, replace=False)
+    elif protocol == "restricted":
+      changed = rs.choice([2, 3, 4], rs.randint(1, 4), replace=False)
+    else:  # Locatello et al. 2020's k = Rnd
+      changed = rs.choice(5, rs.randint(1, 5), replace=False)
+    for j in changed:  # a value other than x1's
+      f2[i, j] = (f1[i, j] + rs.randint(1, sizes[j])) % sizes[j]
+  y = None
+  if protocol == "rank":
+    y = (f1[:, 3] > f2[:, 3]).astype(np.float32)
+  elif protocol == "restricted":
+    y = np.stack([f1[:, 0] / (sizes[0] - 1), f1[:, 1] / (sizes[1] - 1)],
+                 -1).astype(np.float32)
+  return ds.render(f1), ds.render(f2), y
+
+
+def hier_path(torch, np, reset_counts, read_counts, smi):
+  """Phase 14: each class of the hierarchical and grouped slice
+  (``hier_models``) on procedural dSprites: its ELBO terms (each rung's
+  ``kl_ladder{i}``, ``pair_loss``) on the card against the CPU on the same
+  params, batch and noise, for the grouped family also the mean count of
+  shared dimensions (a row that a tie decides is reported, not failed);
+  200 steps of ``fit`` at ``steps_per_call=100`` (the held-out loss below
+  its start, no update skipped, steps/s; a graphed step's kernels and
+  device time beside BetaVAE's); ``run_model`` and MIG on 2,000 test
+  images (unpaired for the grouped family: its fallback ELBO); for the
+  hierarchical models the Gym's KL of a batch equal to the sum of the
+  model's own KL terms and ``sample_observation`` finite; and
+  UnetVAE(skip_sample_dropout=1.0)'s training decode equal to its
+  generation decode."""
+  from torch.profiler import ProfilerActivity, profile
+
+  from odin_tpu_torch.bay import vi
+  from odin_tpu_torch.bay.vi import DisentanglementGym
+  from odin_tpu_torch.fuel import dSprites, get_dataset
+  from odin_tpu_torch.networks import get_networks
+  from odin_tpu_torch.training import Noise, scan_steps
+
+  cuda = torch.device("cuda", 0)
+  cpu = torch.device("cpu")
+  t0 = time.perf_counter()
+  ds = get_dataset("dsprites")
+  ds.numpy("train")
+  ds.numpy("test")
+  held_x, _ = dSprites(n_samples=HIER_BATCH, seed=1).numpy("valid")
+  pools, held_pairs = {}, {}
+  for protocol in ("rnd", "match", "rank", "restricted"):
+    pools[protocol] = tuple(
+        None if a is None else torch.from_numpy(a).to(cuda)
+        for a in dsprites_pairs(np, protocol, HIER_PAIRS, SEED))
+    held_pairs[protocol] = dsprites_pairs(np, protocol, HIER_BATCH,
+                                          SEED + 1)
+  log(f"get_dataset('dsprites') train and test, and {HIER_PAIRS} pairs of "
+      f"each protocol on the card, rendered in "
+      f"{time.perf_counter() - t0:.2f} s")
+
+  def to(batch, device):
+    return tuple(torch.as_tensor(b).to(device) for b in batch
+                 if b is not None) if isinstance(batch, tuple) \
+        else torch.as_tensor(batch).to(device)
+
+  def pair_batches(protocol):
+    x1, x2, y = pools[protocol]
+    gen = torch.Generator(cuda).manual_seed(SEED)
+    while True:
+      i = torch.randint(0, HIER_PAIRS, (HIER_BATCH,), generator=gen,
+                        device=cuda)
+      yield (x1[i], x2[i]) if y is None else (x1[i], x2[i], y[i])
+
+  def train(protocol):
+    if protocol is None:
+      return ds.create_dataset("train", batch_size=HIER_BATCH, epochs=-1,
+                               prefetch=2, to_device=cuda)
+    return pair_batches(protocol)
+
+  def term_errors(cpu_terms, card_terms):
+    out = {}
+    for k, v in cpu_terms.items():
+      c = card_terms[k].detach().float().cpu()
+      v = v.detach().float()
+      out[k] = float((c - v).abs().max()) / max(float(v.abs().max()), 1e-30)
+    return out
+
+  def graphed_step(vae, batch, options, k=10):
+    """(kernels, device ms) a step of a CUDA graph of `k` steps on the
+    held-out batch, after one unprofiled call: the step's cost without
+    the host pipeline, as ``--zoo-profile`` reads it."""
+    fused = scan_steps(vae.make_step_fn(**options), k)
+    stacked = tuple(torch.stack([b] * k) for b in batch) \
+        if isinstance(batch, tuple) else torch.stack([batch] * k)
+    state, _ = fused(vae.state, stacked)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+      state, _ = fused(state, stacked)
+      torch.cuda.synchronize()
+    busy_ms, n = device_busy(torch, prof)
+    return n / k, busy_ms / k
+
+  reset_counts()
+  step_700 = {d: torch.tensor(700, dtype=torch.int32, device=d)
+              for d in (cpu, cuda)}
+  # a discarded fit first, so that no class's rate carries the host
+  # pipeline's start-up and cuDNN's first choice of algorithms
+  _, factory, _, _ = hier_models()[0]
+  factory().build(seed=SEED).fit(train(None), max_iter=HIER_K,
+                                 steps_per_call=HIER_K, logging_interval=1e9,
+                                 verbose=False)
+  rows, base_ms = [], None
+  for name, factory, protocol, options in hier_models():
+    t_class = time.perf_counter()
+    ref = factory().build(seed=SEED, device="cpu")
+    vae = factory().build(seed=SEED)
+    batch = held_x if protocol is None else held_pairs[protocol]
+    # -- 14.1 the card against the CPU: same params, batch and noise
+    noise = Noise(torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+      l0, k0, a0 = ref.elbo_components(ref.state.params, to(batch, cpu),
+                                       noise, step_700[cpu])
+      l1, k1, a1 = vae.elbo_components(
+          vae.state.params, to(batch, cuda),
+          Noise(eps=[t.to(cuda) for t in noise.drawn]), step_700[cuda])
+    errs = term_errors({**l0, **k0}, {**l1, **k1})
+    worst = max(errs.values())
+    if not worst <= HIER_RTOL:
+      raise AssertionError(f"{name}: the card's ELBO terms differ from the "
+                           f"CPU's: {errs}")
+    shared = ""
+    if protocol is not None:
+      n_cpu, n_card = float(a0["n_shared"]), float(a1["n_shared"])
+      flips = shared_flips(torch, ref, vae, to(batch, cpu), to(batch, cuda))
+      shared = (f"; mean shared dims card {n_card:.6g} CPU {n_cpu:.6g}, "
+                f"rows flipped {flips['flipped']}, of them decided by a tie "
+                f"{flips['ties']} (rows near a tie: {flips['near_ties']})")
+      untied = [r for r in flips["flipped"] if r not in flips["ties"]]
+      if untied or (n_cpu != n_card and not flips["flipped"]):
+        raise AssertionError(f"{name}: the card's shared dimensions differ "
+                             f"from the CPU's{shared}")
+    del ref
+    # -- 14.2 a graphed step's kernels and device time; fit: 200 steps,
+    # 100 a call
+    kernels, step_ms = graphed_step(vae, to(batch, cuda), options)
+    base_ms = base_ms or step_ms
+    eval_fn = vae.make_eval_fn()
+    hb = to(batch, cuda)
+    start = float(eval_fn(vae.state, hb)["loss"])
+    tr = vae.fit(train(protocol), max_iter=HIER_STEPS, steps_per_call=HIER_K,
+                 logging_interval=1e9, verbose=False, **options)
+    end = float(eval_fn(vae.state, hb)["loss"])
+    skipped = int(vae.state.skipped_updates)
+    capture = tr.capture_seconds or 0.0
+    rate = HIER_STEPS / (tr.total_time - capture)
+    if skipped or not end < start:
+      raise AssertionError(f"{name}: held-out loss {start:.6g} -> "
+                           f"{end:.6g}, {skipped} updates skipped")
+    # -- 14.3 the Gym: run_model and MIG; the Gym's KL is the model's own
+    gym = DisentanglementGym(dataset=ds, model=vae)
+    gym.run_model(n_samples=HIER_GYM_ROWS, partition="test")
+    mig = gym.mig_score()
+    if gym.z_mean.device.type != "cuda" or not math.isfinite(mig):
+      raise AssertionError(f"{name}: the Gym gave MIG {mig} on "
+                           f"{gym.z_mean.device}")
+    extra = ""
+    if protocol is None:
+      xb = torch.as_tensor(gym.x_true[:gym.batch_size]).to(cuda)
+      with torch.no_grad():
+        _, kl, _ = vae.elbo_components(
+            vae.state.params, xb,
+            Noise(torch.Generator(cuda).manual_seed(gym.seed)),
+            vae.state.step)
+        total = sum(v.float() for v in kl.values())
+        px = vae.sample_observation(16, seed=SEED)
+      gym_kl = gym.kl_divergence_values()[:gym.batch_size]
+      kl_err = float((gym_kl - total).abs().max()) / max(
+          float(total.abs().max()), 1e-30)
+      finite = bool(torch.isfinite(px.mean()).all())
+      extra = (f"; the Gym's KL against the sum of {sorted(kl)} max rel "
+               f"{kl_err:.3e} (limit {HIER_KL_RTOL}); sample_observation "
+               f"finite: {finite}")
+      if not kl_err <= HIER_KL_RTOL or not finite:
+        raise AssertionError(f"{name}{extra}")
+    ratio = step_ms / base_ms if base_ms else float("nan")  # no card: 0 ms
+    rows.append((name, rate, ratio, kernels))
+    log(f"{name}: ELBO terms card vs CPU max rel {worst:.3e} over "
+        f"{sorted(errs)} (limit {HIER_RTOL}){shared}; a graphed step "
+        f"{kernels:.0f} kernels and {step_ms:.3f} ms of device time "
+        f"({ratio:.2f}x BetaVAE's); fit {HIER_STEPS} steps at "
+        f"batch {HIER_BATCH}: held-out loss {start:.6g} -> {end:.6g}, "
+        f"skipped {skipped}, {rate:.1f} steps/s (capture {capture:.3f} s); "
+        f"MIG on "
+        f"{HIER_GYM_ROWS} test images {mig:.4f}{extra}; "
+        f"{time.perf_counter() - t_class:.2f} s")
+    del vae, tr, gym
+
+  # -- 14.4 UnetVAE(skip_sample_dropout=1.0): the gated training decode is
+  # the generation decode
+  unet = vi.UnetVAE(skip_sample_dropout=1.0,
+                    **get_networks("dsprites", zdim=10)).build(seed=SEED)
+  params = unet.state.params
+  torch.backends.cudnn.deterministic = True  # bitwise: one algorithm each
+  try:
+    with torch.no_grad():
+      qz, hiddens = unet._core(params, "encode", to(held_x, cuda),
+                               noise=unet._noise(SEED))
+      gated, _ = unet._core(params, "decode", qz.mean(), hiddens,
+                            training=True, noise=unet._noise(SEED))
+      no_skip, _ = unet._core(params, "decode", qz.mean(), None,
+                              training=True, noise=unet._noise(SEED))
+  finally:
+    torch.backends.cudnn.deterministic = False
+  same = bool(torch.equal(gated.mean(), no_skip.mean()))
+  log(f"UnetVAE(skip_sample_dropout=1.0) on the card: training decode "
+      f"equal to the generation decode, bitwise with cuDNN's deterministic "
+      f"algorithms: {same}")
+  if not same:
+    raise AssertionError("UnetVAE's gated decode differs from the "
+                         "generation decode")
+  log(f"hier steps/s at fit(steps_per_call={HIER_K}), {HIER_STEPS} steps "
+      f"each, after a discarded warm-up fit ({smi}): " + ", ".join(
+          f"{n} {r:.1f}" for n, r, _, _ in rows) +
+      "; a graphed step against BetaVAE's (device time), kernels: " +
+      ", ".join(f"{n} {x:.2f}x {k:.0f}" for n, _, x, k in rows))
+  log(f"hier path launches (cuDNN, cuBLAS and torch's kernels, none of "
+      f"this port's): {read_counts()}")
+
+
+def shared_flips(torch, ref, vae, cpu_batch, card_batch):
+  """The rows of a pair batch whose shared-dimension mask differs between
+  the card and the CPU, and those of them that a tie decides: an
+  adaptive row's symmetric KL within ``HIER_TIE`` of its threshold, a
+  'match' row's k-th and (k+1)-th smallest within it of each other (as
+  shares of the row's largest)."""
+  from odin_tpu_torch.bay.vi.autoencoder.self_supervised_vae import (
+      _sym_kl_per_dim)
+  masks, deltas = [], None
+  for model, batch in ((ref, cpu_batch), (vae, card_batch)):
+    x1, x2 = batch[0], batch[1]
+    with torch.no_grad():
+      qz = model.encode(torch.cat([x1, x2], 0))
+    m, s = qz.mean(), qz.stddev()
+    B = x1.shape[0]
+    masks.append(model._shared_mask(m[:B], s[:B], m[B:], s[B:]).cpu())
+    if deltas is None:
+      deltas = _sym_kl_per_dim(m[:B], s[:B], m[B:], s[B:])
+  flipped = (masks[0] != masks[1]).any(-1).nonzero().flatten().tolist()
+  scale = deltas.abs().amax(-1).clamp(min=1e-30)
+  if getattr(ref, "strategy", None) == "match":
+    k = max(deltas.shape[-1] - ref.n_changed, 0)
+    srt = deltas.sort(-1).values
+    gap = (srt[:, k] - srt[:, k - 1]).abs() if 0 < k < srt.shape[-1] \
+        else torch.full_like(scale, float("inf"))
+  else:
+    tau = 0.5 * (deltas.amax(-1, keepdim=True) + deltas.amin(-1,
+                                                             keepdim=True))
+    gap = (deltas - tau).abs().amin(-1)
+  ties = (gap <= HIER_TIE * scale).nonzero().flatten().tolist()
+  return {"flipped": flipped, "ties": [r for r in flipped if r in ties],
+          "near_ties": ties}
+
+
 def semi_rehearsal(argv) -> int:
   """``python3 chip_smoke.py --semi-rehearsal [--steps 40] [--k 20]
   [--gym-rows 200] [--moons-steps 200] [--n-samples 2048]
@@ -2140,15 +2512,10 @@ def semi_rehearsal(argv) -> int:
   dSprites0's one-hot shapes (3 classes) in place of the x position in 4
   bins; ``--steps-without-mi`` moves the Semafo family's MI gate and
   ``--factor-oversample`` the Semi-Factor pair's labelled share.  The
-  phase's checks run as they are."""
+  phase's checks run as they are (``rehearse_on_cpu``)."""
   import argparse
-  import inspect
-
-  import numpy as np
-  import torch
 
   from odin_tpu_torch.fuel import dSprites0
-  from odin_tpu_torch.fuel.image_data import datasets
 
   ap = argparse.ArgumentParser(prog="chip_smoke.py --semi-rehearsal")
   ap.add_argument("--steps", type=int, default=40)
@@ -2163,18 +2530,7 @@ def semi_rehearsal(argv) -> int:
                   default=SEMI_FACTOR_OVERSAMPLE)
   ap.add_argument("classes", nargs="*")
   args = ap.parse_args(argv)
-  init = datasets.dSprites.__init__
-
-  def sized(self, n_samples=None, **kwargs):
-    init(self, n_samples=n_samples or args.n_samples, **kwargs)
-
-  datasets.dSprites.__init__ = sized
-  src = inspect.getsource(semi_path)
-  src = src.replace('torch.device("cuda", 0)', 'torch.device("cpu")')
-  src = src.replace(".build(seed=SEED)", '.build(seed=SEED, device="cpu")')
-  src = src.replace('device.type != "cuda"', 'device.type != "cpu"')
-  scope = dict(globals())
-  scope.update(SEMI_STEPS=args.steps, SEMI_K=args.k,
+  scope = dict(SEMI_STEPS=args.steps, SEMI_K=args.k,
                SEMI_GYM_ROWS=args.gym_rows, MOONS_STEPS=args.moons_steps)
   for env in (scope, globals()):
     env["SEMI_FACTOR_OVERSAMPLE"] = args.factor_oversample
@@ -2194,19 +2550,93 @@ def semi_rehearsal(argv) -> int:
             for n, f, b, d, r in semi_models()
             if not args.classes or n in args.classes]
   scope["semi_models"] = lambda: models
+  return rehearse_on_cpu(semi_path, args.n_samples, scope, 13)
+
+
+def device_busy(torch, prof):
+  """(ms the device was busy: the union of the kernels' intervals, the
+  number of kernels) of a ``torch.profiler`` run."""
+  spans = sorted((e.time_range.start, e.time_range.end)
+                 for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA)
+  total, end = 0, None
+  for a, b in spans:
+    if end is None or a > end:
+      total += b - a
+      end = b
+    elif b > end:
+      total += b - end
+      end = b
+  return total / 1e3, len(spans)
+
+
+def hier_rehearsal(argv) -> int:
+  """``python3 chip_smoke.py --hier-rehearsal [--steps 20] [--k 10]
+  [--gym-rows 128] [--n-samples 512] [--pairs 256] [CLASS ...]``: phase 14
+  (``hier_path``) on the CPU at a chosen size, to rehearse it before a
+  card run (``rehearse_on_cpu``): dSprites has `--n-samples` images a
+  partition (16,384 on the card), `--pairs` pairs a protocol (2,048),
+  each class trains `--steps` steps at `--k` a call and the Gym reads
+  `--gym-rows` test images; the graphed step's kernels and device time
+  read 0 (no card)."""
+  import argparse
+
+  ap = argparse.ArgumentParser(prog="chip_smoke.py --hier-rehearsal")
+  ap.add_argument("--steps", type=int, default=20)
+  ap.add_argument("--k", type=int, default=10)
+  ap.add_argument("--gym-rows", type=int, default=128)
+  ap.add_argument("--n-samples", type=int, default=512)
+  ap.add_argument("--pairs", type=int, default=256)
+  ap.add_argument("classes", nargs="*")
+  args = ap.parse_args(argv)
+  models = [m for m in hier_models()
+            if not args.classes or m[0] in args.classes or
+            m[0] == "BetaVAE"]
+  return rehearse_on_cpu(hier_path, args.n_samples, dict(
+      HIER_STEPS=args.steps, HIER_K=args.k, HIER_GYM_ROWS=args.gym_rows,
+      HIER_PAIRS=args.pairs, hier_models=lambda: models), 14)
+
+
+def rehearse_on_cpu(path, n_images, scope_updates, phase):
+  """Run the phase function `path` of this script on the CPU: its source
+  recompiled with the card swapped for the CPU, every dSprites cut to
+  `n_images` images a partition, and `scope_updates` (names of this
+  module) in its scope; the phase's checks run as they are."""
+  import inspect
+
+  import numpy as np
+  import torch
+
+  from odin_tpu_torch.fuel.image_data import datasets
+
+  init = datasets.dSprites.__init__
+
+  def sized(self, n_samples=None, **kwargs):
+    init(self, n_samples=n_samples or n_images, **kwargs)
+
+  datasets.dSprites.__init__ = sized
+  torch.cuda.synchronize = lambda *a, **k: None
+  src = inspect.getsource(path)
+  src = src.replace('torch.device("cuda", 0)', 'torch.device("cpu")')
+  src = src.replace(".build(seed=SEED)", '.build(seed=SEED, device="cpu")')
+  src = src.replace('device.type != "cuda"', 'device.type != "cpu"')
+  scope = dict(globals())
+  scope.update(scope_updates)
   exec(src, scope)
   t0 = time.perf_counter()
-  scope["semi_path"](torch, np, lambda: None, lambda: {},
-                     "CPU rehearsal, no card")
-  log(f"phase 13 rehearsed on the CPU in {time.perf_counter() - t0:.2f} s")
+  scope[path.__name__](torch, np, lambda: None, lambda: {},
+                       "CPU rehearsal, no card")
+  log(f"phase {phase} rehearsed on the CPU in "
+      f"{time.perf_counter() - t0:.2f} s")
   return 0
 
 
 def zoo_profile(wanted) -> int:
   """``python3 chip_smoke.py --zoo-profile [CLASS ...]``: where the zoo's
   training steps spend the card's time, without the rest of the script.
-  Each class of ``zoo_models()`` and ``semi_models()`` (all, or BetaVAE
-  and the ones named; the semi-supervised ones on (x, y, mask) batches) as a
+  Each class of ``zoo_models()``, ``semi_models()`` and ``hier_models()``
+  (all, or BetaVAE and the ones named; the semi-supervised ones on (x, y,
+  mask) batches, the grouped ones on pairs of batch 64) as a
   CUDA graph of its whole step, fed from batches already on the card, so
   that no host pipeline stands in the way: random binary images from a
   seed (the ops and their shapes do not depend on the values), fp32 with
@@ -2236,12 +2666,20 @@ def zoo_profile(wanted) -> int:
   def batches_of(labels):
     """k steps' batches of bs images: x alone, (x, the 5 factors) for a
     labelled class, (x, y, mask) for a semi-supervised one (y dSprites'
-    factors or one-hot positions, the first half labelled)."""
+    factors or one-hot positions, the first half labelled), (x1, x2[, y])
+    pairs for a grouped one (y a 0/1 rank or two factor values)."""
     def make(k, bs):
       x = torch.from_numpy((rs.rand(k, bs, 64, 64, 1) < 0.3).astype(
           np.float32)).to(cuda)
       if not labels:
         return x
+      if str(labels).startswith("pair"):
+        x2 = torch.from_numpy((rs.rand(k, bs, 64, 64, 1) < 0.3).astype(
+            np.float32)).to(cuda)
+        y = {"pair-rank": lambda: (rs.rand(k, bs) < 0.5),
+             "pair-restricted": lambda: rs.rand(k, bs, 2)}.get(labels)
+        return (x, x2) if y is None else \
+            (x, x2, torch.from_numpy(y().astype(np.float32)).to(cuda))
       if labels is True:
         return x, torch.from_numpy(rs.rand(k, bs, 5).astype(
             np.float32)).to(cuda)
@@ -2258,22 +2696,10 @@ def zoo_profile(wanted) -> int:
 
   models = [(n, f, bs, batches_of(lab)) for n, f, bs, lab in zoo_models()]
   models += [(n, f, bs, batches_of(ds)) for n, f, bs, ds, _ in semi_models()]
+  models += [(n, f, HIER_BATCH, batches_of(p and f"pair-{p}"))
+             for n, f, p, _ in hier_models() if n != "BetaVAE"]
   models = [m for m in models
             if not wanted or m[0] in wanted or m[0] == "BetaVAE"]
-
-  def busy(prof):
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events()
-                   if e.device_type == torch.autograd.DeviceType.CUDA)
-    total, end = 0, None
-    for a, b in spans:
-      if end is None or a > end:
-        total += b - a
-        end = b
-      elif b > end:
-        total += b - end
-        end = b
-    return total / 1e3, len(spans)
 
   base = None
   for name, factory, bs, make_batches in models:
@@ -2301,7 +2727,7 @@ def zoo_profile(wanted) -> int:
                              ProfilerActivity.CUDA]) as prof:
       state, _ = short(state, sub)
       torch.cuda.synchronize()
-    dev_ms, n = busy(prof)
+    dev_ms, n = device_busy(torch, prof)
     top = sorted(((e.key, e.device_time_total / 1e3 / 10)
                   for e in prof.key_averages()
                   if e.device_time_total > 0), key=lambda t: -t[1])[:3]
@@ -2313,7 +2739,32 @@ def zoo_profile(wanted) -> int:
   return 0
 
 
-def main() -> int:
+PHASES = tuple(range(1, 15))
+# the phases whose results a phase reads: the kernel reports of 2 and 5,
+# phase 7's graphed step time, phase 8's model, phase 9's wav files
+PHASE_NEEDS = {3: (2,), 6: (5,), 8: (7,), 10: (8,), 11: (2, 9)}
+
+
+def selected_phases(spec=None):
+  """The phases ``--phases`` names (`spec`, e.g. '1,14'), with phase 1 (the
+  build) and every phase that a chosen one reads; every phase without a
+  spec, as the script runs with no argument."""
+  if spec is None:
+    return set(PHASES)
+  chosen = {1} | {int(p) for p in str(spec).split(",") if p.strip()}
+  if not chosen <= set(PHASES):
+    raise SystemExit(f"chip_smoke.py --phases: no phase "
+                     f"{sorted(chosen - set(PHASES))}; phases are 1-14")
+  todo = list(chosen)
+  while todo:
+    for need in PHASE_NEEDS.get(todo.pop(), ()):
+      if need not in chosen:
+        chosen.add(need)
+        todo.append(need)
+  return chosen
+
+
+def main(phases=None) -> int:
   import numpy as np
   import torch
 
@@ -2381,11 +2832,15 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all(sources)
     log(f"build: {time.perf_counter() - t0:.2f} s")
+  phases = selected_phases() if phases is None else phases
+  log(f"phases: {sorted(phases)}")
   # phase 9's corpus is written by a child process while phases 2-8 run;
   # it is stopped at exit whatever happens
-  writer = start_corpus_writer()
-  atexit.register(lambda: (writer.poll() is None and writer.kill(),
-                           writer.wait()))
+  writer = None
+  if 9 in phases:
+    writer = start_corpus_writer()
+    atexit.register(lambda: (writer.poll() is None and writer.kill(),
+                             writer.wait()))
 
   cfg = FeatureConfig()
   batch, seconds = 64, 4.0
@@ -2400,512 +2855,529 @@ def main() -> int:
   sr22k = FeatureConfig(sr=22050, frame_length=551, step_length=220,
                         n_fft=551, n_mels=80, fmin=0.0)
 
-  with Phase("2 K1 logmel against its plain version"):
-    gen = torch.Generator(device=cuda).manual_seed(SEED)
-    # n_fft 1024 (513 bins), 1024-sample frames folded into n_fft 512, and
-    # n_fft 8192 (the FFT kernel's largest, one block an SM)
-    big = FeatureConfig(frame_length=1024, step_length=256, n_fft=1024)
-    folded = FeatureConfig(frame_length=1024, step_length=256, n_fft=512)
-    widest = FeatureConfig(frame_length=8192, step_length=2048, n_fft=8192,
-                           n_mels=80)
-    n_widest = n_main // 8  # 3,184 frames of 8,192 samples
-    # the mixed-radix kernel's other framings: 30 ms at 16 kHz, 25 ms at
-    # 48 kHz, 20 ms at 44.1 kHz (n_fft/2 = 441, odd), and Whisper's n_fft
-    # with frames folded into it and padded to it
-    mixed_cfgs = [
-        FeatureConfig(frame_length=480, step_length=160, n_fft=480),
-        FeatureConfig(sr=48000, frame_length=1200, step_length=480,
-                      n_fft=1200),
-        FeatureConfig(sr=44100, frame_length=882, step_length=441,
-                      n_fft=882),
-        FeatureConfig(frame_length=1000, step_length=160, n_fft=400,
-                      n_mels=80, fmin=0.0),
-        FeatureConfig(frame_length=300, step_length=160, n_fft=400,
-                      n_mels=80, fmin=0.0)]
+  if 2 in phases:
+    with Phase("2 K1 logmel against its plain version"):
+      gen = torch.Generator(device=cuda).manual_seed(SEED)
+      # n_fft 1024 (513 bins), 1024-sample frames folded into n_fft 512, and
+      # n_fft 8192 (the FFT kernel's largest, one block an SM)
+      big = FeatureConfig(frame_length=1024, step_length=256, n_fft=1024)
+      folded = FeatureConfig(frame_length=1024, step_length=256, n_fft=512)
+      widest = FeatureConfig(frame_length=8192, step_length=2048, n_fft=8192,
+                             n_mels=80)
+      n_widest = n_main // 8  # 3,184 frames of 8,192 samples
+      # the mixed-radix kernel's other framings: 30 ms at 16 kHz, 25 ms at
+      # 48 kHz, 20 ms at 44.1 kHz (n_fft/2 = 441, odd), and Whisper's n_fft
+      # with frames folded into it and padded to it
+      mixed_cfgs = [
+          FeatureConfig(frame_length=480, step_length=160, n_fft=480),
+          FeatureConfig(sr=48000, frame_length=1200, step_length=480,
+                        n_fft=1200),
+          FeatureConfig(sr=44100, frame_length=882, step_length=441,
+                        n_fft=882),
+          FeatureConfig(frame_length=1000, step_length=160, n_fft=400,
+                        n_mels=80, fmin=0.0),
+          FeatureConfig(frame_length=300, step_length=160, n_fft=400,
+                        n_mels=80, fmin=0.0)]
 
-    def check(config, n, kernel):
-      """Both signals through `logmel`, which must launch `kernel`; the
-      largest difference from the plain version, in dB."""
-      bases = config.device_bases(cuda)
-      noise = (torch.randn(n, config.frame_length, device=cuda,
-                           generator=gen) * 0.1 * bases["window"]
-               ).contiguous()
-      err = 0.0
-      harmonic = harmonic_frames(n, config, seed=SEED + n, device=cuda)
-      for name, frames in (("white noise", noise), ("harmonic", harmonic)):
-        before = read_counts()
-        got = logmel(frames, config)
-        after = read_counts()
-        want = logmel_reference(frames, bases["cos"], bases["sin"],
-                                bases["mel_t"], config.scale ** 2)
-        torch.cuda.synchronize()
-        launched = k1_launched(before, after)
-        if launched != {r: int(k1_kernel[r] == kernel) for r in launched}:
-          raise AssertionError(f"logmel launched {launched}, not {kernel} "
-                               "once")
-        if not bool(torch.isfinite(got).all()):
-          raise AssertionError(f"{kernel} gave non-finite values")
-        e = float((got - want).abs().max())
-        log(f"{kernel} N={n} frame_length={config.frame_length} "
-            f"n_fft={config.n_fft} {name}: max |kernel - plain| = "
-            f"{e:.6f} dB (mel range {float(want.min()):.1f} to "
-            f"{float(want.max()):.1f} dB)")
-        if e > LOGMEL_TOL_DB:
-          raise AssertionError(f"{kernel} disagrees with its plain version "
-                               f"by {e} dB at N={n}, n_fft={config.n_fft} "
-                               f"on {name} (limit {LOGMEL_TOL_DB})")
-        err = max(err, e)
-      return err
+      def check(config, n, kernel):
+        """Both signals through `logmel`, which must launch `kernel`; the
+        largest difference from the plain version, in dB."""
+        bases = config.device_bases(cuda)
+        noise = (torch.randn(n, config.frame_length, device=cuda,
+                             generator=gen) * 0.1 * bases["window"]
+                 ).contiguous()
+        err = 0.0
+        harmonic = harmonic_frames(n, config, seed=SEED + n, device=cuda)
+        for name, frames in (("white noise", noise), ("harmonic", harmonic)):
+          before = read_counts()
+          got = logmel(frames, config)
+          after = read_counts()
+          want = logmel_reference(frames, bases["cos"], bases["sin"],
+                                  bases["mel_t"], config.scale ** 2)
+          torch.cuda.synchronize()
+          launched = k1_launched(before, after)
+          if launched != {r: int(k1_kernel[r] == kernel) for r in launched}:
+            raise AssertionError(f"logmel launched {launched}, not {kernel} "
+                                 "once")
+          if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{kernel} gave non-finite values")
+          e = float((got - want).abs().max())
+          log(f"{kernel} N={n} frame_length={config.frame_length} "
+              f"n_fft={config.n_fft} {name}: max |kernel - plain| = "
+              f"{e:.6f} dB (mel range {float(want.min()):.1f} to "
+              f"{float(want.max()):.1f} dB)")
+          if e > LOGMEL_TOL_DB:
+            raise AssertionError(f"{kernel} disagrees with its plain version "
+                                 f"by {e} dB at N={n}, n_fft={config.n_fft} "
+                                 f"on {name} (limit {LOGMEL_TOL_DB})")
+          err = max(err, e)
+        return err
 
-    errs = {"logmel_fft": max(check(cfg, n_main, "logmel_fft"),
-                              check(cfg, 1000, "logmel_fft"),
-                              check(big, n_main, "logmel_fft"),
-                              check(folded, n_main, "logmel_fft"),
-                              check(widest, n_widest, "logmel_fft")),
-            "logmel_fft_mixed": max(
-                [check(whisper, n_main, "logmel_fft_mixed"),
-                 check(whisper, 1000, "logmel_fft_mixed")] +
-                [check(c, n_main, "logmel_fft_mixed") for c in mixed_cfgs]),
-            "logmel": check(sr22k, n_main, "logmel")}
+      errs = {"logmel_fft": max(check(cfg, n_main, "logmel_fft"),
+                                check(cfg, 1000, "logmel_fft"),
+                                check(big, n_main, "logmel_fft"),
+                                check(folded, n_main, "logmel_fft"),
+                                check(widest, n_widest, "logmel_fft")),
+              "logmel_fft_mixed": max(
+                  [check(whisper, n_main, "logmel_fft_mixed"),
+                   check(whisper, 1000, "logmel_fft_mixed")] +
+                  [check(c, n_main, "logmel_fft_mixed") for c in mixed_cfgs]),
+              "logmel": check(sr22k, n_main, "logmel")}
 
-    def k1_bound(config, n):
-      """The function's own bound, not that of a kernel's algorithm: a real
-      FFT of n_fft points (2.5 n log2 n flop, the usual count for real
-      input) gives the spectrum, then the power (3 flop a bin), the mel
-      product over the filters' nonzero weights (counted on this run's
-      filter bank) and the log.  The bytes are the frames and the filter
-      bank read once and the mels written once."""
-      n_freqs = config.n_fft // 2 + 1
-      mel_nnz = int(torch.count_nonzero(config.device_bases(cuda)["mel_t"]))
-      flops = n * (2.5 * config.n_fft * math.log2(config.n_fft) +
-                   3 * n_freqs + 2 * mel_nnz + config.n_mels)
-      nbytes = 4 * (n * (config.frame_length + config.n_mels) +
-                    n_freqs * config.n_mels)
-      ops_ms = flops / FP32_PEAK_FLOPS * 1e3
-      bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-      return (max(ops_ms, bytes_ms),
-              "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes,
-              mel_nnz)
-
-    def timings(config, kernel, n=n_main):
-      """The kernel, its plain version and rfft + mel on n frames of white
-      noise, with the bound, logged; returns the frames and the kernel's
-      entry."""
-      bases = config.device_bases(cuda)
-      mel_t, scale_sq = bases["mel_t"], config.scale ** 2
-      frames = (torch.randn(n, config.frame_length, device=cuda,
-                            generator=gen) * 0.1 * bases["window"]
-                ).contiguous()
-
-      def library():
-        x = frames
-        if config.frame_length > config.n_fft:  # fold, as JAX's bases do
-          x = torch.nn.functional.pad(x, (0, -config.frame_length %
-                                          config.n_fft))
-          x = x.view(n, -1, config.n_fft).sum(1)
-        spec = torch.fft.rfft(x, n=config.n_fft)
-        power = (spec.real ** 2 + spec.imag ** 2) * scale_sq
-        return 10.0 * torch.log10(torch.clamp(power @ mel_t, min=1e-10))
-
-      lib_err = float((library() - logmel(frames, config)).abs().max())
-      kernel_ms = cuda_ms(torch, lambda: logmel(frames, config))
-      plain_ms = cuda_ms(torch, lambda: logmel_reference(
-          frames, bases["cos"], bases["sin"], mel_t, scale_sq))
-      library_ms = cuda_ms(torch, library)
-      bound_ms, bound_by, flops, nbytes, mel_nnz = k1_bound(config, n)
-      log(f"{kernel} N={n} frame_length={config.frame_length} "
-          f"n_fft={config.n_fft} n_mels={config.n_mels}: "
-          f"kernel_ms={kernel_ms:.4f} "
-          f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (rfft+mel, "
-          f"max diff {lib_err:.4f} dB) bound_ms={bound_ms:.4f} by {bound_by} "
-          f"({flops:.4g} flop, {nbytes / 1e6:.2f} MB; {mel_nnz} nonzero mel "
-          f"weights)")
-      return frames, dict(
-          name=kernel, route="cuda", source=f"odin_tpu_torch/csrc/{kernel}.cu",
-          replaces="odin_tpu/ops/pallas_features.py:32", launches=None,
-          max_abs_err=errs[kernel], ms=kernel_ms, plain_ms=plain_ms,
-          bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-
-    def dense_beside(config, frames):
-      """The dense kernel on the frames an FFT kernel was timed on: its
-      predecessor on that route."""
-      out = torch.empty(frames.shape[0], config.n_mels, device=cuda)
-      dense_ms = cuda_ms(torch, lambda: _launch("dense", frames, config,
-                                                out))
-      dft_flops = (frames.shape[0] * 2 * config.frame_length *
-                   (config.n_fft // 2 + 1) * 2)
-      log(f"logmel (dense) N={frames.shape[0]} frame_length="
-          f"{config.frame_length} n_fft={config.n_fft}: kernel_ms="
-          f"{dense_ms:.4f}, its algorithm's bound "
-          f"{dft_flops / FP32_PEAK_FLOPS * 1e3:.4f} ms ({dft_flops:.4g} flop "
-          f"of dense DFT)")
-
-    frames, report["logmel_fft"] = timings(cfg, "logmel_fft")
-    dense_beside(cfg, frames)
-    del frames
-    frames, report["logmel_fft_mixed"] = timings(whisper, "logmel_fft_mixed")
-    dense_beside(whisper, frames)
-    del frames
-    for config, n in ((big, n_main), (folded, n_main),
-                      (widest, n_widest)):
-      frames, _ = timings(config, "logmel_fft", n)
-      del frames
-    for config in mixed_cfgs[:3]:
-      frames, _ = timings(config, "logmel_fft_mixed")
-      del frames
-    frames, report["logmel"] = timings(sr22k, "logmel")
-    del frames
-    torch.cuda.empty_cache()
-
-  with Phase("3 speech path: batch_speech_features"):
-    rs = np.random.RandomState(SEED)
-    lengths = rs.randint(T // 2, T + 1, size=batch)
-    lengths[0] = T
-    utts = [(rs.randn(n) * 0.1 * 32768.0).clip(-32768, 32767).astype(np.int16)
-            for n in lengths]
-    feats = ("mspec", "mfcc", "vad")
-
-    def speech_path(config, kernel):
-      """The utterances through batch_speech_features on the card, which
-      must launch `kernel` once for its one batch, against the CPU."""
-      reset_counts()
-      got = batch_speech_features(utts, config, features=feats,
-                                  device="cuda")
-      counts = read_counts()
-      log(f"speech path n_fft={config.n_fft} launches: {counts}")
-      launched = k1_launched({k: 0 for k in counts}, counts)
-      if launched != {r: int(k1_kernel[r] == kernel) for r in launched}:
-        raise AssertionError(f"the speech path at n_fft {config.n_fft} "
-                             f"launched {counts}, not {kernel} once")
-      report[kernel]["launches"] = launched[kernel_route(config.n_fft)]
-      want = batch_speech_features(utts, config, features=feats,
-                                   device="cpu")
-      vad_agree = vad_total = 0
-      mspec_err = mfcc_err = 0.0
-      for g, w, n in zip(got, want, lengths):
-        if g["mspec"].shape != (config.n_frames(int(n)), config.n_mels):
-          raise AssertionError(f"mspec shape {g['mspec'].shape} for {n} "
-                               "samples")
-        for k in feats:
-          if g[k].shape != w[k].shape:
-            raise AssertionError(f"{k}: {g[k].shape} on the card, "
-                                 f"{w[k].shape} on the CPU")
-        if not (np.isfinite(g["mspec"]).all() and
-                np.isfinite(g["mfcc"]).all()):
-          raise AssertionError("non-finite features on the card")
-        mspec_err = max(mspec_err,
-                        float(np.abs(g["mspec"] - w["mspec"]).max()))
-        mfcc_err = max(mfcc_err, float(np.abs(g["mfcc"] - w["mfcc"]).max()))
-        vad_agree += int((g["vad"] == w["vad"]).sum())
-        vad_total += g["vad"].size
-      log(f"card vs CPU at n_fft {config.n_fft}: mspec max diff "
-          f"{mspec_err:.6f} dB, mfcc max diff {mfcc_err:.6f}, vad agreement "
-          f"{vad_agree}/{vad_total}")
-      if mspec_err > LOGMEL_TOL_DB:
-        raise AssertionError(f"mspec differs from the CPU by {mspec_err} dB")
-      if mfcc_err > 0.05:
-        raise AssertionError(f"mfcc differs from the CPU by {mfcc_err}")
-      if vad_agree < 0.999 * vad_total:
-        raise AssertionError(f"vad agrees on {vad_agree}/{vad_total} frames")
-
-    speech_path(cfg, "logmel_fft")
-    rounds = 10
-    t_batch = host_times_s(torch, lambda: batch_speech_features(
-        utts, cfg, features=feats, device="cuda"), rounds)[rounds // 2]
-    # padded frames hold no audio, so the rate counts the valid ones only
-    n_valid = sum(cfg.n_frames(int(n)) for n in lengths)
-    log(f"speech frames/s (64 int16 utterances of 2-4 s, {n_valid} valid "
-        f"frames in a padded batch of {n_main}, host to device copy "
-        f"included, median of {rounds}): {n_valid / t_batch:.1f} "
-        f"({t_batch * 1e3:.3f} ms per batch)")
-    speech_path(whisper, "logmel_fft_mixed")
-    speech_path(sr22k, "logmel")
-
-  with Phase("4 serving path: dSprites beta-VAE"):
-    nets = dict(get_networks("dsprites", zdim=10))
-    vae = BetaVAE(beta=1.0, **nets).build(seed=1, device="cuda")
-    vae_cpu = BetaVAE(beta=1.0, **get_networks("dsprites", zdim=10)).build(
-        seed=1, device="cpu")
-    n_params = sum(p.numel() for p in vae.core.parameters())
-    log(f"beta-VAE dSprites zdim 10, conv 32-32-64-64, proj 128: "
-        f"{n_params} parameters")
-    reset_counts()
-    for b in (1, 256):
-      x = (np.random.RandomState(SEED + b).rand(b, 64, 64, 1) < 0.5
-           ).astype(np.float32)
-      z = np.random.RandomState(SEED + 1000 + b).randn(b, 10).astype(np.float32)
-      for name, arg, shape in (("encode_mean", x, (b, 10)),
-                               ("decode_mean", z, (b, 64, 64, 1)),
-                               ("reconstruct", x, (b, 64, 64, 1))):
-        fn = getattr(serving, name)
-        out = fn(vae, arg)
-        if out.device.type != "cuda" or tuple(out.shape) != shape:
-          raise AssertionError(f"{name} b={b}: {tuple(out.shape)} on "
-                               f"{out.device}, expected {shape} on the card")
-        out = out.cpu().numpy()
-        if not np.isfinite(out).all():
-          raise AssertionError(f"{name} b={b}: non-finite output")
-        if name != "encode_mean" and (out.min() < 0 or out.max() > 1):
-          raise AssertionError(f"{name} b={b}: probabilities outside [0, 1]")
-        e = float(np.abs(out - fn(vae_cpu, arg).numpy()).max())
-        log(f"{name} b={b}: max |card - CPU| = {e:.3g}")
-        if e > SERVING_ATOL:
-          raise AssertionError(f"{name} b={b} differs from the CPU by {e}")
-    log(f"serving path launches: {read_counts()}")
-    x1 = (np.random.RandomState(SEED).rand(1, 64, 64, 1) < 0.5).astype("f")
-    x256 = (np.random.RandomState(SEED + 1).rand(256, 64, 64, 1) < 0.5
-            ).astype("f")
-    for name in ("encode_mean", "reconstruct"):
-      fn = getattr(serving, name)
-      lat = host_times_s(torch, lambda: fn(vae, x1).cpu(), 50)
-      log(f"{name} b=1 latency (host to host, 50 calls): median "
-          f"{lat[25] * 1e3:.3f} ms, p80 {lat[40] * 1e3:.3f} ms")
-    t256 = host_times_s(torch, lambda: serving.reconstruct(vae, x256).cpu(),
-                        20)[10]
-    log(f"reconstruct b=256 (host to host, median of 20): "
-        f"{256 / t256:.1f} images/s ({t256 * 1e3:.3f} ms per batch)")
-
-  with Phase("5 K2 flash_attention against its plain version"):
-    gen = torch.Generator(device=cuda).manual_seed(SEED)
-
-    def qkv(b, h, tq, tk, d, dtype):
-      return tuple((torch.randn(b, h, t, d, device=cuda, generator=gen) * 0.5
-                    ).to(dtype) for t in (tq, tk, tk))
-
-    main = (4, 8, 4096, 4096, 64)  # the repo's benchmark width
-    wide = (4, 8, 1024, 1024, 256)
-    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
-    rtol = {bf16: ATTN_BF16_RTOL, f16: ATTN_FP16_RTOL}
-    peak = {f32: FP32_PEAK_FLOPS, bf16: BF16_PEAK_FLOPS, f16: BF16_PEAK_FLOPS}
-    entry = {f32: "flash_attention", bf16: "flash_attention_mma_bf16",
-             f16: "flash_attention_mma_fp16"}
-    err = {dtype: 0.0 for dtype in entry}
-    cases = [(main, f32, False), (main, f32, True),
-             ((1, 1, 130, 300, 16), f32, False),
-             ((1, 2, 200, 200, 32), f32, True), (wide, f32, False)]
-    for dtype in (bf16, f16):
-      cases += [(main, dtype, False), (main, dtype, True),
-                ((1, 2, 300, 200, 100), dtype, True), (wide, dtype, False)]
-    for shape, dtype, causal in cases:
-      q, k, v = qkv(*shape, dtype)
-      before = flash_attention.launches
-      got = flash_attention(q, k, v, causal=causal)
-      n_launches = flash_attention.launches - before
-      want = flash_attention_reference(q, k, v, shape[-1] ** -0.5, causal)
-      torch.cuda.synchronize()
-      if got.dtype != dtype or got.shape != q.shape:
-        raise AssertionError(f"flash_attention gave {got.dtype} "
-                             f"{tuple(got.shape)} for {dtype} {shape}")
-      if not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"flash_attention gave non-finite values at "
-                             f"{shape} {dtype} causal={causal}")
-      want_launches = -(-shape[-1] // (128 if dtype == f32 else 256))
-      if n_launches != want_launches:
-        raise AssertionError(f"flash_attention launched {n_launches} kernels "
-                             f"at {shape} {dtype}, not {want_launches}")
-      diff = (got.float() - want.float()).abs()
-      e = float(diff.max())
-      if dtype == f32:
-        tol = f"{ATTN_ATOL}"
-        ok = e <= ATTN_ATOL
-      else:
-        tol = f"{ATTN_BF16_ATOL} + {rtol[dtype]:.3g}·|plain|"
-        ok = bool((diff <= ATTN_BF16_ATOL +
-                   rtol[dtype] * want.float().abs()).all())
-      log(f"flash_attention (B, H, Tq, Tk, D)={shape} {dtype} causal={causal}"
-          f": max |kernel - plain| = {e:.3g} (limit {tol}; max |plain| "
-          f"{float(want.float().abs().max()):.3g}; {n_launches} launch(es))")
-      if not ok:
-        raise AssertionError(f"flash attention kernel disagrees with its "
-                             f"plain version by {e} at {shape} {dtype} "
-                             f"causal={causal} (limit {tol})")
-      err[dtype] = max(err[dtype], e)
-      del q, k, v, got, want, diff
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    for shape in (main, wide):
-      B, H, Tq, Tk, D = shape
-      flops = 4 * B * H * Tq * Tk * D  # the two products; softmax not counted
-      for dtype in (f32, bf16, f16):
-        q, k, v = qkv(*shape, dtype)
-        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
-        lib_err = float((sdpa(q, k, v).float() -
-                         flash_attention(q, k, v).float()).abs().max())
-        kernel_ms = cuda_ms(torch, lambda: flash_attention(q, k, v))
-        plain_ms = cuda_ms(torch, lambda: flash_attention_reference(
-            q, k, v, D ** -0.5, False))
-        library_ms = cuda_ms(torch, lambda: sdpa(q, k, v))
-        ops_ms = flops / peak[dtype] * 1e3
+      def k1_bound(config, n):
+        """The function's own bound, not that of a kernel's algorithm: a real
+        FFT of n_fft points (2.5 n log2 n flop, the usual count for real
+        input) gives the spectrum, then the power (3 flop a bin), the mel
+        product over the filters' nonzero weights (counted on this run's
+        filter bank) and the log.  The bytes are the frames and the filter
+        bank read once and the mels written once."""
+        n_freqs = config.n_fft // 2 + 1
+        mel_nnz = int(torch.count_nonzero(config.device_bases(cuda)["mel_t"]))
+        flops = n * (2.5 * config.n_fft * math.log2(config.n_fft) +
+                     3 * n_freqs + 2 * mel_nnz + config.n_mels)
+        nbytes = 4 * (n * (config.frame_length + config.n_mels) +
+                      n_freqs * config.n_mels)
+        ops_ms = flops / FP32_PEAK_FLOPS * 1e3
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-        bound_ms = max(ops_ms, bytes_ms)
-        bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
-        log(f"flash_attention {shape} {dtype} non-causal: "
-            f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
-            f"library_ms={library_ms:.4f} (scaled_dot_product_attention, max "
-            f"diff {lib_err:.3g}) bound_ms={bound_ms:.4f} by {bound_by} "
-            f"({flops:.4g} flop at {peak[dtype] / 1e12:.0f} TFLOP/s, "
-            f"{nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
-        if shape == main and dtype == f32:
-          log(f"  beside it: TF32 tensor cores would bound it at "
-              f"{flops / TF32_PEAK_FLOPS * 1e3:.4f} ms but do not hold "
-              f"{ATTN_ATOL}; bf16 tensor cores at "
-              f"{flops / BF16_PEAK_FLOPS * 1e3:.4f} ms")
-        if shape == main:
-          report[entry[dtype]] = dict(
-              name=entry[dtype], route="cuda",
-              source="odin_tpu_torch/csrc/" + (
-                  "flash_attention.cu" if dtype == f32
-                  else "flash_attention_mma.cu"),
-              replaces="odin_tpu/ops/pallas_attention.py:35", launches=None,
-              max_abs_err=err[dtype], ms=kernel_ms, plain_ms=plain_ms,
-              bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
-        del q, k, v
-    torch.cuda.empty_cache()
+        return (max(ops_ms, bytes_ms),
+                "operations" if ops_ms >= bytes_ms else "bytes", flops, nbytes,
+                mel_nnz)
 
-  with Phase("6 attention path: MultiHeadAttention(flash=True)"):
-    B, T, F = 4, 4096, 512
+      def timings(config, kernel, n=n_main):
+        """The kernel, its plain version and rfft + mel on n frames of white
+        noise, with the bound, logged; returns the frames and the kernel's
+        entry."""
+        bases = config.device_bases(cuda)
+        mel_t, scale_sq = bases["mel_t"], config.scale ** 2
+        frames = (torch.randn(n, config.frame_length, device=cuda,
+                              generator=gen) * 0.1 * bases["window"]
+                  ).contiguous()
 
-    def mha(flash, device):
-      m = MultiHeadAttention(num_heads=8, qkv_features=512, flash=flash)
-      m.build((T, F), torch.Generator().manual_seed(SEED), device=device)
-      return m
+        def library():
+          x = frames
+          if config.frame_length > config.n_fft:  # fold, as JAX's bases do
+            x = torch.nn.functional.pad(x, (0, -config.frame_length %
+                                            config.n_fft))
+            x = x.view(n, -1, config.n_fft).sum(1)
+          spec = torch.fft.rfft(x, n=config.n_fft)
+          power = (spec.real ** 2 + spec.imag ** 2) * scale_sq
+          return 10.0 * torch.log10(torch.clamp(power @ mel_t, min=1e-10))
 
-    flash_mha, plain_mha = mha(True, cuda), mha(False, cuda)
-    x_np = np.random.RandomState(SEED).randn(B, T, F).astype(np.float32)
-    x = torch.from_numpy(x_np).to(cuda)
-    reset_counts()
-    with torch.no_grad():
-      out = flash_mha(x)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    log(f"attention path forward launches: {counts}")
-    if counts["flash_attention"] != 1 or counts["flash_attention_mma"] != 0:
-      raise AssertionError("an fp32 MultiHeadAttention(flash=True) forward "
-                           "launched the flash attention kernels "
-                           f"{counts}, not the fp32 kernel once")
-    report["flash_attention"]["launches"] = counts["flash_attention"]
-    if out.device != cuda or tuple(out.shape) != (B, T, F):
-      raise AssertionError(f"MultiHeadAttention gave {tuple(out.shape)} on "
-                           f"{out.device}, expected {(B, T, F)} on the card")
-    if not bool(torch.isfinite(out).all()):
-      raise AssertionError("MultiHeadAttention gave non-finite values")
-    with torch.no_grad():
-      e = float((out - plain_mha(x)).abs().max())
-    log(f"flash=True against flash=False on the card, T={T}: max diff "
-        f"{e:.3g} (limit {ATTN_ATOL})")
-    if e > ATTN_ATOL:
-      raise AssertionError(f"flash=True differs from flash=False by {e}")
-    t_cpu = 1024
-    with torch.no_grad():
-      got = flash_mha(torch.from_numpy(x_np[:, :t_cpu]).to(cuda)).cpu()
-      want = mha(True, "cpu")(torch.from_numpy(x_np[:, :t_cpu]))
-    e = float((got - want).abs().max())
-    log(f"card against CPU, T={t_cpu}: max diff {e:.3g} "
-        f"(limit {ATTN_CPU_ATOL})")
-    if e > ATTN_CPU_ATOL:
-      raise AssertionError(f"the card differs from the CPU by {e}")
-    w = torch.from_numpy(np.random.RandomState(SEED + 1).randn(
-        B, T, F).astype(np.float32)).to(cuda)
+        lib_err = float((library() - logmel(frames, config)).abs().max())
+        kernel_ms = cuda_ms(torch, lambda: logmel(frames, config))
+        plain_ms = cuda_ms(torch, lambda: logmel_reference(
+            frames, bases["cos"], bases["sin"], mel_t, scale_sq))
+        library_ms = cuda_ms(torch, library)
+        bound_ms, bound_by, flops, nbytes, mel_nnz = k1_bound(config, n)
+        log(f"{kernel} N={n} frame_length={config.frame_length} "
+            f"n_fft={config.n_fft} n_mels={config.n_mels}: "
+            f"kernel_ms={kernel_ms:.4f} "
+            f"plain_ms={plain_ms:.4f} library_ms={library_ms:.4f} (rfft+mel, "
+            f"max diff {lib_err:.4f} dB) bound_ms={bound_ms:.4f} by {bound_by} "
+            f"({flops:.4g} flop, {nbytes / 1e6:.2f} MB; {mel_nnz} nonzero mel "
+            f"weights)")
+        return frames, dict(
+            name=kernel, route="cuda", source=f"odin_tpu_torch/csrc/{kernel}.cu",
+            replaces="odin_tpu/ops/pallas_features.py:32", launches=None,
+            max_abs_err=errs[kernel], ms=kernel_ms, plain_ms=plain_ms,
+            bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
 
-    def step(m):
-      m.zero_grad(set_to_none=True)
-      xg = x.clone().requires_grad_()
-      (m(xg) * w).sum().backward()
-      return xg.grad
+      def dense_beside(config, frames):
+        """The dense kernel on the frames an FFT kernel was timed on: its
+        predecessor on that route."""
+        out = torch.empty(frames.shape[0], config.n_mels, device=cuda)
+        dense_ms = cuda_ms(torch, lambda: _launch("dense", frames, config,
+                                                  out))
+        dft_flops = (frames.shape[0] * 2 * config.frame_length *
+                     (config.n_fft // 2 + 1) * 2)
+        log(f"logmel (dense) N={frames.shape[0]} frame_length="
+            f"{config.frame_length} n_fft={config.n_fft}: kernel_ms="
+            f"{dense_ms:.4f}, its algorithm's bound "
+            f"{dft_flops / FP32_PEAK_FLOPS * 1e3:.4f} ms ({dft_flops:.4g} flop "
+            f"of dense DFT)")
 
-    reset_counts()
-    gx = step(flash_mha)
-    torch.cuda.synchronize()
-    counts = read_counts()
-    log(f"attention path forward+backward launches: {counts}")
-    if counts["flash_attention"] != 1:
-      raise AssertionError("a forward+backward launched the flash attention "
-                           f"kernel {counts['flash_attention']} times, not "
-                           "once")
-    gx_plain = step(plain_mha)
-    errs = {"x": float((gx - gx_plain).abs().max())}
-    for (name, a), b in zip(flash_mha.named_parameters(),
-                            plain_mha.parameters()):
-      errs[name] = float((a.grad - b.grad).abs().max())
-    log("gradients, flash=True against flash=False on the card, max diff: " +
-        ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) +
-        f" (limit {ATTN_GRAD_ATOL})")
-    bad = {k: v for k, v in errs.items() if not v <= ATTN_GRAD_ATOL}
-    if bad:
-      raise AssertionError(f"gradients differ beyond {ATTN_GRAD_ATOL}: {bad}")
-    rounds = 10
-    for name, m in (("flash=True", flash_mha), ("flash=False", plain_mha)):
-      with torch.no_grad():
-        fwd = host_times_s(torch, lambda: m(x), rounds)[rounds // 2]
-      both = host_times_s(torch, lambda: step(m), rounds)[rounds // 2]
-      log(f"MultiHeadAttention {name} {(B, T, F)}, 8 heads, host to host, "
-          f"median of {rounds}: forward {fwd * 1e3:.3f} ms, forward+backward "
-          f"{both * 1e3:.3f} ms")
-    # the layer in 16 bits: weights and input cast, so its attention takes
-    # the tensor-core kernel; held against the fp32 layer beside the plain
-    # layer in the same dtype (both round their inputs and projections)
-    with torch.no_grad():
-      want = flash_mha(x)
-      for dtype, name in ((torch.bfloat16, "flash_attention_mma_bf16"),
-                          (torch.float16, "flash_attention_mma_fp16")):
-        flash_16 = mha(True, cuda).to(dtype)
-        flash_16.load_state_dict(flash_mha.state_dict())
-        plain_16 = mha(False, cuda).to(dtype)
-        plain_16.load_state_dict(flash_mha.state_dict())
-        x16 = x.to(dtype)
+      frames, report["logmel_fft"] = timings(cfg, "logmel_fft")
+      dense_beside(cfg, frames)
+      del frames
+      frames, report["logmel_fft_mixed"] = timings(whisper, "logmel_fft_mixed")
+      dense_beside(whisper, frames)
+      del frames
+      for config, n in ((big, n_main), (folded, n_main),
+                        (widest, n_widest)):
+        frames, _ = timings(config, "logmel_fft", n)
+        del frames
+      for config in mixed_cfgs[:3]:
+        frames, _ = timings(config, "logmel_fft_mixed")
+        del frames
+      frames, report["logmel"] = timings(sr22k, "logmel")
+      del frames
+      torch.cuda.empty_cache()
+
+  if 3 in phases:
+    with Phase("3 speech path: batch_speech_features"):
+      rs = np.random.RandomState(SEED)
+      lengths = rs.randint(T // 2, T + 1, size=batch)
+      lengths[0] = T
+      utts = [(rs.randn(n) * 0.1 * 32768.0).clip(-32768, 32767).astype(np.int16)
+              for n in lengths]
+      feats = ("mspec", "mfcc", "vad")
+
+      def speech_path(config, kernel):
+        """The utterances through batch_speech_features on the card, which
+        must launch `kernel` once for its one batch, against the CPU."""
         reset_counts()
-        out = flash_16(x16)
-        torch.cuda.synchronize()
+        got = batch_speech_features(utts, config, features=feats,
+                                    device="cuda")
         counts = read_counts()
-        log(f"attention path forward in {dtype}, launches: {counts}")
-        if counts["flash_attention"] != 1 or \
-            counts["flash_attention_mma"] != 1:
-          raise AssertionError(f"a {dtype} MultiHeadAttention(flash=True) "
-                               "forward launched the flash attention kernels "
-                               f"{counts}, not the 16-bit kernel once")
-        report[name]["launches"] = counts["flash_attention_mma"]
-        if out.dtype != dtype or not bool(torch.isfinite(out).all()):
-          raise AssertionError(f"the {dtype} layer gave {out.dtype} or "
-                               "non-finite values")
-        e_flash = float((out.float() - want).abs().max())
-        e_plain = float((plain_16(x16).float() - want).abs().max())
-        log(f"{dtype} layer against the fp32 layer, T={T}: flash=True max "
-            f"diff {e_flash:.3g}, flash=False {e_plain:.3g} (limit "
-            f"2 x flash=False's)")
-        if e_flash > 2 * e_plain:
-          raise AssertionError(f"the {dtype} flash layer is {e_flash} from "
-                               f"fp32, the plain one {e_plain}")
-        fwd = host_times_s(torch, lambda: flash_16(x16), rounds)[rounds // 2]
-        fwd_plain = host_times_s(torch, lambda: plain_16(x16),
-                                 rounds)[rounds // 2]
-        log(f"MultiHeadAttention {dtype} {(B, T, F)}, host to host, median "
-            f"of {rounds}: forward flash=True {fwd * 1e3:.3f} ms, "
-            f"flash=False {fwd_plain * 1e3:.3f} ms")
-        del flash_16, plain_16, x16, out
+        log(f"speech path n_fft={config.n_fft} launches: {counts}")
+        launched = k1_launched({k: 0 for k in counts}, counts)
+        if launched != {r: int(k1_kernel[r] == kernel) for r in launched}:
+          raise AssertionError(f"the speech path at n_fft {config.n_fft} "
+                               f"launched {counts}, not {kernel} once")
+        report[kernel]["launches"] = launched[kernel_route(config.n_fft)]
+        want = batch_speech_features(utts, config, features=feats,
+                                     device="cpu")
+        vad_agree = vad_total = 0
+        mspec_err = mfcc_err = 0.0
+        for g, w, n in zip(got, want, lengths):
+          if g["mspec"].shape != (config.n_frames(int(n)), config.n_mels):
+            raise AssertionError(f"mspec shape {g['mspec'].shape} for {n} "
+                                 "samples")
+          for k in feats:
+            if g[k].shape != w[k].shape:
+              raise AssertionError(f"{k}: {g[k].shape} on the card, "
+                                   f"{w[k].shape} on the CPU")
+          if not (np.isfinite(g["mspec"]).all() and
+                  np.isfinite(g["mfcc"]).all()):
+            raise AssertionError("non-finite features on the card")
+          mspec_err = max(mspec_err,
+                          float(np.abs(g["mspec"] - w["mspec"]).max()))
+          mfcc_err = max(mfcc_err, float(np.abs(g["mfcc"] - w["mfcc"]).max()))
+          vad_agree += int((g["vad"] == w["vad"]).sum())
+          vad_total += g["vad"].size
+        log(f"card vs CPU at n_fft {config.n_fft}: mspec max diff "
+            f"{mspec_err:.6f} dB, mfcc max diff {mfcc_err:.6f}, vad agreement "
+            f"{vad_agree}/{vad_total}")
+        if mspec_err > LOGMEL_TOL_DB:
+          raise AssertionError(f"mspec differs from the CPU by {mspec_err} dB")
+        if mfcc_err > 0.05:
+          raise AssertionError(f"mfcc differs from the CPU by {mfcc_err}")
+        if vad_agree < 0.999 * vad_total:
+          raise AssertionError(f"vad agrees on {vad_agree}/{vad_total} frames")
 
-  with Phase("7 training path: beta-VAE dSprites training step"):
-    graphed_s = training_path(torch, np, reset_counts, read_counts, smi)
+      speech_path(cfg, "logmel_fft")
+      rounds = 10
+      t_batch = host_times_s(torch, lambda: batch_speech_features(
+          utts, cfg, features=feats, device="cuda"), rounds)[rounds // 2]
+      # padded frames hold no audio, so the rate counts the valid ones only
+      n_valid = sum(cfg.n_frames(int(n)) for n in lengths)
+      log(f"speech frames/s (64 int16 utterances of 2-4 s, {n_valid} valid "
+          f"frames in a padded batch of {n_main}, host to device copy "
+          f"included, median of {rounds}): {n_valid / t_batch:.1f} "
+          f"({t_batch * 1e3:.3f} ms per batch)")
+      speech_path(whisper, "logmel_fft_mixed")
+      speech_path(sr22k, "logmel")
 
-  with Phase("8 fit path: the README quickstart's training"):
-    trained = fit_path(torch, np, reset_counts, read_counts, smi, graphed_s)
+  if 4 in phases:
+    with Phase("4 serving path: dSprites beta-VAE"):
+      nets = dict(get_networks("dsprites", zdim=10))
+      vae = BetaVAE(beta=1.0, **nets).build(seed=1, device="cuda")
+      vae_cpu = BetaVAE(beta=1.0, **get_networks("dsprites", zdim=10)).build(
+          seed=1, device="cpu")
+      n_params = sum(p.numel() for p in vae.core.parameters())
+      log(f"beta-VAE dSprites zdim 10, conv 32-32-64-64, proj 128: "
+          f"{n_params} parameters")
+      reset_counts()
+      for b in (1, 256):
+        x = (np.random.RandomState(SEED + b).rand(b, 64, 64, 1) < 0.5
+             ).astype(np.float32)
+        z = np.random.RandomState(SEED + 1000 + b).randn(b, 10).astype(np.float32)
+        for name, arg, shape in (("encode_mean", x, (b, 10)),
+                                 ("decode_mean", z, (b, 64, 64, 1)),
+                                 ("reconstruct", x, (b, 64, 64, 1))):
+          fn = getattr(serving, name)
+          out = fn(vae, arg)
+          if out.device.type != "cuda" or tuple(out.shape) != shape:
+            raise AssertionError(f"{name} b={b}: {tuple(out.shape)} on "
+                                 f"{out.device}, expected {shape} on the card")
+          out = out.cpu().numpy()
+          if not np.isfinite(out).all():
+            raise AssertionError(f"{name} b={b}: non-finite output")
+          if name != "encode_mean" and (out.min() < 0 or out.max() > 1):
+            raise AssertionError(f"{name} b={b}: probabilities outside [0, 1]")
+          e = float(np.abs(out - fn(vae_cpu, arg).numpy()).max())
+          log(f"{name} b={b}: max |card - CPU| = {e:.3g}")
+          if e > SERVING_ATOL:
+            raise AssertionError(f"{name} b={b} differs from the CPU by {e}")
+      log(f"serving path launches: {read_counts()}")
+      x1 = (np.random.RandomState(SEED).rand(1, 64, 64, 1) < 0.5).astype("f")
+      x256 = (np.random.RandomState(SEED + 1).rand(256, 64, 64, 1) < 0.5
+              ).astype("f")
+      for name in ("encode_mean", "reconstruct"):
+        fn = getattr(serving, name)
+        lat = host_times_s(torch, lambda: fn(vae, x1).cpu(), 50)
+        log(f"{name} b=1 latency (host to host, 50 calls): median "
+            f"{lat[25] * 1e3:.3f} ms, p80 {lat[40] * 1e3:.3f} ms")
+      t256 = host_times_s(torch, lambda: serving.reconstruct(vae, x256).cpu(),
+                          20)[10]
+      log(f"reconstruct b=256 (host to host, median of 20): "
+          f"{256 / t256:.1f} images/s ({t256 * 1e3:.3f} ms per batch)")
 
-  with Phase("9 corpus path: DeviceCorpusProcessor, AudioFeatureLoader, "
-             "streaming, Griffin-Lim"):
-    corpus_path(torch, np, reset_counts, read_counts, smi, writer)
+  if 5 in phases:
+    with Phase("5 K2 flash_attention against its plain version"):
+      gen = torch.Generator(device=cuda).manual_seed(SEED)
 
-  with Phase("10 gym path: the README quickstart's DisentanglementGym"):
-    gym_path(torch, np, reset_counts, read_counts, smi, trained)
+      def qkv(b, h, tq, tk, d, dtype):
+        return tuple((torch.randn(b, h, t, d, device=cuda, generator=gen) * 0.5
+                      ).to(dtype) for t in (tq, tk, tk))
 
-  with Phase("11 speaker path: the README's speaker quickstart"):
-    k1 = speaker_path(torch, np, reset_counts, read_counts, smi)
-    log(f"K1 FFT launches on the main paths: speech (phase 3) "
-        f"{report['logmel_fft']['launches']}, speaker (phase 11) {k1}")
-    report["logmel_fft"]["launches"] += k1
+      main = (4, 8, 4096, 4096, 64)  # the repo's benchmark width
+      wide = (4, 8, 1024, 1024, 256)
+      f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+      rtol = {bf16: ATTN_BF16_RTOL, f16: ATTN_FP16_RTOL}
+      peak = {f32: FP32_PEAK_FLOPS, bf16: BF16_PEAK_FLOPS, f16: BF16_PEAK_FLOPS}
+      entry = {f32: "flash_attention", bf16: "flash_attention_mma_bf16",
+               f16: "flash_attention_mma_fp16"}
+      err = {dtype: 0.0 for dtype in entry}
+      cases = [(main, f32, False), (main, f32, True),
+               ((1, 1, 130, 300, 16), f32, False),
+               ((1, 2, 200, 200, 32), f32, True), (wide, f32, False)]
+      for dtype in (bf16, f16):
+        cases += [(main, dtype, False), (main, dtype, True),
+                  ((1, 2, 300, 200, 100), dtype, True), (wide, dtype, False)]
+      for shape, dtype, causal in cases:
+        q, k, v = qkv(*shape, dtype)
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, causal=causal)
+        n_launches = flash_attention.launches - before
+        want = flash_attention_reference(q, k, v, shape[-1] ** -0.5, causal)
+        torch.cuda.synchronize()
+        if got.dtype != dtype or got.shape != q.shape:
+          raise AssertionError(f"flash_attention gave {got.dtype} "
+                               f"{tuple(got.shape)} for {dtype} {shape}")
+        if not bool(torch.isfinite(got).all()):
+          raise AssertionError(f"flash_attention gave non-finite values at "
+                               f"{shape} {dtype} causal={causal}")
+        want_launches = -(-shape[-1] // (128 if dtype == f32 else 256))
+        if n_launches != want_launches:
+          raise AssertionError(f"flash_attention launched {n_launches} kernels "
+                               f"at {shape} {dtype}, not {want_launches}")
+        diff = (got.float() - want.float()).abs()
+        e = float(diff.max())
+        if dtype == f32:
+          tol = f"{ATTN_ATOL}"
+          ok = e <= ATTN_ATOL
+        else:
+          tol = f"{ATTN_BF16_ATOL} + {rtol[dtype]:.3g}·|plain|"
+          ok = bool((diff <= ATTN_BF16_ATOL +
+                     rtol[dtype] * want.float().abs()).all())
+        log(f"flash_attention (B, H, Tq, Tk, D)={shape} {dtype} causal={causal}"
+            f": max |kernel - plain| = {e:.3g} (limit {tol}; max |plain| "
+            f"{float(want.float().abs().max()):.3g}; {n_launches} launch(es))")
+        if not ok:
+          raise AssertionError(f"flash attention kernel disagrees with its "
+                               f"plain version by {e} at {shape} {dtype} "
+                               f"causal={causal} (limit {tol})")
+        err[dtype] = max(err[dtype], e)
+        del q, k, v, got, want, diff
+      sdpa = torch.nn.functional.scaled_dot_product_attention
+      for shape in (main, wide):
+        B, H, Tq, Tk, D = shape
+        flops = 4 * B * H * Tq * Tk * D  # the two products; softmax not counted
+        for dtype in (f32, bf16, f16):
+          q, k, v = qkv(*shape, dtype)
+          nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+          lib_err = float((sdpa(q, k, v).float() -
+                           flash_attention(q, k, v).float()).abs().max())
+          kernel_ms = cuda_ms(torch, lambda: flash_attention(q, k, v))
+          plain_ms = cuda_ms(torch, lambda: flash_attention_reference(
+              q, k, v, D ** -0.5, False))
+          library_ms = cuda_ms(torch, lambda: sdpa(q, k, v))
+          ops_ms = flops / peak[dtype] * 1e3
+          bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+          bound_ms = max(ops_ms, bytes_ms)
+          bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+          log(f"flash_attention {shape} {dtype} non-causal: "
+              f"kernel_ms={kernel_ms:.4f} plain_ms={plain_ms:.4f} "
+              f"library_ms={library_ms:.4f} (scaled_dot_product_attention, max "
+              f"diff {lib_err:.3g}) bound_ms={bound_ms:.4f} by {bound_by} "
+              f"({flops:.4g} flop at {peak[dtype] / 1e12:.0f} TFLOP/s, "
+              f"{nbytes / 1e6:.1f} MB at {HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+          if shape == main and dtype == f32:
+            log(f"  beside it: TF32 tensor cores would bound it at "
+                f"{flops / TF32_PEAK_FLOPS * 1e3:.4f} ms but do not hold "
+                f"{ATTN_ATOL}; bf16 tensor cores at "
+                f"{flops / BF16_PEAK_FLOPS * 1e3:.4f} ms")
+          if shape == main:
+            report[entry[dtype]] = dict(
+                name=entry[dtype], route="cuda",
+                source="odin_tpu_torch/csrc/" + (
+                    "flash_attention.cu" if dtype == f32
+                    else "flash_attention_mma.cu"),
+                replaces="odin_tpu/ops/pallas_attention.py:35", launches=None,
+                max_abs_err=err[dtype], ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=bound_ms, bound_by=bound_by, library_ms=library_ms)
+          del q, k, v
+      torch.cuda.empty_cache()
 
-  with Phase("12 zoo path: the unsupervised VAE zoo on dSprites"):
-    zoo_path(torch, np, reset_counts, read_counts, smi)
+  if 6 in phases:
+    with Phase("6 attention path: MultiHeadAttention(flash=True)"):
+      B, T, F = 4, 4096, 512
 
-  with Phase("13 semi path: the semi-supervised VAE family on dSprites"):
-    semi_path(torch, np, reset_counts, read_counts, smi)
+      def mha(flash, device):
+        m = MultiHeadAttention(num_heads=8, qkv_features=512, flash=flash)
+        m.build((T, F), torch.Generator().manual_seed(SEED), device=device)
+        return m
+
+      flash_mha, plain_mha = mha(True, cuda), mha(False, cuda)
+      x_np = np.random.RandomState(SEED).randn(B, T, F).astype(np.float32)
+      x = torch.from_numpy(x_np).to(cuda)
+      reset_counts()
+      with torch.no_grad():
+        out = flash_mha(x)
+      torch.cuda.synchronize()
+      counts = read_counts()
+      log(f"attention path forward launches: {counts}")
+      if counts["flash_attention"] != 1 or counts["flash_attention_mma"] != 0:
+        raise AssertionError("an fp32 MultiHeadAttention(flash=True) forward "
+                             "launched the flash attention kernels "
+                             f"{counts}, not the fp32 kernel once")
+      report["flash_attention"]["launches"] = counts["flash_attention"]
+      if out.device != cuda or tuple(out.shape) != (B, T, F):
+        raise AssertionError(f"MultiHeadAttention gave {tuple(out.shape)} on "
+                             f"{out.device}, expected {(B, T, F)} on the card")
+      if not bool(torch.isfinite(out).all()):
+        raise AssertionError("MultiHeadAttention gave non-finite values")
+      with torch.no_grad():
+        e = float((out - plain_mha(x)).abs().max())
+      log(f"flash=True against flash=False on the card, T={T}: max diff "
+          f"{e:.3g} (limit {ATTN_ATOL})")
+      if e > ATTN_ATOL:
+        raise AssertionError(f"flash=True differs from flash=False by {e}")
+      t_cpu = 1024
+      with torch.no_grad():
+        got = flash_mha(torch.from_numpy(x_np[:, :t_cpu]).to(cuda)).cpu()
+        want = mha(True, "cpu")(torch.from_numpy(x_np[:, :t_cpu]))
+      e = float((got - want).abs().max())
+      log(f"card against CPU, T={t_cpu}: max diff {e:.3g} "
+          f"(limit {ATTN_CPU_ATOL})")
+      if e > ATTN_CPU_ATOL:
+        raise AssertionError(f"the card differs from the CPU by {e}")
+      w = torch.from_numpy(np.random.RandomState(SEED + 1).randn(
+          B, T, F).astype(np.float32)).to(cuda)
+
+      def step(m):
+        m.zero_grad(set_to_none=True)
+        xg = x.clone().requires_grad_()
+        (m(xg) * w).sum().backward()
+        return xg.grad
+
+      reset_counts()
+      gx = step(flash_mha)
+      torch.cuda.synchronize()
+      counts = read_counts()
+      log(f"attention path forward+backward launches: {counts}")
+      if counts["flash_attention"] != 1:
+        raise AssertionError("a forward+backward launched the flash attention "
+                             f"kernel {counts['flash_attention']} times, not "
+                             "once")
+      gx_plain = step(plain_mha)
+      errs = {"x": float((gx - gx_plain).abs().max())}
+      for (name, a), b in zip(flash_mha.named_parameters(),
+                              plain_mha.parameters()):
+        errs[name] = float((a.grad - b.grad).abs().max())
+      log("gradients, flash=True against flash=False on the card, max diff: " +
+          ", ".join(f"{k} {v:.3g}" for k, v in errs.items()) +
+          f" (limit {ATTN_GRAD_ATOL})")
+      bad = {k: v for k, v in errs.items() if not v <= ATTN_GRAD_ATOL}
+      if bad:
+        raise AssertionError(f"gradients differ beyond {ATTN_GRAD_ATOL}: {bad}")
+      rounds = 10
+      for name, m in (("flash=True", flash_mha), ("flash=False", plain_mha)):
+        with torch.no_grad():
+          fwd = host_times_s(torch, lambda: m(x), rounds)[rounds // 2]
+        both = host_times_s(torch, lambda: step(m), rounds)[rounds // 2]
+        log(f"MultiHeadAttention {name} {(B, T, F)}, 8 heads, host to host, "
+            f"median of {rounds}: forward {fwd * 1e3:.3f} ms, forward+backward "
+            f"{both * 1e3:.3f} ms")
+      # the layer in 16 bits: weights and input cast, so its attention takes
+      # the tensor-core kernel; held against the fp32 layer beside the plain
+      # layer in the same dtype (both round their inputs and projections)
+      with torch.no_grad():
+        want = flash_mha(x)
+        for dtype, name in ((torch.bfloat16, "flash_attention_mma_bf16"),
+                            (torch.float16, "flash_attention_mma_fp16")):
+          flash_16 = mha(True, cuda).to(dtype)
+          flash_16.load_state_dict(flash_mha.state_dict())
+          plain_16 = mha(False, cuda).to(dtype)
+          plain_16.load_state_dict(flash_mha.state_dict())
+          x16 = x.to(dtype)
+          reset_counts()
+          out = flash_16(x16)
+          torch.cuda.synchronize()
+          counts = read_counts()
+          log(f"attention path forward in {dtype}, launches: {counts}")
+          if counts["flash_attention"] != 1 or \
+              counts["flash_attention_mma"] != 1:
+            raise AssertionError(f"a {dtype} MultiHeadAttention(flash=True) "
+                                 "forward launched the flash attention kernels "
+                                 f"{counts}, not the 16-bit kernel once")
+          report[name]["launches"] = counts["flash_attention_mma"]
+          if out.dtype != dtype or not bool(torch.isfinite(out).all()):
+            raise AssertionError(f"the {dtype} layer gave {out.dtype} or "
+                                 "non-finite values")
+          e_flash = float((out.float() - want).abs().max())
+          e_plain = float((plain_16(x16).float() - want).abs().max())
+          log(f"{dtype} layer against the fp32 layer, T={T}: flash=True max "
+              f"diff {e_flash:.3g}, flash=False {e_plain:.3g} (limit "
+              f"2 x flash=False's)")
+          if e_flash > 2 * e_plain:
+            raise AssertionError(f"the {dtype} flash layer is {e_flash} from "
+                                 f"fp32, the plain one {e_plain}")
+          fwd = host_times_s(torch, lambda: flash_16(x16), rounds)[rounds // 2]
+          fwd_plain = host_times_s(torch, lambda: plain_16(x16),
+                                   rounds)[rounds // 2]
+          log(f"MultiHeadAttention {dtype} {(B, T, F)}, host to host, median "
+              f"of {rounds}: forward flash=True {fwd * 1e3:.3f} ms, "
+              f"flash=False {fwd_plain * 1e3:.3f} ms")
+          del flash_16, plain_16, x16, out
+
+  if 7 in phases:
+    with Phase("7 training path: beta-VAE dSprites training step"):
+      graphed_s = training_path(torch, np, reset_counts, read_counts, smi)
+
+  if 8 in phases:
+    with Phase("8 fit path: the README quickstart's training"):
+      trained = fit_path(torch, np, reset_counts, read_counts, smi, graphed_s)
+
+  if 9 in phases:
+    with Phase("9 corpus path: DeviceCorpusProcessor, AudioFeatureLoader, "
+               "streaming, Griffin-Lim"):
+      corpus_path(torch, np, reset_counts, read_counts, smi, writer)
+
+  if 10 in phases:
+    with Phase("10 gym path: the README quickstart's DisentanglementGym"):
+      gym_path(torch, np, reset_counts, read_counts, smi, trained)
+
+  if 11 in phases:
+    with Phase("11 speaker path: the README's speaker quickstart"):
+      k1 = speaker_path(torch, np, reset_counts, read_counts, smi)
+      log(f"K1 FFT launches on the main paths: speech (phase 3) "
+          f"{report['logmel_fft']['launches']}, speaker (phase 11) {k1}")
+      report["logmel_fft"]["launches"] += k1
+
+  if 12 in phases:
+    with Phase("12 zoo path: the unsupervised VAE zoo on dSprites"):
+      zoo_path(torch, np, reset_counts, read_counts, smi)
+
+  if 13 in phases:
+    with Phase("13 semi path: the semi-supervised VAE family on dSprites"):
+      semi_path(torch, np, reset_counts, read_counts, smi)
+
+  if 14 in phases:
+    with Phase("14 hier path: the hierarchical and grouped VAE families on "
+               "dSprites"):
+      hier_path(torch, np, reset_counts, read_counts, smi)
 
   log("kernels: " + "; ".join(
       f"{k} launches={v['launches']} ms={v['ms']:.4f} "
@@ -2929,4 +3401,10 @@ if __name__ == "__main__":
     sys.exit(zoo_profile(sys.argv[2:]))
   if sys.argv[1:2] == ["--semi-rehearsal"]:
     sys.exit(semi_rehearsal(sys.argv[2:]))
+  if sys.argv[1:2] == ["--hier-rehearsal"]:
+    sys.exit(hier_rehearsal(sys.argv[2:]))
+  if sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3:
+    sys.exit(main(selected_phases(sys.argv[2])))
+  if sys.argv[1:]:
+    raise SystemExit(f"chip_smoke.py: unknown arguments {sys.argv[1:]}")
   sys.exit(main())

@@ -10,6 +10,7 @@ both packages the same noise.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Dict, Optional, Tuple
 
 import torch
@@ -19,7 +20,11 @@ __all__ = ["Distribution", "Independent", "register_kl",
 
 
 class Distribution:
-  """Base distribution over tensors."""
+  """Base distribution over tensors; ``_params`` names the tensors that
+  parametrise it (the JAX package's pytree leaves), from which ``dtype``
+  is promoted."""
+
+  _params: Tuple[str, ...] = ()
 
   @property
   def batch_shape(self) -> Tuple[int, ...]:
@@ -28,6 +33,16 @@ class Distribution:
   @property
   def event_shape(self) -> Tuple[int, ...]:
     return ()
+
+  @property
+  def dtype(self) -> torch.dtype:
+    """The promoted dtype of the parameters (float32 where there are
+    none)."""
+    if not self._params:
+      return torch.float32
+    return functools.reduce(torch.promote_types,
+                            (torch.as_tensor(getattr(self, n)).dtype
+                             for n in self._params))
 
   def sample(self, sample_shape: Tuple[int, ...] = (),
              generator: Optional[torch.Generator] = None,
@@ -61,6 +76,33 @@ class Distribution:
 
   def stddev(self) -> torch.Tensor:
     return torch.sqrt(self.variance())
+
+  def entropy(self) -> torch.Tensor:
+    raise NotImplementedError
+
+  def kl_divergence(self, other: "Distribution", analytic: bool = True,
+                    samples: Optional[torch.Tensor] = None,
+                    generator: Optional[torch.Generator] = None,
+                    n_samples: int = 1) -> torch.Tensor:
+    """KL(self || other): analytic where the pair is registered, else the
+    Monte-Carlo ``E_q[log q(z) - log p(z)]`` averaged over the first axis
+    of `samples`, drawn here (`n_samples` of them) from `generator` when
+    not given."""
+    if analytic:
+      fn = kl_registry_lookup(type(self), type(other))
+      if fn is not None:
+        return fn(self, other)
+    if samples is None:
+      if generator is None:
+        raise ValueError(
+            f"no analytic KL for ({type(self).__name__}, "
+            f"{type(other).__name__}) — provide `samples` or `generator` for "
+            "an MC estimate")
+      samples = self.sample((n_samples,), generator=generator)
+    return torch.mean(self.log_prob(samples) - other.log_prob(samples),
+                      dim=0)
+
+  KL_divergence = kl_divergence
 
   def __repr__(self):
     return (f"{type(self).__name__}(batch_shape={tuple(self.batch_shape)}, "
@@ -141,6 +183,13 @@ class Independent(Distribution):
 
   def stddev(self):
     return self.distribution.stddev()
+
+  @property
+  def dtype(self):
+    return self.distribution.dtype
+
+  def entropy(self):
+    return self._reduce(self.distribution.entropy())
 
 
 @register_kl(Independent, Independent)

@@ -24,6 +24,7 @@ def _noise(shape, like: torch.Tensor, generator, eps):
 
 
 class Normal(Distribution):
+  _params = ("loc", "scale")
 
   def __init__(self, loc, scale):
     self.loc = torch.as_tensor(loc)
@@ -53,6 +54,14 @@ class Normal(Distribution):
   def stddev(self):
     return self.scale.expand(self.batch_shape)
 
+  def entropy(self):
+    return (0.5 * (1.0 + _LOG2PI) + torch.log(self.scale)).expand(
+        self.batch_shape)
+
+  def cdf(self, x):
+    return 0.5 * (1.0 + torch.erf((x - self.loc) /
+                                  (self.scale * math.sqrt(2.0))))
+
 
 @register_kl(Normal, Normal)
 def _kl_normal(q: Normal, p: Normal):
@@ -62,6 +71,7 @@ def _kl_normal(q: Normal, p: Normal):
 
 
 class MultivariateNormalDiag(Distribution):
+  _params = ("loc", "scale_diag")
 
   def __init__(self, loc, scale_diag):
     self.loc = torch.as_tensor(loc)
@@ -101,6 +111,11 @@ class MultivariateNormalDiag(Distribution):
 
   def stddev(self):
     return self.scale_diag.expand(self._shape)
+
+  def entropy(self):
+    d = self.event_shape[0]
+    return (0.5 * d * (1.0 + _LOG2PI) +
+            torch.sum(torch.log(self.scale_diag).expand(self._shape), dim=-1))
 
 
 @register_kl(MultivariateNormalDiag, MultivariateNormalDiag)

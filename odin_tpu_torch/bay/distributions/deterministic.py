@@ -14,6 +14,7 @@ __all__ = ["Deterministic", "VectorDeterministic"]
 class Deterministic(Distribution):
   """A point mass at `loc`; ``log_prob`` is 0 within `atol` of it, else
   -inf.  Sampling makes no draw."""
+  _params = ("loc",)
 
   def __init__(self, loc, atol: float = 0.0):
     self.loc = torch.as_tensor(loc)

@@ -10,12 +10,33 @@ from odin_tpu_torch.bay.distributions.base import Distribution, register_kl
 __all__ = ["Bernoulli", "OneHotCategorical"]
 
 
-class Bernoulli(Distribution):
-  """Bernoulli over its logits (the only parametrisation the image heads
-  build)."""
+def _logits_from(logits, probs) -> torch.Tensor:
+  """Bernoulli logits from exactly one of `logits` and `probs`."""
+  if (logits is None) == (probs is None):
+    raise ValueError("exactly one of logits/probs must be given")
+  if logits is not None:
+    return torch.as_tensor(logits)
+  probs = torch.as_tensor(probs)
+  return torch.log(probs) - torch.log1p(-probs)
 
-  def __init__(self, logits):
-    self.logits = torch.as_tensor(logits)
+
+def _cat_logits_from(logits, probs) -> torch.Tensor:
+  """Normalised categorical logits from exactly one of `logits` (minus
+  their logsumexp) and `probs` (their log)."""
+  if (logits is None) == (probs is None):
+    raise ValueError("exactly one of logits/probs must be given")
+  if logits is not None:
+    logits = torch.as_tensor(logits)
+    return logits - torch.logsumexp(logits, dim=-1, keepdim=True)
+  return torch.log(torch.as_tensor(probs))
+
+
+class Bernoulli(Distribution):
+  """Bernoulli over its logits, given as `logits` or as `probs`."""
+  _params = ("logits",)
+
+  def __init__(self, logits=None, probs=None):
+    self.logits = _logits_from(logits, probs)
 
   @property
   def batch_shape(self):
@@ -41,6 +62,11 @@ class Bernoulli(Distribution):
     p = self.probs
     return p * (1.0 - p)
 
+  def entropy(self):
+    p = self.probs
+    return -(p * -F.softplus(-self.logits) + (1.0 - p) *
+             -F.softplus(self.logits))
+
 
 @register_kl(Bernoulli, Bernoulli)
 def _kl_bernoulli(q: Bernoulli, p: Bernoulli):
@@ -52,11 +78,16 @@ def _kl_bernoulli(q: Bernoulli, p: Bernoulli):
 
 class OneHotCategorical(Distribution):
   """One-hot categorical over the last axis of `logits` (normalised by
-  their logsumexp, as the JAX package keeps them); event_shape (K,)."""
+  their logsumexp, as the JAX package keeps them) or of `probs` (their
+  log); event_shape (K,)."""
+  _params = ("logits",)
 
-  def __init__(self, logits):
-    logits = torch.as_tensor(logits)
-    self.logits = logits - torch.logsumexp(logits, dim=-1, keepdim=True)
+  def __init__(self, logits=None, probs=None):
+    self.logits = _cat_logits_from(logits, probs)
+
+  @property
+  def num_categories(self) -> int:
+    return self.logits.shape[-1]
 
   @property
   def batch_shape(self):

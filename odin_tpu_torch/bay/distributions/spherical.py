@@ -125,6 +125,7 @@ def _log_iv_bessel(nu: float, kappa: torch.Tensor) -> torch.Tensor:
 
 
 class _SphericalBase(Distribution):
+  _params = ("mean_direction", "concentration")
 
   def __init__(self, mean_direction, concentration):
     self.mean_direction = torch.as_tensor(mean_direction)

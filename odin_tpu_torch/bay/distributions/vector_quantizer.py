@@ -15,6 +15,7 @@ class VectorQuantized(Distribution):
   """`codes` (the nearest codebook entries), `inputs` (the encoder's
   outputs before quantization) and `indices` (the code of each position),
   all with the same leading dims."""
+  _params = ("codes", "inputs", "indices")
 
   def __init__(self, codes, inputs, indices, commitment_weight: float = 0.25):
     self.codes = torch.as_tensor(codes)

@@ -44,6 +44,19 @@ from odin_tpu_torch.bay.vi.autoencoder.factor_vae import (
     SemiFactor2VAE,
     SemiFactorVAE,
 )
+from odin_tpu_torch.bay.vi.autoencoder.hierarchical_vae import (
+    BiConvLatents,
+    BiDenseLatents,
+    HierarchicalVAE,
+    LadderCore,
+    LadderVAE,
+    ParallelLatents,
+    PUnetCore,
+    PUnetVAE,
+    UnetCore,
+    UnetVAE,
+    VeryDeepVAE,
+)
 from odin_tpu_torch.bay.vi.autoencoder.hyperbolic_vae import (
     HypersphericalVAE,
     PowersphericalVAE,
@@ -70,6 +83,12 @@ from odin_tpu_torch.bay.vi.autoencoder.semafo_vae import (
     semafosm,
     semafot,
 )
+from odin_tpu_torch.bay.vi.autoencoder.self_supervised_vae import (
+    AdaptiveVAE,
+    GroupVAE,
+    MultiLevelVAE,
+    WeaklySupervisedVAE,
+)
 from odin_tpu_torch.bay.vi.autoencoder.stochastic_vae import (
     ImputeVAE,
     StochasticVAE,
@@ -90,20 +109,19 @@ __all__ = [
     "MultiheadVAE", "M2VAE", "ConditionalM2VAE", "StructuredSemiVAE",
     "PriorRegressor", "reparamsM3VAE", "auxiliaryVAE", "AuxiliaryVAE",
     "SemafoVAE", "RemafoVAE", "semafod", "semafoh", "semafos", "semafosm",
-    "semafosc", "semafop", "semafot", "get_vae", "get_all_vae",
+    "semafosc", "semafop", "semafot", "HierarchicalVAE", "LadderVAE",
+    "UnetVAE", "PUnetVAE", "VeryDeepVAE", "BiConvLatents", "BiDenseLatents",
+    "ParallelLatents", "LadderCore", "UnetCore", "PUnetCore", "GroupVAE",
+    "MultiLevelVAE", "AdaptiveVAE", "WeaklySupervisedVAE", "get_vae",
+    "get_all_vae",
 ]
 
 _ITEM = "ROADMAP.md queue 1, item 5"
 # the JAX package's registered names (lower case) that wait, by the part
 # of ROADMAP's item that ports them
 _WAITING = {
-    **{k: f"{_ITEM} (the hierarchical family)" for k in (
-        "hierarchicalvae", "laddervae", "unetvae", "punetvae",
-        "verydeepvae")},
     **{k: f"{_ITEM} (the sequential family)" for k in (
         "sequentialvae", "sequentialattentionvae", "variationalrnn")},
-    **{k: f"{_ITEM} (the grouped family)" for k in (
-        "groupvae", "multilevelvae", "adaptivevae", "weaklysupervisedvae")},
     "cycleconsistentvae": f"{_ITEM} (the cycle-consistent VAE)",
     "moevae": f"{_ITEM} (the mixture-of-experts VAE)",
     **{k: f"{_ITEM} (the LDA family)" for k in (

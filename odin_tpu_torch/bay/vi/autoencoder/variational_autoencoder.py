@@ -154,7 +154,8 @@ class VAECore(nn.Module):
 class VariationalAutoencoder(VariationalModel):
   """Vanilla VAE: ``vae = BetaVAE(**get_networks('dsprites')).build()``,
   then ``qz = vae.encode(x)``, ``px = vae.decode(z)``,
-  ``qz, px = vae.reconstruct(x)``; training:
+  ``qz, px = vae.reconstruct(x)`` (the hook a model whose decoder needs the
+  encoder's states overrides, as the ladder and U-Net models do); training:
   ``step = vae.make_step_fn()``, ``vae.state, metrics = step(vae.state,
   x)``.  Images are NHWC."""
 
@@ -165,6 +166,7 @@ class VariationalAutoencoder(VariationalModel):
                observation: Union[RVconf, DistributionDense],
                labels: Union[RVconf, DistributionDense, None] = None,
                input_shape: Optional[Tuple[int, ...]] = None,
+               hierarchy: Sequence[dict] = (),
                analytic: bool = False,
                reverse: bool = True,
                free_bits: Optional[float] = None,
@@ -183,6 +185,9 @@ class VariationalAutoencoder(VariationalModel):
     self.observation_head = _as_head(observation, "observation")
     self.labels_head = _as_head(labels, "labels") if labels is not None \
         else None
+    # the ladder rungs' and U-Net skips' spec (``get_networks`` gives it to
+    # every class; the ladder and U-Net cores read it)
+    self.hierarchy = tuple(hierarchy)
     self.core = self._build_core()
     self.input_shape = tuple(input_shape) if input_shape is not None else None
     self.device: Optional[torch.device] = None

@@ -172,10 +172,14 @@ class Dense(nn.Module):
 
 class Conv(nn.Module):
   """2-D convolution on NHWC tensors, XLA padding, He init; ``weight`` is
-  (out, in, kh, kw), flax's HWIO kernel permuted."""
+  (out, in, kh, kw), flax's HWIO kernel permuted.  ``bare`` marks a Conv
+  that stands for one of flax's own ``nn.Conv`` layers (a ladder rung's
+  convolutions, a U-Net skip's projection): its flax path holds the kernel
+  itself, and it draws its kernel with flax's default LeCun init."""
 
   def __init__(self, filters: int, kernel_size=3, strides=1, activation=None,
-               padding: str = "SAME", use_bias: bool = True):
+               padding: str = "SAME", use_bias: bool = True,
+               bare: bool = False):
     super().__init__()
     self.filters = int(filters)
     self.kernel_size = _pair(kernel_size)
@@ -183,6 +187,7 @@ class Conv(nn.Module):
     self.activation = activation
     self.padding = str(padding).upper()
     self.use_bias = bool(use_bias)
+    self.bare = bool(bare)
 
   def _pads(self, h: int, w: int):
     if self.padding == "VALID":
@@ -196,7 +201,9 @@ class Conv(nn.Module):
     h, w, c = (int(i) for i in in_shape)
     kh, kw = self.kernel_size
     self.weight = _new_param((self.filters, c, kh, kw))
-    _variance_scaling_(self.weight, 2.0, c * kh * kw, generator)  # he_normal
+    # he_normal, or flax's lecun_normal for a bare nn.Conv
+    _variance_scaling_(self.weight, 1.0 if self.bare else 2.0, c * kh * kw,
+                       generator)
     self.bias = nn.Parameter(torch.zeros(self.filters)) if self.use_bias else None
     (ph, qh), (pw, qw) = self._pads(h, w)
     sh, sw = self.strides
@@ -224,11 +231,13 @@ class ConvTranspose(nn.Module):
   by ``kh - 1 - padding`` on both sides plus ``output_padding`` at the end.
   So ``weight`` holds flax's kernel flipped and permuted, and the padding
   is matched by ``padding = k - 1 - low`` and an output padding, or a crop
-  where XLA pads the end less than the start.
+  where XLA pads the end less than the start.  ``bare`` as for ``Conv``
+  (a ladder rung's ``merge_deconv``).
   """
 
   def __init__(self, filters: int, kernel_size=3, strides=1, activation=None,
-               padding: str = "SAME", use_bias: bool = True):
+               padding: str = "SAME", use_bias: bool = True,
+               bare: bool = False):
     super().__init__()
     self.filters = int(filters)
     self.kernel_size = _pair(kernel_size)
@@ -236,6 +245,7 @@ class ConvTranspose(nn.Module):
     self.activation = activation
     self.padding = str(padding).upper()
     self.use_bias = bool(use_bias)
+    self.bare = bool(bare)
     pads = [conv_transpose_padding(k, s, self.padding)
             for k, s in zip(self.kernel_size, self.strides)]
     self._torch_padding = tuple(k - 1 - lo for k, (lo, _) in
@@ -247,7 +257,8 @@ class ConvTranspose(nn.Module):
     h, w, c = (int(i) for i in in_shape)
     kh, kw = self.kernel_size
     self.weight = _new_param((c, self.filters, kh, kw))
-    _variance_scaling_(self.weight, 2.0, c * kh * kw, generator)  # he_normal
+    _variance_scaling_(self.weight, 1.0 if self.bare else 2.0, c * kh * kw,
+                       generator)
     self.bias = nn.Parameter(torch.zeros(self.filters)) if self.use_bias else None
     out = []
     for size, k, s, p, op, crop in zip((h, w), self.kernel_size, self.strides,
@@ -361,7 +372,10 @@ class BatchNorm(nn.Module):
 
 
 class SequentialNetwork(nn.Module):
-  """Call layers in order; ``layers.<i>`` matches flax's ``layers_<i>``."""
+  """Call layers in order; ``layers.<i>`` matches flax's ``layers_<i>``.
+  ``forward(x, return_hidden=True)`` also returns every layer's output, in
+  order (index 0 is the first layer's: ``CenterAt0``'s in an image
+  encoder), which a ladder rung's spec counts by."""
 
   def __init__(self, layers: Sequence[nn.Module] = ()):
     super().__init__()
@@ -373,7 +387,9 @@ class SequentialNetwork(nn.Module):
       shape = layer.build(shape, generator)
     return shape
 
-  def forward(self, x):
+  def forward(self, x, return_hidden: bool = False):
+    hidden = []
     for layer in self.layers:
       x = layer(x)
-    return x
+      hidden.append(x)
+    return (x, hidden) if return_hidden else x

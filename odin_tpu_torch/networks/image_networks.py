@@ -76,7 +76,8 @@ def dsprites_networks(qz: str = "mvndiag",
                       skip_generator: bool = False,
                       **kwargs) -> Dict[str, Any]:
   """Networks for 64x64 images: conv 32-32-64-64 stride 2, kernel 4, proj
-  128, and the mirror-image transposed-conv decoder.  With
+  128, the mirror-image transposed-conv decoder, and the ``hierarchy``
+  spec of the ladder and U-Net models.  With
   `is_semi_supervised`, a labels head regressing the 5 factors with a
   Gaussian ('factors'; `n_factors` of them)."""
   if kwargs.get("space_to_depth"):
@@ -114,6 +115,11 @@ def dsprites_networks(qz: str = "mvndiag",
       latents=RVconf((zdim,), qz, projection=True, name="latents"),
       observation=observation,
       input_shape=input_shape,
+      # one ladder rung on the 16 x 16 states: the decoder's after its
+      # second transposed conv (64 channels), the encoder's second conv
+      # (32 channels); given whatever `is_hierarchical` says, as in JAX
+      hierarchy=(dict(decoder_layer=3, encoder_layer=2, channels=64,
+                      filters=16, kernel_size=8, strides=4),),
   )
   if is_semi_supervised:
     networks["labels"] = RVconf(int(kwargs.get("n_factors", 5)), "gaussian",

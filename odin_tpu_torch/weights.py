@@ -28,10 +28,14 @@ wrapper layer holds (``Conv_0``, ``ConvTranspose_0``, ``Dense_0``,
 ``position`` Dense is ``position_proj``; ``kernel`` is ``weight``; a
 parameter a module holds itself (``v_add``, a VQ ``codebook``, VampPrior's
 ``pseudo_inputs``, a label embedder's ``table/embedding``, the four vectors
-of M3's ``regressor``) keeps its name.  A ``Dense`` built with
-``bare=True`` stands for one of flax's own ``nn.Dense`` layers (a head's
-``projection``, ``Attention``'s and ``AttentionHeads``' projections), whose
-flax path has no ``Dense_0``.
+of M3's ``regressor``) keeps its name.  A ``Dense``, ``Conv`` or
+``ConvTranspose`` built with ``bare=True`` stands for one of flax's own
+``nn.Dense``/``nn.Conv``/``nn.ConvTranspose`` layers (a head's
+``projection``, ``Attention``'s and ``AttentionHeads``' projections, a
+ladder rung's convolutions and heads, a U-Net's ``skip_{i}``, a
+probabilistic U-Net's ``ladder_q{i}``/``ladder_p{i}``), whose flax path
+has no ``Dense_0``/``Conv_0``/``ConvTranspose_0``; of those, a rung's
+``merge_deconv`` is the transposed one.
 
 Classical ML (``ml``): ``from_jax_gmm`` / ``to_jax_gmm``,
 ``from_jax_tmatrix`` / ``to_jax_tmatrix``, ``from_jax_plda`` /
@@ -66,6 +70,9 @@ __all__ = ["from_jax_params", "to_jax_params", "from_jax_mutables",
 _PRIMITIVES = {"Conv_0": Conv, "ConvTranspose_0": ConvTranspose,
                "Dense_0": Dense, "BatchNorm_0": BatchNorm}
 _LAYER = re.compile(r"^layers_(\d+)$")
+# flax's bare nn.ConvTranspose layers, by their module name (a ladder
+# rung's merge); a bare 4-d kernel of another name is an nn.Conv's
+_BARE_TRANSPOSED = ("merge_deconv",)
 _MHA = "MultiHeadDotProductAttention_0"
 _MHA_PROJECTIONS = ("query", "key", "value", "out")
 # parameters held by a module itself, not by a Dense: attention's v_add, a
@@ -114,6 +121,8 @@ def _port_leaf(path: Tuple[str, ...], leaves=_PARAM_LEAVES):
   kind = _PRIMITIVES.get(modules[-1]) if modules else None
   if kind is not None:
     modules = modules[:-1]
+  elif modules and modules[-1] in _BARE_TRANSPOSED:
+    kind = ConvTranspose
   names = []
   for m in modules:
     match = _LAYER.match(m)
@@ -229,7 +238,7 @@ def to_jax_params(module: nn.Module,
     if not isinstance(sub, (Conv, ConvTranspose, Dense)) or sub in held:
       continue
     path = _flax_path(name)
-    if not (isinstance(sub, Dense) and sub.bare):
+    if not sub.bare:
       path.append(next(k for k, v in _PRIMITIVES.items() if type(sub) is v))
     node = _node(tree, path)
     w = value(name, "weight")

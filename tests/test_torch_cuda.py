@@ -41,6 +41,14 @@ TrainSteps on one optimizer; SemafoVAE on the half-moons, Gumbel draws on
 the card), and ConditionalM2VAE's tiling: its marginal ELBO against the
 explicit sum over the classes on the card and against the CPU.
 
+The hierarchical and grouped families: each model's ELBO terms on the
+card against the CPU from the same params and noise (1e-4 of each term's
+largest magnitude; the ladder rungs' and U-Net skips' draws and the
+grouped pairs' too), and 3 graphed steps against 3 eager ones, bitwise:
+VeryDeepVAE (a BiConv rung, its KL warm-up read from the step tensor),
+UnetVAE with every skip knob on (the skip masks drawn in the graph) and
+AdaptiveVAE on pairs.
+
 Speaker recognition (``odin_tpu_torch.ml``): the GMM E-step,
 ``transform_batch`` and the T-matrix E-step on the card against the CPU
 from the same state (fp32 sums in another order: 1e-5 of the largest
@@ -1038,6 +1046,99 @@ def test_zoo_graphed_steps_equal_eager_on_card(cuda_device, name):
     assert torch.equal(got[k], want[k]), k
   assert int(g.skipped_updates) == 0
   sampling.check_rejections()
+
+
+# ---------------------------------------------------------------------------
+# the hierarchical and grouped families (chip_smoke.py phase 14 at a test's
+# size)
+# ---------------------------------------------------------------------------
+HIER_CARD = {
+    "HierarchicalVAE": lambda vi, n: vi.HierarchicalVAE(**n),
+    "VeryDeepVAE": lambda vi, n: vi.VeryDeepVAE(**n),
+    "UnetVAE-knobs": lambda vi, n: vi.UnetVAE(
+        skip_dropout=0.2, skip_noise=0.1, skip_sample_dropout=0.5, **n),
+    "PUnetVAE": lambda vi, n: vi.PUnetVAE(**n),
+    "AdaptiveVAE": lambda vi, n: vi.AdaptiveVAE(**n),
+    "WeaklySupervisedVAE-rank": lambda vi, n: vi.WeaklySupervisedVAE(
+        strategy="rank", **n),
+}
+
+
+def _hier_model(name, device, seed=0):
+  from odin_tpu_torch.bay import vi
+  return HIER_CARD[name](vi, get_networks("dsprites", zdim=10)).build(
+      seed=seed, device=device)
+
+
+def _hier_batches(name, k, bs, device):
+  """k batches: images, or (x1, x2[, y]) pairs for a grouped class."""
+  rs = np.random.RandomState(2)
+  x = lambda: torch.from_numpy((rs.rand(k, bs, 64, 64, 1) < 0.3).astype(
+      np.float32)).to(device)
+  if name in ("AdaptiveVAE", "WeaklySupervisedVAE-rank"):
+    y = torch.from_numpy((rs.rand(k, bs) < 0.5).astype(np.float32)).to(
+        device)
+    return (x(), x(), y) if name.endswith("rank") else (x(), x())
+  return x()
+
+
+@pytest.mark.parametrize("name", sorted(HIER_CARD))
+def test_hier_elbo_on_card_matches_cpu(cuda_device, name):
+  """The same params, batch and noise (the CPU's draws replayed on the
+  card), in training mode: each ELBO term within 1e-4 of its largest
+  magnitude over the batch."""
+  from odin_tpu_torch.training import Noise
+  torch.backends.cudnn.allow_tf32 = False
+  cpu = torch.device("cpu")
+  ref, vae = _hier_model(name, cpu), _hier_model(name, cuda_device)
+  batch = _hier_batches(name, 1, 32, cpu)
+  batch = tuple(b[0] for b in batch) if isinstance(batch, tuple) \
+      else batch[0]
+  on_card = tuple(b.to(cuda_device) for b in batch) \
+      if isinstance(batch, tuple) else batch.to(cuda_device)
+  noise = Noise(torch.Generator().manual_seed(0))
+  step = torch.tensor(700, dtype=torch.int32)
+  with torch.no_grad():
+    l0, k0, _ = ref.elbo_components(ref.state.params, batch, noise, step,
+                                    training=True)
+    l1, k1, _ = vae.elbo_components(
+        vae.state.params, on_card,
+        Noise(eps=[t.to(cuda_device) for t in noise.drawn]),
+        step.to(cuda_device), training=True)
+  for k, v in {**l0, **k0}.items():
+    got = {**l1, **k1}[k].cpu()
+    assert float((got - v).abs().max()) <= 1e-4 * float(v.abs().max()), k
+
+
+@pytest.mark.parametrize("name", ["VeryDeepVAE", "UnetVAE-knobs",
+                                  "AdaptiveVAE"])
+def test_hier_graphed_steps_equal_eager_on_card(cuda_device, name):
+  """3 steps from a CUDA graph against 3 eager steps from the same
+  generator state, cuDNN deterministic: bitwise, every optimizer state
+  included, no update skipped."""
+  from odin_tpu_torch.training.core import _state_leaves
+  torch.backends.cudnn.allow_tf32 = False
+  vae = _hier_model(name, cuda_device)
+  step = vae.make_step_fn()
+  batches = _hier_batches(name, 3, 32, cuda_device)
+  at = lambda i: tuple(b[i] for b in batches) \
+      if isinstance(batches, tuple) else batches[i]
+  torch.backends.cudnn.deterministic = True
+  try:
+    rng = vae.state.rng.get_state()
+    s = vae.state
+    for i in range(3):
+      s, m = step(s, at(i))
+    vae.state.rng.set_state(rng)
+    g, mg = scan_steps(step, 3)(vae.state, batches)
+    torch.cuda.synchronize()
+  finally:
+    torch.backends.cudnn.deterministic = False
+  want, got = _state_leaves(s), _state_leaves(g)
+  assert set(got) == set(want)
+  for k in want:
+    assert torch.equal(got[k], want[k]), k
+  assert int(g.skipped_updates) == 0
 
 
 # ---------------------------------------------------------------------------

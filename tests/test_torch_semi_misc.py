@@ -66,8 +66,8 @@ def test_get_vae_resolves_the_family(name):
 def test_the_other_families_still_wait():
   assert port_vi.AuxiliaryVAE is port_vi.auxiliaryVAE
   assert not port_vi.BetaVAE.is_semi_supervised()
-  for name in ("hierarchicalvae", "sequentialvae", "groupvae", "moevae",
-               "alda"):
+  for name in ("sequentialvae", "variationalrnn", "cycleconsistentvae",
+               "moevae", "alda"):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
       port_vi.get_vae(name)
 

@@ -49,7 +49,9 @@ PORTED = sorted([
     "skiptaskvae", "multiheadvae", "m2vae", "conditionalm2vae",
     "structuredsemivae", "reparamsm3vae", "auxiliaryvae", "semafovae",
     "remafovae", "semafod", "semafoh", "semafos", "semafosm", "semafosc",
-    "semafop", "semafot"])
+    "semafop", "semafot", "hierarchicalvae", "laddervae", "unetvae",
+    "punetvae", "verydeepvae", "groupvae", "multilevelvae", "adaptivevae",
+    "weaklysupervisedvae"])
 
 
 def test_every_ported_name_resolves_to_its_class():
@@ -62,8 +64,11 @@ def test_every_ported_name_resolves_to_its_class():
   assert port_vi.get_vae("beta") is port_vi.BetaVAE  # 'vae' may be left off
   assert port_vi.get_vae("factor") is port_vi.FactorVAE
   assert port_vi.get_vae("two_stage") is port_vi.TwoStageVAE
+  # 'vae' and 'laddervae' are aliases of VariationalAutoencoder and
+  # HierarchicalVAE: 51 classes
   assert {c.__name__.lower() for c in port_vi.get_all_vae()} == \
-      set(PORTED) - {"vae"}
+      set(PORTED) - {"vae", "laddervae"}
+  assert len(port_vi.get_all_vae()) == 51
 
 
 @pytest.mark.parametrize("name", sorted(set(jax_zoo._zoo()) - set(PORTED)))

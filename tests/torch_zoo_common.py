@@ -14,8 +14,10 @@ a function is traced or run: ``jax.random.normal``, ``uniform`` and
 variates it forms its value from (what ``PowerSpherical`` of the port
 draws), ``jax.random.categorical`` as the Gumbel variates whose argmax
 with the logits it returns (what ``OneHotCategorical.sample_from`` of the
-port draws), and ``VonMisesFisher._sample_w`` as the cosines it returns (a
-rejection loop the port runs otherwise).  ``jit_with_draws(fn)`` returns
+port draws), ``jax.random.bernoulli`` as the uniforms it compares with its
+probability (what a U-Net skip's mask of the port draws), and
+``VonMisesFisher._sample_w`` as the cosines it returns (a rejection loop
+the port runs otherwise).  ``jit_with_draws(fn)`` returns
 them beside fn's output from one jitted call.  The port's ``Noise(eps=
 draws)`` hands them out in the same order.
 """
@@ -146,9 +148,18 @@ def jax_draws():
     return [jax.lax.stop_gradient(jax.random.gumbel(
         key, full, logits.dtype, mode=mode))]
 
+  def bernoulli_post(out, key, p=0.5, shape=None, mode="low", **kwargs):
+    # jax.random.bernoulli (mode 'low'): the uniforms of p's dtype, of the
+    # output's shape, that it compares with p; drawn with the unrecorded
+    # jax.random.uniform
+    assert mode == "low"
+    uniform = saved[(jax.random, "uniform")]
+    return [uniform(key, jnp.shape(out), jnp.asarray(p).dtype)]
+
   as_is = lambda out, *a, **k: [jax.lax.stop_gradient(out)]
   for name in ("normal", "uniform", "randint"):
     wrap(jax.random, name, as_is)
+  wrap(jax.random, "bernoulli", bernoulli_post)
   wrap(jax.random, "beta", beta_post)
   wrap(jax.random, "categorical", categorical_post)
   wrap(JaxVMF, "_sample_w", as_is)
