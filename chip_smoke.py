@@ -196,13 +196,41 @@ CPU:
      generation decode, bitwise with cuDNN's deterministic algorithms.
      The path launches no kernel of this port.  ``python3 chip_smoke.py
      --hier-rehearsal [...]`` runs the phase on the CPU at a chosen size
-     (``hier_rehearsal``).
+     (``hier_rehearsal``);
+ 15. the clustering path, on phase 10's Gym (10,000 test latents):
+     ``write_report`` with the default scores and 'clustering', no
+     ``_error`` key; ``clustering_score`` of each of the five factors;
+     ``correlation_matrix`` and ``relative_disentanglement_strength`` by
+     'lasso' and 'mutualinfo'; ``mutual_info_estimate``; ``discretizing``
+     in 10 bins by 'quantile', 'kmeans' and 'gmm'; the data of the ten
+     plots and ``plot_latent_stats``, with the t-SNE of all 10,000 latents
+     (its KL below, and its trustworthiness at k 5 above, those of its PCA
+     start, computed on the card); each held against the port's CPU path
+     fed the card's own latents on the first 2,000 rows (ARI, AMI and NMI
+     to 1e-12, silhouette and the k-NN mutual information to 1e-6, Lasso
+     to 1e-6 of its largest coefficient, the quantile and kmeans bins
+     equal and the gmm bins on all but 0.5 %, plot data to 1e-4 and the
+     histograms' counts equal, t-SNE's P and one gradient to 1e-6).  Then
+     ``KMeansJax(n_clusters=512, n_iter=50)`` on 1M x 60 fp32 frames of a
+     seeded 512-component Gaussian mixture drawn on the card (the GMM-UBM
+     E-step's shape): the float64 inertia never rising, 65,536 labels the
+     float64 argmin of their rows, each centre its members' mean within
+     1e-5, the seeding time and the ms a Lloyd iteration; its seeds,
+     labels and iterations on the CPU at 65,536 rows and 64 clusters;
+     ``fast_kmeans(framework='sklearn', n_clusters=64)`` on the first
+     100,000 frames; ``fast_knn(n_neighbors=5)`` from the latents to the
+     first factor (8,000 train, 2,000 test rows); ``fast_dbscan`` at the
+     median 5-NN distance and ``dbscan_predict`` of the held-out rows; and
+     ``fast_naive_bayes`` (categorical, multinomial, bernoulli) on the
+     latents in 10 bins; each against the CPU.  The path launches no
+     kernel of this port.
 
 Run with no argument, it runs every phase: the whole check.  ``python3
 chip_smoke.py --phases 1,14`` runs the phases named, phase 1 (the build)
 always, and every phase whose results a named one reads
 (``PHASE_NEEDS``: 3 reads 2, 6 reads 5, 8 reads 7, 10 reads 8, 11 reads 2
-and 9); its ``kernels`` line lists only the kernels those phases timed.
+and 9, 15 reads 10); its ``kernels`` line lists only the kernels those
+phases timed.
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
 fp32 like the CPU.  Any failure raises and the script exits non-zero; it
@@ -798,9 +826,8 @@ def gym_path(torch, np, reset_counts, read_counts, smi, vae):
   partition='test')`` and ``write_report()`` with the default scores and
   FID, on the card, on phase 8's model; then the same model on the CPU
   (``z_mean`` of the first rows), each estimator on the CPU fed the card's
-  own latents, and the time of ``run_model`` and of each score on both."""
-  import copy
-  from odin_tpu_torch.bay.helpers import map_distributions
+  own latents, and the time of ``run_model`` and of each score on both.
+  Returns the card's Gym (phase 15 reads it)."""
   from odin_tpu_torch.bay.vi import BetaVAE, DisentanglementGym
   from odin_tpu_torch.fuel import get_dataset
   from odin_tpu_torch.networks import get_networks
@@ -881,24 +908,8 @@ def gym_path(torch, np, reset_counts, read_counts, smi, vae):
 
   # -- 10.3 each estimator on the CPU, fed the card's own latents
   def moved(device, rows=None):
-    """A copy of the card's Gym with its run on `device`, cut to `rows`."""
-    g = copy.copy(gym)
-    take = (lambda t: t.to(device)) if rows is None else (
-        lambda t: t[:rows].to(device))
-    g.device = device
-    g.model = vae if device.type == "cuda" else cpu_vae
-    g.qz = map_distributions(take, gym.qz)
-    g.px = map_distributions(take, gym.px)
-    for name in ("_z_mean", "_z_discrete", "_factors_t", "_llk_total",
-                 "_kl_total"):
-      setattr(g, name, take(getattr(gym, name)))
-    if rows is not None:
-      g.x_true = gym.x_true[:rows]
-      g.groundtruth = copy.copy(gym.groundtruth)
-      g.groundtruth.factors = gym.groundtruth.factors[:rows]
-      g.groundtruth.factors_original = \
-          gym.groundtruth.factors_original[:rows]
-    return g
+    return moved_gym(gym, device, vae if device.type == "cuda" else cpu_vae,
+                     rows)
 
   class CardDraws:
     """The card posterior's draws, handed to the CPU's scores: the seed
@@ -973,6 +984,30 @@ def gym_path(torch, np, reset_counts, read_counts, smi, vae):
       f"; run_model {run_s:.3f}; {smi}")
   if failed:
     raise AssertionError(f"the card's Gym differs from the CPU: {failed}")
+  return gym
+
+
+def moved_gym(gym, device, model, rows=None):
+  """A copy of a Gym with its run on `device` and `model`, cut to its first
+  `rows` rows."""
+  import copy
+  from odin_tpu_torch.bay.helpers import map_distributions
+  g = copy.copy(gym)
+  take = (lambda t: t.to(device)) if rows is None else (
+      lambda t: t[:rows].to(device))
+  g.device = device
+  g.model = model
+  g.qz = map_distributions(take, gym.qz)
+  g.px = map_distributions(take, gym.px)
+  for name in ("_z_mean", "_z_discrete", "_factors_t", "_llk_total",
+               "_kl_total"):
+    setattr(g, name, take(getattr(gym, name)))
+  if rows is not None:
+    g.x_true = gym.x_true[:rows]
+    g.groundtruth = copy.copy(gym.groundtruth)
+    g.groundtruth.factors = gym.groundtruth.factors[:rows]
+    g.groundtruth.factors_original = gym.groundtruth.factors_original[:rows]
+  return g
 
 
 def _with_qz(gym, qz, fn):
@@ -983,6 +1018,300 @@ def _with_qz(gym, qz, fn):
     return fn()
   finally:
     gym.qz = kept
+
+
+CLU_CPU_ROWS = GYM_CPU_ROWS  # the CPU side of phase 15's comparisons
+CLU_BINS = 10  # discretizing's bins, and the naive-Bayes features'
+CLU_KNN_TRAIN = 8000  # k-NN and naive Bayes: 8,000 train, 2,000 test rows
+# KMeansJax at the GMM-UBM E-step's shape (BASELINE.md:42): 1M frames of 60
+# dims, 512 clusters, drawn from a seeded 512-component Gaussian mixture
+CLU_KM_ROWS, CLU_KM_DIM, CLU_KM_K, CLU_KM_ITERS = 1_000_000, 60, 512, 50
+CLU_KM_SAMPLE = 65536  # rows whose labels are checked at full size
+CLU_KM_CPU_ROWS, CLU_KM_CPU_K = 65536, 64  # card against CPU
+CLU_SK_ROWS, CLU_SK_K = 100_000, 64  # fast_kmeans(framework="sklearn")
+CLU_SCORE_ATOL = 1e-12  # ARI, AMI, NMI (tests/test_torch_gym_clustering.py)
+CLU_ASW_ATOL = 1e-6  # silhouette
+CLU_MI_ATOL = 1e-6  # the k-NN mutual information
+CLU_LASSO_REL = 1e-6  # Lasso, of the largest coefficient
+CLU_GMM_SHARE = 0.005  # gmm bins: rows that may differ
+CLU_PLOT_ATOL = 1e-4  # plot data (tests/test_torch_gym_plots.py)
+CLU_TSNE_ATOL = 1e-6  # t-SNE's P and one gradient (tests/test_torch_tsne.py)
+CLU_CENTER_ATOL = 1e-5  # KMeansJax: each centre against its members' mean
+CLU_INERTIA_RTOL = 1e-9  # KMeansJax: float64 inertia may not rise by more
+
+
+def clustering_path(torch, np, reset_counts, read_counts, smi, gym):
+  """Phase 15: the clustering path.  (a) On phase 10's Gym (10,000 test
+  latents of phase 8's model): ``write_report`` with the default scores and
+  'clustering', ``clustering_score`` of each factor, the 'lasso' and
+  'mutualinfo' correlations and their relative strength,
+  ``mutual_info_estimate``, ``discretizing`` in 10 bins by 'quantile',
+  'kmeans' and 'gmm', the data of the ten plots and ``plot_latent_stats``
+  (the t-SNE of all 10,000 latents, checked on the card by its KL and
+  trustworthiness); each held against the port's CPU path fed the card's
+  own latents on the first 2,000 rows.  (b) Classical ML: ``KMeansJax``
+  (512 clusters, 50 iterations) on 1M x 60 frames of a seeded mixture drawn
+  on the card, checked at full size and against the CPU at 65,536 rows and
+  64 clusters; ``fast_kmeans(framework='sklearn')`` on 100,000 rows;
+  ``fast_knn``, ``fast_dbscan``/``dbscan_predict`` and
+  ``fast_naive_bayes`` on the latents, each against the CPU."""
+  from odin_tpu_torch import ml
+  from odin_tpu_torch.bay.vi import BetaVAE
+  from odin_tpu_torch.bay.vi import metrics as vim
+  from odin_tpu_torch.bay.vi.utils import discretizing
+  from odin_tpu_torch.ml import tsne
+  from odin_tpu_torch.ml.neighbors import sq_distances
+  from odin_tpu_torch.networks import get_networks
+
+  cuda = torch.device("cuda", 0)
+  cpu = torch.device("cpu")
+  failed = []
+
+  def timed(fn):
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+  def hold(name, ok, detail):
+    log(f"{name}: {detail}{'' if ok else '  FAILED'}")
+    if not ok:
+      failed.append(name)
+
+  def host(x):
+    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else \
+        np.asarray(x)
+
+  def leaves(d):
+    """The arrays of a plot's data, nested tuples and lists flattened."""
+    if isinstance(d, (tuple, list)):
+      return [a for x in d for a in leaves(x)]
+    return [] if d is None else [np.asarray(host(d), np.float64)]
+
+  def apart(a, b):
+    return float(np.max(np.abs(host(a).astype(np.float64) -
+                               host(b).astype(np.float64)))) \
+        if np.size(host(a)) else 0.0
+
+  reset_counts()
+  z = gym.z_mean
+  factors = gym._factors_t
+  n, zdim = z.shape
+  cpu_vae = BetaVAE(beta=4.0, **get_networks("dsprites", zdim=zdim)).build(
+      device="cpu")
+  cpu_vae.core.load_state_dict({k: v.cpu() for k, v in
+                                gym.model.core.state_dict().items()})
+  small = moved_gym(gym, cuda, gym.model, CLU_CPU_ROWS)
+  small_cpu = moved_gym(gym, cpu, cpu_vae, CLU_CPU_ROWS)
+  rows = CLU_CPU_ROWS
+
+  # -- 15a the Gym's clustering path on the card, then the first rows on both
+  report, s = timed(lambda: gym.write_report(scores=GYM_SCORES +
+                                             ("clustering",)))
+  errors = {k: v for k, v in report.items() if k.endswith("_error")}
+  bad = [k for k, v in report.items() if not k.endswith("_error") and
+         not math.isfinite(float(v))]
+  hold("write_report with 'clustering'", not errors and not bad,
+       f"{s:.3f} s; " + ", ".join(f"{k}={v:.6g}" for k, v in report.items()
+                                  if k.startswith("clustering")) +
+       f"{errors or ''}{bad or ''}")
+  for i in range(factors.shape[1]):
+    full, s = timed(lambda: gym.clustering_score(i))
+    card, s_small = timed(lambda: small.clustering_score(i))
+    want, s_cpu = timed(lambda: small_cpu.clustering_score(i))
+    dev = max(abs(card[k] - want[k]) for k in ("ari", "ami", "nmi"))
+    ok = (set(card) == set(want) and dev <= CLU_SCORE_ATOL and
+          abs(card["asw"] - want["asw"]) <= CLU_ASW_ATOL and
+          all(math.isfinite(v) for v in full.values()))
+    hold(f"clustering_score({i}) ({int(torch.unique(factors[:, i]).numel())}"
+         f" clusters)", ok,
+         f"{n} rows on the card in {s:.3f} s "
+         f"({', '.join(f'{k}={v:.6f}' for k, v in full.items())}); first "
+         f"{rows}: card {s_small:.3f} s, CPU {s_cpu:.3f} s, ARI/AMI/NMI "
+         f"apart {dev:.3e} (limit {CLU_SCORE_ATOL}), ASW apart "
+         f"{abs(card['asw'] - want['asw']):.3e} (limit {CLU_ASW_ATOL})")
+  for method in ("lasso", "mutualinfo"):
+    mat, s = timed(lambda: gym.correlation_matrix(method))
+    strength, s2 = timed(lambda: gym.relative_disentanglement_strength(
+        method))
+    card = small.correlation_matrix(method)
+    want, s_cpu = timed(lambda: small_cpu.correlation_matrix(method))
+    limit = (CLU_LASSO_REL * float(want.abs().max()) if method == "lasso"
+             else CLU_MI_ATOL)
+    hold(f"correlation_matrix({method!r})",
+         apart(card, want) <= limit and bool(torch.isfinite(mat).all()),
+         f"{tuple(mat.shape)} in {s:.3f} s, relative strength {strength:.6f}"
+         f" in {s2:.3f} s; first {rows}: card against CPU "
+         f"{apart(card, want):.3e} (limit {limit:.3e}), CPU {s_cpu:.3f} s")
+  mi, s = timed(lambda: vim.mutual_info_estimate(z, factors))
+  card = vim.mutual_info_estimate(z[:rows], factors[:rows])
+  want = vim.mutual_info_estimate(z[:rows].cpu(), factors[:rows].cpu())
+  hold("mutual_info_estimate", apart(card, want) <= CLU_MI_ATOL,
+       f"{tuple(mi.shape)} in {s:.3f} s, max {float(mi.max()):.6f}; first "
+       f"{rows}: card against CPU {apart(card, want):.3e} (limit "
+       f"{CLU_MI_ATOL})")
+  for strategy in ("quantile", "kmeans", "gmm"):
+    bins, s = timed(lambda: discretizing(z, n_bins=CLU_BINS,
+                                         strategy=strategy))
+    card = discretizing(z[:rows], n_bins=CLU_BINS, strategy=strategy)
+    want = discretizing(z[:rows].cpu(), n_bins=CLU_BINS, strategy=strategy)
+    share = float((host(card) != host(want)).mean())
+    limit = CLU_GMM_SHARE if strategy == "gmm" else 0.0
+    hold(f"discretizing({strategy!r})", share <= limit and
+         int(bins.max()) < CLU_BINS,
+         f"{tuple(bins.shape)} in {s:.3f} s; first {rows}: rows apart "
+         f"{share:.4%} (limit {limit:.1%})")
+
+  # the plots' data: the full run on the card, then the first rows on both
+  plot_args = {"reconstruction": (16,), "latents_traverse": (11, zdim, 1),
+               "correlation": ("spearman",), "histogram": (40,),
+               "distortion": (), "latents_stats": (),
+               "interpolation": (0, 1, 10), "prior_sampling": (16,),
+               "pairwise_scatter": (0, 6)}
+  z_prior = gym.model.sample_prior(16, seed=gym.seed)
+  for name, args in plot_args.items():
+    extra = {"z": z_prior} if name == "prior_sampling" else {}
+    data, s = timed(lambda: getattr(gym, f"_plot_data_{name}")(*args,
+                                                               **extra))
+    card = getattr(small, f"_plot_data_{name}")(*args, **extra)
+    want = getattr(small_cpu, f"_plot_data_{name}")(*args, **{
+        k: v.cpu() for k, v in extra.items()})
+    worst = max(apart(a, b) for a, b in zip(leaves(card), leaves(want)))
+    exact = name in ("histogram", "pairwise_scatter")
+    hold(f"plot data {name}", worst <= (0.0 if exact else CLU_PLOT_ATOL) and
+         all(np.isfinite(a).all() for a in leaves(data)),
+         f"{s:.3f} s on the card ({n} rows); first {rows}: card against CPU "
+         f"{worst:.3e} (limit {0.0 if exact else CLU_PLOT_ATOL})")
+  (z2, colors), s = timed(lambda: gym._plot_data_latents_tsne(0))
+  P = tsne.joint_probabilities_nn(z, 30.0)
+  start = tsne._pca_init(z, 2)
+  kl, _ = tsne.kl_divergence_grad(torch.as_tensor(z2, device=cuda), P)
+  kl0, _ = tsne.kl_divergence_grad(start, P)
+  trust, s_trust = timed(lambda: tsne.trustworthiness(z, z2, 5))
+  trust0 = tsne.trustworthiness(z, start, 5)
+  hold("t-SNE of the latents", z2.shape == (n, 2) and
+       bool(np.isfinite(z2).all()) and float(kl) < float(kl0) and
+       trust > trust0 and np.array_equal(colors, gym.groundtruth.factors[
+           :, 0]),
+       f"{n} rows (perplexity 30, 1000 iterations at most): {s:.3f} s; KL "
+       f"{float(kl):.6f} (its PCA start {float(kl0):.6f}), "
+       f"trustworthiness(k=5) {trust:.6f} in {s_trust:.3f} s (its PCA start "
+       f"{trust0:.6f})")
+  Pc = tsne.joint_probabilities_nn(z[:rows], 30.0)
+  Pw = tsne.joint_probabilities_nn(z[:rows].cpu(), 30.0)
+  y = tsne._pca_init(z[:rows], 2)
+  _, gc = tsne.kl_divergence_grad(y.double(), Pc)
+  _, gw = tsne.kl_divergence_grad(y.double().cpu(), Pw)
+  dp = apart(Pc.to_dense(), Pw.to_dense())
+  dg = apart(gc, gw) / max(float(gw.abs().max()), 1e-30)
+  hold("t-SNE P and gradient", dp <= CLU_TSNE_ATOL and dg <= CLU_TSNE_ATOL,
+       f"first {rows}: P card against CPU {dp:.3e}, gradient {dg:.3e} of "
+       f"its largest (limit {CLU_TSNE_ATOL} each)")
+
+  # -- 15b classical ML at a size users run
+  gen = torch.Generator(cuda).manual_seed(SEED)
+  means = 3.0 * torch.randn(CLU_KM_K, CLU_KM_DIM, device=cuda, generator=gen)
+  comp = torch.randint(CLU_KM_K, (CLU_KM_ROWS,), device=cuda, generator=gen)
+  frames = means[comp] + torch.randn(CLU_KM_ROWS, CLU_KM_DIM, device=cuda,
+                                     generator=gen)
+  del means, comp
+  km, s_fit = timed(lambda: ml.KMeansJax(n_clusters=CLU_KM_K,
+                                         n_iter=CLU_KM_ITERS).fit(frames))
+  _, s_seed = timed(lambda: ml.KMeansJax(n_clusters=CLU_KM_K)._init_centers(
+      frames, np.random.RandomState(1)))
+  inert = [float(v) for v in km._inertias]
+  rises = [b / a - 1 for a, b in zip(inert, inert[1:]) if b > a]
+  pick = torch.randperm(CLU_KM_ROWS, device=cuda,
+                        generator=gen)[:CLU_KM_SAMPLE]
+  nearest = torch.argmin(sq_distances(frames[pick], km._last_centers), 1)
+  label_ok = bool(torch.equal(nearest, km.labels_[pick]))
+  counts = torch.bincount(km.labels_, minlength=CLU_KM_K)
+  sums = torch.zeros(CLU_KM_K, CLU_KM_DIM, dtype=torch.float64,
+                     device=cuda).index_add_(0, km.labels_, frames.double())
+  member = (sums / counts.clamp(min=1)[:, None])[counts > 0]
+  centre_dev = apart(member, km.cluster_centers_[counts > 0])
+  lloyd_ms = 1e3 * (s_fit - s_seed) / km.n_iter_
+  hold("KMeansJax at full size", label_ok and not [r for r in rises if r >
+       CLU_INERTIA_RTOL] and centre_dev <= CLU_CENTER_ATOL,
+       f"{CLU_KM_ROWS} x {CLU_KM_DIM} fp32, {CLU_KM_K} clusters: fit "
+       f"{s_fit:.3f} s ({km.n_iter_} iterations), seeding {s_seed:.3f} s, "
+       f"{lloyd_ms:.3f} ms a Lloyd iteration; inertia {inert[0]:.6g} -> "
+       f"{inert[-1]:.6g}, largest rise {max(rises, default=0.0):.3e} "
+       f"(limit {CLU_INERTIA_RTOL}); {CLU_KM_SAMPLE} labels the float64 "
+       f"argmin: {label_ok}; centres against their members' means "
+       f"{centre_dev:.3e} (limit {CLU_CENTER_ATOL}); {smi}")
+  part = frames[:CLU_KM_CPU_ROWS]
+  card, s_card = timed(lambda: ml.KMeansJax(n_clusters=CLU_KM_CPU_K).fit(
+      part))
+  want, s_cpu = timed(lambda: ml.KMeansJax(n_clusters=CLU_KM_CPU_K).fit(
+      part.cpu()))
+  hold("KMeansJax card against CPU",
+       torch.equal(card.seed_indices_.cpu(), want.seed_indices_) and
+       torch.equal(card.labels_.cpu(), want.labels_) and
+       card.n_iter_ == want.n_iter_,
+       f"{CLU_KM_CPU_ROWS} rows, {CLU_KM_CPU_K} clusters: seeds and labels "
+       f"equal, {card.n_iter_} and {want.n_iter_} iterations, centres apart "
+       f"{apart(card.cluster_centers_, want.cluster_centers_):.3e}; card "
+       f"{s_card:.3f} s, CPU {s_cpu:.3f} s")
+  sk, s = timed(lambda: ml.fast_kmeans(frames[:CLU_SK_ROWS],
+                                       n_clusters=CLU_SK_K,
+                                       framework="sklearn"))
+  card = ml.fast_kmeans(frames[:rows], n_clusters=CLU_SK_K,
+                        framework="sklearn")
+  want = ml.fast_kmeans(frames[:rows].cpu(), n_clusters=CLU_SK_K,
+                        framework="sklearn")
+  hold("fast_kmeans(framework='sklearn')",
+       torch.equal(card.labels_.cpu(), want.labels_) and
+       card.n_iter_ == want.n_iter_,
+       f"the first {CLU_SK_ROWS} frames, {CLU_SK_K} clusters, n_init 4: "
+       f"{s:.3f} s, inertia {sk.inertia_:.6g}; first {rows}: labels "
+       f"equal, {card.n_iter_} and {want.n_iter_} iterations")
+  del frames, part
+  train, test = slice(0, CLU_KNN_TRAIN), slice(CLU_KNN_TRAIN, n)
+  y0 = factors[:, 0]
+  knn, s = timed(lambda: ml.fast_knn(z[train], y0[train], n_neighbors=5))
+  pred, s2 = timed(lambda: knn.predict(z[test]))
+  want = ml.fast_knn(z[train].cpu(), y0[train].cpu(),
+                     n_neighbors=5).predict(z[test].cpu())
+  hold("fast_knn", torch.equal(pred.cpu(), want),
+       f"fit {s:.3f} s, predict {s2:.3f} s ({pred.numel()} rows, accuracy "
+       f"{float((pred == y0[test]).double().mean()):.4f}); CPU predictions "
+       f"equal")
+  eps = float(torch.median(ml.fast_knn(z, n_neighbors=5).kneighbors()[0][
+      :, -1]))
+  db, s = timed(lambda: ml.fast_dbscan(z, eps=eps, min_samples=5))
+  db8, s2 = timed(lambda: ml.fast_dbscan(z[train], eps=eps, min_samples=5))
+  held, s3 = timed(lambda: ml.dbscan_predict(db8, z[test]))
+  card = ml.fast_dbscan(z[:rows], eps=eps, min_samples=5)
+  want = ml.fast_dbscan(z[:rows].cpu(), eps=eps, min_samples=5)
+  probe = z[rows:2 * rows]
+  hold("fast_dbscan and dbscan_predict",
+       torch.equal(card.labels_.cpu(), want.labels_) and
+       torch.equal(card.core_sample_indices_.cpu(),
+                   want.core_sample_indices_) and
+       torch.equal(ml.dbscan_predict(card, probe).cpu(),
+                   ml.dbscan_predict(want, probe.cpu())),
+       f"eps {eps:.6f} (the median 5-NN distance): {n} rows in {s:.3f} s, "
+       f"{int(db.labels_.max()) + 1} clusters, "
+       f"{db.core_sample_indices_.numel()} cores, "
+       f"{int((db.labels_ < 0).sum())} noise; the first "
+       f"{CLU_KNN_TRAIN} in {s2:.3f} s, dbscan_predict of the other "
+       f"{held.numel()} in {s3:.3f} s; first {rows} and the next {rows} "
+       f"predicted: card and CPU equal")
+  codes = discretizing(z, n_bins=CLU_BINS)
+  for dist in ("categorical", "multinomial", "bernoulli"):
+    nb, s = timed(lambda: ml.fast_naive_bayes(codes[train], y0[train], dist))
+    pred = nb.predict(codes[test])
+    want = ml.fast_naive_bayes(codes[train].cpu(), y0[train].cpu(),
+                               dist).predict(codes[test].cpu())
+    hold(f"fast_naive_bayes({dist!r})", torch.equal(pred.cpu(), want),
+         f"fit {s:.3f} s, accuracy "
+         f"{float((pred == y0[test]).double().mean()):.4f}; CPU predictions "
+         f"equal")
+  log(f"clustering path launches (the path runs cuBLAS and torch's own "
+      f"kernels, none of this port's): {read_counts()}")
+  if failed:
+    raise AssertionError(f"the clustering path failed: {failed}")
 
 
 CORPUS_SR = 16000  # benchmarks/corpus_extraction_bench.py:32-34: 16 kHz, 8 s
@@ -2739,10 +3068,11 @@ def zoo_profile(wanted) -> int:
   return 0
 
 
-PHASES = tuple(range(1, 15))
+PHASES = tuple(range(1, 16))
 # the phases whose results a phase reads: the kernel reports of 2 and 5,
-# phase 7's graphed step time, phase 8's model, phase 9's wav files
-PHASE_NEEDS = {3: (2,), 6: (5,), 8: (7,), 10: (8,), 11: (2, 9)}
+# phase 7's graphed step time, phase 8's model, phase 9's wav files, phase
+# 10's Gym
+PHASE_NEEDS = {3: (2,), 6: (5,), 8: (7,), 10: (8,), 11: (2, 9), 15: (10,)}
 
 
 def selected_phases(spec=None):
@@ -2754,7 +3084,7 @@ def selected_phases(spec=None):
   chosen = {1} | {int(p) for p in str(spec).split(",") if p.strip()}
   if not chosen <= set(PHASES):
     raise SystemExit(f"chip_smoke.py --phases: no phase "
-                     f"{sorted(chosen - set(PHASES))}; phases are 1-14")
+                     f"{sorted(chosen - set(PHASES))}; phases are 1-15")
   todo = list(chosen)
   while todo:
     for need in PHASE_NEEDS.get(todo.pop(), ()):
@@ -3357,7 +3687,7 @@ def main(phases=None) -> int:
 
   if 10 in phases:
     with Phase("10 gym path: the README quickstart's DisentanglementGym"):
-      gym_path(torch, np, reset_counts, read_counts, smi, trained)
+      gym = gym_path(torch, np, reset_counts, read_counts, smi, trained)
 
   if 11 in phases:
     with Phase("11 speaker path: the README's speaker quickstart"):
@@ -3378,6 +3708,12 @@ def main(phases=None) -> int:
     with Phase("14 hier path: the hierarchical and grouped VAE families on "
                "dSprites"):
       hier_path(torch, np, reset_counts, read_counts, smi)
+
+  if 15 in phases:
+    with Phase("15 clustering path: the Gym's clustering scores, "
+               "correlations, discretizations and plots; KMeansJax, k-NN, "
+               "DBSCAN, naive Bayes"):
+      clustering_path(torch, np, reset_counts, read_counts, smi, gym)
 
   log("kernels: " + "; ".join(
       f"{k} launches={v['launches']} ms={v['ms']:.4f} "

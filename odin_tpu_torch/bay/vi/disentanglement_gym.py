@@ -7,8 +7,11 @@ The Gym runs where its model lives (the card, unless the model was built
 with ``device='cpu'``): ``run_model`` encodes and decodes the evaluation
 set in batches without gradients and keeps the posterior, the
 reconstruction and the per-sample ELBO terms there, and every score runs
-the port's estimators on the latents there.  The plots, ``clustering_score``
-and the t-SNE plot raise until ported (ROADMAP.md queue 1, item 2).
+the port's estimators on the latents there.  Each plot computes what it
+draws there too, in a private ``_plot_data_<name>`` helper (the decodes,
+the prior samples, the per-pixel −log p(x|z), the histograms, the aligned
+correlation matrix, the t-SNE embedding), and draws it on the host with
+matplotlib, imported (with the Agg backend) only when a plot is drawn.
 """
 from __future__ import annotations
 
@@ -29,6 +32,8 @@ from odin_tpu_torch.bay.vi.estimators import (LogisticRegression,
 from odin_tpu_torch.bay.vi.losses import total_correlation as _tc
 from odin_tpu_torch.bay.vi.utils import discretizing
 from odin_tpu_torch.device import resolve_device
+from odin_tpu_torch.ml.tsne import TSNE
+from odin_tpu_torch.search import diagonal_linear_assignment
 from odin_tpu_torch.training.core import Noise
 
 __all__ = ["GroundTruth", "DisentanglementGym", "concat_mean", "first_mean",
@@ -52,10 +57,82 @@ def first_mean(dists: Sequence[Any]) -> torch.Tensor:
   return _reshape2D(dists[0].mean())
 
 
-def plot_latent_stats(*args, **kwargs):
-  """The per-dimension latent statistics plot: not ported yet."""
-  raise NotImplementedError("plot_latent_stats is not ported yet "
-                            "(ROADMAP.md queue 1, item 2)")
+def _pyplot():
+  import matplotlib
+  matplotlib.use("Agg")
+  import matplotlib.pyplot as plt
+  return plt
+
+
+def _host(x) -> np.ndarray:
+  return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else \
+      np.asarray(x)
+
+
+def _finish(fig, path: Optional[str]):
+  """Save `fig` to `path` and return the path, or return the figure."""
+  if path:
+    fig.savefig(path, dpi=120)
+    _pyplot().close(fig)
+    return path
+  return fig
+
+
+def _histograms(z: torch.Tensor, n_bins: int):
+  """Each column's histogram as numpy's ``histogram(bins=n_bins)`` makes
+  it (edges in the column's dtype from its extremes, the last bin closed),
+  counted on the device: ([counts (n_bins,)], [edges (n_bins + 1,)])."""
+  counts, edges = [], []
+  for j in range(z.shape[1]):
+    col = z[:, j]
+    lo, hi = (float(v) for v in torch.aminmax(col))
+    if lo == hi:
+      lo, hi = lo - 0.5, hi + 0.5
+    np_dtype = np.float32 if col.dtype == torch.float32 else np.float64
+    e = np.linspace(np_dtype(lo), np_dtype(hi), n_bins + 1)
+    inner = torch.as_tensor(e[1:-1]).to(col.device)
+    bins = torch.searchsorted(inner, col.contiguous(), right=True)
+    counts.append(torch.bincount(bins, minlength=n_bins).cpu().numpy())
+    edges.append(e)
+  return counts, edges
+
+
+def _stairs(ax, counts, edges, **kwargs):
+  """A density histogram drawn from counts and edges."""
+  widths = np.diff(edges.astype(np.float64))
+  ax.stairs(counts / widths / max(1, counts.sum()), edges, fill=True,
+            **kwargs)
+
+
+def plot_latent_stats(mean, stddev, kld=None, weights=None, ax=None,
+                      name: str = "q(z|x)"):
+  """Per-dimension latent statistics: the mean and stddev on the left
+  axis, KL(q|p) and decoder weight norms on a twin axis.  Returns the
+  figure."""
+  plt = _pyplot()
+  if ax is None:
+    _, ax = plt.subplots(figsize=(8, 3))
+  l1 = ax.plot(_host(mean), label="mean", linewidth=0.5, marker="o",
+               markersize=3, color="r", alpha=0.5)
+  l2 = ax.plot(_host(stddev), label="stddev", linewidth=0.5, marker="^",
+               markersize=3, color="g", alpha=0.5)
+  ax.tick_params(axis="y", colors="r")
+  ax.set_ylabel(f"{name} Mean", color="r")
+  ax.grid(True)
+  lines = l1 + l2
+  if kld is not None or weights is not None:
+    ax2 = ax.twinx()
+    if kld is not None:
+      lines += ax2.plot(_host(kld), label="KL(q|p)", linestyle="--",
+                        color="y", marker="s", markersize=2.5, linewidth=1.0,
+                        alpha=0.5)
+    if weights is not None:
+      lines += ax2.plot(_host(weights), label="weights", linestyle="--",
+                        color="b", marker="s", markersize=2.5, linewidth=1.0,
+                        alpha=0.5)
+    ax2.grid(False)
+  ax.legend(lines, [ln.get_label() for ln in lines], fontsize=7)
+  return ax.figure
 
 
 class GroundTruth:
@@ -114,15 +191,6 @@ class GroundTruth:
       dist = np.sum(np.abs(self.factors - f), axis=1)
       out.append(rng.choice(np.where(dist == dist.min())[0]))
     return np.asarray(out)
-
-
-def _not_ported(name: str):
-  def method(self, *args, **kwargs):
-    raise NotImplementedError(
-        f"DisentanglementGym.{name} is not ported yet (ROADMAP.md queue 1, "
-        "item 2)")
-  method.__name__ = name
-  return method
 
 
 class DisentanglementGym:
@@ -292,7 +360,13 @@ class DisentanglementGym:
     return _dm.factor_vae_score(self.qz, self._factors_t,
                                 n_samples=n_samples or 2_000, seed=self.seed)
 
-  clustering_score = _not_ported("clustering_score")
+  def clustering_score(self, factor_index: int = 0) -> Dict[str, float]:
+    """ARI, AMI and NMI of a k-means clustering of the posterior means
+    against one factor, and their silhouette under it."""
+    self._require_run()
+    return _metrics.unsupervised_clustering_scores(
+        self._factors_t[:, factor_index], self._z_mean,
+        random_state=self.seed)
 
   def relative_disentanglement_strength(self, method: str = "spearman"
                                         ) -> float:
@@ -407,6 +481,256 @@ class DisentanglementGym:
       f_fake = features_fn(recon)
     return _fid(f_real, f_fake)
 
+  # -- plots ------------------------------------------------------------------
+  def _plot_data_reconstruction(self, n: int):
+    """(the first n inputs, their reconstructions' means), on the host."""
+    return self.x_true[:n], _host(self.px.mean()[:n])
+
+  def plot_reconstruction(self, n: int = 16, path: Optional[str] = None):
+    """Inputs over their reconstructions."""
+    self._require_run()
+    orig, recon = self._plot_data_reconstruction(n)
+    plt = _pyplot()
+    cols = int(np.ceil(np.sqrt(n)))
+    fig, axes = plt.subplots(2 * int(np.ceil(n / cols)), cols,
+                             figsize=(cols * 1.4, 2.8 * np.ceil(n / cols)))
+    axes = np.atleast_2d(axes)
+    for i in range(n):
+      r, c = divmod(i, cols)
+      for k, img in ((2 * r, orig[i]), (2 * r + 1, recon[i])):
+        ax = axes[k][c]
+        ax.imshow(img.squeeze(), cmap="gray" if img.shape[-1] == 1 else None)
+        ax.axis("off")
+    fig.tight_layout()
+    return _finish(fig, path)
+
+  @torch.no_grad()
+  def _plot_data_latents_traverse(self, n_points: int, n_latents: int,
+                                  seed: int):
+    """The decoded traversal (n_latents, n_points, *image), on the host."""
+    px = self.model.sample_traverse(self.x_true[:1],
+                                    feature_indices=list(range(n_latents)),
+                                    n_traverse_points=n_points, seed=seed)
+    return _host(px.mean()).reshape(n_latents, n_points,
+                                    *self.x_true.shape[1:])
+
+  def plot_latents_traverse(self, n_points: int = 11, n_latents: int = None,
+                            path: Optional[str] = None, seed: int = 1):
+    """A grid of decodes, each row one latent swept from -2 to 2 around the
+    first input's posterior mean."""
+    self._require_run()
+    n_latents = n_latents or min(self._z_mean.shape[1], 10)
+    imgs = self._plot_data_latents_traverse(n_points, n_latents, seed)
+    plt = _pyplot()
+    fig, axes = plt.subplots(n_latents, n_points,
+                             figsize=(n_points * 1.1, n_latents * 1.1))
+    axes = np.atleast_2d(axes)
+    for i in range(n_latents):
+      for j in range(n_points):
+        axes[i][j].imshow(imgs[i, j].squeeze(), cmap="gray")
+        axes[i][j].axis("off")
+    fig.tight_layout()
+    return _finish(fig, path)
+
+  def _plot_data_latents_tsne(self, factor_index: int):
+    """(the 2-D t-SNE of the posterior means, the factor's labels), on the
+    host."""
+    z2 = TSNE(n_components=2, random_state=self.seed,
+              perplexity=min(30, len(self._z_mean) - 1)).fit_transform(
+                  self._z_mean)
+    return _host(z2), self.groundtruth.factors[:, factor_index]
+
+  def plot_latents_tsne(self, factor_index: int = 0,
+                        path: Optional[str] = None):
+    """The 2-D t-SNE of the posterior means, coloured by a factor."""
+    self._require_run()
+    z2, colors = self._plot_data_latents_tsne(factor_index)
+    plt = _pyplot()
+    fig, ax = plt.subplots(figsize=(5, 5))
+    sc = ax.scatter(z2[:, 0], z2[:, 1], s=4, c=colors, cmap="tab10")
+    fig.colorbar(sc)
+    return _finish(fig, path)
+
+  def _plot_data_correlation(self, method: str) -> np.ndarray:
+    """The latent-factor correlation matrix, its rows aligned to put each
+    factor's best latent on the diagonal, on the host."""
+    mat = _host(self.correlation_matrix(method=method))
+    return mat[diagonal_linear_assignment(np.abs(mat))]
+
+  def plot_correlation(self, method: str = "spearman",
+                       path: Optional[str] = None):
+    """The aligned latent-factor correlation heatmap."""
+    self._require_run()
+    mat = self._plot_data_correlation(method)
+    plt = _pyplot()
+    fig, ax = plt.subplots(figsize=(6, 5))
+    im = ax.imshow(mat, cmap="RdBu_r", vmin=-1, vmax=1, aspect="auto")
+    ax.set_xticks(range(len(self.groundtruth.factor_names)))
+    ax.set_xticklabels(self.groundtruth.factor_names, rotation=45)
+    ax.set_ylabel("latents (aligned)")
+    fig.colorbar(im)
+    return _finish(fig, path)
+
+  def _plot_data_histogram(self, n_bins: int):
+    """Each latent's histogram of its posterior means: (counts, edges)."""
+    return _histograms(self._z_mean, n_bins)
+
+  def plot_histogram(self, n_bins: int = 40, path: Optional[str] = None):
+    """Each latent's density histogram with a standard-normal overlay."""
+    self._require_run()
+    counts, edges = self._plot_data_histogram(n_bins)
+    plt = _pyplot()
+    D = len(counts)
+    cols = int(np.ceil(np.sqrt(D)))
+    rows = int(np.ceil(D / cols))
+    fig, axes = plt.subplots(rows, cols, figsize=(cols * 2.2, rows * 1.8))
+    axes = np.atleast_1d(axes).ravel()
+    grid = np.linspace(-3.5, 3.5, 200)
+    normal = np.exp(-0.5 * grid ** 2) / np.sqrt(2 * np.pi)
+    for i in range(D):
+      ax = axes[i]
+      _stairs(ax, counts[i], edges[i], alpha=0.7)
+      ax.plot(grid, normal, lw=1.0, color="crimson")
+      ax.set_title(f"z{i}", fontsize=8)
+      ax.tick_params(labelsize=6)
+    for ax in axes[D:]:
+      ax.axis("off")
+    fig.tight_layout()
+    return _finish(fig, path)
+
+  @torch.no_grad()
+  def _plot_data_distortion(self):
+    """(mean, std) over the samples of each pixel's −log p(x|z), (H, W, C),
+    on the host."""
+    base = getattr(self.px, "distribution", self.px)
+    x = torch.as_tensor(self.x_true, dtype=torch.float32).to(self.device)
+    nll = -base.log_prob(x)
+    if nll.ndim < 3:  # vector data: nothing spatial to draw
+      nll = nll.reshape(nll.shape[0], -1, 1, 1)
+    if nll.ndim == 3:
+      nll = nll[..., None]
+    return _host(nll.mean(0)), _host(nll.std(0, correction=0))
+
+  def plot_distortion(self, path: Optional[str] = None, title: str = ""):
+    """Per-pixel mean and std heatmaps of −log p(x|z): where the decoder
+    spends its distortion."""
+    self._require_run()
+    mean, std = self._plot_data_distortion()
+    plt = _pyplot()
+    C = mean.shape[-1]
+    fig, axes = plt.subplots(C, 2, figsize=(5, 2.2 * C), squeeze=False)
+    for c in range(C):
+      for j, (img, lab) in enumerate(((mean, "mean -log p(x|z)"),
+                                      (std, "std"))):
+        ax = axes[c][j]
+        im = ax.pcolormesh(img[..., c], cmap="Spectral", rasterized=True)
+        ax.invert_yaxis()
+        ax.axis("off")
+        ax.set_title(f"{lab} ch{c}", fontsize=7)
+        fig.colorbar(im, ax=ax, fraction=0.04, pad=0.02)
+    if title:
+      fig.suptitle(title, fontsize=9)
+    fig.tight_layout()
+    return _finish(fig, path)
+
+  def _plot_data_latents_stats(self):
+    """Per latent, sorted by stddev: the mean and stddev of the posterior
+    and the mean analytic KL to N(0, 1), on the host."""
+    mu = _reshape2D(self.qz.mean()).to(torch.float32)
+    sd = _reshape2D(self.qz.stddev()).to(torch.float32)
+    mean, stddev = mu.mean(0), sd.mean(0)
+    kld = (0.5 * (mu ** 2 + sd ** 2 - 1.0 - 2.0 * torch.log(sd))).mean(0)
+    ids = torch.argsort(stddev, stable=True)
+    return _host(mean[ids]), _host(stddev[ids]), _host(kld[ids])
+
+  def plot_latents_stats(self, path: Optional[str] = None, title: str = ""):
+    """Per-latent posterior statistics sorted by stddev, with the KL to the
+    standard-normal prior."""
+    self._require_run()
+    mean, stddev, kld = self._plot_data_latents_stats()
+    fig = plot_latent_stats(mean, stddev, kld=kld)
+    if title:
+      fig.axes[0].set_title(title, fontsize=9)
+    return _finish(fig, path)
+
+  @torch.no_grad()
+  def _plot_data_interpolation(self, i: int, j: int, n_points: int):
+    """The decodes of the latent segment between two inputs' posterior
+    means (n_points, *image), on the host."""
+    za = self._z_mean[i].to(torch.float64)
+    zb = self._z_mean[j].to(torch.float64)
+    ts = torch.as_tensor(np.linspace(0.0, 1.0, n_points)).to(za.device)[:, None]
+    zs = ((1 - ts) * za[None] + ts * zb[None]).to(torch.float32)
+    return _host(self.model.decode(zs).mean())
+
+  def plot_interpolation(self, i: int = 0, j: int = 1, n_points: int = 10,
+                         path: Optional[str] = None):
+    """Decodes along the latent segment between two test inputs."""
+    self._require_run()
+    imgs = self._plot_data_interpolation(i, j, n_points)
+    plt = _pyplot()
+    fig, axes = plt.subplots(1, n_points, figsize=(n_points * 1.3, 1.6))
+    for k in range(n_points):
+      axes[k].imshow(imgs[k].squeeze(), cmap="gray")
+      axes[k].axis("off")
+    fig.tight_layout()
+    return _finish(fig, path)
+
+  @torch.no_grad()
+  def _plot_data_prior_sampling(self, n: int, z=None):
+    """The decodes of n draws from the prior (drawn from a generator seeded
+    `seed`, or `z` given), on the host."""
+    if z is None:
+      z = self.model.sample_prior(n, seed=self.seed)
+    return _host(self.model.decode(z).mean())
+
+  def plot_prior_sampling(self, n: int = 16, path: Optional[str] = None):
+    """Decodes of prior samples z ~ p(z)."""
+    imgs = self._plot_data_prior_sampling(n)
+    plt = _pyplot()
+    cols = int(np.ceil(np.sqrt(n)))
+    rows = int(np.ceil(n / cols))
+    fig, axes = plt.subplots(rows, cols, figsize=(cols * 1.4, rows * 1.4))
+    axes = np.atleast_1d(axes).ravel()
+    for k in range(n):
+      axes[k].imshow(imgs[k].squeeze(), cmap="gray")
+      axes[k].axis("off")
+    for ax in axes[n:]:
+      ax.axis("off")
+    fig.tight_layout()
+    return _finish(fig, path)
+
+  def _plot_data_pairwise_scatter(self, factor_index: int, max_latents: int):
+    """(the first latents' posterior means, the factor's labels or None,
+    each latent's 30-bin histogram (counts, edges)), on the host."""
+    z = self._z_mean[:, :max_latents]
+    colors = self.groundtruth.factors[:, factor_index] \
+        if self.groundtruth else None
+    return _host(z), colors, _histograms(z, 30)
+
+  def plot_pairwise_scatter(self, factor_index: int = 0,
+                            max_latents: int = 6,
+                            path: Optional[str] = None):
+    """The pairwise scatter matrix of the first latents, coloured by a
+    factor, with each latent's histogram on the diagonal."""
+    self._require_run()
+    z, c, (counts, edges) = self._plot_data_pairwise_scatter(factor_index,
+                                                             max_latents)
+    plt = _pyplot()
+    D = z.shape[1]
+    fig, axes = plt.subplots(D, D, figsize=(D * 1.6, D * 1.6))
+    axes = np.atleast_2d(axes)
+    for a in range(D):
+      for b in range(D):
+        ax = axes[a][b]
+        if a == b:
+          _stairs(ax, counts[a], edges[a], alpha=0.7)
+        else:
+          ax.scatter(z[:, b], z[:, a], s=2, c=c, cmap="tab10", alpha=0.6)
+        ax.tick_params(labelsize=5)
+    fig.tight_layout()
+    return _finish(fig, path)
+
   # -- report -------------------------------------------------------------------
   def write_report(self, path: Optional[str] = None,
                    scores: Sequence[str] = ("elbo", "llk", "kl", "mig",
@@ -460,9 +784,3 @@ class DisentanglementGym:
           f.write(f"{k}: {v}\n")
     return out
 
-
-for _name in ("plot_reconstruction", "plot_latents_traverse",
-              "plot_latents_tsne", "plot_correlation", "plot_histogram",
-              "plot_distortion", "plot_latents_stats", "plot_interpolation",
-              "plot_prior_sampling", "plot_pairwise_scatter"):
-  setattr(DisentanglementGym, _name, _not_ported(_name))

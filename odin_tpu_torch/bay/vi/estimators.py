@@ -42,7 +42,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from odin_tpu_torch.device import resolve_device
+from odin_tpu_torch.device import as_tensor, device_of
 
 __all__ = [
     "as_tensor", "device_of", "train_test_split", "stratified_split", "StandardScaler", "mutual_info_score",
@@ -55,29 +55,6 @@ __all__ = [
 # (``tree/_tree.pyx``, ``np.finfo('double').eps``)
 FEATURE_THRESHOLD = 1e-7
 EPSILON = float(np.finfo(np.float64).eps)
-
-
-def device_of(*xs, device=None) -> torch.device:
-  """`device` if given, else the device of the first tensor among `xs`,
-  else the card (an entry point runs on the card unless asked for the
-  CPU)."""
-  if device is not None:
-    return resolve_device(device)
-  for x in xs:
-    if isinstance(x, torch.Tensor):
-      return x.device
-  return resolve_device("cuda")
-
-
-def as_tensor(x, device: Optional[torch.device] = None,
-              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-  """`x` (a tensor, an array or a list) as a tensor on `device` (the
-  tensor's own, or the card, when None)."""
-  if isinstance(x, torch.Tensor):
-    return x.to(device=x.device if device is None else device,
-                dtype=x.dtype if dtype is None else dtype)
-  return torch.as_tensor(np.asarray(x), dtype=dtype).to(
-      device_of(device=device))
 
 
 def accuracy(pred: torch.Tensor, y: torch.Tensor) -> float:

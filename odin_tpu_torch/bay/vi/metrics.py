@@ -1,14 +1,14 @@
 """Disentanglement metrics of the port (PyTorch port of
 ``odin_tpu/bay/vi/metrics.py``): ``Correlation``, the discrete mutual
-information and entropy, MIG, ``correlation_matrix`` ('spearman',
-'pearson', 'importance') and ``relative_strength``.
+information and entropy, the k-NN estimate ``mutual_info_estimate``, MIG,
+``correlation_matrix`` ('spearman', 'pearson', 'lasso', 'mutualinfo',
+'importance'), ``relative_strength`` and ``unsupervised_clustering_scores``
+(KMeans, ARI, AMI, NMI, silhouette).
 
 Every function takes arrays or tensors and runs on the device of its first
 tensor argument, or on `device` (the card for arrays unless asked for the
-CPU).  The k-NN estimate (``mutual_info_estimate``), the 'lasso' and
-'mutualinfo' correlations and ``unsupervised_clustering_scores`` (KMeans,
-silhouette) raise until their estimators are ported (ROADMAP.md queue 1,
-item 2).
+CPU).  The scikit-learn estimators they fit are carried in torch
+(``correlation_estimators``, ``cluster_scores``, ``ml.cluster``).
 """
 from __future__ import annotations
 
@@ -16,8 +16,12 @@ from enum import IntFlag, auto
 
 import torch
 
+from odin_tpu_torch.bay.vi import cluster_scores as _cs
+from odin_tpu_torch.bay.vi.correlation_estimators import (
+    Lasso, mutual_info_classif, mutual_info_regression)
 from odin_tpu_torch.bay.vi.estimators import (as_tensor, device_of,
                                               mutual_info_matrix)
+from odin_tpu_torch.ml.cluster import KMeans
 
 __all__ = [
     "Correlation", "discrete_mutual_info", "discrete_entropy",
@@ -34,11 +38,6 @@ class Correlation(IntFlag):
   Lasso = auto()
   MutualInfo = auto()
   Importance = auto()
-
-
-def _not_ported(name: str):
-  return NotImplementedError(
-      f"{name} is not ported yet (ROADMAP.md queue 1, item 2)")
 
 
 def discrete_mutual_info(codes, factors, device=None) -> torch.Tensor:
@@ -65,10 +64,25 @@ def discrete_entropy(labels, device=None) -> torch.Tensor:
   return torch.stack([h(labels[:, j]) for j in range(labels.shape[1])])
 
 
-def mutual_info_estimate(representations, factors, *args, **kwargs):
-  """The k-NN mutual information matrix (scikit-learn's
-  ``mutual_info_classif``/``regression``): not ported yet."""
-  raise _not_ported("mutual_info_estimate (k-NN mutual information)")
+def mutual_info_estimate(representations, factors,
+                         continuous_latents: bool = True,
+                         continuous_factors: bool = False,
+                         n_neighbors: int = 3, seed: int = 1,
+                         device=None) -> torch.Tensor:
+  """[n_latents, n_factors] k-NN mutual information (nats, float64):
+  scikit-learn's ``mutual_info_classif`` of each factor (or
+  ``mutual_info_regression`` for continuous factors), the latents
+  continuous unless `continuous_latents` is False, the jitter drawn from a
+  ``RandomState(seed)`` for each factor."""
+  dev = device_of(representations, factors, device=device)
+  z = as_tensor(representations, dev)
+  f = torch.atleast_2d(as_tensor(factors, dev))
+  mi_fn = mutual_info_regression if continuous_factors else \
+      mutual_info_classif
+  return torch.stack([mi_fn(z, f[:, j], discrete_features=not
+                            continuous_latents, n_neighbors=n_neighbors,
+                            random_state=seed)
+                      for j in range(f.shape[1])], 1)
 
 
 def mutual_info_gap(representations, factors, device=None) -> float:
@@ -109,8 +123,10 @@ def _average_ranks(a: torch.Tensor) -> torch.Tensor:
 def correlation_matrix(x, y, method: str = "spearman", seed: int = 1,
                        device=None) -> torch.Tensor:
   """[x_dim, y_dim] correlation matrix (float64), NaNs set to 0;
-  `method` 'spearman', 'pearson' or 'importance' (the gradient-boosted
-  trees' importances); 'lasso' and 'mutualinfo' raise until ported."""
+  `method` 'spearman', 'pearson', 'lasso' (the coefficients of
+  ``Lasso(alpha=0.05)`` from x to every column of y), 'mutualinfo' (the
+  k-NN estimate) or 'importance' (the gradient-boosted trees'
+  importances)."""
   dev = device_of(x, y, device=device)
   x = as_tensor(x, dev)
   y = as_tensor(y, dev)
@@ -122,8 +138,11 @@ def correlation_matrix(x, y, method: str = "spearman", seed: int = 1,
   elif method == "importance":
     from odin_tpu_torch.bay.vi.downstream_metrics import importance_matrix
     mat = importance_matrix(x, y, seed=seed)[0]
-  elif method in ("lasso", "mutualinfo", "mi"):
-    raise _not_ported(f"correlation_matrix(method={method!r})")
+  elif method == "lasso":
+    coef = Lasso(alpha=0.05, random_state=seed).fit(x, y).coef_
+    mat = torch.atleast_2d(coef).T.reshape(x.shape[1], y.shape[1])
+  elif method in ("mutualinfo", "mi"):
+    mat = mutual_info_estimate(x, y)
   else:
     raise ValueError(f"unknown correlation method '{method}'")
   return torch.nan_to_num(mat)
@@ -138,6 +157,33 @@ def relative_strength(mat, device=None) -> float:
   return float((sx + sy) / 2)
 
 
-def unsupervised_clustering_scores(*args, **kwargs):
-  """ARI/AMI/NMI/ASW of KMeans clusterings: not ported yet."""
-  raise _not_ported("unsupervised_clustering_scores (KMeans, silhouette)")
+def unsupervised_clustering_scores(factors, representations=None,
+                                   predictions=None,
+                                   algorithm: str = "both",
+                                   random_state: int = 1,
+                                   device=None) -> dict:
+  """ARI, AMI and NMI of a clustering of the representations against one
+  factor's labels (scikit-learn's ``KMeans`` with as many clusters as the
+  factor has values and ``n_init=4``, unless `predictions` are given), and
+  the silhouette of the representations under the factor's labels (0.0
+  where it cannot be computed, as in the JAX package)."""
+  dev = device_of(factors, representations, predictions, device=device)
+  factors = as_tensor(factors, dev).reshape(-1)
+  n_clusters = int(torch.unique(factors).numel())
+  if predictions is None:
+    if representations is None:
+      raise ValueError("give the representations or the predictions")
+    predictions = KMeans(n_clusters=n_clusters, n_init=4,
+                         random_state=random_state).fit_predict(
+                             as_tensor(representations, dev))
+  predictions = as_tensor(predictions, dev)
+  out = dict(ari=_cs.adjusted_rand_score(factors, predictions),
+             ami=_cs.adjusted_mutual_info_score(factors, predictions),
+             nmi=_cs.normalized_mutual_info_score(factors, predictions))
+  if representations is not None and n_clusters > 1:
+    try:
+      out["asw"] = _cs.silhouette_score(as_tensor(representations, dev),
+                                        factors)
+    except ValueError:  # fewer than 2 or more than n - 1 labels
+      out["asw"] = 0.0
+  return out

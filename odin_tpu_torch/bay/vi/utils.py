@@ -5,7 +5,8 @@
 ``KBinsDiscretizer(encode='ordinal', strategy='uniform')`` bin for bin:
 the edges are ``np.linspace(min, max, n_bins + 1)`` in the column's dtype
 (computed on the host from the column's extremes) and the bin is
-``searchsorted(edges[1:-1], x, side='right')``, on the device of x.
+``searchsorted(edges[1:-1], x, side='right')``, on the device of x.  The
+'quantile', 'kmeans' and 'gmm' strategies are in ``discretizers``.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
+from odin_tpu_torch.bay.vi.discretizers import (GaussianMixture, bins_of,
+                                                kmeans_edges, quantile_edges)
 from odin_tpu_torch.bay.vi.estimators import as_tensor, device_of
 
 __all__ = [
@@ -49,6 +52,30 @@ def _uniform_bins(col: torch.Tensor, n_bins: int):
   return torch.searchsorted(inner, col.contiguous(), right=True), edges
 
 
+def _column_bins(col: torch.Tensor, n_bins: int, strategy: str):
+  """One column's bins (int64) and its model: the bin edges, or for 'gmm'
+  the mixture's means, variances and weights."""
+  if strategy == "uniform":
+    return _uniform_bins(col, n_bins)
+  if not col.is_floating_point():
+    col = col.to(torch.float64)
+  if strategy == "gmm":
+    gmm = GaussianMixture(n_components=n_bins, random_state=1)
+    labels = gmm.fit_predict(col)
+    # relabelled by the order of the component means, as the JAX package
+    order = torch.argsort(gmm.means_, stable=True)
+    remap = torch.empty_like(order)
+    remap[order] = torch.arange(len(order), device=order.device)
+    return remap[labels], gmm.model()
+  lo, hi = (float(v) for v in torch.aminmax(col))
+  if lo == hi:  # a constant column is one bin
+    return (torch.zeros(col.shape, dtype=torch.int64, device=col.device),
+            np.array([-np.inf, np.inf]))
+  edges = (quantile_edges if strategy == "quantile" else kmeans_edges)(
+      col, n_bins)
+  return bins_of(col, edges), edges.cpu().numpy()
+
+
 def discretizing(*factors,
                  independent: bool = True,
                  n_bins: Union[int, Sequence[int]] = 5,
@@ -56,16 +83,16 @@ def discretizing(*factors,
                  return_model: bool = False,
                  device=None):
   """Discretize each column of each factor array (N, ...) into `n_bins`
-  equal-width bins (int64, on the device of the input, or `device`; the
-  card for an array unless asked for the CPU).  `independent` is accepted
-  for the JAX package's signature (columns are always binned apart).  With
-  `return_model` the bin edges of each column come back beside the bins.
-  Only ``strategy='uniform'`` is ported; 'quantile', 'kmeans' and 'gmm'
-  raise (ROADMAP.md queue 1, item 2)."""
-  if strategy != "uniform":
-    raise NotImplementedError(
-        f"discretizing(strategy={strategy!r}) is not ported yet; only "
-        "'uniform' is (ROADMAP.md queue 1, item 2)")
+  bins (int64, on the device of the input, or `device`; the card for an
+  array unless asked for the CPU).  `strategy` 'uniform' (equal widths),
+  'quantile', 'kmeans' (scikit-learn's ``KBinsDiscretizer``) or 'gmm' (a
+  one-feature ``GaussianMixture`` a column, the components numbered by
+  their means).  `independent` is accepted for the JAX package's signature
+  (columns are always binned apart).  With `return_model` each column's
+  model comes back beside the bins: its bin edges, or for 'gmm' the
+  mixture's means, variances and weights."""
+  if strategy not in ("uniform", "quantile", "kmeans", "gmm"):
+    raise ValueError(f"unknown discretizing strategy {strategy!r}")
   n_bins = int(n_bins)
   dev = device_of(*factors, device=device)
   outputs, models = [], []
@@ -73,9 +100,9 @@ def discretizing(*factors,
     f = as_tensor(f, dev)
     shape = f.shape
     f2 = f.reshape(len(f), -1)
-    cols, edges = zip(*(_uniform_bins(f2[:, j], n_bins)
+    cols, model = zip(*(_column_bins(f2[:, j], n_bins, strategy)
                         for j in range(f2.shape[1])))
-    models.append(list(edges))
+    models.append(list(model))
     outputs.append(torch.stack(cols, -1).reshape(shape))
   out = outputs[0] if len(outputs) == 1 else outputs
   if return_model:

@@ -28,7 +28,12 @@ tests/test_torch_streaming.py and tests/test_torch_inversion.py).
 
 The Gym: its estimators on the card against the CPU on the same latents
 (the boosted trees identical, their split search summing integers) and
-the whole Gym on the card against the same model on the CPU.
+the whole Gym on the card against the same model on the CPU.  The
+clustering slice: KMeans, KMeansJax, DBSCAN, k-NN, naive Bayes, the
+clustering scores, the k-NN mutual information, Lasso, the discretizers
+and t-SNE's P and gradient on the card against the CPU (the labels, bins,
+seeds and counts equal; the scores at tests/test_torch_gym_clustering.py's
+limits).
 
 The VAE zoo: each class's ELBO terms on the card against the CPU from
 the same params and noise (1e-4 of each term's largest magnitude), and 3
@@ -812,6 +817,65 @@ def test_gym_estimators_on_card_equal_cpu(cuda_device):
   np.testing.assert_array_equal(lg.cpu().numpy(), lc.numpy())
   assert dm.beta_vae_score(zg, fg, n_mcmc=0, seed=1) == pytest.approx(
       dm.beta_vae_score(zc, fc, n_mcmc=0, seed=1), abs=1.0 / 10000)
+
+
+def test_clustering_on_card_equals_cpu(cuda_device):
+  """The clustering slice on the card against the CPU on the same latents:
+  labels, seeds, bins, cores and predictions equal; ARI/AMI/NMI to 1e-12,
+  silhouette, the k-NN mutual information, Lasso (of its largest
+  coefficient) and t-SNE's P and gradient (of its largest) to 1e-6."""
+  from odin_tpu_torch import ml
+  from odin_tpu_torch.bay.vi import metrics as vim
+  from odin_tpu_torch.bay.vi.utils import discretizing
+  from odin_tpu_torch.ml import tsne
+  z, f = _gym_data()
+  zc, fc = torch.tensor(z), torch.tensor(f)
+  zg, fg = zc.to(cuda_device), fc.to(cuda_device)
+  for j in range(f.shape[1]):
+    a = vim.unsupervised_clustering_scores(fg[:, j], zg)
+    b = vim.unsupervised_clustering_scores(fc[:, j], zc)
+    for key in ("ari", "ami", "nmi"):
+      assert a[key] == pytest.approx(b[key], abs=1e-12), (j, key)
+    assert a["asw"] == pytest.approx(b["asw"], abs=1e-6)
+  for method in ("lasso", "mutualinfo"):
+    a = vim.correlation_matrix(zg, fg, method=method).cpu().numpy()
+    b = vim.correlation_matrix(zc, fc, method=method).numpy()
+    np.testing.assert_allclose(a, b, rtol=0, atol=1e-6 * max(
+        1.0, np.abs(b).max()))
+  for strategy in ("quantile", "kmeans", "gmm"):
+    np.testing.assert_array_equal(
+        discretizing(zg, n_bins=10, strategy=strategy).cpu().numpy(),
+        discretizing(zc, n_bins=10, strategy=strategy).numpy())
+  for framework in ("jax", "sklearn"):
+    a = ml.fast_kmeans(zg, n_clusters=16, framework=framework)
+    b = ml.fast_kmeans(zc, n_clusters=16, framework=framework)
+    np.testing.assert_array_equal(a.labels_.cpu().numpy(), b.labels_.numpy())
+    assert a.n_iter_ == b.n_iter_
+  db = [ml.fast_dbscan(x, eps=0.3, min_samples=5) for x in (zg, zc)]
+  np.testing.assert_array_equal(db[0].labels_.cpu().numpy(),
+                                db[1].labels_.numpy())
+  np.testing.assert_array_equal(
+      ml.dbscan_predict(db[0], zg[:300] + 0.01).cpu().numpy(),
+      ml.dbscan_predict(db[1], zc[:300] + 0.01).numpy())
+  a = ml.fast_knn(zg[:1000], fg[:1000, 1]).predict(zg[1000:])
+  b = ml.fast_knn(zc[:1000], fc[:1000, 1]).predict(zc[1000:])
+  np.testing.assert_array_equal(a.cpu().numpy(), b.numpy())
+  codes = discretizing(zc, n_bins=10)
+  for dist in ("categorical", "multinomial", "bernoulli"):
+    a = ml.fast_naive_bayes(codes.to(cuda_device)[:1000], fg[:1000, 0], dist)
+    b = ml.fast_naive_bayes(codes[:1000], fc[:1000, 0], dist)
+    np.testing.assert_array_equal(
+        a.predict(codes[1000:].to(cuda_device)).cpu().numpy(),
+        b.predict(codes[1000:]).numpy())
+  Pg, Pc = (tsne.joint_probabilities_nn(x[:600], 30.0) for x in (zg, zc))
+  np.testing.assert_allclose(Pg.to_dense().cpu().numpy(),
+                             Pc.to_dense().numpy(), rtol=0, atol=1e-6)
+  y = torch.randn(600, 2, dtype=torch.float64,
+                  generator=torch.Generator().manual_seed(0))
+  _, gg = tsne.kl_divergence_grad(y.to(cuda_device), Pg)
+  _, gc = tsne.kl_divergence_grad(y, Pc)
+  np.testing.assert_allclose(gg.cpu().numpy(), gc.numpy(), rtol=0,
+                             atol=1e-6 * float(gc.abs().max()))
 
 
 def test_gym_on_card_matches_cpu(cuda_device):

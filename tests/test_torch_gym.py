@@ -166,8 +166,12 @@ def test_discretizing_matches_jax(n_bins):
                             n_bins=n_bins)
   for a, b in zip(want, got):
     np.testing.assert_array_equal(b.numpy(), a)
-  with pytest.raises(NotImplementedError):
-    putils.discretizing(torch.tensor(z), strategy="quantile")
+  # the quantile strategy, once a raise (tests/test_torch_gym_clustering.py
+  # holds the others)
+  np.testing.assert_array_equal(
+      putils.discretizing(torch.tensor(z), n_bins=n_bins,
+                          strategy="quantile").numpy(),
+      jutils.discretizing(z, n_bins=n_bins, strategy="quantile"))
 
 
 def test_permute_dims_with_jax_uniforms():
@@ -286,14 +290,29 @@ def test_correlation_matrix_matches_jax(method):
 
 
 def test_unported_estimators_raise():
+  """The estimators that raised until ported ('lasso' and 'mutualinfo'
+  correlations, ``mutual_info_estimate``, ``unsupervised_clustering_scores``)
+  against JAX's on 50 rows, where factor values seen once are dropped by the
+  k-NN estimate and the 40-value factor leaves some of KMeans' clusters
+  small (tests/test_torch_gym_clustering.py holds them at full size)."""
   z, f = latents_and_factors(n=50)
   for method in ("lasso", "mutualinfo"):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-      pm.correlation_matrix(torch.tensor(z), torch.tensor(f), method=method)
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    pm.mutual_info_estimate(z, f)
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    pm.unsupervised_clustering_scores(f[:, 0], z)
+    want = jm.correlation_matrix(z, f, method=method)
+    got = pm.correlation_matrix(torch.tensor(z), torch.tensor(f),
+                                method=method)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0,
+                               atol=1e-6 * max(1.0, np.abs(want).max()))
+  np.testing.assert_allclose(
+      pm.mutual_info_estimate(torch.tensor(z), torch.tensor(f)).numpy(),
+      jm.mutual_info_estimate(z, f), rtol=0, atol=1e-6)
+  for j in range(f.shape[1]):
+    want = jm.unsupervised_clustering_scores(f[:, j], z)
+    got = pm.unsupervised_clustering_scores(torch.tensor(f[:, j]),
+                                            torch.tensor(z))
+    assert set(got) == set(want)
+    for key in ("ari", "ami", "nmi"):
+      assert got[key] == pytest.approx(want[key], abs=1e-12), (j, key)
+    assert got["asw"] == pytest.approx(want["asw"], abs=1e-6), j
 
 
 # ---------------------------------------------------------------------------
@@ -576,15 +595,27 @@ def _jax_accuracy_score(z, y):
       xtr.astype(np.float64), ytr).score(xte.astype(np.float64), yte))
 
 
-def test_gym_unported_parts_raise(gyms):
+def test_gym_unported_parts_raise(gyms, tmp_path):
+  """The parts of the Gym that raised until ported: the 'clustering' score
+  of ``write_report`` against JAX's function on the port's own latents,
+  and two plots and ``plot_latent_stats`` drawn (the plots' data is held
+  in tests/test_torch_gym_plots.py)."""
   gym = gyms[0]
   report = gym.write_report(scores=("clustering",))
-  assert "ROADMAP" in report["clustering_error"]
+  assert not [k for k in report if k.endswith("_error")], report
+  want = jm.unsupervised_clustering_scores(gym.groundtruth.factors[:, 0],
+                                           gym.z_mean.numpy(), random_state=1)
+  assert set(report) == {f"clustering_{k}" for k in want}
+  for key, value in want.items():
+    limit = 1e-6 if key == "asw" else 1e-12
+    assert report[f"clustering_{key}"] == pytest.approx(value, abs=limit)
   for name in ("plot_reconstruction", "plot_latents_tsne"):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-      getattr(gym, name)()
-  with pytest.raises(NotImplementedError, match="ROADMAP"):
-    vi.plot_latent_stats(gym.z_mean.mean(0), gym.qz.stddev().mean(0))
+    path = str(tmp_path / f"{name}.png")
+    assert getattr(gym, name)(path=path) == path
+    with open(path, "rb") as fh:
+      assert fh.read(8) == b"\x89PNG\r\n\x1a\n"
+  fig = vi.plot_latent_stats(gym.z_mean.mean(0), gym.qz.stddev().mean(0))
+  assert len(fig.axes[0].lines) == 2
   assert vi.concat_mean([gym.qz, gym.qz]).shape == (N_GYM, 2 * ZDIM)
   np.testing.assert_array_equal(vi.first_mean([gym.qz]).numpy(),
                                 gym.z_mean.numpy())

@@ -80,6 +80,13 @@ def test_sources_exist():
                  "bay/vi/autoencoder/stochastic_vae.py",
                  "bay/vi/autoencoder/deterministic.py"):
     assert f"odin_tpu_torch/{module}" in names
+  # the clustering slice
+  for module in ("bay/vi/cluster_scores.py",
+                 "bay/vi/correlation_estimators.py",
+                 "bay/vi/discretizers.py", "ml/cluster.py",
+                 "ml/neighbors.py", "ml/naive_bayes.py", "ml/tsne.py",
+                 "search.py"):
+    assert f"odin_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -146,3 +153,40 @@ def test_chip_smoke_fails_without_the_port(tmp_path):
   assert res.returncode != 0
   assert "No module named 'odin_tpu_torch'" in res.stderr
   assert '"ok"' not in res.stdout
+
+
+def test_new_modules_need_neither_sklearn_nor_matplotlib():
+  """The clustering slice's modules import with scikit-learn and matplotlib
+  blocked, its estimators run, and a Gym plot raises ImportError only when
+  it is drawn."""
+  code = "\n".join([
+      "import sys",
+      "for name in ('sklearn', 'matplotlib'):",
+      "  sys.modules[name] = None",
+      "import torch",
+      "import odin_tpu_torch.ml as ml",
+      "import odin_tpu_torch.search",
+      "from odin_tpu_torch.ml import cluster, naive_bayes, neighbors, tsne",
+      "from odin_tpu_torch.bay.vi import (cluster_scores, discretizers,",
+      "    correlation_estimators, metrics, utils, disentanglement_gym)",
+      "z = torch.randn(60, 3, generator=torch.Generator().manual_seed(0))",
+      "y = (z[:, 0] > 0).long()",
+      "ml.fast_kmeans(z, n_clusters=3, framework='sklearn')",
+      "metrics.unsupervised_clustering_scores(y, z)",
+      "metrics.correlation_matrix(z, y[:, None], method='lasso')",
+      "utils.discretizing(z, n_bins=3, strategy='gmm')",
+      "gym = disentanglement_gym.DisentanglementGym(device='cpu')",
+      "gym._z_mean = z",
+      "try:",
+      "  gym.plot_histogram()",
+      "except ImportError:",
+      "  print('plots need matplotlib')",
+      "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
+      "             ('sklearn', 'matplotlib', 'jax', 'odin_tpu')",
+      "             and sys.modules[m] is not None)",
+      "assert not bad, bad"])
+  res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+  assert res.returncode == 0, res.stderr
+  assert res.stdout.strip() == "plots need matplotlib"
