@@ -224,13 +224,33 @@ CPU:
      ``fast_naive_bayes`` (categorical, multinomial, bernoulli) on the
      latents in 10 bins; each against the CPU.  The path launches no
      kernel of this port.
+ 16. the extractor path, on the first 256 of phase 9's wav files (it runs
+     right after phase 11, before the corpus is removed): the native IO
+     engine built with g++ from ``csrc/odin_io.cpp`` into ``build/``,
+     ``decode_wav``, ``pack_batch`` and ``gather`` equal to ``read_wave``,
+     the padded NumPy block and fancy indexing bit for bit, with the time
+     of ``pack_batch`` and of the Python decode; ``FeatureProcessor`` with
+     AudioReader -> PreEmphasis -> STFT -> power -> 40 mels -> 13 MFCCs ->
+     CalculateEnergy -> SADgmm -> MFCC + Δ + ΔΔ -> AcousticNorm
+     (``extractor_recipe``) at ``ncpu=4`` (workers forked beside the card's
+     context) and ``ncpu=1``, the two stores equal bit for bit per
+     utterance, the sums the float64 sums of the rows, ``log.txt`` with 0
+     errors, files/s and frames/s of each; the NumPy DSP path at
+     ``FeatureConfig``'s settings against ``batch_speech_features`` on the
+     first 64 files (one K1 launch: mspec within 0.01 dB, mfcc and deltas
+     within 0.05); ``BNFExtractor(device="cuda", stack_context=10,
+     batch_size=2048)`` with SAD on the 256 utterances, a network of 819 ->
+     5 x Linear(1024) + ReLU -> Linear(80) random from the seed, the first
+     16 utterances against the CPU within 1e-4 of the largest output, its
+     frames/s and the ms a batch of 2048; and ``FeatureProcessor(ncpu=4)``
+     holding that stage refused with ``ValueError`` before it forks.
 
 Run with no argument, it runs every phase: the whole check.  ``python3
 chip_smoke.py --phases 1,14`` runs the phases named, phase 1 (the build)
 always, and every phase whose results a named one reads
 (``PHASE_NEEDS``: 3 reads 2, 6 reads 5, 8 reads 7, 10 reads 8, 11 reads 2
-and 9, 15 reads 10); its ``kernels`` line lists only the kernels those
-phases timed.
+and 9, 15 reads 10, 16 reads 9); its ``kernels`` line lists only the
+kernels those phases timed.
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
 fp32 like the CPU.  Any failure raises and the script exits non-zero; it
@@ -1990,8 +2010,302 @@ def speaker_path(torch, np, reset_counts, read_counts, smi):
       f"clock, one sync), {ESTEP_FRAMES / t:.1f} frames/s, "
       f"{flops / 1e9:.1f} GFLOP, {flops / t / 1e12:.3f} TFLOP/s = "
       f"{100 * flops / t / FP32_PEAK_FLOPS:.2f} % of fp32 peak; {smi}")
-  shutil.rmtree(root, ignore_errors=True)
+  # the wav files stay for phase 16; main removes the corpus after it
+  shutil.rmtree(cache, ignore_errors=True)
   return counts["logmel_fft"]
+
+
+# phase 16: the extractor path on the first 256 of phase 9's wav files
+EXT_FILES = 256
+EXT_NCPU = 4
+EXT_FORK_LIMIT_S = 300  # the forked run ends with an error past this
+EXT_K1_FILES = 64  # one batch of batch_speech_features: one K1 launch
+EXT_MFCC_TOL = 0.05  # tests/test_ops_features.py:35-38, mfcc and deltas
+EXT_SUM1_REL = 1e-5  # sum1: float32 sums of each utterance's rows, added
+EXT_SUM2_REL = 1e-9  # in float64; sum2: float64 sums, another order
+EXT_GATHER_ROWS = 256  # rows of the packed block, drawn with replacement
+BNF_CONTEXT = 10  # 21 stacked frames of the 39-column MFCC + Δ + ΔΔ: 819
+BNF_HIDDEN, BNF_LAYERS, BNF_DIM = 1024, 5, 80
+BNF_BATCH = 2048
+BNF_CPU_FILES = 16
+BNF_REL = 1e-4  # card against CPU, of the largest output magnitude
+
+
+def extractor_recipe(P):
+  """Phase 16's extractor pipeline from `P`, the port's preprocessing:
+  the issue's stages in order (13 MFCCs, so that MFCC + Δ + ΔΔ is 39
+  wide), with a Framing stage to give CalculateEnergy its frames and a
+  Delete stage to keep the raw audio, the frames and the spectra out of
+  the store."""
+  return P.make_pipeline([
+      P.AudioReader(sr=CORPUS_SR), P.PreEmphasis(),
+      P.STFTExtractor(n_fft=512, window="hamm", energy=False),
+      P.PowerSpecExtractor(), P.MelsSpecExtractor(n_mels=40),
+      P.MFCCsExtractor(n_ceps=13), P.Framing(), P.CalculateEnergy(),
+      P.SADgmm(), P.DeltaExtractor(input_name=("mfcc",), order=(0, 1, 2)),
+      P.AcousticNorm(input_name=("mspec", "mfcc")),
+      P.Delete(("raw", "frames", "stft", "spec"))])
+
+
+def bnf_network(torch):
+  """819 -> 5 x (Linear(1024) + ReLU) -> Linear(80), random from SEED."""
+  torch.manual_seed(SEED)
+  width = 39 * (2 * BNF_CONTEXT + 1)
+  layers = []
+  for _ in range(BNF_LAYERS):
+    layers += [torch.nn.Linear(width, BNF_HIDDEN), torch.nn.ReLU()]
+    width = BNF_HIDDEN
+  return torch.nn.Sequential(*layers, torch.nn.Linear(width, BNF_DIM))
+
+
+def extractor_path(torch, np, reset_counts, read_counts, smi):
+  """Phase 16: the native IO engine, FeatureProcessor over forked workers
+  beside the card's context, the NumPy DSP path against K1 and
+  BNFExtractor on the card, on the first 256 of phase 9's wav files (see
+  the docstring); returns K1's FFT launches on the path."""
+  import copy
+  import glob
+  import multiprocessing
+  import os
+  import shutil
+  import signal
+  from odin_tpu_torch import native
+  from odin_tpu_torch.fuel.dataset import Dataset
+  from odin_tpu_torch import preprocessing as P
+  from odin_tpu_torch.ops.features import FeatureConfig
+  from odin_tpu_torch.preprocessing import signal as S
+  from odin_tpu_torch.preprocessing.speech import read_wave, read_wave_raw
+
+  root = corpus_root()
+  files = sorted(glob.glob(os.path.join(root, "wav", "*.wav")))[:EXT_FILES]
+  if len(files) != EXT_FILES:
+    raise AssertionError(f"{len(files)} of phase 9's wav files left, not "
+                         f"{EXT_FILES}")
+  work = os.path.join(root, "extractor")
+  shutil.rmtree(work, ignore_errors=True)
+
+  # -- 16.1 the native IO engine, built with g++ from the port's source
+  if not native.native_available():
+    raise AssertionError("the native IO engine did not build or load")
+  lib = os.path.realpath(native.library_file())
+  build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+  if not lib.startswith(os.path.realpath(build) + os.sep):
+    raise AssertionError(f"the native library {lib} is not under build/")
+  t0 = time.perf_counter()
+  decoded = [read_wave(f) for f in files]
+  t_read = time.perf_counter() - t0
+  max_samples = max(len(y) for y, _ in decoded)
+  t0 = time.perf_counter()
+  block = np.zeros((EXT_FILES, max_samples), np.float32)
+  for i, (y, _) in enumerate(decoded):
+    block[i, :len(y)] = y
+  t_python = t_read + time.perf_counter() - t0
+  t0 = time.perf_counter()
+  natives = [native.decode_wav(f) for f in files]
+  t_decode = time.perf_counter() - t0
+  for f, (y, sr), (y_n, sr_n) in zip(files, decoded, natives):
+    if sr != sr_n or y.dtype != y_n.dtype or not np.array_equal(y, y_n):
+      raise AssertionError(f"decode_wav differs from read_wave on {f}")
+  t0 = time.perf_counter()
+  packed, lengths, srs = native.pack_batch(files, max_samples)
+  t_pack = time.perf_counter() - t0
+  if not (np.array_equal(packed, block) and
+          np.array_equal(lengths, [len(y) for y, _ in decoded]) and
+          np.all(srs == CORPUS_SR)):
+    raise AssertionError("pack_batch differs from the padded NumPy block")
+  idx = np.random.RandomState(SEED).randint(0, EXT_FILES, EXT_GATHER_ROWS)
+  t0 = time.perf_counter()
+  gathered = native.gather(packed, idx)
+  t_gather = time.perf_counter() - t0
+  t0 = time.perf_counter()
+  fancy = packed[idx]
+  t_fancy = time.perf_counter() - t0
+  if not np.array_equal(gathered, fancy):
+    raise AssertionError("gather differs from fancy indexing")
+  log(f"native IO ({lib}): decode_wav, pack_batch and gather equal to "
+      f"read_wave, the padded block and fancy indexing, bit for bit, on "
+      f"{EXT_FILES} files of up to {max_samples} samples")
+  log(f"pack_batch of {EXT_FILES} files: {1e3 * t_pack:.3f} ms (host clock)")
+  log(f"Python decode (read_wave of {EXT_FILES} files, then the padded "
+      f"block): {1e3 * t_python:.3f} ms (host clock)")
+  log(f"decode_wav of {EXT_FILES} files one by one: {1e3 * t_decode:.3f} ms "
+      f"(host clock)")
+  log(f"gather of {EXT_GATHER_ROWS} rows of {max_samples} float32: "
+      f"{1e3 * t_gather:.3f} ms; fancy indexing {1e3 * t_fancy:.3f} ms "
+      f"(host clock)")
+  del block, packed, gathered, fancy, natives
+
+  # -- 16.2 FeatureProcessor at ncpu=4 (forked workers beside the card's
+  # context) and inline at ncpu=1
+  if not torch.cuda.is_initialized():
+    raise AssertionError("the card's context is not held")
+  jobs = [{"path": f, "name": os.path.basename(f)} for f in files]
+
+  def on_alarm(signum, frame):
+    raise TimeoutError(f"FeatureProcessor ran past {EXT_FORK_LIMIT_S} s")
+
+  stores = {}
+  for ncpu in (EXT_NCPU, 1):
+    path = os.path.join(work, f"ncpu{ncpu}")
+    previous = signal.signal(signal.SIGALRM, on_alarm)
+    signal.alarm(EXT_FORK_LIMIT_S)
+    try:
+      t0 = time.perf_counter()
+      P.FeatureProcessor(jobs, path, extractor_recipe(P), ncpu=ncpu).run()
+      wall = time.perf_counter() - t0
+    finally:
+      signal.alarm(0)
+      signal.signal(signal.SIGALRM, previous)
+    if multiprocessing.active_children():
+      raise AssertionError("FeatureProcessor left worker processes")
+    ds = Dataset(path)
+    with open(os.path.join(path, "log.txt")) as f:
+      head = f.read().splitlines()[:3]
+    if head != [f"jobs: {EXT_FILES}", f"processed: {EXT_FILES}",
+                "errors: 0"]:
+      raise AssertionError(f"FeatureProcessor(ncpu={ncpu}) log: {head}")
+    n_frames = int(ds["mspec"].shape[0])
+    log(f"FeatureProcessor ncpu={ncpu}, {EXT_FILES} files: {wall:.4f} s, "
+        f"{EXT_FILES / wall:.2f} files/s, {n_frames / wall:.1f} frames/s "
+        f"(host clock); {smi}")
+    stores[ncpu] = ds
+  feats = ("mspec", "mfcc", "energy", "sad")
+  for feat in feats:
+    a, b = stores[EXT_NCPU], stores[1]
+    ia, ib = a[f"indices_{feat}"], b[f"indices_{feat}"]
+    if sorted(ia) != sorted(ib) or len(ia) != EXT_FILES:
+      raise AssertionError(f"indices_{feat} differ between the runs")
+    for name, (s, e) in ib.items():
+      sa, ea = ia[name]
+      if np.asarray(a[feat][sa:ea]).tobytes() != \
+          np.asarray(b[feat][s:e]).tobytes():
+        raise AssertionError(f"{feat} of {name} differs between ncpu="
+                             f"{EXT_NCPU} and ncpu=1")
+    if feat == "sad":
+      continue
+    for ncpu, ds in stores.items():
+      rows = np.asarray(ds[feat][:], np.float64)
+      sum1 = np.load(os.path.join(ds.path, f"{feat}_sum1.npy"))
+      sum2 = np.load(os.path.join(ds.path, f"{feat}_sum2.npy"))
+      e1 = float(np.abs(sum1 - rows.sum(0)).max() / np.abs(rows).sum(0).max())
+      e2 = float(np.abs(sum2 - (rows ** 2).sum(0)).max() /
+                 (rows ** 2).sum(0).max())
+      if e1 > EXT_SUM1_REL or e2 > EXT_SUM2_REL:
+        raise AssertionError(f"{feat}_sum1/2 at ncpu={ncpu} are {e1:.3g} / "
+                             f"{e2:.3g} from the float64 sums of the rows")
+  mfcc_dim = stores[1]["mfcc"].shape[1]
+  log(f"FeatureProcessor: ncpu={EXT_NCPU} and ncpu=1 stores equal bit for "
+      f"bit per utterance ({', '.join(feats)}; mfcc + deltas {mfcc_dim} "
+      f"wide); sum1 within {EXT_SUM1_REL} of the largest sum of |rows|, sum2 "
+      f"within {EXT_SUM2_REL}; log.txt 0 errors")
+
+  # -- 16.3 the NumPy DSP path against K1 through batch_speech_features
+  cfg = FeatureConfig(sr=CORPUS_SR)
+  raw = [read_wave_raw(f)[0] for f in files[:EXT_K1_FILES]]
+  reset_counts()
+  t0 = time.perf_counter()
+  got = P.batch_speech_features(raw, cfg, batch_size=EXT_K1_FILES,
+                                features=("mspec", "mfcc", "mfcc_delta"),
+                                device="cuda")
+  t_k1 = time.perf_counter() - t0
+  counts = read_counts()
+  log(f"batch_speech_features of {EXT_K1_FILES} files launches: {counts}")
+  if counts["logmel"] != 1 or counts["logmel_fft"] != 1:
+    raise AssertionError(f"batch_speech_features launched K1 {counts}, not "
+                         "once for one batch")
+  k1 = counts["logmel_fft"]
+  half = cfg.delta_width // 2
+  err = {"mspec": 0.0, "mfcc": 0.0, "mfcc_delta": 0.0}
+  for y16, out in zip(raw, got):
+    y = S.pre_emphasis(y16.astype(np.float32) / 32768.0, cfg.preemphasis)
+    spec = np.abs(S.stft(y, cfg.frame_length, cfg.step_length, cfg.n_fft,
+                         window=cfg.window)) ** 2
+    mspec = S.mels_spectrogram(spec, cfg.sr, cfg.n_mels, fmin=cfg.fmin,
+                               top_db=cfg.top_db)
+    mfcc = S.ceps_spectrogram(mspec, cfg.n_ceps)
+    want = {"mspec": mspec, "mfcc": mfcc,
+            "mfcc_delta": S.delta(mfcc, width=cfg.delta_width, order=1)}
+    for key in err:
+      if out[key].shape != want[key].shape:
+        raise AssertionError(f"{key}: {out[key].shape} on the card, "
+                             f"{want[key].shape} in NumPy")
+      # a delta's window of the last frames reaches the batch's padding
+      # (both packages filter the padded batch): those frames are left out
+      keep = len(want[key]) - (half if key == "mfcc_delta" else 0)
+      err[key] = max(err[key], float(np.abs(out[key][:keep] -
+                                            want[key][:keep]).max()))
+  log(f"NumPy DSP path against K1 on {EXT_K1_FILES} files: mspec max diff "
+      f"{err['mspec']:.6f} dB (limit {LOGMEL_TOL_DB}), mfcc "
+      f"{err['mfcc']:.6f} (limit {EXT_MFCC_TOL}), deltas "
+      f"{err['mfcc_delta']:.6f} (limit {EXT_MFCC_TOL}; all but each "
+      f"utterance's last {half} frames, whose window reaches the batch's "
+      f"padding); "
+      f"batch_speech_features {1e3 * t_k1:.3f} ms (host clock)")
+  if err["mspec"] > LOGMEL_TOL_DB or err["mfcc"] > EXT_MFCC_TOL or \
+      err["mfcc_delta"] > EXT_MFCC_TOL:
+    raise AssertionError(f"K1's path disagrees with the NumPy path: {err}")
+
+  # -- 16.4 BNFExtractor on the card, its first 16 utterances on the CPU
+  ds = stores[1]
+  mfcc_idx, sad_idx = ds["indices_mfcc"], ds["indices_sad"]
+  utts = []
+  for f in files:
+    name = os.path.basename(f)
+    (s, e), (ss, se) = mfcc_idx[name], sad_idx[name]
+    utts.append({"mfcc": np.asarray(ds["mfcc"][s:e]),
+                 "sad": np.asarray(ds["sad"][ss:se]).ravel().astype(bool)})
+  net = bnf_network(torch)
+  cpu_net = copy.deepcopy(net)
+  bnf = P.BNFExtractor("mfcc", net, stack_context=BNF_CONTEXT,
+                       batch_size=BNF_BATCH, device="cuda")
+  if next(bnf.network.parameters()).device.type != "cuda":
+    raise AssertionError("BNFExtractor's network is not on the card")
+  bnf.transform(utts[0])  # warm-up: cuBLAS's handle, the pinned pool
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  outs = [bnf.transform(u)["bnf"] for u in utts]
+  t_bnf = time.perf_counter() - t0
+  n_speech = sum(int(u["sad"].sum()) for u in utts)
+  for u, out in zip(utts, outs):
+    if out.shape != (int(u["sad"].sum()), BNF_DIM) or \
+        not np.isfinite(out).all():
+      raise AssertionError(f"BNF output {out.shape}, not finite "
+                           f"({int(u['sad'].sum())}, {BNF_DIM})")
+  cpu = P.BNFExtractor("mfcc", cpu_net, stack_context=BNF_CONTEXT,
+                       batch_size=BNF_BATCH, device="cpu")
+  worst = 0.0
+  for u, out in zip(utts[:BNF_CPU_FILES], outs):
+    want = cpu.transform(u)["bnf"]
+    worst = max(worst, float(np.abs(out - want).max() /
+                             np.abs(want).max()))
+  x = torch.randn(BNF_BATCH, 39 * (2 * BNF_CONTEXT + 1), device="cuda",
+                  generator=torch.Generator(device="cuda").manual_seed(SEED))
+  with torch.inference_mode():
+    ms_batch = cuda_ms(torch, lambda: bnf.network(x))
+  log(f"BNFExtractor on the card, {EXT_FILES} utterances, {n_speech} speech "
+      f"frames: {t_bnf:.4f} s, {n_speech / t_bnf:.1f} frames/s (host clock, "
+      f"MVN, stacking and copies included); {smi}")
+  log(f"BNF network (819 -> 5 x 1024 -> 80) on a batch of {BNF_BATCH}: "
+      f"{ms_batch:.4f} ms (CUDA events); {smi}")
+  log(f"BNF card against CPU on the first {BNF_CPU_FILES} utterances: max "
+      f"diff {worst:.3g} of the largest |output| (limit {BNF_REL})")
+  if worst > BNF_REL:
+    raise AssertionError(f"BNF on the card is {worst} from the CPU")
+  before = multiprocessing.active_children()
+  refused = os.path.join(work, "refused")
+  try:
+    P.FeatureProcessor(jobs, refused, P.make_pipeline([
+        extractor_recipe(P), bnf]), ncpu=EXT_NCPU)
+  except ValueError as e:
+    log(f"FeatureProcessor(ncpu={EXT_NCPU}) with BNFExtractor on the card "
+        f"refused before forking: {e}")
+  else:
+    raise AssertionError("FeatureProcessor accepted a card stage at ncpu="
+                         f"{EXT_NCPU}")
+  if os.path.exists(refused) or multiprocessing.active_children() != before:
+    raise AssertionError("the refused FeatureProcessor forked or wrote")
+  shutil.rmtree(work, ignore_errors=True)
+  return k1
 
 
 # phase 12: the unsupervised VAE zoo on dSprites
@@ -3068,11 +3382,12 @@ def zoo_profile(wanted) -> int:
   return 0
 
 
-PHASES = tuple(range(1, 16))
+PHASES = tuple(range(1, 17))
 # the phases whose results a phase reads: the kernel reports of 2 and 5,
 # phase 7's graphed step time, phase 8's model, phase 9's wav files, phase
 # 10's Gym
-PHASE_NEEDS = {3: (2,), 6: (5,), 8: (7,), 10: (8,), 11: (2, 9), 15: (10,)}
+PHASE_NEEDS = {3: (2,), 6: (5,), 8: (7,), 10: (8,), 11: (2, 9), 15: (10,),
+               16: (9,)}
 
 
 def selected_phases(spec=None):
@@ -3084,7 +3399,7 @@ def selected_phases(spec=None):
   chosen = {1} | {int(p) for p in str(spec).split(",") if p.strip()}
   if not chosen <= set(PHASES):
     raise SystemExit(f"chip_smoke.py --phases: no phase "
-                     f"{sorted(chosen - set(PHASES))}; phases are 1-15")
+                     f"{sorted(chosen - set(PHASES))}; phases are 1-16")
   todo = list(chosen)
   while todo:
     for need in PHASE_NEEDS.get(todo.pop(), ()):
@@ -3695,6 +4010,18 @@ def main(phases=None) -> int:
       log(f"K1 FFT launches on the main paths: speech (phase 3) "
           f"{report['logmel_fft']['launches']}, speaker (phase 11) {k1}")
       report["logmel_fft"]["launches"] += k1
+
+  # phase 16 reads phase 9's wav files, so it runs before they go
+  if 16 in phases:
+    with Phase("16 extractor path: native IO, FeatureProcessor over forked "
+               "workers, the NumPy DSP path against K1, BNF on the card"):
+      k1 = extractor_path(torch, np, reset_counts, read_counts, smi)
+      if "logmel_fft" in report:
+        report["logmel_fft"]["launches"] += k1
+      log(f"K1 FFT launches on the extractor path (phase 16): {k1}")
+  if 9 in phases:
+    import shutil
+    shutil.rmtree(corpus_root(), ignore_errors=True)
 
   if 12 in phases:
     with Phase("12 zoo path: the unsupervised VAE zoo on dSprites"):

@@ -1,4 +1,5 @@
-"""Build the port's CUDA sources with plain ``nvcc`` and load them with ctypes.
+"""Build the port's CUDA sources with plain ``nvcc``, and its host C++
+source with ``g++``, and load them with ctypes.
 
 Each ``csrc/<name>.cu`` exports an ``extern "C"`` launcher and includes no
 PyTorch header, so ``nvcc`` compiles it in seconds into a shared library
@@ -6,6 +7,10 @@ PyTorch header, so ``nvcc`` compiles it in seconds into a shared library
 hash covers the source and the flags, so a second run in the same tree reuses
 the library and an edited source is rebuilt.  Nothing is compiled when a
 module is imported: the first launch of a kernel builds it.
+
+``csrc/odin_io.cpp``, the native corpus IO engine (``native.py``), is built
+the same way with one ``g++ -O3 -shared -fPIC ... -lpthread`` at first use
+(``build_host``), into the same directory.
 """
 from __future__ import annotations
 
@@ -18,13 +23,16 @@ import time
 from pathlib import Path
 from typing import Dict, List, Sequence
 
-__all__ = ["NVCC_FLAGS", "build_all", "library_path", "load"]
+__all__ = ["NVCC_FLAGS", "GXX_FLAGS", "build_all", "build_host",
+           "host_library_path", "library_path", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "odin_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 NVCC_TIMEOUT_S = 300
+GXX_FLAGS = ("-O3", "-shared", "-fPIC")
+GXX_TIMEOUT_S = 120
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 
@@ -92,3 +100,30 @@ def load(name: str) -> ctypes.CDLL:
     path, = build_all([name])
     _LIBS[name] = ctypes.CDLL(str(path))
   return _LIBS[name]
+
+
+def host_library_path(name: str) -> Path:
+  src = CSRC / f"{name}.cpp"
+  digest = hashlib.sha256(src.read_bytes() + " ".join(GXX_FLAGS).encode())
+  return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
+
+
+def build_host(name: str) -> Path:
+  """The shared library of ``csrc/<name>.cpp``, compiled with ``g++`` if
+  not built yet (one call, within ``GXX_TIMEOUT_S``)."""
+  out = host_library_path(name)
+  if not out.exists():
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    gxx = shutil.which("g++")
+    if gxx is None:
+      raise RuntimeError("g++ not found: the native IO engine needs a C++ "
+                         "compiler")
+    res = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp),
+                          str(CSRC / f"{name}.cpp"), "-lpthread"],
+                         capture_output=True, text=True,
+                         timeout=GXX_TIMEOUT_S)
+    if res.returncode:
+      raise RuntimeError(f"g++ failed on {name}.cpp:\n{res.stderr}")
+    os.replace(tmp, out)
+  return out

@@ -2,8 +2,9 @@
 ``odin_tpu/fuel/audio_data.py``).  Wav files or arrays are padded into one
 block on the host and go to the device 64 utterances at a time, pinned on
 the card; ``compat="odin"`` runs ``speech_features`` (K1 unless the feature
-is ``"spec"``), ``compat="tf"`` the tf.signal path.  Wav paths are decoded
-by the port's ``read_wave``.
+is ``"spec"``), ``compat="tf"`` the tf.signal path.  A corpus of wav paths
+is decoded and packed by the native IO engine (``native.pack_batch``), as
+in the JAX package; a list holding arrays by the port's ``read_wave``.
 """
 from __future__ import annotations
 
@@ -117,14 +118,18 @@ class AudioFeatureLoader(IterableDataset):
     their lengths.  A corpus of wav paths must hold the config's rate; a
     list with arrays is resampled item by item."""
     T = self.max_samples
-    all_paths = all(isinstance(i, str) for i in self._items)
+    if all(isinstance(i, str) for i in self._items):
+      # native ingest: C++ decode and pack straight into the padded block
+      from odin_tpu_torch.native import pack_batch
+      batch, lengths, srs = pack_batch(list(self._items), T)
+      if not all(s in (0, self.config.sr) for s in srs):
+        raise ValueError("sample-rate mismatch in corpus; resample first")
+      return batch, lengths
     batch = np.zeros((len(self._items), T), np.float32)
     lengths = np.zeros(len(self._items), np.int32)
     for i, item in enumerate(self._items):
       y, sr = self._load_audio(item)
       if sr != self.config.sr:
-        if all_paths:
-          raise ValueError("sample-rate mismatch in corpus; resample first")
         from math import gcd
         from scipy.signal import resample_poly
         g = gcd(self.config.sr, sr)

@@ -30,14 +30,21 @@ def _length_of(arrays) -> int:
   return len(arrays)
 
 
+def _take(v, idx):
+  # native threaded gather for contiguous ndarrays (bit-identical to numpy
+  # fancy indexing; csrc/odin_io.cpp `odin_gather`)
+  if isinstance(v, np.ndarray) and v.flags["C_CONTIGUOUS"]:
+    from odin_tpu_torch.native import gather
+    return gather(v, idx)
+  return v[idx]
+
+
 def _index(arrays, idx):
-  # numpy fancy indexing: the JAX package's threaded native gather is
-  # bit-identical to it
   if isinstance(arrays, dict):
-    return {k: v[idx] for k, v in arrays.items()}
+    return {k: _take(v, idx) for k, v in arrays.items()}
   if isinstance(arrays, (tuple, list)):
-    return tuple(v[idx] for v in arrays)
-  return arrays[idx]
+    return tuple(_take(v, idx) for v in arrays)
+  return _take(arrays, idx)
 
 
 def _map(fn, batch):

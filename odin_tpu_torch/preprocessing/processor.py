@@ -1,8 +1,9 @@
 """Corpus feature extraction (PyTorch port of
-``odin_tpu/preprocessing/processor.py``): ``batch_speech_features`` on
-padded batches, ``DeviceCorpusProcessor`` from audio files to the on-disk
-feature store, ``validate_features`` and ``calculate_pca`` over a store.
-``FeatureProcessor`` (the host extractor pipeline) is not ported yet.
+``odin_tpu/preprocessing/processor.py``): ``FeatureProcessor``, the host
+extractor pipeline fanned over files by ``mpi.MPI``; ``batch_speech_features``
+on padded batches, ``DeviceCorpusProcessor`` from audio files to the
+on-disk feature store, ``validate_features`` and ``calculate_pca`` over a
+store.
 
 The store is the JAX package's layout, byte for byte: one ``MmapArray`` per
 feature, its ``indices_<feat>`` ``MmapDict`` of (start, end) rows per
@@ -15,6 +16,7 @@ from __future__ import annotations
 import os
 import pickle
 import time
+import traceback
 from collections import defaultdict
 from typing import Any, Callable, Dict, List, Optional, Sequence, Union
 
@@ -24,9 +26,132 @@ import torch
 from odin_tpu_torch.device import resolve_device
 from odin_tpu_torch.fuel.databases import MmapArrayWriter, MmapDict
 from odin_tpu_torch.fuel.dataset import Dataset
+from odin_tpu_torch.mpi import MPI
+from odin_tpu_torch.preprocessing.base import ExtractorSignal, Pipeline
 
-__all__ = ["DeviceCorpusProcessor", "validate_features", "calculate_pca",
-           "IncrementalPCA", "batch_speech_features"]
+__all__ = ["FeatureProcessor", "DeviceCorpusProcessor", "validate_features",
+           "calculate_pca", "IncrementalPCA", "batch_speech_features"]
+
+
+def _stages_on_card(extractor) -> List[str]:
+  """The names of the stages of `extractor` bound to a CUDA device."""
+  steps = extractor.steps if isinstance(extractor, Pipeline) else [extractor]
+  return [step.name for step in steps
+          if isinstance(getattr(step, "device", None), (str, torch.device))
+          and torch.device(step.device).type == "cuda"]
+
+
+class FeatureProcessor:
+  """Fan an extractor pipeline over a corpus and persist the outputs (the
+  JAX package's ``FeatureProcessor``, ``odin_tpu/preprocessing/
+  processor.py:33-127``): one ``MmapArray`` per feature, its
+  ``indices_<feat>`` ``MmapDict``, float64 ``<feat>_sum1.npy`` and
+  ``<feat>_sum2.npy`` and ``log.txt``.
+
+  With ``ncpu > 1`` the jobs run in forked worker processes, which may not
+  use the parent's CUDA context: a pipeline holding a stage bound to a CUDA
+  device (``BNFExtractor(device="cuda")``) raises ``ValueError`` naming the
+  stage, before anything is forked.  With ``ncpu=1`` the jobs run inline.
+  """
+
+  def __init__(self,
+               jobs: Sequence[Any],
+               path: str,
+               extractor: Pipeline,
+               n_cache: int = 120,
+               ncpu: int = 1,
+               override: bool = False,
+               identifier: str = "name",
+               log_path: Optional[str] = None,
+               stop_on_failure: bool = False):
+    on_card = _stages_on_card(extractor)
+    if int(ncpu) > 1 and on_card:
+      raise ValueError(
+          f"FeatureProcessor(ncpu={ncpu}) would fork workers that cannot use "
+          f"the parent's CUDA context, but stage(s) {on_card} run on a CUDA "
+          "device; use ncpu=1 or put those stages on the CPU")
+    self.jobs = list(jobs)
+    self.path = str(path)
+    self.extractor = extractor
+    self.n_cache = int(n_cache)
+    self.ncpu = int(ncpu)
+    self.identifier = identifier
+    self.stop_on_failure = bool(stop_on_failure)
+    self.log_path = log_path or os.path.join(self.path, "log.txt")
+    if override and os.path.exists(self.path):
+      import shutil
+      shutil.rmtree(self.path)
+    os.makedirs(self.path, exist_ok=True)
+
+  def run(self) -> Dataset:
+    """Process all jobs; returns the output Dataset folder."""
+    writers: Dict[str, MmapArrayWriter] = {}
+    indices: Dict[str, MmapDict] = {}
+    sum1: Dict[str, np.ndarray] = {}
+    sum2: Dict[str, np.ndarray] = {}
+    errors: List[str] = []
+    counters = defaultdict(int)
+
+    def _map(batch_jobs):
+      # generator: one (status, result) per job, streamed back by MPI
+      for job in batch_jobs:
+        try:
+          feat = self.extractor.transform(job)
+          yield ("ok", feat)
+        except ExtractorSignal as e:
+          yield (e.action, f"{e.extractor}: {e.message}")
+        except Exception:
+          yield ("error", traceback.format_exc())
+
+    mpi = MPI(jobs=self.jobs, func=_map, ncpu=self.ncpu, batch=1)
+    for status, result in mpi:
+      if status != "ok":
+        errors.append(str(result))
+        if status == "error" and self.stop_on_failure:
+          raise RuntimeError(result)
+        continue
+      feat: Dict[str, Any] = result
+      name = str(feat.get(self.identifier, counters["_n"]))
+      counters["_n"] += 1
+      for key, value in feat.items():
+        if not isinstance(value, np.ndarray) or value.ndim == 0:
+          continue
+        if value.dtype == bool:
+          value = value.astype("uint8")
+        if value.ndim == 1:
+          value = value[:, None]
+        if key not in writers:
+          writers[key] = MmapArrayWriter(
+              os.path.join(self.path, key),
+              shape=(0,) + value.shape[1:], dtype=value.dtype.name)
+          indices[key] = MmapDict(os.path.join(self.path, f"indices_{key}"))
+        w = writers[key]
+        start = w.n_rows
+        w.write(value)
+        indices[key][name] = (start, w.n_rows)
+        if value.dtype.kind == "f":
+          s1 = value.sum(axis=0)
+          s2 = (value.astype(np.float64) ** 2).sum(axis=0)
+          if key in sum1:
+            sum1[key] += s1
+            sum2[key] += s2
+          else:
+            sum1[key] = s1.astype(np.float64)
+            sum2[key] = s2
+    # finalize
+    ds = Dataset(self.path)
+    for key, w in writers.items():
+      w.close()
+      indices[key].close()
+    for key in sum1:
+      np.save(os.path.join(self.path, f"{key}_sum1.npy"), sum1[key])
+      np.save(os.path.join(self.path, f"{key}_sum2.npy"), sum2[key])
+    with open(self.log_path, "w") as f:
+      f.write(f"jobs: {len(self.jobs)}\nprocessed: {counters['_n']}\n"
+              f"errors: {len(errors)}\n\n")
+      f.write("\n".join(errors))
+    ds._scan()
+    return ds
 
 
 def batch_speech_features(utterances: Sequence[np.ndarray],

@@ -45,6 +45,11 @@ state of the JAX package's ``GMM``, ``Tmatrix``, ``PLDA`` and ``Scorer``
 the port's objects on a device, and back as plain dicts of numpy arrays,
 which a JAX object takes with ``setattr`` (the normalizer's entries on its
 ``normalizer``).
+
+A bare stack of flax ``nn.Dense`` layers (``Dense_0``, ``Dense_1``, ...,
+the network of the JAX package's ``BNFExtractor((module, params))``)
+becomes an ``nn.Sequential`` of ``nn.Linear`` with a ReLU between two of
+them through ``from_jax_dense_stack``.
 """
 from __future__ import annotations
 
@@ -65,7 +70,7 @@ __all__ = ["from_jax_params", "to_jax_params", "from_jax_mutables",
            "to_jax_mutables", "from_jax_state", "to_jax_state",
            "from_jax_gmm", "to_jax_gmm", "from_jax_tmatrix",
            "to_jax_tmatrix", "from_jax_plda", "to_jax_plda",
-           "from_jax_scorer", "to_jax_scorer"]
+           "from_jax_scorer", "to_jax_scorer", "from_jax_dense_stack"]
 
 _PRIMITIVES = {"Conv_0": Conv, "ConvTranspose_0": ConvTranspose,
                "Dense_0": Dense, "BatchNorm_0": BatchNorm}
@@ -508,3 +513,36 @@ def from_jax_scorer(src, device="cuda") -> Scorer:
 def to_jax_scorer(scorer: Scorer) -> Dict[str, Any]:
   return {"labels": scorer.labels, "enroll": _host(scorer.enroll),
           "normalizer": _normalizer_to(scorer.normalizer)}
+
+
+# ---------------------------------------------------------------------------
+# a bare Dense stack (BNFExtractor's network)
+# ---------------------------------------------------------------------------
+_DENSE = re.compile(r"^Dense_(\d+)$")
+
+
+def from_jax_dense_stack(params: Mapping[str, Any],
+                         device="cuda") -> nn.Sequential:
+  """A flax module made of ``nn.Dense`` layers only, called in the order of
+  their names (``Dense_0``, ``Dense_1``, ...) with a ReLU between two of
+  them and none after the last, as an ``nn.Sequential`` of ``nn.Linear``
+  and ``nn.ReLU`` on `device`.  `params` is the module's ``{"params":
+  {...}}`` tree (or its inner dict) as numpy arrays."""
+  tree = params.get("params", params)
+  if not tree or not all(_DENSE.match(k) for k in tree):
+    raise ValueError(f"expected only Dense_<i> layers, got {sorted(tree)}")
+  names = sorted(tree, key=lambda k: int(_DENSE.match(k).group(1)))
+  layers = []
+  for i, name in enumerate(names):
+    kernel = np.asarray(tree[name]["kernel"], np.float32)
+    bias = tree[name].get("bias")
+    linear = nn.Linear(kernel.shape[0], kernel.shape[1],
+                       bias=bias is not None)
+    with torch.no_grad():
+      linear.weight.copy_(torch.from_numpy(np.ascontiguousarray(kernel.T)))
+      if bias is not None:
+        linear.bias.copy_(torch.from_numpy(np.array(bias, np.float32)))
+    layers.append(linear)
+    if i < len(names) - 1:
+      layers.append(nn.ReLU())
+  return nn.Sequential(*layers).to(resolve_device(device))

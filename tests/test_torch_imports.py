@@ -87,6 +87,13 @@ def test_sources_exist():
                  "ml/neighbors.py", "ml/naive_bayes.py", "ml/tsne.py",
                  "search.py"):
     assert f"odin_tpu_torch/{module}" in names
+  # the speech front-end slice, and the native IO engine's own source
+  for module in ("preprocessing/signal.py", "preprocessing/_mixture.py",
+                 "preprocessing/base.py", "preprocessing/audio.py",
+                 "preprocessing/opensmile.py", "preprocessing/kaldi.py",
+                 "mpi.py", "native.py"):
+    assert f"odin_tpu_torch/{module}" in names
+  assert (ROOT / "odin_tpu_torch" / "csrc" / "odin_io.cpp").exists()
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -130,7 +137,12 @@ def test_importing_the_port_loads_no_jax():
           "odin_tpu_torch.bay.vi.disentanglement_gym, "
           "odin_tpu_torch.backend.metrics, odin_tpu_torch.ml, "
           "odin_tpu_torch.ml.gmm_tmat, odin_tpu_torch.ml.ivector, "
-          "odin_tpu_torch.ml.scoring, odin_tpu_torch.ml.plda\n"
+          "odin_tpu_torch.ml.scoring, odin_tpu_torch.ml.plda, "
+          "odin_tpu_torch.mpi, odin_tpu_torch.native, "
+          "odin_tpu_torch.preprocessing.base, "
+          "odin_tpu_torch.preprocessing.audio, "
+          "odin_tpu_torch.preprocessing.opensmile, "
+          "odin_tpu_torch.preprocessing.kaldi\n"
           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
           f"{FORBIDDEN!r})\nassert not bad, bad")
   res = _run(["-c", code], cwd=ROOT)
@@ -190,3 +202,36 @@ def test_new_modules_need_neither_sklearn_nor_matplotlib():
                        env=dict(os.environ, PYTHONPATH=str(ROOT)))
   assert res.returncode == 0, res.stderr
   assert res.stdout.strip() == "plots need matplotlib"
+
+
+def test_speech_front_end_needs_no_sklearn():
+  """SADgmm, openSMILEsad, vad_energy and spectra run with scikit-learn
+  blocked, as on the card's machine (their mixtures are carried in
+  NumPy)."""
+  code = "\n".join([
+      "import sys",
+      "sys.modules['sklearn'] = None",
+      "import numpy as np",
+      "from odin_tpu_torch.preprocessing import (SADgmm, openSMILEsad,",
+      "    signal, make_pipeline, AudioReader, STFTExtractor)",
+      "rng = np.random.RandomState(0)",
+      "t = np.arange(32000) / 16000",
+      "y = (0.3 * np.sin(2 * np.pi * 150 * t) * (t % 0.5 < 0.3)",
+      "     + 0.01 * rng.randn(len(t))).astype('f')",
+      "feat = make_pipeline([AudioReader(sr=16000), STFTExtractor()])",
+      "feat = feat.transform({'raw': y, 'sr': 16000})",
+      "sad = SADgmm().transform(feat)['sad']",
+      "score = openSMILEsad().transform(feat)['sad']",
+      "spec = signal.spectra(16000, 400, y=y, n_mels=40, n_ceps=20)",
+      "label, thr = signal.vad_energy(feat['energy'].ravel())",
+      "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
+      "             ('sklearn', 'jax', 'odin_tpu')",
+      "             and sys.modules[m] is not None)",
+      "assert not bad, bad",
+      "print(int(sad.sum()), float(score.sum()), float(spec['mfcc'].sum()),",
+      "      float(thr))"])
+  res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+  assert res.returncode == 0, res.stderr
+  assert 0 < int(res.stdout.split()[0]) < 200
