@@ -244,13 +244,40 @@ CPU:
      16 utterances against the CPU within 1e-4 of the largest output, its
      frames/s and the ms a batch of 2048; and ``FeatureProcessor(ncpu=4)``
      holding that stage refused with ``ValueError`` before it forks.
+ 17. the sweep path, what every script in ``examples/vae/`` runs, on
+     ``Shapes3D()``'s default draws (8,192 train and 8,192 test images
+     rendered on the host, the train split on the card as uint8; the full
+     480,000-image grid is checked on the CPU at a reduced size,
+     tests/test_torch_fullgrid.py): ``BetaVAE`` on
+     ``get_networks('shapes3d')`` and on ``get_networks('locatello',
+     n_channels=3)`` at batch 64, 3 steps on the card against the CPU on
+     the same batches and noise at phase 7's limits;
+     ``multiseed_device_dataset_steps`` with 4 seeds (one vmapped CUDA
+     graph), 5 steps, lane 1 within 1e-5 of ``device_dataset_steps(seed=
+     1)`` and the lanes apart, then 500 steps a call (one warm-up call and
+     3 timed) beside the solo graph's step, each lane's held-out loss below
+     its start; the graphed step under ``remat='dots_saveable'`` and
+     ``True`` beside the plain one (peak memory, ms a step, the gradients
+     bitwise with cuDNN's deterministic algorithms); ``run_hydra`` in the
+     process over ``vae=betavae,betatcvae`` at beta 4, each point ``fit``
+     300 steps at ``steps_per_call=100``, ``run_model(n_samples=2000)``,
+     ``write_report(scores=('mig', 'sap', 'dci'))`` and
+     ``ScoreBoard.write``, both rows read back and both output
+     directories found; then ``-j2`` refused once CUDA has started.  The
+     path launches no kernel of this port.  ``python3 chip_smoke.py
+     --multiseed-profile [LANES [K]]`` runs only a profile of the
+     multi-seed step against the solo one (``multiseed_profile``);
+     ``--trunk-conditioning [STEPS]`` (on the CPU) measures how far float32
+     rounding moves each trunk's training against float64
+     (``trunk_conditioning``).
 
-Run with no argument, it runs every phase: the whole check.  ``python3
-chip_smoke.py --phases 1,14`` runs the phases named, phase 1 (the build)
-always, and every phase whose results a named one reads
-(``PHASE_NEEDS``: 3 reads 2, 6 reads 5, 8 reads 7, 10 reads 8, 11 reads 2
-and 9, 15 reads 10, 16 reads 9); its ``kernels`` line lists only the
-kernels those phases timed.
+The datasets' files and caches are kept under ``build/odin_tpu_home``
+(``$ODIN_TPU_HOME``).  Run with no argument, it runs every phase: the
+whole check.  ``python3 chip_smoke.py --phases 1,14`` runs the phases
+named (1-17), phase 1 (the build) always, and every phase whose results a
+named one reads (``PHASE_NEEDS``: 3 reads 2, 6 reads 5, 8 reads 7, 10
+reads 8, 11 reads 2 and 9, 15 reads 10, 16 reads 9; 17 reads none); its
+``kernels`` line lists only the kernels those phases timed.
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
 fp32 like the CPU.  Any failure raises and the script exits non-zero; it
@@ -3382,7 +3409,430 @@ def zoo_profile(wanted) -> int:
   return 0
 
 
-PHASES = tuple(range(1, 17))
+SWEEP_BATCH = 64  # the sweep scripts' batch (examples/vae/*.py)
+SWEEP_PARITY_STEPS = 3  # card against CPU, as phase 7
+# the Locatello trunk's ReLUs: a pre-activation near 0 takes the other
+# gate where its sum is rounded otherwise, which moves its unit's
+# gradients by far more than the rounding (``--trunk-conditioning``
+# measures it against float64 on the CPU), and Adam carries that into
+# the params.  So
+# each step's gradients are held at the CPU's state of that step, and
+# the params after 3 free steps by 2·lr a step alone, the elements beyond
+# TRAIN_PARAM_ATOL counted (phase 7's share, 2e-5, for the ELU trunk)
+SWEEP_SEEDS = (0, 1, 2, 3)  # S = 4 lanes, cut from Locatello et al.'s 50
+SWEEP_MS_STEPS = 5  # lane against its solo run
+SWEEP_MS_K = 500  # the timed multi-seed graph: steps a call
+SWEEP_LANE_ATOL = 1e-5  # a lane against its solo run (tests/test_multiseed.py)
+SWEEP_REMAT = ("dots_saveable", True)
+SWEEP_REMAT_K = 100  # remat's timed graphs: steps a call
+SWEEP_FIT_STEPS = 300  # each sweep point's fit, SWEEP_FIT_K steps a call
+SWEEP_FIT_K = 100
+SWEEP_BETA = 4.0  # at beta 1 the beta-TCVAE objective is the plain ELBO
+SWEEP_GYM_ROWS = 2000
+SWEEP_HELD = 256  # held-out test images for the lanes' losses
+
+
+def sweep_path(torch, np, reset_counts, read_counts, smi):
+  """Phase 17: the disentanglement sweep on Shapes3D (see the
+  docstring)."""
+  import os
+  import shutil
+  from odin_tpu_torch.bay.vi import BetaVAE, DisentanglementGym, get_vae
+  from odin_tpu_torch.fuel import Shapes3D, get_dataset
+  from odin_tpu_torch.networks import get_networks
+  from odin_tpu_torch.training import (
+      ScoreBoard, device_dataset_steps, get_output_dir,
+      multiseed_device_dataset_steps, run_hydra, stack_states,
+      state_from_host, state_to_host, unstack_states)
+
+  cuda = torch.device("cuda", 0)
+  B = SWEEP_BATCH
+
+  def sync_time(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+  # -- 17.1 Shapes3D's default draws, on the card as uint8
+  t0 = time.perf_counter()
+  ds = Shapes3D()
+  train_x = ds.numpy("train", inc_labels=False)
+  test_x = ds.numpy("test", inc_labels=False)
+  t_render = time.perf_counter() - t0
+  corpus = torch.from_numpy((train_x * 255).astype(np.uint8)).to(cuda)
+  held = torch.from_numpy(
+      (test_x[:SWEEP_HELD] * 255).astype(np.uint8)).to(cuda).float() / 255
+  log(f"Shapes3D(): {len(train_x)} train and {len(test_x)} test images "
+      f"rendered in {t_render:.2f} s; the train split on the card as uint8 "
+      f"({corpus.numel() / 1e6:.1f} MB)")
+
+  # -- 17.2 the card against the CPU: both trunks, 3 steps, same batches
+  # and noise, at phase 7's limits
+  rs = np.random.RandomState(SEED)
+  idx = rs.randint(0, len(train_x), (SWEEP_PARITY_STEPS, B))
+  xs = (train_x[idx] * 255).astype(np.uint8).astype(np.float32) / 255
+  epss = rs.randn(SWEEP_PARITY_STEPS, B, 10).astype(np.float32)
+  for trunk, nets, share in (
+      ("shapes3d", lambda: get_networks("shapes3d", zdim=10),
+       TRAIN_FAR_SHARE),
+      ("locatello", lambda: get_networks("locatello", zdim=10, n_channels=3),
+       None)):
+    vae = BetaVAE(beta=1.0, **nets()).build(seed=1, device=cuda)
+    ref = BetaVAE(beta=1.0, **nets()).build(seed=1, device="cpu")
+    step = vae.make_step_fn(learning_rate=TRAIN_LR)
+    step_cpu = ref.make_step_fn(learning_rate=TRAIN_LR)
+    s, s_cpu = vae.state, ref.state
+    losses, grad_rel = [], 0.0
+    for i in range(SWEEP_PARITY_STEPS):
+      eps = torch.from_numpy(epss[i])
+      # the card's gradients at the CPU's state of this step
+      _, _, g = step.value_and_grad(state_from_host(state_to_host(s_cpu),
+                                                    cuda), xs[i], eps=eps)
+      _, _, g_cpu = step_cpu.value_and_grad(s_cpu, xs[i], eps=eps)
+      grad_rel = max([grad_rel] + [
+          float((g["vae"][k].cpu() - w).abs().max() /
+                w.abs().max().clamp(min=1e-30))
+          for k, w in g_cpu["vae"].items()])
+      s, m = step(s, xs[i], eps=eps)
+      s_cpu, m_cpu = step_cpu(s_cpu, xs[i], eps=eps)
+      losses.append((float(m["loss"]), float(m_cpu["loss"])))
+    worst, far, total = 0.0, 0, 0
+    for k, w in s_cpu.params["vae"].items():
+      d = (s.params["vae"][k].cpu() - w).abs()
+      worst, far = max(worst, float(d.max())), far + int(
+          (d > TRAIN_PARAM_ATOL).sum())
+      total += d.numel()
+    log(f"BetaVAE on {trunk} ({total} params), card against CPU: each "
+        f"step's gradients at the CPU's state max rel {grad_rel:.3g} (limit "
+        f"{TRAIN_GRAD_REL}); losses " + ", ".join(
+            f"{a:.4f}/{b:.4f}" for a, b in losses) +
+        f" (limit rtol {TRAIN_LOSS_RTOL}); params after "
+        f"{SWEEP_PARITY_STEPS} steps max |diff| {worst:.3g} (limit "
+        f"{2 * TRAIN_LR * SWEEP_PARITY_STEPS:.3g}), {far} of {total} beyond "
+        f"{TRAIN_PARAM_ATOL} (limit " +
+        (f"{share} of them)" if share else "none: ReLU gates)"))
+    if not grad_rel <= TRAIN_GRAD_REL:
+      raise AssertionError(f"{trunk}: gradients differ by {grad_rel}")
+    for a, b in losses:
+      if not (math.isfinite(a) and abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)):
+        raise AssertionError(f"{trunk}: loss {a} against {b}")
+    if worst > 2 * TRAIN_LR * SWEEP_PARITY_STEPS + 1e-6 or (
+        share is not None and far > share * total):
+      raise AssertionError(f"{trunk}: params {worst} apart at most, {far} "
+                           f"of {total} beyond {TRAIN_PARAM_ATOL}")
+    del vae, ref, step, step_cpu, s, s_cpu
+
+  # -- 17.3 multi-seed: S lanes in one vmapped graph against solo runs
+  S = len(SWEEP_SEEDS)
+  vae = BetaVAE(beta=1.0, **get_networks("shapes3d", zdim=10))
+  states = []
+  for seed in SWEEP_SEEDS:
+    vae.build(seed=seed, device=cuda)
+    step = vae.make_step_fn(learning_rate=TRAIN_LR)
+    states.append(vae.state)
+  eval_fn = vae.make_eval_fn()
+  saved = [st.rng.get_state() for st in states]
+  reset_counts()
+  fused = multiseed_device_dataset_steps(step, B, SWEEP_MS_STEPS,
+                                         seeds=SWEEP_SEEDS)
+  stacked, m = fused(stack_states(states), corpus)
+  lanes = unstack_states(stacked)
+  for st, g in zip(states, saved):
+    st.rng.set_state(g)
+  solo, m_solo = device_dataset_steps(step, B, SWEEP_MS_STEPS,
+                                      seed=SWEEP_SEEDS[1])(states[1], corpus)
+  torch.cuda.synchronize()
+  log(f"multi-seed launches (cuDNN and cuBLAS, no kernel of this port): "
+      f"{read_counts()}")
+  lane_apart = max(float((lanes[1].params["vae"][k] - v).abs().max())
+                   for k, v in solo.params["vae"].items())
+  lane_far = sum(int(((lanes[1].params["vae"][k] - v).abs() >
+                      SWEEP_LANE_ATOL).sum())
+                 for k, v in solo.params["vae"].items())
+  lanes_apart = max(float((lanes[0].params["vae"][k] - v).abs().max())
+                    for k, v in lanes[1].params["vae"].items())
+  log(f"multiseed_device_dataset_steps, S={S}, {SWEEP_MS_STEPS} steps: lane "
+      f"1 against device_dataset_steps(seed={SWEEP_SEEDS[1]}) max |diff| "
+      f"{lane_apart:.3g} (limit {SWEEP_LANE_ATOL}; {lane_far} elements "
+      f"beyond it); losses lane 1 "
+      f"{float(m['loss'][1]):.6f} / solo {float(m_solo['loss']):.6f}; lanes "
+      f"0 and 1 {lanes_apart:.3g} apart; metrics {sorted(m)} of shape "
+      f"{tuple(m['loss'].shape)}; capture {fused.capture_seconds or 0.0:.3f} s")
+  if not lane_apart <= SWEEP_LANE_ATOL:
+    raise AssertionError(f"lane 1 is {lane_apart} from its solo run")
+  if not lanes_apart > 1e-3 or tuple(m["loss"].shape) != (S,):
+    raise AssertionError(f"the lanes are {lanes_apart} apart, metrics "
+                         f"{tuple(m['loss'].shape)}")
+  for st, g in zip(states, saved):
+    st.rng.set_state(g)
+  before = [float(eval_fn(st, held)["loss"]) for st in states]
+  fused_k = multiseed_device_dataset_steps(step, B, SWEEP_MS_K,
+                                           seeds=SWEEP_SEEDS)
+  t_first, (stacked, _) = sync_time(
+      lambda: fused_k(stack_states(states), corpus))
+  t_ms, (stacked, _) = sync_time(
+      lambda: [fused_k(stacked, corpus) for _ in range(3)][-1])
+  after = [float(eval_fn(st, held)["loss"]) for st in unstack_states(stacked)]
+  solo_k = device_dataset_steps(step, B, SWEEP_MS_K, seed=SWEEP_SEEDS[0])
+  t_solo_first, (s_solo, _) = sync_time(lambda: solo_k(states[0], corpus))
+  t_solo, _ = sync_time(lambda: [solo_k(s_solo, corpus) for _ in range(3)])
+  ms_lanes = 1e3 * t_ms / (3 * SWEEP_MS_K)
+  ms_solo = 1e3 * t_solo / (3 * SWEEP_MS_K)
+  log(f"multi-seed graph, S={S}, batch {B} a lane, k={SWEEP_MS_K}, 3 calls "
+      f"after one warm-up: {ms_lanes:.3f} ms an S-lane step against "
+      f"{S} x {ms_solo:.3f} = {S * ms_solo:.3f} ms of solo steps "
+      f"({S * ms_solo / ms_lanes:.2f}x); first calls {t_first:.3f} s "
+      f"(capture {fused_k.capture_seconds or 0.0:.3f} s) and {t_solo_first:.3f} s; "
+      f"held-out loss ({SWEEP_HELD} test images) by lane: " + ", ".join(
+          f"{a:.2f} -> {b:.2f}" for a, b in zip(before, after)) +
+      f" after {4 * SWEEP_MS_K} steps; skipped "
+      f"{stacked.skipped_updates.tolist()}")
+  if not all(math.isfinite(b) and b < a for a, b in zip(before, after)):
+    raise AssertionError(f"a lane's held-out loss did not fall: {before} -> "
+                         f"{after}")
+  del fused, fused_k, solo_k, stacked, lanes, solo, s_solo
+
+  # -- 17.4 remat: the step under two policies against the plain one, the
+  # gradients bitwise with cuDNN's deterministic algorithms; then each
+  # graphed with the default algorithms, as the timed graphs of phase 7
+  start = states[0]
+  x0 = torch.from_numpy(xs[0]).to(cuda)
+  e0 = torch.from_numpy(epss[0]).to(cuda)
+  variants = (False,) + SWEEP_REMAT
+  fns = [vae.make_step_fn(learning_rate=TRAIN_LR, remat=r,
+                          keep_opt_states=True) for r in variants]
+  torch.backends.cudnn.deterministic = True
+  try:
+    grads = [fn.value_and_grad(start, x0, eps=e0)[2]["vae"] for fn in fns]
+  finally:
+    torch.backends.cudnn.deterministic = False
+  for remat, g in zip(variants[1:], grads[1:]):
+    if not all(torch.equal(g[k], v) for k, v in grads[0].items()):
+      raise AssertionError(f"remat={remat!r}: gradients differ from the "
+                           "plain step's")
+  rows = []
+  for remat, fn in zip(variants, fns):
+    fd = device_dataset_steps(fn, B, SWEEP_REMAT_K, seed=SEED)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _, (s_r, _) = sync_time(lambda: fd(start, corpus))
+    peak = torch.cuda.max_memory_allocated() - base
+    t, _ = sync_time(lambda: [fd(s_r, corpus) for _ in range(2)])
+    rows.append((remat, peak, 1e3 * t / (2 * SWEEP_REMAT_K)))
+    del fd, s_r
+  log(f"remat, graphed device_dataset_steps at batch {B}; gradients "
+      "bitwise the plain step's (cuDNN deterministic): " + "; ".join(
+          f"remat={r!r}: peak {p / 2 ** 20:.1f} MiB above the held memory "
+          f"over the first call (warm-up, capture, {SWEEP_REMAT_K} steps), "
+          f"{ms:.3f} ms a step" for r, p, ms in rows))
+  del vae, states, start, fns
+
+  # -- 17.5 the sweep: run_hydra over two models, fit, the Gym, ScoreBoard
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      f"sweep_path_{os.getpid()}")
+  shutil.rmtree(root, ignore_errors=True)
+  runs = os.path.join(root, "runs")
+  board = ScoreBoard(os.path.join(root, "scores.db"))
+  rendered = {"shapes3d": ds}
+  points = []
+
+  @run_hydra(output_dir=runs, config=dict(ds="shapes3d", vae="betavae",
+                                          beta=SWEEP_BETA, zdim=10,
+                                          batch_size=B,
+                                          max_iter=SWEEP_FIT_STEPS,
+                                          lr=TRAIN_LR))
+  def sweep(cfg):
+    t0 = time.perf_counter()
+    data = rendered.get(cfg.ds) or get_dataset(cfg.ds)
+    model = get_vae(cfg.vae)(beta=cfg.beta, **get_networks(
+        cfg.ds, zdim=cfg.zdim)).build(seed=SEED, device=cuda)
+    tr = model.fit(data.create_dataset("train", batch_size=cfg.batch_size,
+                                       epochs=-1, prefetch=2, to_device=cuda),
+                   max_iter=cfg.max_iter, learning_rate=cfg.lr,
+                   steps_per_call=SWEEP_FIT_K, logdir=cfg.output_dir,
+                   logging_interval=1e9, verbose=False)
+    gym = DisentanglementGym(dataset=data, model=model)
+    gym.run_model(n_samples=SWEEP_GYM_ROWS, partition="test")
+    scores = gym.write_report(scores=("mig", "sap", "dci"))
+    numbers = {k: float(v) for k, v in scores.items()
+               if isinstance(v, (int, float))}
+    board.write("sweep", unique=["vae", "ds"], vae=cfg.vae, ds=cfg.ds,
+                steps=int(model.state.step), **numbers)
+    points.append((cfg.vae, cfg.output_dir, int(model.state.step),
+                   int(model.state.skipped_updates), numbers,
+                   sorted(k for k in scores if k.endswith("_error")),
+                   tr.total_time, time.perf_counter() - t0))
+    return numbers
+
+  t0 = time.perf_counter()
+  sweep(["vae=betavae,betatcvae", "-j1"])
+  t_sweep = time.perf_counter() - t0
+  for name, out_dir, steps, skipped, numbers, errors, t_fit, t_point in points:
+    log(f"sweep point vae={name}: {steps} steps ({skipped} skipped) in "
+        f"{t_fit:.2f} s of fit, {t_point:.2f} s in all; " + ", ".join(
+            f"{k} {v:.4f}" for k, v in sorted(numbers.items())) +
+        f"; output {os.path.relpath(out_dir, root)}")
+    if errors or steps != SWEEP_FIT_STEPS or skipped or not all(
+        math.isfinite(v) for v in numbers.values()):
+      raise AssertionError(f"sweep point {name}: errors {errors}, steps "
+                           f"{steps}, skipped {skipped}, scores {numbers}")
+  rows = ScoreBoard(os.path.join(root, "scores.db")).select("sweep",
+                                                             order_by="vae")
+  dirs = sorted(d for d in os.listdir(runs)
+                if os.path.isdir(os.path.join(runs, d)))
+  want_dirs = sorted(os.path.basename(get_output_dir(runs, {"vae": v}))
+                     for v in ("betavae", "betatcvae"))
+  log(f"run_hydra vae=betavae,betatcvae -j1: {t_sweep:.2f} s; ScoreBoard "
+      f"rows {[(r['vae'], round(r['mig'], 4)) for r in rows]}; output "
+      f"directories {dirs}")
+  if [r["vae"] for r in rows] != ["betatcvae", "betavae"] or \
+      dirs != want_dirs:
+    raise AssertionError(f"rows {rows}, directories {dirs} (want "
+                         f"{want_dirs})")
+  try:
+    sweep(["vae=betavae,betatcvae", "-j2"])
+  except ValueError as e:
+    log(f"run_hydra -j2 after CUDA started: refused ({e})")
+  else:
+    raise AssertionError("run_hydra -j2 forked beside the card's context")
+  shutil.rmtree(root, ignore_errors=True)
+  log(smi)
+
+
+def multiseed_profile(argv) -> int:
+  """``python3 chip_smoke.py --multiseed-profile [LANES [K]]``: where a
+  multi-seed training step's time goes on the card, none of the phases:
+  the graphed step of ``multiseed_device_dataset_steps`` (LANES lanes, 4
+  by default, of the full-width Shapes3D beta-VAE at batch 64 a lane)
+  beside the solo ``device_dataset_steps`` step, each timed over 3 calls
+  of K steps (100) after a warm-up call and profiled by kernel with
+  ``torch.profiler``, with cuDNN's heuristics and with
+  ``torch.backends.cudnn.benchmark``.  TF32 off."""
+  import numpy as np
+  import torch
+  from torch.profiler import ProfilerActivity, profile
+  from odin_tpu_torch.bay.vi import BetaVAE
+  from odin_tpu_torch.fuel import Shapes3D
+  from odin_tpu_torch.networks import get_networks
+  from odin_tpu_torch.training import (device_dataset_steps,
+                                       multiseed_device_dataset_steps,
+                                       stack_states)
+
+  if not torch.cuda.is_available():
+    print("chip_smoke: no CUDA card visible", file=sys.stderr)
+    return 2
+  lanes, k = (int(a) for a in (list(argv) + ["4", "100"][len(argv):])[:2])
+  torch.backends.cuda.matmul.allow_tf32 = False
+  torch.backends.cudnn.allow_tf32 = False
+  smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                        "--format=csv,noheader"], capture_output=True,
+                       text=True, timeout=60).stdout.strip()
+  cuda = torch.device("cuda", 0)
+  images = Shapes3D().numpy("train", inc_labels=False)
+  corpus = torch.from_numpy((images * 255).astype(np.uint8)).to(cuda)
+  seeds = list(range(lanes))
+  vae = BetaVAE(beta=1.0, **get_networks("shapes3d", zdim=10))
+  states = []
+  for seed in seeds:
+    vae.build(seed=seed, device=cuda)
+    step = vae.make_step_fn(learning_rate=TRAIN_LR)
+    states.append(vae.state)
+
+  def timed(fused, state):
+    state, _ = fused(state, corpus)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+      state, _ = fused(state, corpus)
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / (3 * k), state
+
+  def kernels(fused, state, top=8):
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      fused(state, corpus)
+      torch.cuda.synchronize()
+    rows = sorted(((e.key, e.self_device_time_total / 1e3 / k)
+                   for e in prof.key_averages()
+                   if e.self_device_time_total > 0), key=lambda r: -r[1])
+    return sum(ms for _, ms in rows), rows[:top]
+
+  for bench in (False, True):
+    torch.backends.cudnn.benchmark = bench
+    fused = multiseed_device_dataset_steps(step, TRAIN_BATCH, k, seeds=seeds)
+    solo = device_dataset_steps(step, TRAIN_BATCH, k, seed=0)
+    ms_lanes, stacked = timed(fused, stack_states(states))
+    ms_solo, s_solo = timed(solo, states[0])
+    log(f"cudnn.benchmark={bench}: S={lanes} lanes {ms_lanes:.3f} ms a step, "
+        f"solo {ms_solo:.3f} ms ({lanes * ms_solo / ms_lanes:.2f}x the "
+        f"throughput of {lanes} solo runs); {smi}")
+    for name, fn, state in (("lanes", fused, stacked), ("solo", solo, s_solo)):
+      total, top = kernels(fn, state)
+      log(f"  {name}: {total:.3f} ms of kernels a step; " + "; ".join(
+          f"{key[:70]} {ms:.3f}" for key, ms in top))
+  return 0
+
+
+def trunk_conditioning(argv) -> int:
+  """``python3 chip_smoke.py --trunk-conditioning [STEPS]`` (on the CPU):
+  how far float32 rounding moves each trunk's training, the reason phase
+  17 holds the Locatello trunk's gradients step by step.  The BetaVAE on
+  ``get_networks('shapes3d')`` (ELU) and on ``get_networks('locatello',
+  n_channels=3)`` (ReLU) at batch 64 on Shapes3D images, in float32 and in
+  float64 from the same weights, batches and noise: the first gradient
+  and the params after STEPS (3) Adam steps.  A ReLU whose pre-activation
+  lies near 0 takes the other gate where its sum is rounded otherwise, so
+  its unit's gradients move by far more than the rounding; an ELU has no
+  gate."""
+  import numpy as np
+  import torch
+  from odin_tpu_torch.bay.vi import BetaVAE
+  from odin_tpu_torch.fuel import Shapes3D
+  from odin_tpu_torch.networks import get_networks
+
+  steps = int(argv[0]) if argv else 3
+  images = Shapes3D(n_samples=512).numpy("train", inc_labels=False)
+  rs = np.random.RandomState(SEED)
+  idx = rs.randint(0, len(images), (steps, TRAIN_BATCH))
+  xs = (images[idx] * 255).astype(np.uint8).astype(np.float32) / 255
+  epss = rs.randn(steps, TRAIN_BATCH, 10).astype(np.float32)
+
+  def run(trunk, dtype):
+    kwargs = dict(n_channels=3) if trunk == "locatello" else {}
+    vae = BetaVAE(beta=1.0, **get_networks(trunk, zdim=10, **kwargs)).build(
+        seed=1, device="cpu")
+    vae.core.to(dtype)
+    vae.state = vae.state.replace(params={"vae": {
+        k: v.to(dtype) for k, v in vae.state.params["vae"].items()}})
+    step = vae.make_step_fn(learning_rate=TRAIN_LR)
+    batches = [(torch.from_numpy(x).to(dtype), torch.from_numpy(e).to(dtype))
+               for x, e in zip(xs, epss)]
+    _, _, g = step.value_and_grad(vae.state, batches[0][0],
+                                  eps=batches[0][1])
+    s = vae.state
+    for x, e in batches:
+      s, _ = step(s, x, eps=e)
+    return ({k: v.double() for k, v in g["vae"].items()},
+            {k: v.double() for k, v in s.params["vae"].items()})
+
+  for trunk in ("shapes3d", "locatello"):
+    g32, p32 = run(trunk, torch.float32)
+    g64, p64 = run(trunk, torch.float64)
+    rel = max(float((g32[k] - w).abs().max() / w.abs().max())
+              for k, w in g64.items())
+    signs = sum(int(((g32[k] > 0) != (w > 0)).sum()) for k, w in g64.items())
+    d = torch.cat([(p32[k] - w).abs().flatten() for k, w in p64.items()])
+    log(f"{trunk}: first gradient, float32 against float64: max |diff| / "
+        f"max |grad| of a tensor {rel:.3g}, {signs} signs apart; params "
+        f"after {steps} Adam steps at {TRAIN_LR}: max |diff| "
+        f"{float(d.max()):.3g}, {int((d > 1e-5).sum())} of {d.numel()} "
+        f"beyond 1e-5")
+  return 0
+
+
+PHASES = tuple(range(1, 18))
 # the phases whose results a phase reads: the kernel reports of 2 and 5,
 # phase 7's graphed step time, phase 8's model, phase 9's wav files, phase
 # 10's Gym
@@ -3399,7 +3849,7 @@ def selected_phases(spec=None):
   chosen = {1} | {int(p) for p in str(spec).split(",") if p.strip()}
   if not chosen <= set(PHASES):
     raise SystemExit(f"chip_smoke.py --phases: no phase "
-                     f"{sorted(chosen - set(PHASES))}; phases are 1-16")
+                     f"{sorted(chosen - set(PHASES))}; phases are 1-17")
   todo = list(chosen)
   while todo:
     for need in PHASE_NEEDS.get(todo.pop(), ()):
@@ -3429,6 +3879,13 @@ def main(phases=None) -> int:
     print("chip_smoke: no CUDA card visible (torch.cuda.is_available() is "
           "false); nothing was run", file=sys.stderr)
     return 2
+  # the datasets' files and full-grid caches lie under $ODIN_TPU_HOME
+  # (~/.odin_tpu without it): the script keeps its own under build/, so
+  # that it reads no dataset file of the user's and writes nothing outside
+  # the checkout
+  import os
+  os.environ["ODIN_TPU_HOME"] = os.path.join(
+      os.path.dirname(os.path.abspath(__file__)), "build", "odin_tpu_home")
 
   # every kernel wrapper's launch counts: "logmel" counts the launches of
   # the three K1 kernels, "logmel_fft" the power-of-two FFT kernel's share,
@@ -4042,6 +4499,11 @@ def main(phases=None) -> int:
                "DBSCAN, naive Bayes"):
       clustering_path(torch, np, reset_counts, read_counts, smi, gym)
 
+  if 17 in phases:
+    with Phase("17 sweep path: Shapes3D, both trunks, multi-seed training, "
+               "remat policies, run_hydra and the ScoreBoard"):
+      sweep_path(torch, np, reset_counts, read_counts, smi)
+
   log("kernels: " + "; ".join(
       f"{k} launches={v['launches']} ms={v['ms']:.4f} "
       f"plain_ms={v['plain_ms']:.4f} library_ms={v['library_ms']:.4f} "
@@ -4066,6 +4528,10 @@ if __name__ == "__main__":
     sys.exit(semi_rehearsal(sys.argv[2:]))
   if sys.argv[1:2] == ["--hier-rehearsal"]:
     sys.exit(hier_rehearsal(sys.argv[2:]))
+  if sys.argv[1:2] == ["--multiseed-profile"]:
+    sys.exit(multiseed_profile(sys.argv[2:]))
+  if sys.argv[1:2] == ["--trunk-conditioning"]:
+    sys.exit(trunk_conditioning(sys.argv[2:]))
   if sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3:
     sys.exit(main(selected_phases(sys.argv[2])))
   if sys.argv[1:]:

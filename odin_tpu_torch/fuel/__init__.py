@@ -1,7 +1,8 @@
 """Data layer of the port: the input pipeline, the on-disk stores and the
 feature-store ``Dataset``, ``AudioFeatureLoader``, and the datasets ported
-so far (procedural dSprites, the half-moons).  ``get_dataset`` raises for the JAX package's
-other datasets, which are not ported yet."""
+so far (dSprites and Shapes3D with their variants, the half-moons).
+``get_dataset`` raises for the JAX package's other datasets, which are not
+ported yet."""
 from typing import List, Type, Union
 
 from odin_tpu_torch.fuel.audio_data import (AudioFeatureLoader,
@@ -11,17 +12,20 @@ from odin_tpu_torch.fuel.databases import (MmapArray, MmapArrayWriter,
 from odin_tpu_torch.fuel.dataset import Dataset
 from odin_tpu_torch.fuel.dataset_base import IterableDataset, get_partition
 from odin_tpu_torch.fuel.image_data import (HalfMoons, ImageDataset,
-                                            dSprites, dSprites0,
-                                            dSpritesSmall)
+                                            Shapes3D, Shapes3D0,
+                                            Shapes3DSmall, dSprites,
+                                            dSprites0, dSpritesSmall)
 from odin_tpu_torch.fuel.pipeline import DataPipeline
 
 __all__ = ["get_dataset", "get_all_dataset", "get_partition",
            "IterableDataset", "ImageDataset", "DataPipeline", "dSprites",
-           "dSpritesSmall", "dSprites0", "HalfMoons", "Dataset", "MmapDict", "SQLiteDict",
+           "dSpritesSmall", "dSprites0", "Shapes3D", "Shapes3DSmall",
+           "Shapes3D0", "HalfMoons", "Dataset", "MmapDict", "SQLiteDict",
            "MmapArray", "MmapArrayWriter", "TableDict", "AudioFeatureLoader",
            "synth_speaker_corpus"]
 
-_DATASETS = (dSprites, dSprites0, dSpritesSmall, HalfMoons)
+_DATASETS = (dSprites, dSprites0, dSpritesSmall, Shapes3D, Shapes3DSmall,
+             Shapes3D0, HalfMoons)
 
 
 def get_all_dataset(data_type: str = None) -> List[Type[IterableDataset]]:

@@ -27,6 +27,8 @@ from odin_tpu_torch.networks.image_networks import (
     get_networks,
     get_optimizer_info,
     halfmoons_networks,
+    locatello_networks,
+    shapes3d_networks,
     vq_dsprites_networks,
 )
 from odin_tpu_torch.networks.conditional_embedding import (

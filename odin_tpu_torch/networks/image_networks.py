@@ -1,10 +1,12 @@
 """Per-dataset architectures of the port (PyTorch port of
 ``odin_tpu/networks/image_networks.py``: ``_decoder_network`` :40,
 ``PackImageParams`` :59, ``_obs_distribution`` :77, ``dsprites_networks``
-:243-307, ``vq_dsprites_networks`` :314-346, ``halfmoons_networks``
+:243-307, ``vq_dsprites_networks`` :314-346, ``shapes3d_networks``
+:348-358, ``locatello_networks`` :361-403, ``halfmoons_networks``
 :420-444, ``get_networks`` :488, ``get_optimizer_info`` :512).  Only the
-plain decoder, the dSprites family and the half-moons MLPs are ported so
-far; ``is_semi_supervised`` adds their labels heads."""
+plain decoder, the dSprites and Shapes3D families, disentanglement_lib's
+trunk and the half-moons MLPs are ported so far; ``is_semi_supervised``
+adds their labels heads."""
 from __future__ import annotations
 
 from typing import Any, Dict, Optional, Tuple
@@ -26,7 +28,8 @@ from odin_tpu_torch.networks.base import (
 )
 
 __all__ = ["PackImageParams", "dsprites_networks", "vq_dsprites_networks",
-           "halfmoons_networks", "get_networks", "get_optimizer_info"]
+           "shapes3d_networks", "locatello_networks", "halfmoons_networks",
+           "get_networks", "get_optimizer_info"]
 
 
 def _decoder_network(layers, skip_generator: bool = False):
@@ -158,6 +161,58 @@ def vq_dsprites_networks(activation="elu", centerize_image: bool = True,
   ))
   return dict(encoder=encoder, decoder=decoder, latents=None,
               observation=observation, input_shape=input_shape)
+
+
+def shapes3d_networks(qz: str = "mvndiag", zdim: Optional[int] = None,
+                      **kwargs) -> Dict[str, Any]:
+  """Shapes3D's 64x64x3 images: the dSprites trunk with 3 channels (proj
+  256) and 6 ground-truth factors for a labels head."""
+  kwargs.setdefault("n_channels", 3)
+  kwargs.setdefault("n_factors", 6)
+  return dsprites_networks(qz=qz, zdim=zdim, **kwargs)
+
+
+shapes3dsmall_networks = shapes3d_networks
+shapes3d0_networks = shapes3d_networks
+
+
+def locatello_networks(qz: str = "mvndiag", zdim: Optional[int] = None,
+                       **kwargs) -> Dict[str, Any]:
+  """disentanglement_lib's conv trunk (Locatello et al. 2019), behind the
+  published dSprites and Shapes3D numbers: ReLU; encoder kernels 4-4-2-2
+  (32-32-64-64, stride 2) and an fc-256 ReLU projection; a 256 -> 1024
+  ReLU decoder stem; no input centring; no ``hierarchy`` rung."""
+  n_channels = int(kwargs.get("n_channels", 1))
+  input_shape = (64, 64, n_channels)
+  zdim = 10 if zdim is None else int(zdim)
+  n_params, observation = _obs_distribution(
+      input_shape, kwargs.get("distribution", "bernoulli"))
+  encoder = SequentialNetwork((
+      Conv(32, 4, 2, "relu"),   # 32, 32, 32
+      Conv(32, 4, 2, "relu"),   # 16, 16, 32
+      Conv(64, 2, 2, "relu"),   # 8, 8, 64
+      Conv(64, 2, 2, "relu"),   # 4, 4, 64
+      Flatten(),
+      Dense(256, activation="relu"),
+  ))
+  decoder = _decoder_network((
+      Dense(256, activation="relu"),
+      Dense(1024, activation="relu"),
+      Reshape((4, 4, 64)),
+      ConvTranspose(64, 4, 2, "relu"),  # 8, 8, 64
+      ConvTranspose(64, 4, 2, "relu"),  # 16, 16, 64
+      ConvTranspose(32, 4, 2, "relu"),  # 32, 32, 32
+      ConvTranspose(n_channels * n_params, 4, 2, None),  # 64, 64, C·n
+      PackImageParams(n_params),
+  ), kwargs.get("skip_generator", False))
+  return dict(
+      encoder=encoder,
+      decoder=decoder,
+      latents=RVconf((zdim,), qz, projection=True, name="latents"),
+      observation=observation,
+      input_shape=input_shape,
+      hierarchy=(),
+  )
 
 
 def halfmoons_networks(qz: str = "mvndiag",

@@ -1,7 +1,8 @@
 """Training-step machinery of the port (PyTorch port of
 ``odin_tpu/training/core.py``): ``TrainState``, ``TrainStep``, the
-optimizers, ``build_train_step_fn``, ``scan_steps`` and
-``device_dataset_steps``.
+optimizers, ``build_train_step_fn``, ``scan_steps``,
+``device_dataset_steps`` and the multi-seed ``stack_states``,
+``unstack_states`` and ``multiseed_device_dataset_steps``.
 
 The step keeps the JAX package's pure interface,
 ``step_fn(state, batch) -> (state, metrics)``: the state is a tree of
@@ -18,9 +19,13 @@ tensors and a step returns a new one, leaving its input as it was.
     params.
   * Noise: a step draws from the state's ``torch.Generator``, or takes the
     noise itself (``eps``), so that a test can feed the JAX package's draws.
-  * On the card, ``scan_steps`` and ``device_dataset_steps`` run k steps
-    from a captured CUDA graph of one step over static copies of the
-    state, and return copies; on the CPU they are a plain loop.
+  * On the card, ``scan_steps``, ``device_dataset_steps`` and
+    ``multiseed_device_dataset_steps`` run k steps from a captured CUDA
+    graph of one step over static copies of the state, and return copies;
+    on the CPU they are a plain loop.
+  * ``remat`` recomputes the forward in the backward
+    (``torch.utils.checkpoint``), all of it or, by a policy named as JAX's
+    ``jax.checkpoint_policies``, all but the matmuls and convolutions.
 """
 from __future__ import annotations
 
@@ -36,6 +41,7 @@ __all__ = ["TrainState", "TrainStep", "TrainStepFn", "Optimizer", "Adam",
            "AdamW", "SGD", "RMSProp", "Adagrad", "Adamax", "Lamb", "Lion",
            "Noise", "make_optimizer", "exponential_decay",
            "build_train_step_fn", "scan_steps", "device_dataset_steps",
+           "multiseed_device_dataset_steps", "stack_states", "unstack_states",
            "step_indices", "state_to_host", "state_from_host",
            "get_param_subtree", "set_param_subtree", "extract_partitions",
            "merge_partitions", "use_ema_params", "EMA_KEY"]
@@ -245,6 +251,14 @@ def use_ema_params(state: TrainState) -> TrainState:
 # ---------------------------------------------------------------------------
 # noise
 # ---------------------------------------------------------------------------
+def _replayable(make: Callable) -> Callable:
+  """Mark a sampler whose draws depend on nothing but its generator (its
+  shape, dtype and device fixed), so that a multi-seed run may make the
+  same draw again from each lane's generator."""
+  make.replayable = True
+  return make
+
+
 class Noise:
   """Where a step's random draws come from: a ``torch.Generator``, or the
   injected `eps` tensors, handed out in order.  ``rewind(mark)`` makes the
@@ -292,29 +306,31 @@ class Noise:
 
   def normal(self, shape, dtype: torch.dtype,
              device: torch.device) -> torch.Tensor:
-    return self.draw(shape, dtype, device, lambda g: torch.randn(
-        tuple(shape), generator=g, dtype=dtype, device=device))
+    return self.draw(shape, dtype, device, _replayable(lambda g: torch.randn(
+        tuple(shape), generator=g, dtype=dtype, device=device)))
 
   def uniform(self, shape, dtype: torch.dtype,
               device: torch.device) -> torch.Tensor:
     """Uniforms in [0, 1)."""
-    return self.draw(shape, dtype, device, lambda g: torch.rand(
-        tuple(shape), generator=g, dtype=dtype, device=device))
+    return self.draw(shape, dtype, device, _replayable(lambda g: torch.rand(
+        tuple(shape), generator=g, dtype=dtype, device=device)))
 
   def gumbel(self, shape, dtype: torch.dtype,
              device: torch.device) -> torch.Tensor:
     """Standard Gumbel variates, ``-log(-log u)`` of uniforms u in
     (tiny, 1) (the noise of a Gumbel-max categorical draw)."""
     tiny = torch.finfo(dtype).tiny
-    return self.draw(shape, dtype, device, lambda g: -torch.log(-torch.log(
-        torch.rand(tuple(shape), generator=g, dtype=dtype,
-                   device=device).clamp_(min=tiny))))
+    return self.draw(shape, dtype, device, _replayable(
+        lambda g: -torch.log(-torch.log(torch.rand(
+            tuple(shape), generator=g, dtype=dtype,
+            device=device).clamp_(min=tiny)))))
 
   def randint(self, low: int, high: int, shape,
               device: torch.device) -> torch.Tensor:
     """int64 integers in [low, high)."""
-    return self.draw(shape, torch.int64, device, lambda g: torch.randint(
-        int(low), int(high), tuple(shape), generator=g, device=device))
+    return self.draw(shape, torch.int64, device, _replayable(
+        lambda g: torch.randint(int(low), int(high), tuple(shape),
+                                generator=g, device=device)))
 
   def log_gamma(self, alpha, shape, dtype: torch.dtype,
                 device: torch.device) -> torch.Tensor:
@@ -850,6 +866,62 @@ def _cast_floats(tree, dtype):
                    tree)
 
 
+# the products that JAX's policies call dots: ``dot_general`` and, for
+# ``dots_saveable``, ``conv_general_dilated``; torch's matmuls and
+# convolutions as they reach a selective-checkpoint policy (below autograd,
+# where ``linear`` and ``conv2d`` have become these)
+_MATMULS = ("mm", "addmm", "bmm", "baddbmm")
+_CONVOLUTIONS = ("convolution",)
+_NO_BATCH_MATMULS = ("mm", "addmm")
+_REMAT_SAVES = {
+    "everything_saveable": None,
+    "nothing_saveable": (),
+    "dots_saveable": _MATMULS + _CONVOLUTIONS,
+    "checkpoint_dots": _MATMULS + _CONVOLUTIONS,
+    "dots_with_no_batch_dims_saveable": _NO_BATCH_MATMULS,
+    "checkpoint_dots_with_no_batch_dims": _NO_BATCH_MATMULS,
+}
+
+
+def _saving(names: Optional[Tuple[str, ...]]) -> Callable:
+  """A selective-checkpoint policy keeping the outputs of the aten ops
+  named (of every op where `names` is None) and recomputing the rest."""
+  from torch.utils.checkpoint import CheckpointPolicy
+  keep = None if names is None else {getattr(torch.ops.aten, n)
+                                     for n in names}
+
+  def policy(ctx, op, *args, **kwargs):
+    if keep is None or getattr(op, "overloadpacket", op) in keep:
+      return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+  return policy
+
+
+def remat_policy(remat) -> Optional[Callable]:
+  """The selective-checkpoint policy of a `remat` option, None for a
+  recompute of everything (``True``, ``'nothing_saveable'``) or no
+  checkpoint at all (a false value).  A name of ``_REMAT_SAVES`` (JAX's
+  ``jax.checkpoint_policies`` of those names: the 'dots' are the matmuls
+  and, for ``dots_saveable``/``checkpoint_dots``, the convolutions) keeps
+  those ops' outputs; a callable is a policy of
+  ``torch.utils.checkpoint.create_selective_checkpoint_contexts``
+  (``(ctx, op, *args, **kwargs) -> CheckpointPolicy or bool``).  Raises
+  ``ValueError`` for another name or another type."""
+  if not remat or isinstance(remat, bool):
+    return None
+  if callable(remat):
+    return remat
+  if isinstance(remat, str):
+    if remat not in _REMAT_SAVES:
+      raise ValueError(f"unknown remat policy {remat!r}; valid names: "
+                       f"{sorted(_REMAT_SAVES)}")
+    saves = _REMAT_SAVES[remat]
+    return None if saves == () else _saving(saves)
+  raise ValueError(f"remat must be bool, str, or a checkpoint-policy "
+                   f"callable; got {type(remat).__name__}")
+
+
 class TrainStepFn:
   """``step_fn(state, batch, eps=None) -> (state, metrics)``: one update of
   every TrainStep (see ``build_train_step_fn``).  `eps` injects the step's
@@ -859,14 +931,14 @@ class TrainStepFn:
   def __init__(self, train_steps: Sequence[TrainStep],
                optimizers: Dict[str, Optimizer], nan_policy: str = "skip",
                accum_steps: int = 1, compute_dtype: Optional[torch.dtype] = None,
-               ema_decay: Optional[float] = None, remat: bool = False):
+               ema_decay: Optional[float] = None,
+               remat: Union[bool, str, Callable] = False):
     if nan_policy not in ("skip", "apply", "stop"):
       raise ValueError(f"nan_policy must be 'skip', 'apply' or 'stop', got "
                        f"{nan_policy!r}")
-    if not isinstance(remat, bool):
-      raise NotImplementedError(
-          "remat policies (JAX's jax.checkpoint_policies names) are not "
-          "ported yet; remat=True recomputes every activation")
+    policy = remat_policy(remat)
+    self._remat_context = None if policy is None else functools.partial(
+        torch.utils.checkpoint.create_selective_checkpoint_contexts, policy)
     self.train_steps = list(train_steps)
     self.optimizers = dict(optimizers)
     self.nan_policy = nan_policy
@@ -898,8 +970,8 @@ class TrainStepFn:
     return loss, metrics, spec.split(g)
 
   def _value_and_grad(self, ts: TrainStep, params: Tree, spec: _FlatSpec,
-                      leaves, batch, noise: Noise, step, mutables):
-    req = [t.detach().requires_grad_() for t in leaves]
+                      leaves, batch, noise: Noise, step, mutables,
+                      functional: bool = False):
     start = noise.mark()
 
     def loss_of(*ls):
@@ -915,13 +987,25 @@ class TrainStepFn:
       loss, (metrics, mut) = ts.loss_fn(full, mb, noise, step, mut)
       return loss, metrics, mut
 
-    with torch.enable_grad():
-      if self.remat:
-        loss, metrics, mut = torch.utils.checkpoint.checkpoint(
-            loss_of, *req, use_reentrant=False, preserve_rng_state=False)
-      else:
-        loss, metrics, mut = loss_of(*req)
-      grads = torch.autograd.grad(loss, req, allow_unused=True)
+    if functional:  # torch.func's gradient, which vmap can batch
+      def aux_loss(ls):
+        loss, metrics, mut = loss_of(*ls)
+        return loss, (loss, metrics, mut)
+
+      grads, (loss, metrics, mut) = torch.func.grad(aux_loss, has_aux=True)(
+          list(leaves))
+    else:
+      req = [t.detach().requires_grad_() for t in leaves]
+      with torch.enable_grad():
+        if self.remat:
+          extra = {} if self._remat_context is None else {
+              "context_fn": self._remat_context}
+          loss, metrics, mut = torch.utils.checkpoint.checkpoint(
+              loss_of, *req, use_reentrant=False, preserve_rng_state=False,
+              **extra)
+        else:
+          loss, metrics, mut = loss_of(*req)
+        grads = torch.autograd.grad(loss, req, allow_unused=True)
     g = spec.cat([torch.zeros_like(t) if gr is None else gr
                   for t, gr in zip(leaves, grads)])
     return (loss.detach().to(torch.float32),
@@ -929,14 +1013,14 @@ class TrainStepFn:
             g, _tree_map(torch.Tensor.detach, mut))
 
   def _grads(self, ts: TrainStep, params: Tree, batch, noise: Noise, step,
-             mutables):
+             mutables, functional: bool = False):
     sub = extract_partitions(params, ts.partitions)
     spec = _FlatSpec(sub)
     leaves = spec.leaves(sub)
     n = self.accum_steps
     if n == 1:
       loss, metrics, g, mutables = self._value_and_grad(
-          ts, params, spec, leaves, batch, noise, step, mutables)
+          ts, params, spec, leaves, batch, noise, step, mutables, functional)
       return loss, metrics, spec, g, mutables
     micro = _tree_map(lambda a: a.reshape((n, a.shape[0] // n) +
                                           tuple(a.shape[1:])), batch)
@@ -944,7 +1028,7 @@ class TrainStepFn:
     for i, mb_noise in enumerate(noise.split(n)):
       mb = _tree_map(lambda a: a[i], micro)
       loss, metrics, g, mutables = self._value_and_grad(
-          ts, params, spec, leaves, mb, mb_noise, step, mutables)
+          ts, params, spec, leaves, mb, mb_noise, step, mutables, functional)
       g_sum = g if g_sum is None else g_sum + g
       losses.append(loss)
       mets.append(metrics)
@@ -953,9 +1037,12 @@ class TrainStepFn:
     return (torch.mean(torch.stack(losses)), metrics, spec, g_sum / n,
             mutables)
 
-  def run(self, state: TrainState, batch,
-          noise: Noise) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-    """The step on a batch already on the state's device."""
+  def run(self, state: TrainState, batch, noise: Noise,
+          functional: bool = False
+          ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+    """The step on a batch already on the state's device; `functional`
+    takes the gradients with ``torch.func.grad`` (so that ``vmap`` can
+    batch the step) instead of ``torch.autograd``."""
     metrics: Dict[str, torch.Tensor] = {}
     params = dict(state.params)
     opt_states = dict(state.opt_states)
@@ -964,7 +1051,7 @@ class TrainStepFn:
     check = self.nan_policy in ("skip", "stop")
     for ts in self.train_steps:
       loss, step_metrics, spec, g, mutables = self._grads(
-          ts, params, batch, noise, state.step, mutables)
+          ts, params, batch, noise, state.step, mutables, functional)
       opt_name = ts.optimizer or ts.partitions[0]
       opt = self.optimizers[opt_name]
       p = spec.cat(extract_partitions(params, ts.partitions))
@@ -1002,7 +1089,8 @@ def build_train_step_fn(train_steps: Sequence[TrainStep],
                         accum_steps: int = 1,
                         compute_dtype: Optional[torch.dtype] = None,
                         ema_decay: Optional[float] = None,
-                        remat: bool = False) -> TrainStepFn:
+                        remat: Union[bool, str, Callable] = False
+                        ) -> TrainStepFn:
   """Compose TrainSteps into one ``(state, batch) -> (state, metrics)``.
 
   `nan_policy`: 'skip' drops the update when any gradient is non-finite
@@ -1017,7 +1105,12 @@ def build_train_step_fn(train_steps: Sequence[TrainStep],
   backward casts the gradients back, so master params, gradients and
   moments stay float32.  `ema_decay` tracks a moving average of the params
   in ``opt_states['__ema__']``.  `remat=True` recomputes the forward in the
-  backward (``torch.utils.checkpoint``).
+  backward (``torch.utils.checkpoint``); a name of JAX's
+  ``jax.checkpoint_policies`` ('dots_saveable', 'checkpoint_dots',
+  'dots_with_no_batch_dims_saveable', 'checkpoint_dots_with_no_batch_dims',
+  'everything_saveable', 'nothing_saveable') or a torch selective-checkpoint
+  policy keeps the outputs of the ops it saves and recomputes the rest
+  (``remat_policy``); the step's numbers are the plain step's.
   """
   return TrainStepFn(train_steps, optimizers, nan_policy=nan_policy,
                      accum_steps=accum_steps, compute_dtype=compute_dtype,
@@ -1195,8 +1288,7 @@ class _KSteps:
     inputs = {k: v for k, v in inputs.items() if v is not None}
 
     def one(s, at):
-      noise = Noise(s.rng) if "eps" not in at else Noise(eps=at["eps"])
-      return self.step_fn.run(s, batch_fn(at, s), noise)
+      return self._step(s, at, batch_fn)
 
     if not _use_graph(self.graph, state):
       metrics = None
@@ -1209,6 +1301,11 @@ class _KSteps:
       return one(s, {k: _at(static.inputs[k], slot) for k in inputs})
 
     return static.run(state, inputs, body, generators, key, self.donate)
+
+  def _step(self, s: TrainState, at: Dict[str, torch.Tensor], batch_fn):
+    """One step on the inputs of its slot `at`."""
+    noise = Noise(s.rng) if "eps" not in at else Noise(eps=at["eps"])
+    return self.step_fn.run(s, batch_fn(at, s), noise)
 
 
 class _ScanSteps(_KSteps):
@@ -1272,8 +1369,15 @@ def step_indices(seed: int, step, batch_size: int, n: int) -> torch.Tensor:
   indices are made on): a counter-based hash of (seed, step, i), so a draw
   depends on nothing but the seed and the state's step count."""
   step = torch.as_tensor(step).to(torch.int64)
-  key = _mix32((_mix32(int(seed) & _M32) + (step & _M32) * 0x9E3779B1)
-               & _M32)
+  return _keyed_indices(_mix32(int(seed) & _M32), step, batch_size, n)
+
+
+def _keyed_indices(seed_key, step: torch.Tensor, batch_size: int,
+                   n: int) -> torch.Tensor:
+  """``step_indices`` from the hashed seed(s) `seed_key` (an int, or an
+  int64 tensor broadcast with `step`): indices of shape ``step.shape +
+  (batch_size,)``."""
+  key = _mix32((seed_key + (step & _M32) * 0x9E3779B1) & _M32)[..., None]
   i = torch.arange(int(batch_size), dtype=torch.int64, device=step.device)
   h = _mix32((key + i * 0x85EBCA77) & _M32)
   return _mix32(h ^ key) % int(n)
@@ -1349,3 +1453,197 @@ def device_dataset_steps(step_fn: TrainStepFn, batch_size: int, n_steps: int,
   """
   return _DeviceDatasetSteps(step_fn, batch_size, n_steps, seed, sample_fn,
                              graph, donate)
+
+
+# ---------------------------------------------------------------------------
+# several seeds in one program
+# ---------------------------------------------------------------------------
+def _stack_trees(trees: Sequence[Any]):
+  first = trees[0]
+  if isinstance(first, dict):
+    return {k: _stack_trees([t[k] for t in trees]) for k in first}
+  if isinstance(first, (list, tuple)):
+    return type(first)(_stack_trees(list(z)) for z in zip(*trees))
+  if isinstance(first, torch.Tensor):
+    return torch.stack(list(trees))
+  return first
+
+
+def stack_states(states: Sequence[TrainState]) -> TrainState:
+  """S states (one model each, e.g. built from S seeds, each with its
+  optimizer states) stacked leaf-wise into one state of (S, ...) tensors
+  for ``multiseed_device_dataset_steps``; its ``rng`` is the tuple of the
+  S states' generators."""
+  states = list(states)
+  return TrainState(
+      params=_stack_trees([s.params for s in states]),
+      opt_states=_stack_trees([s.opt_states for s in states]),
+      step=torch.stack([s.step for s in states]),
+      rng=tuple(s.rng for s in states),
+      mutables=_stack_trees([s.mutables for s in states]),
+      skipped_updates=torch.stack([s.skipped_updates for s in states]))
+
+
+def unstack_states(stacked: TrainState) -> List[TrainState]:
+  """The S states of a stacked state, each holding copies of its lane's
+  tensors and its own generator."""
+  lane = lambda i: (lambda t: t[i].clone())
+  return [TrainState(params=_tree_map(lane(i), stacked.params),
+                     opt_states=_tree_map(lane(i), stacked.opt_states),
+                     step=stacked.step[i].clone(), rng=stacked.rng[i],
+                     mutables=_tree_map(lane(i), stacked.mutables),
+                     skipped_updates=stacked.skipped_updates[i].clone())
+          for i in range(int(stacked.step.shape[0]))]
+
+
+class _DrawRecorder(Noise):
+  """The noise of one probe step: draws from a generator of its own, and
+  keeps the sampler of each draw so that the draws can be made again from
+  each lane's generator."""
+
+  def __init__(self, device: torch.device):
+    super().__init__(torch.Generator(device).manual_seed(0))
+    self.samplers: List[Callable] = []
+
+  def draw(self, shape, dtype, device, make):
+    if self._cursor == len(self._drawn):
+      if not getattr(make, "replayable", False):
+        raise ValueError(
+            "multiseed_device_dataset_steps makes each lane's draws from its "
+            "own generator and replays Noise's normal, uniform, gumbel and "
+            "randint draws only; this step draws otherwise (log_gamma or a "
+            "sampler of its own): pass eps=")
+      self.samplers.append(make)
+    return super().draw(shape, dtype, device, make)
+
+
+def _lane_tensors(state: TrainState) -> Tree:
+  return {"params": state.params, "opt_states": state.opt_states,
+          "step": state.step, "mutables": state.mutables,
+          "skipped_updates": state.skipped_updates}
+
+
+class _MultiSeedSteps(_KSteps):
+  """``fused(stacked, data, indices=None, eps=None) -> (stacked,
+  last_metrics)``."""
+
+  def __init__(self, step_fn: TrainStepFn, batch_size: int, n_steps: int,
+               seeds: Sequence[int], sample_fn: Optional[Callable]):
+    if step_fn.accum_steps != 1 or step_fn.remat:
+      raise ValueError("multiseed_device_dataset_steps takes a step without "
+                       "accum_steps and remat")
+    super().__init__(step_fn, n_steps, graph=None)
+    self.batch_size = int(batch_size)
+    self.seeds = [int(s) for s in seeds]
+    self.sample_fn = sample_fn
+    self._samplers: Optional[List[Callable]] = None
+    self._sample_gens: Dict[torch.device, List[torch.Generator]] = {}
+    self._vmapped = torch.func.vmap(self._lane_step, randomness="error")
+
+  def _lane_step(self, tensors: Tree, batch, eps: List[torch.Tensor]):
+    """One lane's step, batched by vmap: the state's tensors, the lane's
+    batch and its noise in draw order."""
+    state = TrainState(rng=None, **tensors)
+    new, metrics = self.step_fn.run(state, batch, Noise(eps=list(eps)),
+                                    functional=True)
+    return _lane_tensors(new), metrics
+
+  def _record(self, stacked: TrainState, data):
+    """The samplers of a step's draws, from one step of lane 0 run alone
+    (on a batch of the corpus's first rows and noise of its own)."""
+    lane = unstack_states(stacked)[0]
+    if self.sample_fn is not None:
+      batch = self.sample_fn(torch.Generator(stacked.device).manual_seed(0),
+                             data)
+    else:
+      batch = _tree_map(lambda a: _dequantize(a[:self.batch_size]), data)
+    recorder = _DrawRecorder(stacked.device)
+    self.step_fn.run(lane, batch, recorder)
+    return recorder.samplers
+
+  def _batch(self, data, gens, keys, idx, steps):
+    if self.sample_fn is not None:
+      return _stack_trees([self.sample_fn(g, data) for g in gens])
+    n = _tree_leaves(data)[0].shape[0]
+    if idx is None:
+      idx = _keyed_indices(keys, steps.to(torch.int64), self.batch_size, n)
+    flat = idx.reshape(-1)
+    return _tree_map(lambda a: _dequantize(a.index_select(0, flat)).reshape(
+        tuple(idx.shape) + tuple(a.shape[1:])), data)
+
+  def _step(self, s, at, batch_fn):
+    if any(k.startswith("eps") for k in at):
+      eps = [at[k] for k in sorted((k for k in at if k.startswith("eps")),
+                                   key=lambda k: int(k[3:]))]
+    else:  # each lane's draws from its own generator, as its solo run's
+      eps = [torch.stack([make(g) for g in s.rng]) for make in self._samplers]
+    new, metrics = self._vmapped(_lane_tensors(s), batch_fn(at, s), eps)
+    return TrainState(rng=s.rng, **new), metrics
+
+  def __call__(self, stacked: TrainState, data, indices=None, eps=None):
+    S = len(self.seeds)
+    if tuple(stacked.step.shape) != (S,) or len(stacked.rng) != S:
+      raise ValueError(f"a stacked state of {S} lanes is needed (stack_states"
+                       f"), got steps of shape {tuple(stacked.step.shape)}")
+    device = stacked.device
+    data = _to_device(data, device)
+    indices = _to_device(indices, device)
+    eps = _to_device(eps, device)
+    if isinstance(eps, torch.Tensor):
+      eps = [eps]
+    if indices is not None and tuple(indices.shape) != (
+        self.n_steps, S, self.batch_size):
+      raise ValueError(f"indices need shape {(self.n_steps, S, self.batch_size)}"
+                       f", got {tuple(indices.shape)}")
+    for e in eps or ():
+      if tuple(e.shape[:2]) != (self.n_steps, S):
+        raise ValueError(f"eps need leading axes {(self.n_steps, S)}, got "
+                         f"{tuple(e.shape)}")
+    if eps is None and self._samplers is None:
+      self._samplers = self._record(stacked, data)
+    keys = torch.tensor([_mix32(s & _M32) for s in self.seeds],
+                        dtype=torch.int64, device=device)
+    gens = self._sample_gens.setdefault(
+        device, [torch.Generator(device) for _ in self.seeds])
+    if self.sample_fn is not None:  # keyed by each lane's first step
+      for g, seed, step in zip(gens, self.seeds, stacked.step.tolist()):
+        g.manual_seed(int(_mix32((_mix32(seed & _M32) + int(step)) & _M32)))
+    inputs = {"indices": indices}
+    inputs.update({f"eps{i}": e for i, e in enumerate(eps or ())})
+    key = ("multiseed", tuple(t.data_ptr() for t in _tree_leaves(data)),
+           _signature(dict(_named_leaves(data))))
+    return self._run(stacked, inputs,
+                     lambda at, s: self._batch(data, gens, keys,
+                                               at.get("indices"), s.step),
+                     list(stacked.rng) + gens, key)
+
+
+def multiseed_device_dataset_steps(step_fn: TrainStepFn, batch_size: int,
+                                   n_steps: int, seeds: Sequence[int],
+                                   sample_fn: Optional[Callable] = None
+                                   ) -> _MultiSeedSteps:
+  """S models trained as one program: ``fused(stacked, data, indices=None,
+  eps=None) -> (stacked, last_metrics)``, `stacked` from ``stack_states``
+  of S = len(seeds) states and `data` the corpus on the device, shared by
+  every lane.
+
+  ``torch.func.vmap`` runs the step (its gradients by ``torch.func.grad``)
+  on every lane at once, so the S models' convolutions and products run in
+  the same kernels (cuDNN's grouped convolutions, batched GEMMs); on the
+  card the `n_steps` steps replay a CUDA graph of one, as in
+  ``device_dataset_steps``, and a call returns copies (the lanes'
+  generators are the input state's, and advance).  Lane i draws its batches with
+  ``step_indices(seeds[i], step)`` and its noise from its own state's
+  generator, so it makes the draws of ``device_dataset_steps(seed=
+  seeds[i])`` from that state, and its params equal that run's to
+  float tolerance.  A non-finite gradient skips that lane's update alone;
+  every metric has a leading (S,) axis.  `indices` (n_steps, S,
+  batch_size) and `eps` (a tensor or a list in draw order, each with
+  leading axes (n_steps, S)) inject the draws; `sample_fn(generator,
+  data)` makes a lane's batch from a generator seeded by the lane's seed
+  and step count at the start of each call.  Without `eps`, the noise is
+  replayed from the samplers of one probe step of lane 0 at the first
+  call: Noise's normal, uniform, gumbel and randint draws of fixed
+  shapes.  The step may not use ``accum_steps`` or ``remat``.
+  """
+  return _MultiSeedSteps(step_fn, batch_size, n_steps, seeds, sample_fn)

@@ -1,5 +1,6 @@
-"""Host utilities of the port (a copy of ``as_tuple`` and ``md5_checksum``,
-``odin_tpu/utils/__init__.py:39,91``)."""
+"""Host utilities of the port (a copy of ``as_tuple``, ``md5_checksum`` and
+the managed directories under ``$ODIN_TPU_HOME``,
+``odin_tpu/utils/__init__.py:39,91,129-146``)."""
 from __future__ import annotations
 
 import hashlib
@@ -9,7 +10,8 @@ from typing import Any, Optional
 
 import numpy as np
 
-__all__ = ["as_tuple", "md5_checksum"]
+__all__ = ["as_tuple", "md5_checksum", "get_data_path", "get_cache_path",
+           "get_exp_path"]
 
 
 def as_tuple(x: Any, N: Optional[int] = None, t: Optional[type] = None) -> tuple:
@@ -44,3 +46,28 @@ def md5_checksum(obj: Any) -> str:
   else:
     md5.update(pickle.dumps(obj))
   return md5.hexdigest()
+
+
+def _managed_path(kind: str) -> str:
+  base = os.environ.get("ODIN_TPU_HOME",
+                        os.path.join(os.path.expanduser("~"), ".odin_tpu"))
+  path = os.path.join(base, kind)
+  os.makedirs(path, exist_ok=True)
+  return path
+
+
+def get_data_path() -> str:
+  """``$ODIN_TPU_HOME/datasets`` (``~/.odin_tpu`` without the variable),
+  made if absent: where datasets' files and the full-grid caches lie, the
+  same directory the JAX package reads."""
+  return _managed_path("datasets")
+
+
+def get_cache_path() -> str:
+  """``$ODIN_TPU_HOME/cache``, made if absent."""
+  return _managed_path("cache")
+
+
+def get_exp_path() -> str:
+  """``$ODIN_TPU_HOME/experiments``, made if absent."""
+  return _managed_path("experiments")

@@ -94,6 +94,10 @@ def test_sources_exist():
                  "mpi.py", "native.py"):
     assert f"odin_tpu_torch/{module}" in names
   assert (ROOT / "odin_tpu_torch" / "csrc" / "odin_io.cpp").exists()
+  # the sweep slice
+  for module in ("training/experimenter.py", "training/scores.py",
+                 "networks/image_networks.py"):
+    assert f"odin_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -142,7 +146,9 @@ def test_importing_the_port_loads_no_jax():
           "odin_tpu_torch.preprocessing.base, "
           "odin_tpu_torch.preprocessing.audio, "
           "odin_tpu_torch.preprocessing.opensmile, "
-          "odin_tpu_torch.preprocessing.kaldi\n"
+          "odin_tpu_torch.preprocessing.kaldi, "
+          "odin_tpu_torch.training.experimenter, "
+          "odin_tpu_torch.training.scores\n"
           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
           f"{FORBIDDEN!r})\nassert not bad, bad")
   res = _run(["-c", code], cwd=ROOT)
@@ -202,6 +208,38 @@ def test_new_modules_need_neither_sklearn_nor_matplotlib():
                        env=dict(os.environ, PYTHONPATH=str(ROOT)))
   assert res.returncode == 0, res.stderr
   assert res.stdout.strip() == "plots need matplotlib"
+
+
+def test_sweep_slice_imports_no_jax():
+  """The sweep's entry points import, and a small sweep runs, with JAX and
+  the JAX package blocked."""
+  code = "\n".join([
+      "import sys, tempfile",
+      "for name in ('jax', 'jaxlib', 'flax', 'optax', 'odin_tpu'):",
+      "  sys.modules[name] = None",
+      "from odin_tpu_torch.training import (run_hydra, ScoreBoard,",
+      "    multiseed_device_dataset_steps, stack_states, unstack_states,",
+      "    parse_config, hash_config, get_output_dir)",
+      "from odin_tpu_torch.training.core import remat_policy",
+      "from odin_tpu_torch.fuel import get_dataset",
+      "from odin_tpu_torch.fuel.image_data import FullGridMixin",
+      "from odin_tpu_torch.networks import get_networks",
+      "from odin_tpu_torch.utils import get_data_path",
+      "get_networks('locatello', n_channels=3)",
+      "get_networks('shapes3d')",
+      "remat_policy('dots_saveable')",
+      "root = tempfile.mkdtemp()",
+      "main = run_hydra(output_dir=root)(lambda cfg: (cfg.a, cfg.output_dir))",
+      "assert len(main(['a=1,2'])) == 2",
+      "ScoreBoard(root + '/s.db').write('t', a=1)",
+      "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
+      "             ('jax', 'jaxlib', 'flax', 'optax', 'odin_tpu')",
+      "             and sys.modules[m] is not None)",
+      "assert not bad, bad"])
+  res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+  assert res.returncode == 0, res.stderr
 
 
 def test_speech_front_end_needs_no_sklearn():

@@ -134,13 +134,13 @@ def test_get_dataset_lists_only_what_is_ported():
   assert isinstance(get_dataset("dsprites"), dSprites)
   assert isinstance(get_dataset("dSprites_Small", n_samples=8), dSpritesSmall)
   assert [c.__name__ for c in get_all_dataset()] == \
-      ["HalfMoons", "dSprites", "dSprites0", "dSpritesSmall"]
+      ["HalfMoons", "Shapes3D", "Shapes3D0", "Shapes3DSmall", "dSprites",
+       "dSprites0", "dSpritesSmall"]
   assert get_all_dataset("image") == get_all_dataset()
-  for name in ("mnist", "shapes3d", "nope"):
+  for name in ("mnist", "celeba", "nope"):
     with pytest.raises(NotImplementedError, match="not ported yet"):
       get_dataset(name)
-  with pytest.raises(NotImplementedError):
-    dSprites(full_grid=True)
+  assert dSprites(full_grid=True).full_grid
 
 
 def test_prefetch_thread_keeps_order_and_ends():

@@ -85,9 +85,15 @@ def test_remat_equals_plain(pair):
 
 
 def test_remat_policy_names_raise(pair):
+  """A name that is not one of the policies raises ``ValueError`` listing
+  them; a policy's name builds the step (tests/test_torch_remat.py holds
+  each against the plain step)."""
   _, vae = pair
-  with pytest.raises(NotImplementedError, match="remat policies"):
-    vae.make_step_fn(remat="dots_with_no_batch_dims_saveable")
+  start = vae.state
+  with pytest.raises(ValueError, match="dots_with_no_batch_dims_saveable"):
+    vae.make_step_fn(remat="dots_with_no_batch_saveable")
+  assert vae.make_step_fn(remat="dots_with_no_batch_dims_saveable").remat
+  vae.state = start
 
 
 def test_frozen_encoder_matches_jax(pair):
