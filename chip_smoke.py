@@ -159,7 +159,8 @@ CPU:
      whose objective needs class probabilities): the ELBO terms on the
      card against the CPU (rtol 1e-4 of each term's largest magnitude),
      200 steps of ``fit`` at ``steps_per_call=100`` (JAX's defaults: the
-     Semafo family's MI term trains from step 1,000) with no update
+     Semafo family's MI term trains from step 1,000; Adam at 1e-3, and at
+     1e-4 for MultitaskVAE, whose latents blow up at 1e-3) with no update
      skipped and the held-out loss below its start, the labels head's
      log-likelihood of 256 held-out labelled images above its value
      before training, steps/s, ``run_model`` and MIG on 2,000 test
@@ -254,7 +255,7 @@ CPU:
      the same batches and noise at phase 7's limits;
      ``multiseed_device_dataset_steps`` with 4 seeds (one vmapped CUDA
      graph), 5 steps, lane 1 within 1e-5 of ``device_dataset_steps(seed=
-     1)`` and the lanes apart, then 500 steps a call (one warm-up call and
+     1)`` and the lanes apart, then 200 steps a call (one warm-up call and
      3 timed) beside the solo graph's step, each lane's held-out loss below
      its start; the graphed step under ``remat='dots_saveable'`` and
      ``True`` beside the plain one (peak memory, ms a step, the gradients
@@ -270,13 +271,40 @@ CPU:
      ``--trunk-conditioning [STEPS]`` (on the CPU) measures how far float32
      rounding moves each trunk's training against float64
      (``trunk_conditioning``).
+ 18. the last VAE classes (``last_path``), each ``fit`` at
+     ``steps_per_call=100`` on the graphed step: ``examples/
+     topic_model.py``'s recipe through ``run_hydra`` (``SyntheticBoW(2000
+     docs, 200 words, 8 topics)``, ``amortizedLDA``, 2000 steps at batch
+     64) swept over seeds 1-3, the medians of its test perplexity and
+     topic best-match cosine held to the JAX package's over 21 seeds on
+     the CPU (``tests/recipe_seeds.py``); ``nonlinearLDA``, ``ALDA`` and
+     ``auxiliaryLDA(n_labels=8)`` (10 % of the documents labelled) 300
+     steps each; ``examples/grade_membership.py``'s recipe
+     (``fit_device_dataset``, 600 steps at batch 256) at seeds 0-20, the
+     medians of its held-out accuracy and membership purity held to the
+     JAX package's; ``CycleConsistentVAE`` on
+     2,048 rendered dSprites pairs that share their shape and
+     ``MoeVAE`` on the image and the 5 factor values of 2,048 draws, 200
+     steps each, then ``cycle_consistency`` and ``cross_generate`` finite;
+     ``VariationalRNN``, ``SequentialVAE`` and ``SequentialAttentionVAE``
+     at their defaults, 200 steps each on segments of 64 frames of the
+     40-mel log-mels of 64 int16 utterances of 2-4 s (one feature batch,
+     one K1 launch, the log-mels within 0.01 dB of the CPU).  Each class:
+     its ELBO terms and loss gradients on the card against the CPU on the
+     trained params, one batch and one set of noise (1e-4 of each term's,
+     each tensor's, largest magnitude); no update skipped; the held-out
+     loss below its start; steps/s, a graphed step's kernels and device
+     time (``torch.profiler``) and the capture time.
+     ``python3 chip_smoke.py --last-rehearsal`` runs the phase on the CPU
+     (``last_rehearsal``).
 
 The datasets' files and caches are kept under ``build/odin_tpu_home``
 (``$ODIN_TPU_HOME``).  Run with no argument, it runs every phase: the
 whole check.  ``python3 chip_smoke.py --phases 1,14`` runs the phases
-named (1-17), phase 1 (the build) always, and every phase whose results a
+named (1-18), phase 1 (the build) always, and every phase whose results a
 named one reads (``PHASE_NEEDS``: 3 reads 2, 6 reads 5, 8 reads 7, 10
-reads 8, 11 reads 2 and 9, 15 reads 10, 16 reads 9; 17 reads none); its
+reads 8, 11 reads 2 and 9, 15 reads 10, 16 reads 9; 17 and 18 read
+none); its
 ``kernels`` line lists only the kernels those phases timed.
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
@@ -2554,6 +2582,15 @@ SEMI_OVERSAMPLE = 0.5  # the labelled rows of each batch: 32 of 64
 # (the discriminator's), so 96 of its 128 rows are labelled, 32 of them in
 # that half; at 0.5 the half holds no labelled row
 SEMI_FACTOR_OVERSAMPLE = 0.75
+# fit's learning rate: Adam's 1e-3 but for MultitaskVAE.  Its Gaussian
+# factor head reads the decoder's 4,096 image logits at alpha 10; at 1e-3
+# its latents blow up at steps that hang on float rounding (the KL term
+# from 25 to 5,467 within 60 steps on the phase's data order), so the
+# held-out loss at step 200 fell anywhere between 0.51 and 1.18 of its
+# start from one run of the script to the next.  At 1e-4 it falls
+# smoothly on each of 8 data orders (tools/semi_trajectory.py)
+SEMI_LR = 1e-3
+SEMI_CLASS_LR = {"MultitaskVAE": 1e-4}
 SEMI_RTOL = ZOO_RTOL  # card against CPU, of each term's largest magnitude
 SEMI_HELD = 256  # held-out labelled images for the labels head
 SEMI_GYM_ROWS = 2000
@@ -2746,8 +2783,10 @@ def semi_path(torch, np, reset_counts, read_counts, smi):
     hb = to(batch, cuda)
     start = float(eval_fn(vae.state, hb)["loss"])
     llk0 = labels_llk(vae, hx, hy)
+    lr = SEMI_CLASS_LR.get(name, SEMI_LR)
     tr = vae.fit(train(data[dname], bs, share), max_iter=SEMI_STEPS,
-                 steps_per_call=SEMI_K, logging_interval=1e9, verbose=False)
+                 steps_per_call=SEMI_K, learning_rate=lr,
+                 logging_interval=1e9, verbose=False)
     end = float(eval_fn(vae.state, hb)["loss"])
     llk1 = labels_llk(vae, hx, hy)
     skipped = int(vae.state.skipped_updates)
@@ -2767,7 +2806,8 @@ def semi_path(torch, np, reset_counts, read_counts, smi):
                            f"{gym.z_mean.device}")
     rows.append((name, rate))
     log(f"{name} on {dname}: ELBO terms card vs CPU max rel {worst:.3e} "
-        f"(limit {SEMI_RTOL}); fit {SEMI_STEPS} steps at batch {bs} "
+        f"(limit {SEMI_RTOL}); fit {SEMI_STEPS} steps at batch {bs}, lr "
+        f"{lr:g} "
         f"({int(round(share * bs))} labelled): held-out loss "
         f"{start:.6g} -> {end:.6g}, skipped {skipped}, labels head's "
         f"log-likelihood of {SEMI_HELD} held-out images {llk0:.6g} -> "
@@ -3421,7 +3461,7 @@ SWEEP_PARITY_STEPS = 3  # card against CPU, as phase 7
 # TRAIN_PARAM_ATOL counted (phase 7's share, 2e-5, for the ELU trunk)
 SWEEP_SEEDS = (0, 1, 2, 3)  # S = 4 lanes, cut from Locatello et al.'s 50
 SWEEP_MS_STEPS = 5  # lane against its solo run
-SWEEP_MS_K = 500  # the timed multi-seed graph: steps a call
+SWEEP_MS_K = 200  # the timed multi-seed graph: steps a call
 SWEEP_LANE_ATOL = 1e-5  # a lane against its solo run (tests/test_multiseed.py)
 SWEEP_REMAT = ("dots_saveable", True)
 SWEEP_REMAT_K = 100  # remat's timed graphs: steps a call
@@ -3832,7 +3872,530 @@ def trunk_conditioning(argv) -> int:
   return 0
 
 
-PHASES = tuple(range(1, 18))
+LAST_BATCH = 64
+LAST_K = 100  # every recipe's fit: a CUDA graph of one step, 100 a call
+LAST_RTOL = ZOO_RTOL  # card against CPU, of each term's largest magnitude
+LAST_GRAD_REL = TRAIN_GRAD_REL  # gradients: 1e-4·max|CPU| of each tensor
+# examples/topic_model.py's CONFIG and examples/grade_membership.py's
+TOPIC_CONFIG = dict(n_docs=2000, n_words=200, n_topics=8, max_iter=2000,
+                    lr=1e-3)
+GOM_CONFIG = dict(n_sheets=2000, n_questions=12, n_answers=5, n_components=3,
+                  noise=0.1, max_iter=600, lr=2e-2, warmup=200)
+GOM_BATCH = 256
+TOPIC_OTHER_STEPS = 300  # nonlinearLDA, ALDA and auxiliaryLDA
+TOPIC_LABELLED = 0.1  # auxiliaryLDA: the share of labelled documents
+# the recipes' figures: the card's medians over seeds held to the medians
+# of the JAX package's own recipes on the CPU over 21 seeds
+# (tests/recipe_seeds.py), with margins from the spread of those seeds'
+# figures (PERF.md §6); one seed's figures spread widely in both
+# packages, and a seed's initial weights differ between PyTorch versions
+TOPIC_SEEDS = (1, 2, 3)  # the example's seed first
+TOPIC_JAX = dict(perplexity=81.4197, topic_match=0.7362)
+# the bounds that a median of 3 of JAX's own 21 seeds leaves 0.5 % beyond
+TOPIC_PPL_RATIO = 1.05  # the median perplexity at most this times JAX's
+TOPIC_MATCH_MARGIN = 0.07  # the median best-match cosine at most this below
+GOM_SEEDS = tuple(range(21))  # the example's seed first
+GOM_JAX = dict(accuracy=0.8812, purity=0.82)
+# the bounds that a median of 21 of JAX's own seeds leaves 0.5 % beyond
+GOM_ACC_MARGIN = 0.055  # median held-out accuracy at most this below
+GOM_PURITY_MARGIN = 0.14  # median membership purity at most this below
+PAIR_STEPS = 200  # the cycle-consistent VAE and the mixture of experts
+PAIR_POOL = 2048  # rendered dSprites pairs or draws on the card
+SEQ_T = 64  # frames a training segment
+SEQ_STEPS = 200
+SEQ_UTTERANCES = 64  # int16 utterances of 2-4 s a feature batch
+
+
+def graphed_profile(torch, vae, batch, k=3, **options):
+  """(kernels, device ms) a step of a CUDA graph of one step replayed `k`
+  times on one batch, after one unprofiled call (``torch.profiler``)."""
+  from torch.profiler import ProfilerActivity, profile
+
+  from odin_tpu_torch.training import scan_steps
+
+  fused = scan_steps(vae.make_step_fn(**options), k)
+  stacked = tuple(torch.stack([b] * k) for b in batch) \
+      if isinstance(batch, tuple) else torch.stack([batch] * k)
+  state, _ = fused(vae.state, stacked)
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    state, _ = fused(state, stacked)
+    torch.cuda.synchronize()
+  busy_ms, n = device_busy(torch, prof)
+  return n / k, busy_ms / k
+
+
+def card_against_cpu(torch, vae, ref, batch, step=700):
+  """The model on the card (`vae`) against `ref`, the same class on the
+  CPU, on `vae`'s params, `batch` and one set of noise drawn on the CPU
+  (the ELBO terms and the training loss draw the same): (largest relative
+  error of the ELBO terms, of the gradients of the training loss, the
+  tensor of that gradient), each of a term's (tensor's) largest CPU
+  magnitude."""
+  from odin_tpu_torch.training import Noise
+
+  cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+  to = lambda b, d: tuple(t.to(d) for t in b) if isinstance(b, tuple) \
+      else b.to(d)
+  params = {d: {p: {k: v.detach().to(d).clone() for k, v in part.items()}
+                for p, part in vae.state.params.items()} for d in (cpu, cuda)}
+  steps = {d: torch.tensor(step, dtype=torch.int32, device=d)
+           for d in (cpu, cuda)}
+  noise = Noise(torch.Generator().manual_seed(SEED))
+  with torch.no_grad():
+    l0, k0, _ = ref.elbo_components(params[cpu], to(batch, cpu), noise,
+                                    steps[cpu])
+    drawn = noise.drawn
+    l1, k1, _ = vae.elbo_components(params[cuda], to(batch, cuda), Noise(
+        eps=[t.to(cuda) for t in drawn]), steps[cuda])
+  term_err = 0.0
+  for key, v in {**l0, **k0}.items():
+    c = {**l1, **k1}[key].float().cpu()
+    term_err = max(term_err, float((c - v).abs().max()) /
+                   max(float(v.abs().max()), 1e-30))
+  grads = {}
+  for model, d in ((ref, cpu), (vae, cuda)):
+    leaves = {p: {k: v.clone().requires_grad_() for k, v in part.items()}
+              for p, part in params[d].items()}
+    loss, _ = model._vae_loss(leaves, to(batch, d),
+                              Noise(eps=[t.to(d) for t in drawn]), steps[d],
+                              dict(model.state.mutables))
+    names = [(p, k) for p, part in leaves.items() for k in part]
+    got = torch.autograd.grad(loss, [leaves[p][k] for p, k in names],
+                              allow_unused=True)
+    grads[d] = {n: (torch.zeros_like(leaves[n[0]][n[1]]) if g is None else g)
+                for n, g in zip(names, got)}
+  grad_err, worst = max((float((grads[cuda][n].cpu() - g).abs().max()) /
+                         max(float(g.abs().max()), 1e-30), "/".join(n))
+                        for n, g in grads[cpu].items())
+  return term_err, grad_err, worst
+
+
+def topic_figures(np, lda, ds):
+  """(test perplexity, the recovered topics' mean best-match cosine to
+  the true ones) of a trained LDA model on a ``SyntheticBoW``, as
+  ``examples/topic_model.py`` computes them."""
+  x_test, _ = ds.numpy("test")
+  _, probs = lda.get_topics(top_k=10)
+  probs = np.asarray(probs)
+  sims = probs @ ds.topics.T
+  sims = sims / (np.linalg.norm(probs, axis=1, keepdims=True) *
+                 np.linalg.norm(ds.topics, axis=1)[None] + 1e-9)
+  return float(lda.perplexity(x_test)), float(sims.max(axis=1).mean())
+
+
+def topic_recipe(torch, np, device, seeds=(1,), max_iter=None, k=LAST_K):
+  """``examples/topic_model.py`` on the port through ``run_hydra``, swept
+  over the model's `seeds` (``seed=1,2,3``; the example's is 1):
+  ``SyntheticBoW(n_docs=2000, n_words=200, n_topics=8)``, ``amortizedLDA``
+  with its 128-128 encoder, ``fit`` of 2000 steps at batch 64 and lr 1e-3,
+  `k` steps a call; then each point's test perplexity and the recovered
+  topics' best-match cosine.  Returns (each point's figures, the first
+  point's model, the dataset, the first point's trainer)."""
+  import os
+  import shutil
+
+  from odin_tpu_torch.bay.vi import amortizedLDA
+  from odin_tpu_torch.fuel import SyntheticBoW
+  from odin_tpu_torch.training import run_hydra
+
+  root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      f"topic_recipe_{os.getpid()}")
+  shutil.rmtree(root, ignore_errors=True)
+  ds = SyntheticBoW(n_docs=TOPIC_CONFIG["n_docs"],
+                    n_words=TOPIC_CONFIG["n_words"],
+                    n_topics=TOPIC_CONFIG["n_topics"])
+  out = []
+
+  @run_hydra(output_dir=root, config=dict(TOPIC_CONFIG, seed=seeds[0]))
+  def main(cfg):
+    lda = amortizedLDA(n_words=cfg.n_words, n_topics=cfg.n_topics).build(
+        seed=cfg.seed, device=device)
+    train = ds.create_dataset("train", batch_size=LAST_BATCH, epochs=-1,
+                              prefetch=2, to_device=device)
+    tr = lda.fit(train, max_iter=cfg.max_iter, learning_rate=cfg.lr,
+                 steps_per_call=k, logdir=cfg.output_dir,
+                 logging_interval=1e9, verbose=False)
+    ppl, match = topic_figures(np, lda, ds)
+    if not out:
+      out.append((lda, tr))
+    return dict(perplexity=ppl, topic_match=match)
+
+  argv = ["seed=" + ",".join(str(i) for i in seeds)]
+  figures = main(argv + ([] if max_iter is None else
+                         [f"max_iter={max_iter}"]))
+  shutil.rmtree(root, ignore_errors=True)
+  return (figures if len(seeds) > 1 else [figures]), out[0][0], ds, \
+      out[0][1]
+
+
+def gom_data(np):
+  """``examples/grade_membership.py``'s sheets: planted profiles, 10 %
+  noise, seed 0; (answers, members, n_train)."""
+  cfg = GOM_CONFIG
+  rng = np.random.RandomState(0)
+  q, a, k = cfg["n_questions"], cfg["n_answers"], cfg["n_components"]
+  profiles = (2 * np.arange(k)[:, None] + np.arange(q)[None, :]) % a
+  members = rng.randint(0, k, size=cfg["n_sheets"])
+  answers = profiles[members]
+  noise = rng.rand(cfg["n_sheets"], q) < cfg["noise"]
+  answers = np.where(noise, rng.randint(0, a, size=answers.shape), answers)
+  return answers, members, int(0.9 * cfg["n_sheets"])
+
+
+def gom_recipe(torch, np, device, seed=0, max_iter=None, k=LAST_K):
+  """``examples/grade_membership.py`` on the port at `seed` (the example's
+  is 0): the model at Q 12, A 5, K 3 and warm-up 200,
+  ``fit_device_dataset`` of 600 steps at batch 256 and lr 2e-2, `k` a
+  call; held-out accuracy and membership purity.  Returns (figures, the
+  model, the seconds of its fit)."""
+  from odin_tpu_torch.bay.mixed_membership import GradeMembershipModel
+
+  cfg = GOM_CONFIG
+  answers, members, n_train = gom_data(np)
+  model = GradeMembershipModel(
+      n_questions=cfg["n_questions"], n_answers=cfg["n_answers"],
+      n_components=cfg["n_components"], warmup_steps=cfg["warmup"]).build(
+          seed=seed, device=device)
+  t0 = time.perf_counter()
+  model.fit_device_dataset(answers[:n_train].astype("float32"),
+                           n_steps=max_iter or cfg["max_iter"],
+                           batch_size=GOM_BATCH, learning_rate=cfg["lr"],
+                           steps_per_call=k, seed=seed, verbose=False)
+  fit_s = time.perf_counter() - t0
+  test = answers[n_train:]
+  acc = float(np.mean(model.predict(test) == test))
+  theta = model.transform(test)
+  purity = 0.0
+  for c in np.unique(theta.argmax(-1)):
+    labels = members[n_train:][theta.argmax(-1) == c]
+    if len(labels):
+      purity += np.max(np.bincount(labels, minlength=cfg["n_components"]))
+  return dict(accuracy=acc, purity=float(purity / len(test))), model, fit_s
+
+
+def last_path(torch, np, reset_counts, read_counts, smi):
+  """Phase 18: the last VAE classes on the card.  Six recipes, each
+  ``fit`` at ``steps_per_call=100`` on the graphed step: the topic model
+  of ``examples/topic_model.py`` through ``run_hydra`` (2000 steps) and
+  nonlinearLDA, ALDA and auxiliaryLDA(n_labels=8, 10 % labelled) 300 steps
+  each; Grade of Membership (``examples/grade_membership.py``,
+  ``fit_device_dataset``); CycleConsistentVAE on 2,048 rendered dSprites
+  pairs that share their shape; MoeVAE on the image and the 5 factor
+  values of 2,048 dSprites draws, then ``cross_generate``; the sequential
+  family on log-mels of 64 int16 utterances of 2-4 s from K1 (n_fft 512,
+  40 mels), cut into segments of 64 frames.  Each class: its ELBO terms
+  and loss gradients on the card against the CPU on the trained params,
+  one batch and one set of noise; no update skipped; the held-out loss
+  below its start; steps/s, a graphed step's kernels and device time,
+  the capture time.  A failed check is logged and the phase goes on; it
+  raises at the end with every failure.  Returns the K1 launches it
+  made."""
+  from odin_tpu_torch.bay import vi
+  from odin_tpu_torch.bay.random_variable import RVconf
+  from odin_tpu_torch.fuel import dSprites
+  from odin_tpu_torch.networks import Dense, SequentialNetwork, get_networks
+  from odin_tpu_torch.ops.features import FeatureConfig, speech_features
+
+  cuda = torch.device("cuda", 0)
+  rows = []
+  failures = []  # every check's, raised together at the end
+
+  def fail(msg):
+    log(f"check failed: {msg}")
+    failures.append(msg)
+
+  def batches(tensors, n, seed):
+    """Batches of `n` rows drawn on the card from device tensors."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+    size = tensors[0].shape[0]
+    while True:
+      i = torch.randint(0, size, (n,), generator=gen, device=cuda)
+      out = tuple(t[i] for t in tensors)
+      yield out[0] if len(out) == 1 else out
+
+  def train_and_check(name, make, train, held, steps=None, trained=None):
+    """Fit `make(cuda)`'s model on `train` for `steps` steps (or take
+    `trained`: (a model a recipe trained, its steps/s, its capture s)),
+    then its checks against `make(cpu)`."""
+    t_class = time.perf_counter()
+    if trained is None:
+      vae = make(cuda)
+      start = float(vae.make_eval_fn()(vae.state, held)["loss"])
+      tr = vae.fit(train, max_iter=steps, steps_per_call=LAST_K,
+                   logging_interval=1e9, verbose=False)
+      capture = tr.capture_seconds or 0.0
+      rate = steps / (tr.total_time - capture)
+    else:  # its start is its fresh twin's (the same seed)
+      fresh = make(cuda)
+      start = float(fresh.make_eval_fn()(fresh.state, held)["loss"])
+      vae, rate, capture = trained
+      del fresh
+    eval_fn = vae.make_eval_fn()
+    end = float(eval_fn(vae.state, held)["loss"])
+    skipped = int(vae.state.skipped_updates)
+    if skipped or not end < start:
+      fail(f"{name}: held-out loss {start:.6g} -> {end:.6g}, {skipped} "
+           "updates skipped")
+    term_err, grad_err, worst = card_against_cpu(torch, vae, make(
+        torch.device("cpu")), held)
+    if not (term_err <= LAST_RTOL and grad_err <= LAST_GRAD_REL):
+      fail(f"{name}: card against CPU, ELBO terms {term_err:.3e} (limit "
+           f"{LAST_RTOL}), gradients {grad_err:.3e} (limit {LAST_GRAD_REL})")
+    kernels, step_ms = graphed_profile(torch, vae, held)
+    rows.append((name, rate, step_ms, kernels, capture))
+    log(f"{name}: held-out loss {start:.6g} -> {end:.6g}, skipped "
+        f"{skipped}; card against CPU on the trained params: ELBO terms max "
+        f"rel {term_err:.3e} (limit {LAST_RTOL}), gradients {grad_err:.3e} "
+        f"({worst}; limit {LAST_GRAD_REL}); {rate:.1f} steps/s; a graphed "
+        f"step {kernels:.0f} kernels, {step_ms:.3f} ms of device time; "
+        f"capture {capture:.3f} s; {time.perf_counter() - t_class:.2f} s")
+    return vae
+
+  def medians(runs, keys):
+    return {k: float(np.median([r[k] for r in runs])) for k in keys}
+
+  # -- 18.1 the topic models
+  t0 = time.perf_counter()
+  runs, lda, bow, tr = topic_recipe(torch, np, cuda, seeds=TOPIC_SEEDS)
+  capture = tr.capture_seconds or 0.0
+  lda_rate = TOPIC_CONFIG["max_iter"] / (tr.total_time - capture)
+  x_test = torch.from_numpy(bow.numpy("test")[0]).to(cuda)
+  med = medians(runs, ("perplexity", "topic_match"))
+  log(f"topic recipe (examples/topic_model.py through run_hydra, "
+      f"{TOPIC_CONFIG['max_iter']} steps) at seeds {TOPIC_SEEDS}: test "
+      f"perplexity " + ", ".join(f"{r['perplexity']:.2f}" for r in runs) +
+      ", topic best-match cosine " + ", ".join(
+          f"{r['topic_match']:.3f}" for r in runs) +
+      f"; medians {med['perplexity']:.2f} and {med['topic_match']:.3f} "
+      f"(JAX's on the CPU over 21 seeds {TOPIC_JAX['perplexity']} and "
+      f"{TOPIC_JAX['topic_match']}, limits x{TOPIC_PPL_RATIO} and "
+      f"-{TOPIC_MATCH_MARGIN}); {lda_rate:.1f} steps/s; "
+      f"{time.perf_counter() - t0:.2f} s")
+  if not (med["perplexity"] <= TOPIC_PPL_RATIO * TOPIC_JAX["perplexity"] and
+          med["topic_match"] >= TOPIC_JAX["topic_match"] -
+          TOPIC_MATCH_MARGIN):
+    fail(f"the topic recipe's medians {med}, JAX's {TOPIC_JAX}")
+  n_words, n_topics = TOPIC_CONFIG["n_words"], TOPIC_CONFIG["n_topics"]
+  lda_make = lambda d: vi.amortizedLDA(n_words=n_words, n_topics=n_topics
+                                       ).build(seed=TOPIC_SEEDS[0], device=d)
+  train_and_check("amortizedLDA", lda_make, None, x_test[:LAST_BATCH],
+                  trained=(lda, lda_rate, capture))
+  x_train, y_train = (torch.from_numpy(a).to(cuda)
+                      for a in bow.numpy("train"))
+  for cls in ("nonlinearLDA", "ALDA"):
+    make = lambda d, c=cls: getattr(vi, c)(n_words=n_words,
+                                           n_topics=n_topics).build(device=d)
+    train_and_check(cls, make, batches((x_train,), LAST_BATCH, SEED),
+                    x_test[:LAST_BATCH], steps=TOPIC_OTHER_STEPS)
+  n_lab = int(TOPIC_LABELLED * x_train.shape[0])
+  mask = (torch.arange(x_train.shape[0], device=cuda) < n_lab).float()
+  y_test = torch.from_numpy(bow.numpy("test")[1]).to(cuda)
+  aux = train_and_check(
+      "auxiliaryLDA", lambda d: vi.auxiliaryLDA(
+          n_words=n_words, n_topics=n_topics, n_labels=n_topics).build(
+              device=d), batches((x_train, y_train, mask), LAST_BATCH, SEED),
+      (x_test[:LAST_BATCH], y_test[:LAST_BATCH],
+       torch.ones(LAST_BATCH, device=cuda)), steps=TOPIC_OTHER_STEPS)
+  del aux
+
+  # -- 18.2 Grade of Membership, at 21 seeds, the example's first
+  t0 = time.perf_counter()
+  runs = []
+  for seed in GOM_SEEDS:
+    figures, model, seconds = gom_recipe(torch, np, cuda, seed=seed)
+    runs.append(figures)
+    if seed == GOM_SEEDS[0]:
+      gom, fit_s = model, seconds
+    del model
+  answers, _, n_train = gom_data(np)
+  gom_capture = gom.capture_seconds or 0.0
+  gom_rate = GOM_CONFIG["max_iter"] / (fit_s - gom_capture)
+  med = medians(runs, ("accuracy", "purity"))
+  log(f"Grade of Membership recipe (examples/grade_membership.py) at seeds "
+      f"{GOM_SEEDS[0]}-{GOM_SEEDS[-1]}: held-out accuracy " + ", ".join(
+          f"{r['accuracy']:.3f}" for r in runs) + "; purity " +
+      ", ".join(f"{r['purity']:.3f}" for r in runs) +
+      f"; medians {med['accuracy']:.3f} and {med['purity']:.3f} (JAX's on "
+      f"the CPU over 21 seeds {GOM_JAX['accuracy']} and {GOM_JAX['purity']}, "
+      f"limits -{GOM_ACC_MARGIN} and -{GOM_PURITY_MARGIN}); "
+      f"{time.perf_counter() - t0:.2f} s with the predictions")
+  if not (med["accuracy"] >= GOM_JAX["accuracy"] - GOM_ACC_MARGIN and
+          med["purity"] >= GOM_JAX["purity"] - GOM_PURITY_MARGIN):
+    fail(f"the GoM recipe's medians {med}, JAX's {GOM_JAX}")
+  del runs
+  from odin_tpu_torch.bay.mixed_membership import GradeMembershipModel
+  cfg = GOM_CONFIG
+  gom_make = lambda d: GradeMembershipModel(
+      n_questions=cfg["n_questions"], n_answers=cfg["n_answers"],
+      n_components=cfg["n_components"], warmup_steps=cfg["warmup"]).build(
+          seed=0, device=d)
+  held_sheets = torch.from_numpy(answers[n_train:n_train + GOM_BATCH]).to(
+      cuda, torch.float32)
+  train_and_check("GradeMembershipModel", gom_make, None, held_sheets,
+                  trained=(gom, gom_rate, gom_capture))
+
+  # -- 18.3 the cycle-consistent VAE on pairs that share their shape
+  t0 = time.perf_counter()
+  x1, x2, _ = dsprites_pairs(np, "restricted", PAIR_POOL, SEED)
+  hx1, hx2, _ = dsprites_pairs(np, "restricted", LAST_BATCH, SEED + 1)
+  pool = (torch.from_numpy(x1).to(cuda), torch.from_numpy(x2).to(cuda))
+  held = (torch.from_numpy(hx1).to(cuda), torch.from_numpy(hx2).to(cuda))
+  log(f"{PAIR_POOL} dSprites pairs sharing shape and scale rendered in "
+      f"{time.perf_counter() - t0:.2f} s")
+  cyc = train_and_check(
+      "CycleConsistentVAE", lambda d: vi.CycleConsistentVAE(
+          **get_networks("dsprites", zdim=10)).build(seed=SEED, device=d),
+      batches(pool, LAST_BATCH, SEED), held, steps=PAIR_STEPS)
+  from odin_tpu_torch.training import Noise
+  with torch.no_grad():
+    _, kl, _ = cyc.elbo_components(cyc.state.params, held, Noise(
+        torch.Generator(cuda).manual_seed(SEED)), cyc.state.step)
+  cyc_term = kl["cycle_consistency"]
+  log(f"CycleConsistentVAE cycle_consistency on the held-out pairs: mean "
+      f"{float(cyc_term.mean()):.4f}, finite "
+      f"{bool(torch.isfinite(cyc_term).all())}")
+  if not bool(torch.isfinite(cyc_term).all()):
+    fail("cycle_consistency is not finite")
+  del cyc, pool
+
+  # -- 18.4 the mixture of experts: image and factor values of one draw
+  ds = dSprites(n_samples=1)
+  sizes = np.asarray(ds.factor_sizes, np.float32)
+
+  def draws(n, seed):
+    f = ds._sample_factors(n, np.random.RandomState(seed))
+    return (torch.from_numpy(ds.render(f)).to(cuda),
+            torch.from_numpy((f / (sizes - 1)).astype(np.float32)).to(cuda))
+
+  def moe_make(d):
+    nets = get_networks("dsprites", zdim=10)
+    mlp = lambda: SequentialNetwork((Dense(64, "relu"), Dense(64, "relu")))
+    return vi.MoeVAE(
+        encoders=[nets["encoder"], mlp()], decoders=[nets["decoder"], mlp()],
+        observations=[nets["observation"],
+                      RVconf((5,), "gaussian", projection=True,
+                             name="factors")],
+        latents=RVconf(10, "mvndiag", projection=True, name="latents"),
+        input_shapes=[(64, 64, 1), (5,)]).build(seed=SEED, device=d)
+
+  held = draws(LAST_BATCH, SEED + 1)
+  moe = train_and_check("MoeVAE", moe_make,
+                        batches(draws(PAIR_POOL, SEED), LAST_BATCH, SEED),
+                        held, steps=PAIR_STEPS)
+  px = moe.cross_generate(held[0], from_mod=0, to_mod=1)
+  factors = px.mean()
+  err = float((factors - held[1]).abs().mean())
+  log(f"MoeVAE cross_generate image -> factors: {tuple(factors.shape)} on "
+      f"{factors.device}, mean |factors - truth| {err:.4f} (0.25 would be "
+      f"chance-level for uniform values), finite "
+      f"{bool(torch.isfinite(factors).all())}")
+  if tuple(factors.shape) != (LAST_BATCH, 5) or \
+      not bool(torch.isfinite(factors).all()):
+    fail(f"MoeVAE.cross_generate gave {tuple(factors.shape)} or "
+         "non-finite values")
+  del moe
+
+  # -- 18.5 the sequential family on K1's log-mels: one feature batch
+  config = FeatureConfig()
+  n_samples = int(4.0 * config.sr)
+  rs = np.random.RandomState(SEED)
+  lengths = rs.randint(n_samples // 2, n_samples + 1, size=SEQ_UTTERANCES)
+  pcm = np.zeros((SEQ_UTTERANCES, n_samples), np.int16)
+  for j, n in enumerate(lengths):
+    pcm[j, :n] = (rs.randn(n) * 0.1 * 32768.0).clip(-32768, 32767)
+  reset_counts()
+  feats = speech_features(pcm, config, lengths, device=cuda)["mspec"]
+  counts = read_counts()
+  torch.cuda.synchronize()
+  want = speech_features(pcm, config, lengths, device="cpu")["mspec"]
+  n_frames = [config.n_frames(int(n)) for n in lengths]
+  db = max(float((feats[j, :n].cpu() - want[j, :n]).abs().max())
+           for j, n in enumerate(n_frames))
+  if counts.get("logmel") != 1 or counts.get("logmel_fft") != 1 or \
+      db > LOGMEL_TOL_DB:
+    fail(f"the sequence models' features: K1 launches {counts}, {db} dB "
+         "from the CPU")
+  segs = torch.cat([feats[j, :n - n % SEQ_T].reshape(-1, SEQ_T,
+                                                     config.n_mels)
+                    for j, n in enumerate(n_frames)])
+  segs = (segs - segs.mean((0, 1))) / segs.std((0, 1))
+  held, train = segs[:LAST_BATCH], segs[LAST_BATCH:]
+  log(f"the sequence models' data: {SEQ_UTTERANCES} int16 utterances of "
+      f"2-4 s, one K1 launch ({counts}), log-mels {db:.6f} dB from the CPU "
+      f"(limit {LOGMEL_TOL_DB}); {segs.shape[0]} segments of {SEQ_T} x "
+      f"{config.n_mels}, {LAST_BATCH} held out, standardised per band")
+  for name, cls in (("VariationalRNN", vi.VariationalRNN),
+                    ("SequentialVAE", vi.SequentialVAE),
+                    ("SequentialAttentionVAE", vi.SequentialAttentionVAE)):
+    make = lambda d, c=cls: c(input_shape=(SEQ_T, config.n_mels)).build(
+        seed=SEED, device=d)
+    train_and_check(name, make, batches((train,), LAST_BATCH, SEED), held,
+                    steps=SEQ_STEPS)
+  if failures:
+    raise AssertionError(f"{len(failures)} check(s) failed: " +
+                         "; ".join(failures))
+  log(f"last-classes steps/s at fit(steps_per_call={LAST_K}) ({smi}): " +
+      ", ".join(f"{n} {r:.1f}" for n, r, _, _, _ in rows) +
+      "; a graphed step's device ms and kernels: " + ", ".join(
+          f"{n} {ms:.3f} ms {k:.0f}" for n, _, ms, k, _ in rows) +
+      "; capture s: " + ", ".join(f"{n} {c:.3f}" for n, _, _, _, c in rows))
+  return 1
+
+
+def last_rehearsal(argv) -> int:
+  """``python3 chip_smoke.py --last-rehearsal [--steps 20] [--k 10]
+  [--topic-steps 2000] [--gom-steps 600] [--pool 256]``: phase 18
+  (``last_path``) on the CPU, its source and its helpers' recompiled with
+  the card swapped for the CPU: the topic and GoM recipes at
+  `--topic-steps` and `--gom-steps` (their full lengths by default, so
+  that their figures can be read before a card run), every other class
+  `--steps` steps at `--k` a call on pools of `--pool` rows; the K1 launch
+  count reads one a feature batch and a graphed step's kernels 0.  A
+  recipe cut below its length is not held to JAX's figures."""
+  import argparse
+  import inspect
+
+  import numpy as np
+  import torch
+
+  ap = argparse.ArgumentParser(prog="chip_smoke.py --last-rehearsal")
+  ap.add_argument("--steps", type=int, default=20)
+  ap.add_argument("--k", type=int, default=10)
+  ap.add_argument("--topic-steps", type=int,
+                  default=TOPIC_CONFIG["max_iter"])
+  ap.add_argument("--gom-steps", type=int, default=GOM_CONFIG["max_iter"])
+  ap.add_argument("--pool", type=int, default=256)
+  args = ap.parse_args(argv)
+  torch.cuda.synchronize = lambda *a, **k: None
+  scope = dict(globals())
+  scope.update(
+      LAST_K=args.k, TOPIC_OTHER_STEPS=args.steps, PAIR_STEPS=args.steps,
+      SEQ_STEPS=args.steps, PAIR_POOL=args.pool,
+      TOPIC_CONFIG=dict(TOPIC_CONFIG, max_iter=args.topic_steps),
+      GOM_CONFIG=dict(GOM_CONFIG, max_iter=args.gom_steps))
+  if args.topic_steps < TOPIC_CONFIG["max_iter"]:
+    scope.update(TOPIC_PPL_RATIO=math.inf, TOPIC_MATCH_MARGIN=math.inf,
+                 TOPIC_SEEDS=TOPIC_SEEDS[:1])
+  if args.gom_steps < GOM_CONFIG["max_iter"]:
+    scope.update(GOM_ACC_MARGIN=math.inf, GOM_PURITY_MARGIN=math.inf,
+                 GOM_SEEDS=GOM_SEEDS[:2])
+  for fn in (graphed_profile, card_against_cpu, topic_recipe, gom_recipe,
+             last_path):
+    src = inspect.getsource(fn).replace('torch.device("cuda", 0)',
+                                        'torch.device("cpu")')
+    exec(src, scope)
+  counts = {"logmel": 1, "logmel_fft": 1, "logmel_fft_mixed": 0,
+            "flash_attention": 0, "flash_attention_mma": 0}
+  t0 = time.perf_counter()
+  scope["last_path"](torch, np, lambda: None, lambda: dict(counts),
+                     "CPU rehearsal, no card")
+  log(f"phase 18 rehearsed on the CPU in {time.perf_counter() - t0:.2f} s")
+  return 0
+
+
+PHASES = tuple(range(1, 19))
 # the phases whose results a phase reads: the kernel reports of 2 and 5,
 # phase 7's graphed step time, phase 8's model, phase 9's wav files, phase
 # 10's Gym
@@ -3849,7 +4412,7 @@ def selected_phases(spec=None):
   chosen = {1} | {int(p) for p in str(spec).split(",") if p.strip()}
   if not chosen <= set(PHASES):
     raise SystemExit(f"chip_smoke.py --phases: no phase "
-                     f"{sorted(chosen - set(PHASES))}; phases are 1-17")
+                     f"{sorted(chosen - set(PHASES))}; phases are 1-18")
   todo = list(chosen)
   while todo:
     for need in PHASE_NEEDS.get(todo.pop(), ()):
@@ -4504,6 +5067,15 @@ def main(phases=None) -> int:
                "remat policies, run_hydra and the ScoreBoard"):
       sweep_path(torch, np, reset_counts, read_counts, smi)
 
+  if 18 in phases:
+    with Phase("18 last path: the LDA family, Grade of Membership, the "
+               "cycle-consistent VAE, the mixture of experts and the "
+               "sequential family on K1's log-mels"):
+      k1 = last_path(torch, np, reset_counts, read_counts, smi)
+      if "logmel_fft" in report:
+        report["logmel_fft"]["launches"] += k1
+      log(f"K1 FFT launches on the last path (phase 18): {k1}")
+
   log("kernels: " + "; ".join(
       f"{k} launches={v['launches']} ms={v['ms']:.4f} "
       f"plain_ms={v['plain_ms']:.4f} library_ms={v['library_ms']:.4f} "
@@ -4530,6 +5102,8 @@ if __name__ == "__main__":
     sys.exit(hier_rehearsal(sys.argv[2:]))
   if sys.argv[1:2] == ["--multiseed-profile"]:
     sys.exit(multiseed_profile(sys.argv[2:]))
+  if sys.argv[1:2] == ["--last-rehearsal"]:
+    sys.exit(last_rehearsal(sys.argv[2:]))
   if sys.argv[1:2] == ["--trunk-conditioning"]:
     sys.exit(trunk_conditioning(sys.argv[2:]))
   if sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3:

@@ -1,9 +1,9 @@
 """String alias registry of the port: alias -> (params_size, builder,
 default prior), for the families the port serves and trains through
 (PyTorch port of ``odin_tpu/bay/distribution_alias.py``: ``_softplus`` :30,
-the normal, mvndiag, bernoulli, onehot, deterministic, vdeterministic,
-vmf and powerspherical builders :83,93,127,147,208,212,263,271, and the
-default priors :282-305)."""
+the normal, mvndiag, dirichlet, bernoulli, onehot, deterministic,
+vdeterministic, vmf and powerspherical builders
+:83,93,122,127,147,208,212,263,271, and the default priors :282-305)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -78,6 +78,10 @@ def _mvndiag_builder(params, event_shape, **kw):
   return D.MultivariateNormalDiag(params[..., :d], _softplus(params[..., d:]))
 
 
+def _dirichlet_builder(params, event_shape, **kw):
+  return D.Dirichlet(_softplus(_reshape_event(params, event_shape)))
+
+
 def _bernoulli_builder(params, event_shape, **kw):
   return _indep(D.Bernoulli(logits=_reshape_event(params, event_shape)),
                 event_shape)
@@ -124,6 +128,10 @@ def _mvndiag_prior(event_shape, **kw):
   return D.MultivariateNormalDiag(torch.zeros(d), torch.ones(d))
 
 
+def _dirichlet_prior(event_shape, **kw):
+  return D.Dirichlet(torch.ones(event_shape))
+
+
 def _onehot_prior(event_shape, **kw):
   return D.OneHotCategorical(logits=torch.zeros(_size(event_shape)))
 
@@ -144,6 +152,8 @@ register_distribution_alias(("normal", "gaussian"), DistSpec(
     "normal", _n_params(2), _normal_builder, _std_normal_prior))
 register_distribution_alias("mvndiag", DistSpec(
     "mvndiag", _n_params(2), _mvndiag_builder, _mvndiag_prior))
+register_distribution_alias("dirichlet", DistSpec(
+    "dirichlet", _n_params(1), _dirichlet_builder, _dirichlet_prior))
 register_distribution_alias("bernoulli", DistSpec(
     "bernoulli", _n_params(1), _bernoulli_builder, _no_prior))
 register_distribution_alias(("onehot",), DistSpec(

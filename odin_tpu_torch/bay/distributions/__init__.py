@@ -8,6 +8,7 @@ from odin_tpu_torch.bay.distributions.base import (
     register_kl,
 )
 from odin_tpu_torch.bay.distributions.continuous import (
+    Dirichlet,
     MultivariateNormalDiag,
     Normal,
 )

@@ -1,5 +1,16 @@
 """Gaussian families of the port (``Normal`` and ``MultivariateNormalDiag``
-of ``odin_tpu/bay/distributions/continuous.py:72,402``)."""
+of ``odin_tpu/bay/distributions/continuous.py:72,402``) and the
+``Dirichlet`` (:346-399).
+
+The Dirichlet draws its Gammas from a ``training.core.Noise`` in the JAX
+package's order, with JAX's fixed rounds, fallback and pathwise gradient
+(``sampling.gamma_draws``, ``sampling.log_gamma_pathwise``), and forms
+the sample as ``softmax(log g)`` where JAX forms ``g / sum(g)``: the same
+numbers wherever JAX's boosted Gammas do not underflow.  Where they do
+(small concentrations), JAX's rows hold exact zeros or are NaN, and the
+port's stay on the open simplex: a component is never below the smallest
+float32 subnormal, so ``log_prob`` of a sample is finite.
+"""
 from __future__ import annotations
 
 import math
@@ -8,9 +19,10 @@ import torch
 
 from odin_tpu_torch.bay.distributions.base import Distribution, register_kl
 
-__all__ = ["Normal", "MultivariateNormalDiag"]
+__all__ = ["Normal", "MultivariateNormalDiag", "Dirichlet"]
 
 _LOG2PI = math.log(2.0 * math.pi)
+_SUBNORMAL = 2.0 ** -149  # the smallest positive float32
 
 
 def _noise(shape, like: torch.Tensor, generator, eps):
@@ -123,3 +135,75 @@ def _kl_mvndiag(q, p):
   var_ratio = (q.scale_diag / p.scale_diag) ** 2
   t = ((q.loc - p.loc) / p.scale_diag) ** 2
   return 0.5 * torch.sum(var_ratio + t - 1.0 - torch.log(var_ratio), dim=-1)
+
+
+class Dirichlet(Distribution):
+  _params = ("concentration",)
+
+  def __init__(self, concentration):
+    self.concentration = torch.as_tensor(concentration)
+
+  @property
+  def batch_shape(self):
+    return tuple(self.concentration.shape[:-1])
+
+  @property
+  def event_shape(self):
+    return tuple(self.concentration.shape[-1:])
+
+  def sample_from(self, noise, sample_shape=()):
+    """A sample from the Gamma draws `noise` hands out (``gamma_draws``),
+    differentiable in the concentration."""
+    from odin_tpu_torch.bay.distributions.sampling import (
+        gamma_draws, log_gamma_pathwise)
+    a = self.concentration
+    shape = tuple(sample_shape) + tuple(a.shape)
+    x, u, u_boost = gamma_draws(noise, shape, a.dtype, a.device)
+    log_g = log_gamma_pathwise(a.expand(shape), x, u, u_boost)
+    return torch.clamp(torch.softmax(log_g, dim=-1), min=_SUBNORMAL)
+
+  def sample(self, sample_shape=(), generator=None, eps=None):
+    """A sample drawn from `generator`, or from `eps`, the list of draws
+    ``sample_from`` makes (JAX's, in its order)."""
+    from odin_tpu_torch.bay.distributions.spherical import _noise
+    return self.sample_from(_noise(generator, eps, self.concentration.device),
+                            sample_shape)
+
+  def log_prob(self, x):
+    a = self.concentration
+    return (torch.sum((a - 1.0) * torch.log(x), dim=-1) +
+            torch.lgamma(torch.sum(a, dim=-1)) -
+            torch.sum(torch.lgamma(a), dim=-1))
+
+  def mean(self):
+    return self.concentration / torch.sum(self.concentration, dim=-1,
+                                          keepdim=True)
+
+  def mode(self):
+    a = self.concentration
+    a0 = torch.sum(a, dim=-1, keepdim=True)
+    return (a - 1.0) / (a0 - a.shape[-1])
+
+  def variance(self):
+    a = self.concentration
+    m = a / torch.sum(a, dim=-1, keepdim=True)
+    return m * (1.0 - m) / (torch.sum(a, dim=-1, keepdim=True) + 1.0)
+
+  def entropy(self):
+    a = self.concentration
+    a0 = torch.sum(a, dim=-1)
+    k = a.shape[-1]
+    return (torch.sum(torch.lgamma(a), dim=-1) - torch.lgamma(a0) +
+            (a0 - k) * torch.digamma(a0) -
+            torch.sum((a - 1.0) * torch.digamma(a), dim=-1))
+
+
+@register_kl(Dirichlet, Dirichlet)
+def _kl_dirichlet(q: Dirichlet, p: Dirichlet):
+  a, b = q.concentration, p.concentration
+  a0 = torch.sum(a, dim=-1, keepdim=True)
+  return (torch.lgamma(torch.sum(a, dim=-1)) -
+          torch.lgamma(torch.sum(b, dim=-1)) -
+          torch.sum(torch.lgamma(a), dim=-1) +
+          torch.sum(torch.lgamma(b), dim=-1) +
+          torch.sum((a - b) * (torch.digamma(a) - torch.digamma(a0)), dim=-1))

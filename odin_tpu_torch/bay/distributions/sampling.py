@@ -14,6 +14,12 @@ caller raises after the call (``check_rejections``).
     continuous.py:32``, whose misses fall back to a value; here they
     count).
   * ``sample_beta``: ``X / (X + Y)`` of two such Gammas.
+  * ``gamma_draws`` and ``log_gamma_pathwise``: the same scheme with the
+    JAX package's draws in its order (a normal and a uniform a round,
+    then the boost's uniform) and its fallback to ``d`` where no proposal
+    accepted, differentiable in alpha along the accepted proposal's path
+    (the ``Dirichlet``'s sampler).  Its misses are counted as kind
+    ``'dirichlet'`` but do not raise: the value is the JAX package's.
 """
 from __future__ import annotations
 
@@ -21,7 +27,8 @@ from typing import Dict, Optional
 
 import torch
 
-__all__ = ["sample_log_gamma", "sample_beta", "RejectionStats",
+__all__ = ["sample_log_gamma", "sample_beta", "gamma_draws",
+           "log_gamma_pathwise", "RejectionStats",
            "rejection_stats", "reset_rejection_stats", "check_rejections"]
 
 GAMMA_ROUNDS = 8
@@ -30,13 +37,16 @@ GAMMA_ROUNDS = 8
 class RejectionStats:
   """Device counters of one kind of rejection sampler: proposals made,
   proposals accepted, rows drawn, and rows that no proposal accepted
-  (int64, added to in place, so a graph replay counts too)."""
+  (int64, added to in place, so a graph replay counts too).  A kind that
+  falls back to a value where no proposal accepted (`raises` False) is
+  counted and never raised for."""
 
   FIELDS = ("proposals", "accepted", "rows", "failed")
 
-  def __init__(self, device: torch.device):
+  def __init__(self, device: torch.device, raises: bool = True):
     self.counts = torch.zeros(len(self.FIELDS), dtype=torch.int64,
                               device=device)
+    self.raises = bool(raises)
 
   def add(self, proposals: int, accepted: torch.Tensor, rows: int,
           failed: torch.Tensor):
@@ -55,10 +65,11 @@ class RejectionStats:
 _STATS: Dict[tuple, RejectionStats] = {}
 
 
-def _stats(kind: str, device: torch.device) -> RejectionStats:
+def _stats(kind: str, device: torch.device,
+           raises: bool = True) -> RejectionStats:
   key = (kind, torch.device(device))
   if key not in _STATS:
-    _STATS[key] = RejectionStats(key[1])
+    _STATS[key] = RejectionStats(key[1], raises)
   return _STATS[key]
 
 
@@ -84,6 +95,8 @@ def check_rejections():
   if _capturing():
     return
   for (kind, device), s in _STATS.items():
+    if not s.raises:
+      continue
     failed = int(s.counts[3])
     if failed:
       s.counts[3].zero_()
@@ -137,3 +150,50 @@ def sample_beta(generator: Optional[torch.Generator], a, b, shape,
   log_max = torch.maximum(log_a, log_b)
   ga, gb = torch.exp(log_a - log_max), torch.exp(log_b - log_max)
   return ga / (ga + gb)
+
+
+def gamma_draws(noise, shape, dtype: torch.dtype = torch.float32,
+                device=None):
+  """The draws of one Gamma(alpha, 1) sample of `shape` from a
+  ``training.core.Noise``, in the JAX package's order
+  (``odin_tpu/bay/distributions/continuous.py:47-66``): for each of the
+  `GAMMA_ROUNDS` rounds a normal and a uniform, then the boost's uniform;
+  the uniforms floored at 1e-12, as JAX's ``minval``.  Returns (x, u,
+  u_boost), x and u stacked on a leading rounds axis."""
+  shape = tuple(int(i) for i in shape)
+  xs, us = [], []
+  for _ in range(GAMMA_ROUNDS):
+    xs.append(noise.normal(shape, dtype, device))
+    us.append(noise.uniform(shape, dtype, device).clamp(min=1e-12))
+  u_boost = noise.uniform(shape, dtype, device).clamp(min=1e-12)
+  return torch.stack(xs), torch.stack(us), u_boost
+
+
+def log_gamma_pathwise(alpha: torch.Tensor, x: torch.Tensor,
+                       u: torch.Tensor, u_boost: torch.Tensor,
+                       kind: str = "dirichlet") -> torch.Tensor:
+  """log Gamma(alpha, 1) from the draws of ``gamma_draws``:
+  ``log d + 3 log(1 + c x) + log(u_boost) / alpha`` (the boost only where
+  alpha < 1) with the first accepted round's x, or ``log d`` where no
+  round accepted (the JAX package's fallback, counted as `kind`).  The
+  gradient with respect to alpha is the pathwise one through d, c and the
+  boost with x and u held, as JAX differentiates ``_sample_gamma``; the
+  log keeps a boosted variate that a float32 ``u^(1/alpha)`` would
+  flush to 0."""
+  boosted = torch.where(alpha < 1.0, alpha + 1.0, alpha)
+  d = boosted - 1.0 / 3.0
+  c = 1.0 / torch.sqrt(9.0 * d)
+  with torch.no_grad():
+    cd, dd = c.detach(), d.detach()
+    v = (1.0 + cd * x) ** 3
+    ok = (v > 0) & (torch.log(u) < 0.5 * x * x + dd - dd * v + dd * torch.log(
+        torch.where(v > 0, v, torch.ones_like(v))))
+    first = torch.argmax(ok.to(torch.int8), dim=0, keepdim=True)
+    hit = ok.any(dim=0)
+    x_acc = torch.take_along_dim(x, first, dim=0)[0]
+  _stats(kind, alpha.device, raises=False).add(ok.numel(), ok.sum(),
+                                               hit.numel(), (~hit).sum())
+  cube = torch.where(hit, 1.0 + c * x_acc, torch.ones_like(c))
+  log_g = torch.log(d) + 3.0 * torch.log(cube)
+  return log_g + torch.where(alpha < 1.0, torch.log(u_boost) / torch.clamp(
+      alpha, min=1e-6), torch.zeros_like(alpha))

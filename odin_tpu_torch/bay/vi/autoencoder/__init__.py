@@ -1,8 +1,7 @@
 """The VAE zoo of the port and its registry (``get_vae``, ``get_all_vae``:
 the JAX package's lookup rules, ``odin_tpu/bay/vi/autoencoder/
-__init__.py:114-141``).  A class the JAX package registers that the port
-has not ported yet raises ``NotImplementedError`` naming the ROADMAP item
-that ports it."""
+__init__.py:114-141``), which names every class the JAX package
+registers."""
 import inspect
 from typing import Type, Union
 
@@ -33,6 +32,7 @@ from odin_tpu_torch.bay.vi.autoencoder.conditional_vae import (
     StructuredSemiVAE,
     reparamsM3VAE,
 )
+from odin_tpu_torch.bay.vi.autoencoder.cycle_vae import CycleConsistentVAE
 from odin_tpu_torch.bay.vi.autoencoder.deterministic import DistEncoder
 from odin_tpu_torch.bay.vi.autoencoder.dip_vae import DIPVAE
 from odin_tpu_torch.bay.vi.autoencoder.factor_discriminator import (
@@ -67,6 +67,14 @@ from odin_tpu_torch.bay.vi.autoencoder.irm_vae import (
     irmAE,
     irmVAE,
 )
+from odin_tpu_torch.bay.vi.autoencoder.lda_vae import (
+    ALDA,
+    LatentDirichletDecoder,
+    amortizedLDA,
+    auxiliaryLDA,
+    nonlinearLDA,
+)
+from odin_tpu_torch.bay.vi.autoencoder.moe_vae import MoeVAE
 from odin_tpu_torch.bay.vi.autoencoder.multitask_vae import (
     MultiheadVAE,
     MultitaskVAE,
@@ -88,6 +96,11 @@ from odin_tpu_torch.bay.vi.autoencoder.self_supervised_vae import (
     GroupVAE,
     MultiLevelVAE,
     WeaklySupervisedVAE,
+)
+from odin_tpu_torch.bay.vi.autoencoder.sequential_vae import (
+    SequentialAttentionVAE,
+    SequentialVAE,
+    VariationalRNN,
 )
 from odin_tpu_torch.bay.vi.autoencoder.stochastic_vae import (
     ImputeVAE,
@@ -112,32 +125,26 @@ __all__ = [
     "semafosc", "semafop", "semafot", "HierarchicalVAE", "LadderVAE",
     "UnetVAE", "PUnetVAE", "VeryDeepVAE", "BiConvLatents", "BiDenseLatents",
     "ParallelLatents", "LadderCore", "UnetCore", "PUnetCore", "GroupVAE",
-    "MultiLevelVAE", "AdaptiveVAE", "WeaklySupervisedVAE", "get_vae",
+    "MultiLevelVAE", "AdaptiveVAE", "WeaklySupervisedVAE",
+    "LatentDirichletDecoder", "amortizedLDA", "auxiliaryLDA",
+    "nonlinearLDA", "ALDA", "VariationalRNN", "SequentialVAE",
+    "SequentialAttentionVAE", "CycleConsistentVAE", "MoeVAE", "get_vae",
     "get_all_vae",
 ]
 
-_ITEM = "ROADMAP.md queue 1, item 5"
-# the JAX package's registered names (lower case) that wait, by the part
-# of ROADMAP's item that ports them
-_WAITING = {
-    **{k: f"{_ITEM} (the sequential family)" for k in (
-        "sequentialvae", "sequentialattentionvae", "variationalrnn")},
-    "cycleconsistentvae": f"{_ITEM} (the cycle-consistent VAE)",
-    "moevae": f"{_ITEM} (the mixture-of-experts VAE)",
-    **{k: f"{_ITEM} (the LDA family)" for k in (
-        "alda", "amortizedlda", "auxiliarylda", "nonlinearlda")},
-}
+# the JAX package's registered names that the port has not ported yet:
+# none since the last nine classes came
+_WAITING = {}
 
 
 def _zoo():
   return {k.lower(): v for k, v in globals().items()
-          if inspect.isclass(v) and issubclass(v, VariationalAutoencoder)
-          and k.lower() not in _WAITING}
+          if inspect.isclass(v) and issubclass(v, VariationalAutoencoder)}
 
 
 def get_vae(name: Union[str, Type[VariationalAutoencoder]] = None):
   """A VAE class by its case-insensitive name ('vae' may be left off:
-  ``get_vae('beta')`` is ``BetaVAE``); with no name, every ported class."""
+  ``get_vae('beta')`` is ``BetaVAE``); with no name, every class."""
   if name is None:
     return sorted(set(_zoo().values()), key=lambda c: c.__name__)
   if inspect.isclass(name) and issubclass(name, VariationalAutoencoder):
@@ -147,10 +154,6 @@ def get_vae(name: Union[str, Type[VariationalAutoencoder]] = None):
   for k in (key, key + "vae"):
     if k in zoo:
       return zoo[k]
-  for k in (key, key + "vae"):
-    if k in _WAITING:
-      raise NotImplementedError(f"'{name}' is not ported yet: "
-                                f"{_WAITING[k]}")
   raise ValueError(f"cannot find VAE with name '{name}'; "
                    f"available: {sorted(zoo)}")
 

@@ -1,8 +1,10 @@
 """Data layer of the port: the input pipeline, the on-disk stores and the
 feature-store ``Dataset``, ``AudioFeatureLoader``, and the datasets ported
-so far (dSprites and Shapes3D with their variants, the half-moons).
-``get_dataset`` raises for the JAX package's other datasets, which are not
-ported yet."""
+so far (dSprites and Shapes3D with their variants, the half-moons, and the
+procedural text sets ``SyntheticBoW`` and ``MathArithmetic``, which are
+made by their constructors).  ``get_dataset`` looks up the image datasets
+and raises for the JAX package's other datasets, which are not ported
+yet."""
 from typing import List, Type, Union
 
 from odin_tpu_torch.fuel.audio_data import (AudioFeatureLoader,
@@ -15,6 +17,8 @@ from odin_tpu_torch.fuel.image_data import (HalfMoons, ImageDataset,
                                             Shapes3D, Shapes3D0,
                                             Shapes3DSmall, dSprites,
                                             dSprites0, dSpritesSmall)
+from odin_tpu_torch.fuel.nlp_data import (MathArithmetic, NLPDataset,
+                                          SyntheticBoW)
 from odin_tpu_torch.fuel.pipeline import DataPipeline
 
 __all__ = ["get_dataset", "get_all_dataset", "get_partition",
@@ -22,7 +26,8 @@ __all__ = ["get_dataset", "get_all_dataset", "get_partition",
            "dSpritesSmall", "dSprites0", "Shapes3D", "Shapes3DSmall",
            "Shapes3D0", "HalfMoons", "Dataset", "MmapDict", "SQLiteDict",
            "MmapArray", "MmapArrayWriter", "TableDict", "AudioFeatureLoader",
-           "synth_speaker_corpus"]
+           "synth_speaker_corpus", "NLPDataset", "SyntheticBoW",
+           "MathArithmetic"]
 
 _DATASETS = (dSprites, dSprites0, dSpritesSmall, Shapes3D, Shapes3DSmall,
              Shapes3D0, HalfMoons)

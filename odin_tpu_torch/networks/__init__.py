@@ -16,6 +16,7 @@ from odin_tpu_torch.networks.base import (
     ConvTranspose,
     Dense,
     Flatten,
+    GRUCell,
     Lambda,
     Reshape,
     SequentialNetwork,

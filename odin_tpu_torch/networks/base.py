@@ -28,7 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 __all__ = [
-    "Dense", "Conv", "ConvTranspose", "Flatten", "Reshape", "CenterAt0",
+    "Dense", "GRUCell", "Conv", "ConvTranspose", "Flatten", "Reshape",
+    "CenterAt0",
     "Lambda", "BatchNorm", "SequentialNetwork", "get_activation",
     "same_padding", "conv_transpose_padding", "collecting_updates",
     "record_update", "layer_noise",
@@ -168,6 +169,46 @@ class Dense(nn.Module):
 
   def forward(self, x):
     return get_activation(self.activation)(F.linear(x, self.weight, self.bias))
+
+
+class GRUCell(nn.Module):
+  """flax's ``nn.GRUCell`` (r, z, n gates; ``ir``/``iz``/``in`` with bias,
+  ``hr``/``hz`` without, ``hn`` with) as ``torch.gru_cell``, whose
+  formula is the same: ``weight_ih`` is ``[ir; iz; in]`` and ``weight_hh``
+  ``[hr; hz; hn]`` (each flax kernel transposed), ``bias_ih`` is
+  ``[b_ir; b_iz; b_in]``, and ``bias_hn`` is ``hn``'s bias alone (the
+  hidden bias of the r and z gates is 0 and no parameter, as in flax).
+  ``forward(h, x) -> h'``, the carry first as in flax; a loop over time
+  takes ``weights()`` once and passes them to each step."""
+
+  def __init__(self, features: int):
+    super().__init__()
+    self.features = int(features)
+
+  def build(self, in_shape: Shape, generator=None) -> Shape:
+    h, fan_in = self.features, int(in_shape[-1])
+    self.weight_ih = _new_param((3 * h, fan_in))
+    self.weight_hh = _new_param((3 * h, h))
+    with torch.no_grad():
+      for g in range(3):  # flax: lecun_normal inputs, orthogonal recurrence
+        _variance_scaling_(self.weight_ih[g * h:(g + 1) * h], 1.0, fan_in,
+                           generator)
+        nn.init.orthogonal_(self.weight_hh[g * h:(g + 1) * h],
+                            generator=generator)
+    self.bias_ih = nn.Parameter(torch.zeros(3 * h))
+    self.bias_hn = nn.Parameter(torch.zeros(h))
+    return (h,)
+
+  def weights(self):
+    """(weight_ih, weight_hh, bias_ih, bias_hh) as ``torch.gru_cell``
+    takes them."""
+    zeros = torch.zeros(2 * self.features, dtype=self.bias_hn.dtype,
+                        device=self.bias_hn.device)
+    return (self.weight_ih, self.weight_hh, self.bias_ih,
+            torch.cat([zeros, self.bias_hn]))
+
+  def forward(self, h, x, weights=None):
+    return torch.gru_cell(x, h, *(weights or self.weights()))
 
 
 class Conv(nn.Module):

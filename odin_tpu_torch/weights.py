@@ -22,14 +22,25 @@ Attention (``networks.attention``):
     becomes the weight (F_out, H·D_h);
   * ``Attention``'s raw parameter ``v_add`` keeps its name and shape.
 
-Path rules: flax's ``layers_<i>`` is ``layers.<i>``; the primitive a
+Recurrent cells: flax's ``nn.GRUCell`` (gates ``ir``, ``iz``, ``in`` with
+bias, ``hr``, ``hz`` without, ``hn`` with) is the port's ``GRUCell``:
+``weight_ih`` is ``[ir; iz; in]`` and ``weight_hh`` ``[hr; hz; hn]``, each
+kernel transposed, ``bias_ih`` ``[b_ir; b_iz; b_in]`` and ``bias_hn`` the
+``hn`` bias.
+
+Path rules: flax's ``layers_<i>`` is ``layers.<i>``, and so are the
+per-modality lists of ``MoeVAE`` (``encoders_<m>``, ``decoders_<m>``,
+``latent_heads_<m>``, ``observations_<m>``); the primitive a
 wrapper layer holds (``Conv_0``, ``ConvTranspose_0``, ``Dense_0``,
 ``BatchNorm_0``) has no module of its own in the port; ``Attention``'s
 ``position`` Dense is ``position_proj``; ``kernel`` is ``weight``; a
 parameter a module holds itself (``v_add``, a VQ ``codebook``, VampPrior's
 ``pseudo_inputs``, a label embedder's ``table/embedding``, the four vectors
-of M3's ``regressor``) keeps its name.  A ``Dense``, ``Conv`` or
-``ConvTranspose`` built with ``bare=True`` stands for one of flax's own
+of M3's ``regressor``, the linear LDA decoder's ``topics_words``, the
+Grade-of-Membership model's stacked ``enc_w<i>``/``enc_b<i>``,
+``conc_w``/``conc_b`` and ``profile_logits``) keeps its name.  A
+``Dense``, ``Conv`` or ``ConvTranspose`` built with ``bare=True`` stands
+for one of flax's own
 ``nn.Dense``/``nn.Conv``/``nn.ConvTranspose`` layers (a head's
 ``projection``, ``Attention``'s and ``AttentionHeads``' projections, a
 ladder rung's convolutions and heads, a U-Net's ``skip_{i}``, a
@@ -63,7 +74,8 @@ from torch import nn
 from odin_tpu_torch.device import resolve_device
 from odin_tpu_torch.ml import GMM, PLDA, Scorer, Tmatrix, VectorNormalizer
 from odin_tpu_torch.networks.attention import MultiHeadAttention
-from odin_tpu_torch.networks.base import BatchNorm, Conv, ConvTranspose, Dense
+from odin_tpu_torch.networks.base import (BatchNorm, Conv, ConvTranspose,
+                                         Dense, GRUCell)
 from odin_tpu_torch.training.core import EMA_KEY, TrainState, _dtype
 
 __all__ = ["from_jax_params", "to_jax_params", "from_jax_mutables",
@@ -74,7 +86,9 @@ __all__ = ["from_jax_params", "to_jax_params", "from_jax_mutables",
 
 _PRIMITIVES = {"Conv_0": Conv, "ConvTranspose_0": ConvTranspose,
                "Dense_0": Dense, "BatchNorm_0": BatchNorm}
-_LAYER = re.compile(r"^layers_(\d+)$")
+# flax's numbered submodules of a list attribute, a ModuleList in the port
+_LISTS = ("layers", "encoders", "decoders", "latent_heads", "observations")
+_LAYER = re.compile(r"^(%s)_(\d+)$" % "|".join(_LISTS))
 # flax's bare nn.ConvTranspose layers, by their module name (a ladder
 # rung's merge); a bare 4-d kernel of another name is an nn.Conv's
 _BARE_TRANSPOSED = ("merge_deconv",)
@@ -85,7 +99,52 @@ _MHA_PROJECTIONS = ("query", "key", "value", "out")
 # (flax's ``nn.Embed``), M3's learned prior
 _RAW = ("v_add", "codebook", "pseudo_inputs", "embedding", "diag_loc_true",
         "diag_loc_false", "diag_scale_true", "diag_scale_false")
+_RAW += ("topics_words", "conc_w", "conc_b", "profile_logits")
+_RAW_NUMBERED = re.compile(r"^enc_[wb]\d+$")
 _PARAM_LEAVES = ("bias", "scale") + _RAW
+_GRU_GATES = ("ir", "iz", "in", "hr", "hz", "hn")
+_GRU_LEAVES = ("weight_ih", "weight_hh", "bias_ih", "bias_hn")
+
+
+def _is_raw(leaf: str) -> bool:
+  return leaf in _RAW or bool(_RAW_NUMBERED.match(leaf))
+
+
+def _fuse_gru(tree: Mapping) -> Dict[str, Any]:
+  """`tree` with each flax ``GRUCell`` node (the tree itself too) replaced
+  by the port's fused leaves, in the port's layout."""
+  if set(tree) == set(_GRU_GATES):
+    kernel = lambda gates: np.concatenate(
+        [np.asarray(tree[g]["kernel"]).T for g in gates], 0)
+    return {"weight_ih": kernel(("ir", "iz", "in")),
+            "weight_hh": kernel(("hr", "hz", "hn")),
+            "bias_ih": np.concatenate([np.asarray(tree[g]["bias"])
+                                       for g in ("ir", "iz", "in")]),
+            "bias_hn": np.asarray(tree["hn"]["bias"])}
+  return {k: _fuse_gru(v) if isinstance(v, Mapping) else v
+          for k, v in tree.items()}
+
+
+def _gru_gates(w_ih, w_hh, b_ih, b_hn) -> Dict[str, Any]:
+  """The port's fused GRU leaves -> flax's gate tree."""
+  h = b_hn.shape[0]
+  gates = {}
+  for i, (gi, gh) in enumerate((("ir", "hr"), ("iz", "hz"), ("in", "hn"))):
+    gates[gi] = {"kernel": np.ascontiguousarray(w_ih[i * h:(i + 1) * h].T),
+                 "bias": b_ih[i * h:(i + 1) * h].copy()}
+    gates[gh] = {"kernel": np.ascontiguousarray(w_hh[i * h:(i + 1) * h].T)}
+  gates["hn"]["bias"] = b_hn.copy()
+  return gates
+
+
+def _split_gru(tree: Mapping) -> Dict[str, Any]:
+  """The inverse of ``_fuse_gru``."""
+  if set(tree) == set(_GRU_LEAVES):
+    return _gru_gates(*(np.asarray(tree[n]) for n in _GRU_LEAVES))
+  return {k: _split_gru(v) if isinstance(v, Mapping) else v
+          for k, v in tree.items()}
+
+
 # the leaves of flax's mutable collections (batch_stats, vq_stats)
 _STAT_LEAVES = ("mean", "var", "codebook", "counts", "means")
 _TO_PORT = {"position": "position_proj"}
@@ -131,11 +190,12 @@ def _port_leaf(path: Tuple[str, ...], leaves=_PARAM_LEAVES):
   names = []
   for m in modules:
     match = _LAYER.match(m)
-    names.extend(("layers", match.group(1)) if match else
+    names.extend(match.groups() if match else
                  (_TO_PORT.get(m, m),))
   if leaf == "kernel" and leaves is _PARAM_LEAVES:
     leaf = "weight"
-  elif leaf not in leaves:
+  elif leaf not in leaves and not (leaves is _PARAM_LEAVES and (
+      _is_raw(leaf) or leaf in _GRU_LEAVES)):
     raise ValueError(f"unexpected flax leaf {'/'.join(path)}")
   return ".".join(names + [leaf]), kind
 
@@ -146,7 +206,7 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
   if set(params) == {"vae"}:
     params = params["vae"]
   out = {}
-  for path, value in _leaves(params):
+  for path, value in _leaves(_fuse_gru(params)):
     *modules, leaf = path
     if len(modules) >= 2 and modules[-2] == _MHA and \
         modules[-1] in _MHA_PROJECTIONS:
@@ -170,14 +230,14 @@ def _tree_to_flax(state_dict: Mapping[str, torch.Tensor],
   as `template`: each leaf of `template` read from `state_dict` by its
   port name, transposed back and shaped as the template's leaf."""
   out: Dict[str, Any] = {}
-  for path, value in _leaves(template):
+  for path, value in _leaves(_fuse_gru(template)):
     name, kind = _port_leaf(path)
     w = _numpy(state_dict[name])
     if path[-1] == "kernel":
       w = _kernel_to_flax(kind, w)
     _node(out, path[:-1])[path[-1]] = np.ascontiguousarray(
         w.reshape(value.shape)).astype(value.dtype)
-  return out
+  return _split_gru(out)
 
 
 def _flax_path(name: str):
@@ -186,8 +246,8 @@ def _flax_path(name: str):
   path = []
   i = 0
   while i < len(parts):
-    if parts[i] == "layers" and i + 1 < len(parts) and parts[i + 1].isdigit():
-      path.append(f"layers_{parts[i + 1]}")
+    if parts[i] in _LISTS and i + 1 < len(parts) and parts[i + 1].isdigit():
+      path.append(f"{parts[i]}_{parts[i + 1]}")
       i += 2
     else:
       path.append(_TO_FLAX.get(parts[i], parts[i]))
@@ -235,6 +295,10 @@ def to_jax_params(module: nn.Module,
               (kernel.shape[0],) + heads))
           node["bias"] = value(name, proj, "bias").reshape(heads)
       continue
+    if isinstance(sub, GRUCell):
+      _node(tree, _flax_path(name)).update(_gru_gates(
+          *(value(name, n) for n in _GRU_LEAVES)))
+      continue
     if isinstance(sub, BatchNorm):
       node = _node(tree, _flax_path(name) + ["BatchNorm_0"])
       node["scale"] = value(name, "scale")
@@ -252,7 +316,7 @@ def to_jax_params(module: nn.Module,
       node["bias"] = value(name, "bias")
   for name, _ in module.named_parameters():
     *owner, leaf = name.split(".")
-    if leaf in _RAW:
+    if _is_raw(leaf):
       _node(tree, _flax_path(".".join(owner)))[leaf] = value(name)
   return tree
 

@@ -98,6 +98,14 @@ def test_sources_exist():
   for module in ("training/experimenter.py", "training/scores.py",
                  "networks/image_networks.py"):
     assert f"odin_tpu_torch/{module}" in names
+  # the last VAE classes: the LDA family, Grade of Membership, the cycle,
+  # mixture-of-experts and sequential models, the Dirichlet, the NLP sets
+  for module in ("bay/vi/autoencoder/lda_vae.py", "bay/mixed_membership.py",
+                 "bay/vi/autoencoder/cycle_vae.py",
+                 "bay/vi/autoencoder/moe_vae.py",
+                 "bay/vi/autoencoder/sequential_vae.py",
+                 "bay/distributions/continuous.py", "fuel/nlp_data.py"):
+    assert f"odin_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -148,7 +156,12 @@ def test_importing_the_port_loads_no_jax():
           "odin_tpu_torch.preprocessing.opensmile, "
           "odin_tpu_torch.preprocessing.kaldi, "
           "odin_tpu_torch.training.experimenter, "
-          "odin_tpu_torch.training.scores\n"
+          "odin_tpu_torch.training.scores, "
+          "odin_tpu_torch.bay.mixed_membership, odin_tpu_torch.fuel.nlp_data, "
+          "odin_tpu_torch.bay.vi.autoencoder.lda_vae, "
+          "odin_tpu_torch.bay.vi.autoencoder.cycle_vae, "
+          "odin_tpu_torch.bay.vi.autoencoder.moe_vae, "
+          "odin_tpu_torch.bay.vi.autoencoder.sequential_vae\n"
           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
           f"{FORBIDDEN!r})\nassert not bad, bad")
   res = _run(["-c", code], cwd=ROOT)

@@ -20,6 +20,12 @@ probability (what a U-Net skip's mask of the port draws), and
 the port runs otherwise).  ``jit_with_draws(fn)`` returns
 them beside fn's output from one jitted call.  The port's ``Noise(eps=
 draws)`` hands them out in the same order.
+
+A draw inside a ``lax.scan`` body (the sequential models' ``nn.scan``) is
+a tracer of the body that cannot leave it; ``jit_with_scan_draws(fn)``
+records ``jax.random.normal`` and ``uniform`` instead through an ordered
+``jax.debug.callback``, which runs once per executed draw, so a scan of T
+steps gives T draws in their order.
 """
 import contextlib
 
@@ -181,6 +187,52 @@ def jit_with_draws(fn, **jit_kwargs):
   return jax.jit(traced, **jit_kwargs)
 
 
+@contextlib.contextmanager
+def _scan_draws(rec):
+  saved = {}
+
+  def wrap(name):
+    fn = getattr(jax.random, name)
+    saved[name] = fn
+
+    def recorded(*args, **kwargs):
+      out = fn(*args, **kwargs)
+      jax.debug.callback(lambda v: rec.append(np.array(v)),
+                         jax.lax.stop_gradient(out), ordered=True)
+      return out
+
+    setattr(jax.random, name, recorded)
+
+  for name in ("normal", "uniform"):
+    wrap(name)
+  try:
+    yield
+  finally:
+    for name, fn in saved.items():
+      setattr(jax.random, name, fn)
+
+
+def jit_with_scan_draws(fn, **jit_kwargs):
+  """``jax.jit`` of fn returning ``(fn's output, the draws it made)``, the
+  draws of scan bodies included, one per iteration (see the module's
+  docstring)."""
+  rec = []
+
+  def traced(*args):
+    with _scan_draws(rec):
+      return fn(*args)
+
+  jitted = jax.jit(traced, **jit_kwargs)
+
+  def call(*args):
+    rec.clear()
+    out = jitted(*args)
+    jax.effects_barrier()
+    return out, list(rec)
+
+  return call
+
+
 def to_torch(draws):
   return [torch.from_numpy(np.array(d)) for d in draws]
 
@@ -203,27 +255,30 @@ RTOL = 1e-5
 LR = 1e-3
 
 
-def assert_terms_close(got, want, rtol=RTOL, what=""):
+def assert_terms_close(got, want, rtol=RTOL, what="", scales=None):
   """{name: per-example term}: each within `rtol` of the term's largest
   magnitude over the batch (a term that is a difference of larger
-  log-densities, as VampPrior's KL, keeps only their float32 rounding)."""
+  log-densities, as VampPrior's KL, keeps only their float32 rounding),
+  or of ``scales[name]``, the magnitude of the log-densities a term that
+  nearly cancels is the difference of."""
   assert set(got) == set(want), (sorted(got), sorted(want))
   for name, w in want.items():
     w = np.asarray(w)
     g = got[name].detach().cpu().numpy() if isinstance(got[name],
                                                        torch.Tensor) \
         else np.asarray(got[name])
-    np.testing.assert_allclose(g, w, rtol=rtol,
-                               atol=rtol * float(np.abs(w).max()),
+    scale = (scales or {}).get(name, float(np.abs(w).max()))
+    np.testing.assert_allclose(g, w, rtol=rtol, atol=rtol * scale,
                                err_msg=f"{name} {what}")
 
 
-def elbo_matches_jax(pair, batch, steps=(0, 700), key=4):
+def elbo_matches_jax(pair, batch, steps=(0, 700), key=4,
+                     recorder=jit_with_draws, scales=None):
   """The ELBO terms and the loss of both packages on `batch` (numpy, or a
   tuple of arrays), JAX's draws injected, at each of `steps`."""
   from odin_tpu_torch.training.core import Noise
   jvae, vae = pair
-  fn = jit_with_draws(lambda p, b, k, s, m: jvae.elbo_components(
+  fn = recorder(lambda p, b, k, s, m: jvae.elbo_components(
       p, b, k, s, training=False, mutables=m)[:2])
   tb = tuple(torch.from_numpy(b) for b in batch) if isinstance(
       batch, tuple) else torch.from_numpy(batch)
@@ -234,7 +289,8 @@ def elbo_matches_jax(pair, batch, steps=(0, 700), key=4):
                                   Noise(eps=to_torch(draws)),
                                   torch.tensor(step, dtype=torch.int32),
                                   mutables=dict(vae.state.mutables))
-    assert_terms_close({**l, **k}, {**jl, **jk}, what=f"at step {step}")
+    assert_terms_close({**l, **k}, {**jl, **jk}, what=f"at step {step}",
+                       scales=scales)
     np.testing.assert_allclose(
         float(-vae.elbo(l, k).mean()), float(-jnp.mean(jvae.elbo(jl, jk))),
         rtol=RTOL)
@@ -275,3 +331,62 @@ def step_matches_jax(pair, batch, lr=LR, **step_kwargs):
     assert int(s.opt_states[name]["count"]) == int(jax_adam(opt).count)
   assert int(s.step) == int(js.step) == 1
   return js, s, jm, m
+
+
+def steps_match_jax(pair, batches, lr=LR, recorder=jit_with_draws,
+                    scales=None, **step_kwargs):
+  """len(batches) training steps of both packages from the same state,
+  JAX's draws injected at each: the metrics of every step within rtol
+  1e-5 (atol 1e-6, or rtol times ``scales[name]`` as in
+  ``assert_terms_close``), then every params partition by the rule of
+  ``assert_params_close`` for that many steps.  Both models' states are
+  left as they were.  Returns (JAX state, port state)."""
+  from torch_training_common import assert_params_close
+  jvae, vae = pair
+  start = (jvae.state, vae.state)
+  jstep = recorder(jvae.make_step_fn(learning_rate=lr, jit=False,
+                                     **step_kwargs))
+  step = vae.make_step_fn(learning_rate=lr, **step_kwargs)
+  js, s = jvae.state, vae.state
+  for i, batch in enumerate(batches):
+    (js, jm), draws = jstep(js, batch)
+    tb = tuple(torch.from_numpy(b) for b in batch) if isinstance(
+        batch, tuple) else torch.from_numpy(batch)
+    s, m = step(s, tb, eps=to_torch(draws))
+    jm = jax.device_get(jm)
+    assert set(m) == set(jm)
+    for k in jm:
+      atol = RTOL * scales[k] if k in (scales or {}) else 1e-6
+      np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=RTOL,
+                                 atol=atol, err_msg=f"{k} at step {i}")
+  jvae.state, vae.state = start
+  js = jax.device_get(js)
+  got, want = np_tree(s.params), port_tree(js.params)
+  assert set(got) == set(want)
+  for part in want:
+    assert_params_close(got[part], want[part], len(batches), lr=lr)
+  assert int(s.step) == int(js.step) == len(batches)
+  return js, s
+
+
+def assert_tree_matches_jax_init(jvae, vae, *inputs):
+  """The port's flax tree of every params partition (``to_jax_params``)
+  has the paths and shapes of ``jax.eval_shape`` of the JAX model's own
+  init on `inputs` (the JAX model is not changed)."""
+  rng = jax.random.PRNGKey(0)
+
+  def init():
+    rngs = {"params": rng, "dropout": rng, "sample": rng}
+    tree = {"vae": jvae.core.init(rngs, *inputs)["params"]}
+    for name, (module, dummy) in jvae.extra_networks().items():
+      tree[name] = module.init({"params": rng, "dropout": rng},
+                               dummy())["params"]
+    return tree
+
+  want = jax.eval_shape(init)
+  got = {"vae": to_jax_params(vae.core)}
+  for name, module in vae.extras.items():
+    got[name] = to_jax_params(module, vae.state.params[name])
+  leaves = lambda t: {jax.tree_util.keystr(k): tuple(np.shape(v)) for k, v in
+                      jax.tree_util.tree_flatten_with_path(t)[0]}
+  assert leaves(got) == leaves(want)
