@@ -296,16 +296,39 @@ CPU:
      loss below its start; steps/s, a graphed step's kernels and device
      time (``torch.profiler``) and the capture time.
      ``python3 chip_smoke.py --last-rehearsal`` runs the phase on the CPU
-     (``last_rehearsal``).
+     (``last_rehearsal``);
+ 19. the natural-image VAEs (``images_path``): a child process started
+     with the script writes MNIST-, CIFAR-10- and CelebA-shaped ``.npz``
+     files (``write_images``: YDisentanglement renders at 28 x 28, 60,000
+     train and 10,000 test; Shapes3D renders downsampled to 32 x 32 x 3,
+     50,000 and 10,000; 64 x 64 x 3 renders with 40 attributes, 8,192 and
+     1,024), loaded with ``get_dataset``; ``BetaVAE`` on
+     ``mnist_networks`` and ``cifar10_networks`` (qlogistic) at batch 64
+     and ``get_optimizer_info``'s schedule, 500 steps each; cifar10 with
+     ``resnet=True``, with a Gaussian likelihood, with the skip-generator
+     decoder, a PixelCNN decoder with the 10-component 'mixqlogistic' head
+     (``pixelcnn_networks``) and ``MultitaskVAE`` on
+     ``celeba_networks(is_semi_supervised=True)``, 100 steps each.  Each:
+     the ELBO terms and gradients on the card against the CPU on its fresh
+     weights (16 held-out rows; 1e-4 of each term's largest magnitude,
+     2e-3 of each gradient tensor's, 2e-2 for the mixture head's: cuDNN's
+     5x5 convolutions and float32's own rounding, measured by
+     ``tools/image_grad_precision.py``), the held-out loss below its
+     start, no update skipped, steps/s; the recipes' graphed step (kernels, device time).
+     Then ``SpaceToDepthConv`` against ``Conv(k4, s2)`` and
+     ``ConvTranspose(subpixel=True)`` against the plain one at dSprites'
+     widths, within 1e-5 of the largest output.  It launches no kernel of
+     the port.  ``python3 chip_smoke.py --images-rehearsal`` runs the
+     phase on the CPU on smaller files (``images_rehearsal``).
 
 The datasets' files and caches are kept under ``build/odin_tpu_home``
 (``$ODIN_TPU_HOME``).  Run with no argument, it runs every phase: the
 whole check.  ``python3 chip_smoke.py --phases 1,14`` runs the phases
-named (1-18), phase 1 (the build) always, and every phase whose results a
+named (1-19), phase 1 (the build) always, and every phase whose results a
 named one reads (``PHASE_NEEDS``: 3 reads 2, 6 reads 5, 8 reads 7, 10
-reads 8, 11 reads 2 and 9, 15 reads 10, 16 reads 9; 17 and 18 read
-none); its
-``kernels`` line lists only the kernels those phases timed.
+reads 8, 11 reads 2 and 9, 15 reads 10, 16 reads 9; 17, 18 and 19
+read none); its ``kernels`` line lists only the kernels those phases
+timed.
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
 fp32 like the CPU.  Any failure raises and the script exits non-zero; it
@@ -4395,7 +4418,383 @@ def last_rehearsal(argv) -> int:
   return 0
 
 
-PHASES = tuple(range(1, 19))
+IMG_BATCH = 64
+IMG_STEPS = 500  # each recipe's fit: 5 calls of IMG_K graphed steps
+IMG_K = 100
+IMG_VARIANT_STEPS = 100  # each variant's fit: one call
+IMG_RTOL = ZOO_RTOL  # card against CPU, of each term's largest magnitude
+# gradients, of each tensor's largest CPU magnitude: cuDNN's algorithms
+# for mnist_networks' 5x5 convolutions put the card's float32 gradients
+# 7.1e-4 to 1.4e-3 from float64 where the CPU's are 1.9e-6 and ATen's own
+# CUDA convolutions 4.5e-7; the quantized logistic's float32 gradients are
+# 7.5-11.6 % from float64 on either device, card and CPU 9.9e-6 to 2.6e-5
+# apart (tools/image_grad_precision.py on an H100 80GB HBM3 at 700 W)
+IMG_GRAD_REL = 2e-3
+# the PixelCNN head's whole-image mixture: its responsibilities are exps
+# of differences of float32 sums of 3,072 log-terms of about 8,600 nats,
+# and the CPU's own float32 gradient lies 1.5e-2 (16 rows) and 8.4e-3 (64)
+# from float64 (tools/image_grad_precision.py --nets pixelcnn)
+IMG_MIX_GRAD_REL = 2e-2
+IMG_CPU_ROWS = 16  # held-out rows of the card-against-CPU comparisons
+# the files' splits (train, test): MNIST's and CIFAR's own; 64x64x3
+# renders with 40 attributes for the CelebA-shaped variant
+IMG_SPLITS = {"mnist": (60000, 10000), "cifar10": (50000, 10000),
+              "celeba": (8192, 1024)}
+IMG_CHUNK = 4096  # Shapes3D renders a chunk
+IMG_MIX_K = 10  # the PixelCNN head's mixture components
+IMG_LABELLED = 0.1  # the CelebA-shaped variant: labelled share of train
+IMG_REWRITE_TOL = 1e-5  # a rewrite against its plain layer, of the largest
+# output magnitude: float32 rounding of sums in another order
+
+
+def images_root():
+  import os
+  return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "images_path")
+
+
+def _shapes3d_renders(np, n, seed, size):
+  """(n, size, size, 3) uint8 renders of the port's Shapes3D (area
+  downsampled from 64 where size is 32) and their factor indices."""
+  from odin_tpu_torch.fuel import Shapes3D
+  ds = Shapes3D(n_samples=1)
+  f = ds._sample_factors(n, np.random.RandomState(seed))
+  x = np.empty((n, size, size, 3), np.uint8)
+  for i in range(0, n, IMG_CHUNK):
+    img = ds.render(f[i:i + IMG_CHUNK])
+    if size != 64:
+      r = 64 // size
+      img = img.reshape(len(img), size, r, size, r, 3).mean((2, 4))
+    x[i:i + IMG_CHUNK] = np.rint(img * 255.0).astype(np.uint8)
+  return x, f.astype(np.int64), list(ds.factor_names)
+
+
+def write_images(root, splits=None):
+  """The data files of phase 19, written by a child process while the
+  other phases run, in each dataset's ``.npz`` layout under
+  ``root/datasets``: ``mnist.npz``, ``YDisentanglement`` renders at 28 x
+  28 as uint8, labelled by the rotation factor in 10 classes;
+  ``cifar10.npz``, the port's Shapes3D renders area-downsampled to 32 x 32
+  x 3, labelled by object hue (10 classes); ``celeba.npz``, 64 x 64 x 3
+  Shapes3D renders with 40 binary attributes (the one-hot floor, wall and
+  object hues and shape, and scale above each of its first 6 steps).
+  Needs no card."""
+  import os
+  import numpy as np
+  from odin_tpu_torch.fuel import YDisentanglement
+  splits = splits or IMG_SPLITS
+  out = os.path.join(root, "datasets")
+  os.makedirs(out, exist_ok=True)
+  seconds = {}
+  t0 = time.perf_counter()
+  arrays = {}
+  for part, n, seed in (("train", splits["mnist"][0], 1),
+                        ("test", splits["mnist"][1], 2)):
+    x, f = YDisentanglement(n_samples=n, image_size=28, seed=seed)._load(part)
+    arrays[f"x_{part}"] = (x * 255).astype(np.uint8)
+    arrays[f"y_{part}"] = (f[:, 0].astype(np.int64) * 10 // 16)
+  np.savez(os.path.join(out, "mnist.npz"), **arrays)
+  seconds["mnist"] = time.perf_counter() - t0
+  for name, size in (("cifar10", 32), ("celeba", 64)):
+    t0 = time.perf_counter()
+    arrays = {}
+    for part, n, seed in (("train", splits[name][0], 1),
+                          ("test", splits[name][1], 2)):
+      x, f, names = _shapes3d_renders(np, n, seed, size)
+      col = lambda k: f[:, names.index(k)]
+      if name == "cifar10":
+        y = col("object_hue")
+      else:
+        y = np.concatenate(
+            [np.eye(10, dtype=np.float32)[col("floor_hue")],
+             np.eye(10, dtype=np.float32)[col("wall_hue")],
+             np.eye(10, dtype=np.float32)[col("object_hue")],
+             np.eye(4, dtype=np.float32)[col("shape")],
+             (col("scale")[:, None] > np.arange(6)[None]).astype(
+                 np.float32)], -1)
+      arrays[f"x_{part}"], arrays[f"y_{part}"] = x, y
+    np.savez(os.path.join(out, f"{name}.npz"), **arrays)
+    seconds[name] = time.perf_counter() - t0
+  with open(os.path.join(root, "written.json"), "w") as fh:
+    json.dump(seconds, fh)
+
+
+def start_images_writer():
+  import os
+  import shutil
+  root = images_root()
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                           "--write-images", root])
+
+
+def pack_mixture(torch, x):
+  """A PixelCNN decoder's (B, H, W, C·3K) maps -> the 'mixqlogistic'
+  head's flat params: the K logits (the first K maps of each channel
+  averaged over the image), then the K location maps, then the K scale
+  maps, each (K, H, W, C) in order."""
+  b, h, w, ck = x.shape
+  c = 3
+  k = ck // (3 * c)
+  g = x.reshape(b, h, w, 3 * k, c)
+  logits = g[..., :k, :].mean(dim=(1, 2, 4))
+  maps = lambda i: g[..., i * k:(i + 1) * k, :].permute(0, 3, 1, 2, 4
+                                                          ).reshape(b, -1)
+  return torch.cat([logits, maps(1), maps(2)], dim=-1)
+
+
+def pixelcnn_networks(torch, n_components=IMG_MIX_K):
+  """``cifar10_networks`` with a PixelCNN decoder (32 filters, 4 type-B
+  layers) whose 3K maps a channel ``pack_mixture`` turns into the whole-
+  image mixture of K quantized logistics ('mixqlogistic')."""
+  from odin_tpu_torch.bay.random_variable import RVconf
+  from odin_tpu_torch.networks import Lambda, SequentialNetwork, get_networks
+  from odin_tpu_torch.networks.resnets import PixelCNNDecoder
+  nets = get_networks("cifar10")
+  shape = nets["input_shape"]
+  nets["decoder"] = SequentialNetwork((
+      PixelCNNDecoder(shape, 32, 4, 3 * n_components),
+      Lambda(lambda x: pack_mixture(torch, x))))
+  nets["observation"] = RVconf(
+      shape, "mixqlogistic", projection=False, name="image",
+      kwargs=dict(n_components=n_components)).create_posterior()
+  return nets
+
+
+def images_path(torch, np, reset_counts, read_counts, smi, writer):
+  """Phase 19: the natural-image VAEs on the card, at the published
+  widths, on files ``write_images`` wrote in MNIST's, CIFAR-10's and
+  CelebA's ``.npz`` layout and shape, loaded with ``get_dataset``.  The
+  recipes ``BetaVAE(beta=1, **get_networks("mnist"))`` and ``...("cifar10")``
+  (qlogistic likelihood) at batch 64 with ``get_optimizer_info``'s
+  schedule: the ELBO terms and gradients on the card against the CPU (same
+  weights, same noise, TF32 off), 500 steps of ``fit`` at
+  ``steps_per_call=100`` (the held-out loss below its start, no update
+  skipped), steps/s, a graphed step's kernels and device time.  The
+  variants (cifar10 with ``resnet=True``, with a Gaussian likelihood, with
+  the skip-generator decoder; a PixelCNN decoder with the 'mixqlogistic'
+  head; ``celeba_networks(is_semi_supervised=True)``'s 40 Bernoulli
+  attributes under ``MultitaskVAE``): the card against the CPU, then 100
+  steps with a falling held-out loss.  Then the exact rewrites on the card
+  at dSprites' widths: ``SpaceToDepthConv`` against ``Conv(k4, s2)`` and
+  ``ConvTranspose(subpixel=True)`` against the plain one.  No kernel of
+  the port is launched (JAX's image path has no Pallas kernel; the
+  convolutions are cuDNN's).  A failed check is logged and the phase goes
+  on; it raises at the end with every failure."""
+  import os
+
+  from odin_tpu_torch.bay import vi
+  from odin_tpu_torch.fuel import get_dataset
+  from odin_tpu_torch.networks import (Conv, ConvTranspose, SpaceToDepthConv,
+                                       get_networks, get_optimizer_info)
+
+  cuda = torch.device("cuda", 0)
+  cpu = torch.device("cpu")
+  rows = []
+  failures = []
+
+  def fail(msg):
+    log(f"check failed: {msg}")
+    failures.append(msg)
+
+  t0 = time.perf_counter()
+  if writer is not None and writer.wait() != 0:
+    raise AssertionError(f"the images writer failed ({writer.returncode})")
+  waited = time.perf_counter() - t0
+  root = images_root()
+  with open(os.path.join(root, "written.json")) as fh:
+    written = json.load(fh)
+  data = {n: get_dataset(n, path=os.path.join(root, "datasets", f"{n}.npz"))
+          for n in IMG_SPLITS}
+  sizes = {n: {p: len(ds._load(p)[0]) for p in ("train", "valid", "test")}
+           for n, ds in data.items()}
+  log("images: files written by a child process while the other phases ran "
+      "(" + ", ".join(f"{n} {s:.2f} s" for n, s in written.items()) +
+      f"), waited {waited:.2f} s for it; loaded with get_dataset: " +
+      "; ".join(f"{n} {data[n].shape} " + "/".join(
+          str(v) for v in sz.values()) + " train/valid/test"
+                for n, sz in sizes.items()))
+
+  def held_of(name, n=IMG_BATCH, semi=False):
+    x, y = data[name]._load("valid")
+    x = torch.from_numpy(data[name].normalize255(x[:n])).to(cuda)
+    if not semi:
+      return x
+    return (x, torch.from_numpy(np.asarray(y[:n], np.float32)).to(cuda),
+            torch.ones(x.shape[0], device=cuda))
+
+  def cpu_rows(batch):
+    return tuple(b[:IMG_CPU_ROWS] for b in batch) \
+        if isinstance(batch, tuple) else batch[:IMG_CPU_ROWS]
+
+  def train_and_check(name, make, dname, steps, held, semi=False,
+                      profile=False, grad_rel=IMG_GRAD_REL):
+    """`make(cuda)`'s model against `make(cpu)` on its fresh weights, then
+    `steps` steps of ``fit`` on `dname`'s train split at its schedule."""
+    t_class = time.perf_counter()
+    vae = make(cuda)
+    term_err, grad_err, worst = card_against_cpu(
+        torch, vae, make(cpu), cpu_rows(held), step=0)
+    if not (term_err <= IMG_RTOL and grad_err <= grad_rel):
+      fail(f"{name}: card against CPU, ELBO terms {term_err:.3e} (limit "
+           f"{IMG_RTOL}), gradients {grad_err:.3e} (limit {grad_rel})")
+    eval_fn = vae.make_eval_fn()
+    start = float(eval_fn(vae.state, held)["loss"])
+    kw = dict(label_percent=IMG_LABELLED, oversample_ratio=0.5) \
+        if semi else {}
+    train = data[dname].create_dataset("train", batch_size=IMG_BATCH,
+                                       epochs=-1, prefetch=2, to_device=cuda,
+                                       drop_remainder=True, **kw)
+    lr = get_optimizer_info(dname, batch_size=IMG_BATCH)["learning_rate"]
+    tr = vae.fit(train, max_iter=steps, steps_per_call=min(IMG_K, steps),
+                 learning_rate=lr, logging_interval=1e9, verbose=False)
+    end = float(eval_fn(vae.state, held)["loss"])
+    skipped = int(vae.state.skipped_updates)
+    if skipped or not end < start:
+      fail(f"{name}: held-out loss {start:.6g} -> {end:.6g}, {skipped} "
+           "updates skipped")
+    capture = tr.capture_seconds or 0.0
+    rate = steps / (tr.total_time - capture)
+    kernels = step_ms = float("nan")
+    if profile:
+      kernels, step_ms = graphed_profile(torch, vae, held)
+    rows.append((name, rate, step_ms, kernels, capture))
+    log(f"{name}: card against CPU on the fresh weights ({IMG_CPU_ROWS} "
+        f"held-out rows): ELBO terms max rel {term_err:.3e} (limit "
+        f"{IMG_RTOL}), gradients {grad_err:.3e} ({worst}; limit "
+        f"{grad_rel}); fit {steps} steps at lr {float(lr(0)):g}: "
+        f"held-out loss {start:.6g} -> {end:.6g}, skipped {skipped}, "
+        f"{rate:.1f} steps/s" + (
+            f", a graphed step {kernels:.0f} kernels, {step_ms:.3f} ms of "
+            f"device time" if profile else "") +
+        f"; capture {capture:.3f} s; {time.perf_counter() - t_class:.2f} s")
+    return vae
+
+  reset_counts()
+  # -- 19.1 the recipes, at the published widths
+  for dname in ("mnist", "cifar10"):
+    make = lambda d, n=dname: vi.BetaVAE(
+        beta=1.0, **get_networks(n)).build(seed=SEED, device=d)
+    train_and_check(f"BetaVAE {dname}", make, dname, IMG_STEPS,
+                    held_of(dname), profile=True)
+  # -- 19.2 the variants
+  variants = [
+      ("cifar10 resnet", lambda d: vi.BetaVAE(beta=1.0, **get_networks(
+          "cifar10", resnet=True)).build(seed=SEED, device=d), "cifar10",
+       False),
+      ("cifar10 gaussian", lambda d: vi.BetaVAE(beta=1.0, **get_networks(
+          "cifar10", distribution="gaussian")).build(seed=SEED, device=d),
+       "cifar10", False),
+      ("cifar10 skip_generator", lambda d: vi.BetaVAE(
+          beta=1.0, **get_networks("cifar10", skip_generator=True)).build(
+              seed=SEED, device=d), "cifar10", False),
+      ("PixelCNN mixqlogistic", lambda d: vi.BetaVAE(
+          beta=1.0, **pixelcnn_networks(torch)).build(seed=SEED, device=d),
+       "cifar10", False),
+      ("celeba semi MultitaskVAE", lambda d: vi.MultitaskVAE(
+          **get_networks("celeba", is_semi_supervised=True)).build(
+              seed=SEED, device=d), "celeba", True),
+  ]
+  for name, make, dname, semi in variants:
+    train_and_check(name, make, dname, IMG_VARIANT_STEPS,
+                    held_of(dname, semi=semi), semi=semi,
+                    grad_rel=IMG_MIX_GRAD_REL if "PixelCNN" in name
+                    else IMG_GRAD_REL)
+  counts = read_counts()
+  if any(counts.values()):
+    fail(f"the image path launched kernels of the port: {counts}")
+
+  # -- 19.3 the exact rewrites at dSprites' widths
+  gen = torch.Generator().manual_seed(SEED)
+  x = torch.rand(IMG_BATCH, 64, 64, 1, generator=gen).to(cuda)
+  s2d, conv = SpaceToDepthConv(32, "elu"), Conv(32, 4, 2, "elu")
+  s2d.build((64, 64, 1), gen)
+  conv.build((64, 64, 1))
+  with torch.no_grad():
+    s2d.bias.copy_(torch.randn(32, generator=gen))
+  conv.load_state_dict(s2d.state_dict())
+  s2d, conv = s2d.to(cuda), conv.to(cuda)
+  with torch.no_grad():
+    want = conv(x)
+    errs = {"SpaceToDepthConv 64x64x1 -> 32": float(
+        (s2d(x) - want).abs().max()) / float(want.abs().max())}
+    for shape, f in (((4, 4, 128), 64), ((8, 8, 64), 64), ((16, 16, 64), 32),
+                     ((32, 32, 32), 32)):
+      sub = ConvTranspose(f, 4, 2, "elu", subpixel=True)
+      plain = ConvTranspose(f, 4, 2, "elu")
+      sub.build(shape, gen)
+      plain.build(shape)
+      with torch.no_grad():
+        sub.bias.copy_(torch.randn(f, generator=gen))
+      plain.load_state_dict(sub.state_dict())
+      sub, plain = sub.to(cuda), plain.to(cuda)
+      h = torch.randn((IMG_BATCH,) + shape, generator=gen).to(cuda)
+      want = plain(h)
+      errs[f"subpixel ConvTranspose {'x'.join(map(str, shape))} -> {f}"] = \
+          float((sub(h) - want).abs().max()) / float(want.abs().max())
+  log("exact rewrites on the card (max |rewrite - plain| / max |plain|, "
+      f"limit {IMG_REWRITE_TOL}): " + "; ".join(
+          f"{k} {v:.3e}" for k, v in errs.items()))
+  bad = {k: v for k, v in errs.items() if not v <= IMG_REWRITE_TOL}
+  if bad:
+    fail(f"rewrites differ from their plain layers: {bad}")
+  if failures:
+    raise AssertionError(f"{len(failures)} check(s) failed: " +
+                         "; ".join(failures))
+  log(f"images steps/s ({smi}): " + ", ".join(
+      f"{n} {r:.1f}" for n, r, _, _, _ in rows) +
+      "; a graphed step's device ms and kernels: " + ", ".join(
+          f"{n} {ms:.3f} ms {k:.0f}" for n, _, ms, k, _ in rows
+          if ms == ms) + "; capture s: " + ", ".join(
+              f"{n} {c:.3f}" for n, _, _, _, c in rows) +
+      f"; launches of the port's kernels: {counts}")
+
+
+def images_rehearsal(argv) -> int:
+  """``python3 chip_smoke.py --images-rehearsal [--steps 20] [--k 10]
+  [--scale 0.02]``: phase 19 (``images_path``) on the CPU, its source and
+  its helpers' recompiled with the card swapped for the CPU, on files of
+  `--scale` times the phase's counts, each fit `--steps` steps at `--k` a
+  call; a graphed step's kernels read 0."""
+  import argparse
+  import inspect
+
+  import numpy as np
+  import torch
+
+  ap = argparse.ArgumentParser(prog="chip_smoke.py --images-rehearsal")
+  ap.add_argument("--steps", type=int, default=20)
+  ap.add_argument("--k", type=int, default=10)
+  ap.add_argument("--scale", type=float, default=0.02)
+  args = ap.parse_args(argv)
+  torch.cuda.synchronize = lambda *a, **k: None
+  splits = {n: tuple(max(int(v * args.scale), IMG_BATCH) for v in sp)
+            for n, sp in IMG_SPLITS.items()}
+  scope = dict(globals())
+  scope.update(IMG_K=args.k, IMG_STEPS=args.steps,
+               IMG_VARIANT_STEPS=args.steps)
+  for fn in (graphed_profile, card_against_cpu, images_path):
+    src = inspect.getsource(fn).replace('torch.device("cuda", 0)',
+                                        'torch.device("cpu")')
+    exec(src, scope)
+  import os
+  import shutil
+  root = images_root()
+  shutil.rmtree(root, ignore_errors=True)
+  os.makedirs(root)
+  t0 = time.perf_counter()
+  write_images(root, splits)
+  log(f"files of {splits} written in {time.perf_counter() - t0:.2f} s")
+  t0 = time.perf_counter()
+  scope["images_path"](torch, np, lambda: None, lambda: {},
+                       "CPU rehearsal, no card", None)
+  log(f"phase 19 rehearsed on the CPU in {time.perf_counter() - t0:.2f} s")
+  shutil.rmtree(root, ignore_errors=True)
+  return 0
+
+
+PHASES = tuple(range(1, 20))
 # the phases whose results a phase reads: the kernel reports of 2 and 5,
 # phase 7's graphed step time, phase 8's model, phase 9's wav files, phase
 # 10's Gym
@@ -4412,7 +4811,7 @@ def selected_phases(spec=None):
   chosen = {1} | {int(p) for p in str(spec).split(",") if p.strip()}
   if not chosen <= set(PHASES):
     raise SystemExit(f"chip_smoke.py --phases: no phase "
-                     f"{sorted(chosen - set(PHASES))}; phases are 1-18")
+                     f"{sorted(chosen - set(PHASES))}; phases are 1-19")
   todo = list(chosen)
   while todo:
     for need in PHASE_NEEDS.get(todo.pop(), ()):
@@ -4506,6 +4905,12 @@ def main(phases=None) -> int:
     writer = start_corpus_writer()
     atexit.register(lambda: (writer.poll() is None and writer.kill(),
                              writer.wait()))
+  # phase 19's data files likewise, while phases 2-18 run
+  images_writer = None
+  if 19 in phases:
+    images_writer = start_images_writer()
+    atexit.register(lambda: (images_writer.poll() is None and
+                             images_writer.kill(), images_writer.wait()))
 
   cfg = FeatureConfig()
   batch, seconds = 64, 4.0
@@ -5076,6 +5481,13 @@ def main(phases=None) -> int:
         report["logmel_fft"]["launches"] += k1
       log(f"K1 FFT launches on the last path (phase 18): {k1}")
 
+  if 19 in phases:
+    with Phase("19 images path: the natural-image VAEs (MNIST- and "
+               "CIFAR-shaped files, their networks and likelihoods)"):
+      images_path(torch, np, reset_counts, read_counts, smi, images_writer)
+      import shutil
+      shutil.rmtree(images_root(), ignore_errors=True)
+
   log("kernels: " + "; ".join(
       f"{k} launches={v['launches']} ms={v['ms']:.4f} "
       f"plain_ms={v['plain_ms']:.4f} library_ms={v['library_ms']:.4f} "
@@ -5104,6 +5516,11 @@ if __name__ == "__main__":
     sys.exit(multiseed_profile(sys.argv[2:]))
   if sys.argv[1:2] == ["--last-rehearsal"]:
     sys.exit(last_rehearsal(sys.argv[2:]))
+  if sys.argv[1:2] == ["--images-rehearsal"]:
+    sys.exit(images_rehearsal(sys.argv[2:]))
+  if sys.argv[1:2] == ["--write-images"]:
+    write_images(sys.argv[2])
+    sys.exit(0)
   if sys.argv[1:2] == ["--trunk-conditioning"]:
     sys.exit(trunk_conditioning(sys.argv[2:]))
   if sys.argv[1:2] == ["--phases"] and len(sys.argv) == 3:

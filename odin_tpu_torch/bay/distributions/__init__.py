@@ -9,8 +9,10 @@ from odin_tpu_torch.bay.distributions.base import (
 )
 from odin_tpu_torch.bay.distributions.continuous import (
     Dirichlet,
+    Logistic,
     MultivariateNormalDiag,
     Normal,
+    Uniform,
 )
 from odin_tpu_torch.bay.distributions.deterministic import (
     Deterministic,
@@ -18,7 +20,19 @@ from odin_tpu_torch.bay.distributions.deterministic import (
 )
 from odin_tpu_torch.bay.distributions.discrete import (
     Bernoulli,
+    Categorical,
     OneHotCategorical,
+)
+from odin_tpu_torch.bay.distributions.mixture import (
+    GaussianMixture,
+    MixtureSameFamily,
+)
+from odin_tpu_torch.bay.distributions.quantized import (
+    MixtureQuantizedLogistic,
+    Quantized,
+    QuantizedLogistic,
+    qNormal,
+    qUniform,
 )
 from odin_tpu_torch.bay.distributions.spherical import (
     PowerSpherical,

@@ -1,5 +1,6 @@
 """Gaussian families of the port (``Normal`` and ``MultivariateNormalDiag``
-of ``odin_tpu/bay/distributions/continuous.py:72,402``) and the
+of ``odin_tpu/bay/distributions/continuous.py:72,402``), the ``Logistic``
+and ``Uniform`` (:148,188) the quantized likelihoods stand on, and the
 ``Dirichlet`` (:346-399).
 
 The Dirichlet draws its Gammas from a ``training.core.Noise`` in the JAX
@@ -16,10 +17,12 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 
 from odin_tpu_torch.bay.distributions.base import Distribution, register_kl
 
-__all__ = ["Normal", "MultivariateNormalDiag", "Dirichlet"]
+__all__ = ["Normal", "MultivariateNormalDiag", "Logistic", "Uniform",
+           "Dirichlet"]
 
 _LOG2PI = math.log(2.0 * math.pi)
 _SUBNORMAL = 2.0 ** -149  # the smallest positive float32
@@ -135,6 +138,117 @@ def _kl_mvndiag(q, p):
   var_ratio = (q.scale_diag / p.scale_diag) ** 2
   t = ((q.loc - p.loc) / p.scale_diag) ** 2
   return 0.5 * torch.sum(var_ratio + t - 1.0 - torch.log(var_ratio), dim=-1)
+
+
+def _uniforms(shape, like: torch.Tensor, generator, eps, tiny: bool):
+  """Uniforms in [0, 1) (in [tiny, 1) with `tiny`, as JAX's
+  ``uniform(minval=finfo.tiny)`` draws them), or the given `eps`."""
+  if eps is None:
+    u = torch.rand(shape, generator=generator, dtype=like.dtype,
+                   device=like.device)
+    return torch.clamp(u, min=torch.finfo(like.dtype).tiny) if tiny else u
+  eps = torch.as_tensor(eps, dtype=like.dtype, device=like.device)
+  if tuple(eps.shape) != tuple(shape):
+    raise ValueError(f"eps has shape {tuple(eps.shape)}, expected "
+                     f"{tuple(shape)}")
+  return eps
+
+
+def _float(x) -> torch.Tensor:
+  x = torch.as_tensor(x)
+  return x if x.is_floating_point() else x.to(torch.float32)
+
+
+class Logistic(Distribution):
+  """Logistic(loc, scale); a sample is ``loc + scale * logit(u)`` of a
+  uniform u in [tiny, 1), the noise `eps` is u."""
+  _params = ("loc", "scale")
+
+  def __init__(self, loc, scale):
+    self.loc = _float(loc)
+    self.scale = _float(scale)
+
+  @property
+  def batch_shape(self):
+    return torch.broadcast_shapes(self.loc.shape, self.scale.shape)
+
+  def sample(self, sample_shape=(), generator=None, eps=None):
+    shape = tuple(sample_shape) + tuple(self.batch_shape)
+    u = _uniforms(shape, self.loc, generator, eps, tiny=True)
+    return self.loc + self.scale * (torch.log(u) - torch.log1p(-u))
+
+  def sample_from(self, noise, sample_shape=()):
+    shape = tuple(sample_shape) + tuple(self.batch_shape)
+    u = noise.uniform(shape, self.loc.dtype, self.loc.device)
+    return self.sample(sample_shape,
+                       eps=torch.clamp(u, min=torch.finfo(u.dtype).tiny))
+
+  def log_prob(self, x):
+    z = (x - self.loc) / self.scale
+    return -z - 2.0 * F.softplus(-z) - torch.log(self.scale)
+
+  def cdf(self, x):
+    return torch.sigmoid((x - self.loc) / self.scale)
+
+  def log_cdf(self, x):
+    return -F.softplus(-(x - self.loc) / self.scale)
+
+  def mean(self):
+    return self.loc.expand(self.batch_shape)
+
+  def mode(self):
+    return self.mean()
+
+  def variance(self):
+    return ((self.scale * math.pi) ** 2 / 3.0).expand(self.batch_shape)
+
+  def entropy(self):
+    return (torch.log(self.scale) + 2.0).expand(self.batch_shape)
+
+
+class Uniform(Distribution):
+  """Uniform on [low, high]; a sample is ``low + (high - low) * u``, the
+  noise `eps` is u."""
+  _params = ("low", "high")
+
+  def __init__(self, low=0.0, high=1.0):
+    self.low = _float(low)
+    self.high = _float(high)
+
+  @property
+  def batch_shape(self):
+    return torch.broadcast_shapes(self.low.shape, self.high.shape)
+
+  def sample(self, sample_shape=(), generator=None, eps=None):
+    shape = tuple(sample_shape) + tuple(self.batch_shape)
+    width = self.high - self.low
+    return self.low + width * _uniforms(shape, width, generator, eps,
+                                        tiny=False)
+
+  def sample_from(self, noise, sample_shape=()):
+    shape = tuple(sample_shape) + tuple(self.batch_shape)
+    return self.sample(sample_shape, eps=noise.uniform(
+        shape, self.dtype, self.low.device))
+
+  def log_prob(self, x):
+    inside = (x >= self.low) & (x <= self.high)
+    lp = -torch.log(self.high - self.low)
+    return torch.where(inside, lp, torch.full_like(lp, -math.inf))
+
+  def cdf(self, x):
+    return torch.clamp((x - self.low) / (self.high - self.low), 0.0, 1.0)
+
+  def log_cdf(self, x):
+    return torch.log(self.cdf(x))
+
+  def mean(self):
+    return (0.5 * (self.low + self.high)).expand(self.batch_shape)
+
+  def variance(self):
+    return ((self.high - self.low) ** 2 / 12.0).expand(self.batch_shape)
+
+  def entropy(self):
+    return torch.log(self.high - self.low).expand(self.batch_shape)
 
 
 class Dirichlet(Distribution):

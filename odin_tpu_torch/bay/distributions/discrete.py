@@ -1,5 +1,5 @@
-"""``Bernoulli`` and ``OneHotCategorical`` of the port
-(``odin_tpu/bay/distributions/discrete.py:51,167``)."""
+"""``Bernoulli``, ``Categorical`` and ``OneHotCategorical`` of the port
+(``odin_tpu/bay/distributions/discrete.py:51,126,167``)."""
 from __future__ import annotations
 
 import torch
@@ -7,7 +7,7 @@ import torch.nn.functional as F
 
 from odin_tpu_torch.bay.distributions.base import Distribution, register_kl
 
-__all__ = ["Bernoulli", "OneHotCategorical"]
+__all__ = ["Bernoulli", "Categorical", "OneHotCategorical"]
 
 
 def _logits_from(logits, probs) -> torch.Tensor:
@@ -74,6 +74,61 @@ def _kl_bernoulli(q: Bernoulli, p: Bernoulli):
   lq1, lq0 = -F.softplus(-q.logits), -F.softplus(q.logits)
   lp1, lp0 = -F.softplus(-p.logits), -F.softplus(p.logits)
   return pq * (lq1 - lp1) + (1.0 - pq) * (lq0 - lp0)
+
+
+class Categorical(Distribution):
+  """Integer-valued categorical over the last axis of `logits`
+  (normalised by their logsumexp) or of `probs` (their log)."""
+  _params = ("logits",)
+
+  def __init__(self, logits=None, probs=None):
+    self.logits = _cat_logits_from(logits, probs)
+
+  @property
+  def num_categories(self) -> int:
+    return self.logits.shape[-1]
+
+  @property
+  def batch_shape(self):
+    return self.logits.shape[:-1]
+
+  @property
+  def probs(self):
+    return F.softmax(self.logits, dim=-1)
+
+  def sample(self, sample_shape=(), generator=None, eps=None):
+    """The Gumbel-max index over `eps` (uniforms shaped ``sample_shape +
+    logits.shape``), drawn from `generator` if not given."""
+    shape = tuple(sample_shape) + tuple(self.logits.shape)
+    u = eps if eps is not None else torch.rand(
+        shape, generator=generator, dtype=self.logits.dtype,
+        device=self.logits.device)
+    gumbel = -torch.log(-torch.log(torch.clamp(u, 1e-20, 1.0)))
+    return torch.argmax(self.logits + gumbel, dim=-1)
+
+  def sample_from(self, noise, sample_shape=()):
+    """The Gumbel-max index over the noise's Gumbel variates, as
+    ``jax.random.categorical`` draws."""
+    shape = tuple(sample_shape) + tuple(self.logits.shape)
+    return torch.argmax(self.logits + noise.gumbel(
+        shape, self.logits.dtype, self.logits.device), dim=-1)
+
+  def log_prob(self, x):
+    x = torch.as_tensor(x, device=self.logits.device).to(torch.int64)
+    shape = torch.broadcast_shapes(x.shape, self.logits.shape[:-1])
+    logits = self.logits.expand(tuple(shape) + self.logits.shape[-1:])
+    return torch.gather(logits, -1, x.expand(shape)[..., None])[..., 0]
+
+  def mode(self):
+    return torch.argmax(self.logits, dim=-1)
+
+  def entropy(self):
+    return -torch.sum(self.probs * self.logits, dim=-1)
+
+
+@register_kl(Categorical, Categorical)
+def _kl_categorical(q: Categorical, p: Categorical):
+  return torch.sum(q.probs * (q.logits - p.logits), dim=-1)
 
 
 class OneHotCategorical(Distribution):

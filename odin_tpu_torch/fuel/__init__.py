@@ -1,10 +1,11 @@
 """Data layer of the port: the input pipeline, the on-disk stores and the
 feature-store ``Dataset``, ``AudioFeatureLoader``, and the datasets ported
-so far (dSprites and Shapes3D with their variants, the half-moons, and the
-procedural text sets ``SyntheticBoW`` and ``MathArithmetic``, which are
-made by their constructors).  ``get_dataset`` looks up the image datasets
-and raises for the JAX package's other datasets, which are not ported
-yet."""
+so far (the ``.npz`` image sets, dSprites and Shapes3D with their
+variants, YDisentanglement, the half-moons as points and as images, and
+the procedural text sets ``SyntheticBoW`` and ``MathArithmetic``, which
+are made by their constructors).  ``get_dataset`` looks up the image
+datasets and raises for the JAX package's other datasets, which are not
+ported yet."""
 from typing import List, Type, Union
 
 from odin_tpu_torch.fuel.audio_data import (AudioFeatureLoader,
@@ -13,24 +14,34 @@ from odin_tpu_torch.fuel.databases import (MmapArray, MmapArrayWriter,
                                            MmapDict, SQLiteDict, TableDict)
 from odin_tpu_torch.fuel.dataset import Dataset
 from odin_tpu_torch.fuel.dataset_base import IterableDataset, get_partition
-from odin_tpu_torch.fuel.image_data import (HalfMoons, ImageDataset,
-                                            Shapes3D, Shapes3D0,
-                                            Shapes3DSmall, dSprites,
-                                            dSprites0, dSpritesSmall)
+from odin_tpu_torch.fuel.image_data import (
+    CIFAR10, CIFAR20, CIFAR100, MNIST, SVHN, BinarizedAlphaDigits,
+    BinarizedMNIST, CelebA, CelebABig, CelebASmall, FashionMNIST, HalfMNIST,
+    HalfMoons, HalfMoonsImage, ImageDataset, Kaokore, LegoFaces,
+    NPZImageDataset, Omniglot, Shapes3D, Shapes3D0, Shapes3DSmall,
+    YDisentanglement, dSprites, dSprites0, dSpritesSmall)
 from odin_tpu_torch.fuel.nlp_data import (MathArithmetic, NLPDataset,
                                           SyntheticBoW)
 from odin_tpu_torch.fuel.pipeline import DataPipeline
 
 __all__ = ["get_dataset", "get_all_dataset", "get_partition",
-           "IterableDataset", "ImageDataset", "DataPipeline", "dSprites",
+           "IterableDataset", "ImageDataset", "DataPipeline",
+           "NPZImageDataset", "MNIST", "FashionMNIST", "BinarizedMNIST",
+           "HalfMNIST", "BinarizedAlphaDigits", "SVHN", "CIFAR10",
+           "CIFAR100", "CIFAR20", "CelebA", "CelebASmall", "CelebABig",
+           "Omniglot", "LegoFaces", "Kaokore", "HalfMoonsImage",
+           "YDisentanglement", "dSprites",
            "dSpritesSmall", "dSprites0", "Shapes3D", "Shapes3DSmall",
            "Shapes3D0", "HalfMoons", "Dataset", "MmapDict", "SQLiteDict",
            "MmapArray", "MmapArrayWriter", "TableDict", "AudioFeatureLoader",
            "synth_speaker_corpus", "NLPDataset", "SyntheticBoW",
            "MathArithmetic"]
 
-_DATASETS = (dSprites, dSprites0, dSpritesSmall, Shapes3D, Shapes3DSmall,
-             Shapes3D0, HalfMoons)
+_DATASETS = (MNIST, FashionMNIST, BinarizedMNIST, HalfMNIST,
+             BinarizedAlphaDigits, SVHN, CIFAR10, CIFAR100, CIFAR20, CelebA,
+             CelebASmall, CelebABig, Omniglot, LegoFaces, Kaokore, dSprites,
+             dSprites0, dSpritesSmall, Shapes3D, Shapes3DSmall, Shapes3D0,
+             HalfMoons, HalfMoonsImage, YDisentanglement)
 
 
 def get_all_dataset(data_type: str = None) -> List[Type[IterableDataset]]:
@@ -42,13 +53,17 @@ def get_all_dataset(data_type: str = None) -> List[Type[IterableDataset]]:
 
 
 def get_dataset(name: Union[str, IterableDataset], **kwargs) -> IterableDataset:
-  """A dataset by its name (``'dsprites'``); a name of a dataset that is
-  not ported raises."""
+  """A dataset by its class name (``'dsprites'``, ``'cifar10'``) or by the
+  name of its ``.npz`` file (``'binaryalphadigits'``); a name of a dataset
+  that is not ported raises."""
   if isinstance(name, IterableDataset):
     return name
   key = str(name).lower().replace("_", "").strip()
   for cls in get_all_dataset():
     if cls.__name__.lower() == key:
+      return cls(**kwargs)
+  for cls in get_all_dataset():
+    if getattr(cls, "_name", None) == key:
       return cls(**kwargs)
   raise NotImplementedError(
       f"dataset '{name}' is not ported yet; the port has "

@@ -1,14 +1,16 @@
 """Per-dataset architectures of the port (PyTorch port of
 ``odin_tpu/networks/image_networks.py``: ``_decoder_network`` :40,
-``PackImageParams`` :59, ``_obs_distribution`` :77, ``dsprites_networks``
-:243-307, ``vq_dsprites_networks`` :314-346, ``shapes3d_networks``
-:348-358, ``locatello_networks`` :361-403, ``halfmoons_networks``
-:420-444, ``get_networks`` :488, ``get_optimizer_info`` :512).  Only the
-plain decoder, the dSprites and Shapes3D families, disentanglement_lib's
-trunk and the half-moons MLPs are ported so far; ``is_semi_supervised``
-adds their labels heads."""
+``PackImageParams`` :59, ``_obs_distribution`` :77, ``mnist_networks``
+:95-154, ``cifar_networks`` :157-240, ``dsprites_networks`` :243-307,
+``vq_dsprites_networks`` :314-346, ``shapes3d_networks`` :348-358,
+``locatello_networks`` :361-403, ``celeba_networks`` :406-417,
+``halfmoons_networks`` :420-444, ``get_networks`` :488,
+``get_optimizer_info`` :512).  The gene sets' networks (cortex, pbmc)
+need the ZINB likelihood and are not ported yet; ``is_semi_supervised``
+adds each family's labels head."""
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
@@ -25,17 +27,23 @@ from odin_tpu_torch.networks.base import (
     Flatten,
     Reshape,
     SequentialNetwork,
+    SkipSequential,
+    SpaceToDepthConv,
 )
 
-__all__ = ["PackImageParams", "dsprites_networks", "vq_dsprites_networks",
-           "shapes3d_networks", "locatello_networks", "halfmoons_networks",
+__all__ = ["PackImageParams", "mnist_networks", "fashionmnist_networks",
+           "binarizedmnist_networks", "omniglot_networks",
+           "halfmnist_networks", "cifar_networks", "cifar10_networks",
+           "cifar20_networks", "cifar100_networks", "svhn_networks",
+           "dsprites_networks", "vq_dsprites_networks", "shapes3d_networks",
+           "locatello_networks", "celeba_networks", "halfmoons_networks",
            "get_networks", "get_optimizer_info"]
 
 
 def _decoder_network(layers, skip_generator: bool = False):
-  if skip_generator:
-    raise NotImplementedError("the skip-generator decoder is not ported yet")
-  return SequentialNetwork(layers)
+  """The plain sequential decoder, or the skip-generator one that adds the
+  latent, projected, to every feature map (``SkipSequential``)."""
+  return (SkipSequential if skip_generator else SequentialNetwork)(layers)
 
 
 class PackImageParams(nn.Module):
@@ -59,15 +67,172 @@ class PackImageParams(nn.Module):
 
 
 def _obs_distribution(input_shape: Tuple[int, ...], distribution: str):
-  """n_params + the observation head (a ``DistributionDense`` named
-  'image', as the JAX package builds it) for an image likelihood."""
-  if distribution != "bernoulli":
-    raise NotImplementedError(f"image likelihood '{distribution}' is not "
-                              "ported yet")
-  n_params = 1
+  """n_params (the parameter maps a pixel's channel takes) and the
+  observation head (a ``DistributionDense`` named 'image' on the raw
+  params) of an image likelihood: 1 map for 'bernoulli', 2 for
+  'gaussian'/'normal' and 'qlogistic', the alias's own ``params_size``
+  over the pixels for any other.  A mixture ('mixqlogistic') mixes whole
+  images, which no per-pixel map holds: its params come from a decoder of
+  their own (a PixelCNN decoder and its packing), as in JAX."""
+  if distribution == "bernoulli":
+    n_params = 1
+  elif distribution in ("gaussian", "normal", "qlogistic",
+                        "quantizedlogistic"):
+    n_params = 2
+  elif distribution in ("mixqlogistic", "mixqlogist"):
+    raise NotImplementedError("use the PixelCNN decoder for mixture "
+                              "likelihoods")
+  else:
+    n_params = (RVconf(input_shape, distribution).params_size //
+                int(np.prod(input_shape)))
   observation = RVconf(input_shape, distribution, projection=False,
                        name="image").create_posterior()
   return n_params, observation
+
+
+def mnist_networks(qz: str = "mvndiag",
+                   zdim: Optional[int] = None,
+                   activation="elu",
+                   is_semi_supervised: bool = False,
+                   is_hierarchical: bool = False,
+                   centerize_image: bool = True,
+                   skip_generator: bool = False,
+                   **kwargs) -> Dict[str, Any]:
+  """Networks for 28x28 images: conv 32-32-64-64 (kernel 5, stride
+  1-2-1-2), a 196-unit projection and the mirror-image decoder; zdim 32,
+  a Bernoulli likelihood by default (`distribution`), one ladder rung on
+  the 14 x 14 states.  With `is_semi_supervised`, a one-hot labels head
+  over `n_classes` (10) named `labels_name` ('digits')."""
+  n_channels = int(kwargs.get("n_channels", 1))
+  proj_dim = 196
+  input_shape = (28, 28, n_channels)
+  zdim = 32 if zdim is None else int(zdim)
+  n_params, observation = _obs_distribution(
+      input_shape, kwargs.get("distribution", "bernoulli"))
+  encoder = SequentialNetwork((
+      CenterAt0(enable=centerize_image),
+      Conv(32, 5, 1, activation),   # 28, 28, 32
+      Conv(32, 5, 2, activation),   # 14, 14, 32
+      Conv(64, 5, 1, activation),   # 14, 14, 64
+      Conv(64, 5, 2, activation),   # 7, 7, 64
+      Flatten(),
+      Dense(proj_dim, activation=None),
+  ))
+  decoder = _decoder_network((
+      Dense(proj_dim, activation=None),
+      Reshape((7, 7, proj_dim // 49)),
+      ConvTranspose(64, 5, 2, activation),  # 14, 14, 64
+      Conv(64, 5, 1, activation),           # 14, 14, 64
+      ConvTranspose(32, 5, 2, activation),  # 28, 28, 32
+      Conv(32, 5, 1, activation),           # 28, 28, 32
+      Conv(n_channels * n_params, 1, 1, None),
+      PackImageParams(n_params),
+  ), skip_generator)
+  networks = dict(
+      encoder=encoder,
+      decoder=decoder,
+      latents=RVconf((zdim,), qz, projection=True, name="latents"),
+      observation=observation,
+      input_shape=input_shape,
+      hierarchy=(dict(decoder_layer=3, encoder_layer=3, channels=64,
+                      filters=16, kernel_size=14, strides=7),),
+  )
+  if is_semi_supervised:
+    networks["labels"] = RVconf(
+        int(kwargs.get("n_classes", 10)), "onehot", projection=True,
+        name=kwargs.get("labels_name", "digits"))
+  return networks
+
+
+fashionmnist_networks = functools.partial(mnist_networks,
+                                          labels_name="fashion")
+binarizedmnist_networks = mnist_networks
+omniglot_networks = functools.partial(mnist_networks, n_channels=3)
+halfmnist_networks = mnist_networks
+
+
+def cifar_networks(qz: str = "mvndiag",
+                   zdim: Optional[int] = None,
+                   activation="elu",
+                   is_semi_supervised: bool = False,
+                   is_hierarchical: bool = False,
+                   centerize_image: bool = True,
+                   skip_generator: bool = False,
+                   resnet: bool = False,
+                   **kwargs) -> Dict[str, Any]:
+  """Networks for 32x32x3 images: conv 32-32-64-64 (kernel 4, stride
+  1-2-1-2), a 512-unit projection, zdim 256 and the quantized-logistic
+  likelihood by default; two ladder rungs (16 x 16 and 32 x 32).
+  ``resnet=True`` puts squeeze-excitation residual stacks in place of the
+  conv stacks (down blocks in the encoder, up blocks in the decoder; no
+  ladder rung).  With `is_semi_supervised`, a one-hot labels head over
+  `n_classes` ('labels')."""
+  n_channels = int(kwargs.get("n_channels", 3))
+  input_shape = (32, 32, n_channels)
+  zdim = 256 if zdim is None else int(zdim)
+  proj_dim = 8 * 8 * 8
+  n_params, observation = _obs_distribution(
+      input_shape, kwargs.get("distribution", "qlogistic"))
+  if resnet:
+    from odin_tpu_torch.networks.resnets import ResidualSequential
+    encoder = SequentialNetwork((
+        CenterAt0(enable=centerize_image),
+        ResidualSequential(filters=(32, 32, 64, 64), strides=(1, 2, 1, 2),
+                           activation=activation, use_se=True),  # 8, 8, 64
+        Flatten(),
+        Dense(proj_dim, activation=None),
+    ))
+    decoder = _decoder_network((
+        Dense(proj_dim, activation=None),
+        Reshape((8, 8, proj_dim // 64)),
+        ResidualSequential(filters=(64, 64, 32, 32), strides=(-2, 1, -2, 1),
+                           activation=activation, use_se=True),  # 32, 32, 32
+        Conv(n_channels * n_params, 1, 1, None),
+        PackImageParams(n_params),
+    ), skip_generator)
+  else:
+    encoder = SequentialNetwork((
+        CenterAt0(enable=centerize_image),
+        Conv(32, 4, 1, activation),   # 32, 32, 32
+        Conv(32, 4, 2, activation),   # 16, 16, 32
+        Conv(64, 4, 1, activation),   # 16, 16, 64
+        Conv(64, 4, 2, activation),   # 8, 8, 64
+        Flatten(),
+        Dense(proj_dim, activation=None),
+    ))
+    decoder = _decoder_network((
+        Dense(proj_dim, activation=None),
+        Reshape((8, 8, proj_dim // 64)),
+        ConvTranspose(64, 4, 2, activation),  # 16, 16, 64
+        Conv(64, 4, 1, activation),           # 16, 16, 64
+        ConvTranspose(32, 4, 2, activation),  # 32, 32, 32
+        Conv(32, 4, 1, activation),           # 32, 32, 32
+        Conv(n_channels * n_params, 1, 1, None),
+        PackImageParams(n_params),
+    ), skip_generator)
+  networks = dict(
+      encoder=encoder,
+      decoder=decoder,
+      latents=RVconf((zdim,), qz, projection=True, name="latents"),
+      observation=observation,
+      input_shape=input_shape,
+      hierarchy=() if resnet else (
+          dict(decoder_layer=3, encoder_layer=3, channels=64, filters=32,
+               kernel_size=8, strides=4),
+          dict(decoder_layer=5, encoder_layer=1, channels=32, filters=16,
+               kernel_size=8, strides=4),
+      ),
+  )
+  if is_semi_supervised:
+    networks["labels"] = RVconf(int(kwargs.get("n_classes", 10)), "onehot",
+                                projection=True, name="labels")
+  return networks
+
+
+cifar10_networks = functools.partial(cifar_networks, n_classes=10)
+cifar20_networks = functools.partial(cifar_networks, n_classes=20)
+cifar100_networks = functools.partial(cifar_networks, n_classes=100)
+svhn_networks = functools.partial(cifar_networks, n_classes=10)
 
 
 def dsprites_networks(qz: str = "mvndiag",
@@ -82,9 +247,9 @@ def dsprites_networks(qz: str = "mvndiag",
   128, the mirror-image transposed-conv decoder, and the ``hierarchy``
   spec of the ladder and U-Net models.  With
   `is_semi_supervised`, a labels head regressing the 5 factors with a
-  Gaussian ('factors'; `n_factors` of them)."""
-  if kwargs.get("space_to_depth"):
-    raise NotImplementedError("space_to_depth is not ported yet")
+  Gaussian ('factors'; `n_factors` of them).  ``space_to_depth=True``
+  makes the first conv its exact ``SpaceToDepthConv`` rewrite (the same
+  params)."""
   n_channels = int(kwargs.get("n_channels", 1))
   input_shape = (64, 64, n_channels)
   zdim = 10 if zdim is None else int(zdim)
@@ -93,9 +258,12 @@ def dsprites_networks(qz: str = "mvndiag",
                  (128 if n_channels == 1 else 256) * w)
   n_params, observation = _obs_distribution(
       input_shape, kwargs.get("distribution", "bernoulli"))
+  first_conv = (SpaceToDepthConv(32 * w, activation)
+                if kwargs.get("space_to_depth")
+                else Conv(32 * w, 4, 2, activation))
   encoder = SequentialNetwork((
       CenterAt0(enable=centerize_image),
-      Conv(32 * w, 4, 2, activation),   # 32, 32, 32w
+      first_conv,                       # 32, 32, 32w
       Conv(32 * w, 4, 2, activation),   # 16, 16, 32w
       Conv(64 * w, 4, 2, activation),   # 8, 8, 64w
       Conv(64 * w, 4, 2, activation),   # 4, 4, 64w
@@ -215,6 +383,21 @@ def locatello_networks(qz: str = "mvndiag", zdim: Optional[int] = None,
   )
 
 
+def celeba_networks(qz: str = "mvndiag", zdim: Optional[int] = None,
+                    **kwargs) -> Dict[str, Any]:
+  """CelebA's 64x64x3 images: the dSprites trunk with 3 channels, zdim
+  45; with `is_semi_supervised`, a Bernoulli labels head over the
+  `n_labels` (40) attributes ('attributes')."""
+  kwargs.setdefault("n_channels", 3)
+  zdim = 45 if zdim is None else zdim
+  nets = dsprites_networks(qz=qz, zdim=zdim, **{k: v for k, v in kwargs.items()
+                                                if k != "n_factors"})
+  if kwargs.get("is_semi_supervised", False):
+    nets["labels"] = RVconf(int(kwargs.get("n_labels", 40)), "bernoulli",
+                            projection=True, name="attributes")
+  return nets
+
+
 def halfmoons_networks(qz: str = "mvndiag",
                        zdim: Optional[int] = None,
                        activation="relu",
@@ -233,10 +416,14 @@ def halfmoons_networks(qz: str = "mvndiag",
       latents=RVconf((zdim,), qz, projection=True, name="latents"),
       observation=RVconf((2,), "gaussian", projection=True, name="moons"),
       input_shape=(2,),
+      hierarchy=(),
   )
   if is_semi_supervised:
     networks["labels"] = RVconf(2, "onehot", projection=True, name="labels")
   return networks
+
+
+_DSNAME_MAP = dict(halfmnist="mnist")
 
 
 def get_networks(dataset_name, *, is_semi_supervised: bool = False,
@@ -248,14 +435,12 @@ def get_networks(dataset_name, *, is_semi_supervised: bool = False,
   if zdim is not None and zdim <= 0:
     zdim = None
   name = str(dataset_name).lower().strip()
+  name = _DSNAME_MAP.get(name, name)
   for key, fn in globals().items():
     if key.endswith("_networks") and key.split("_")[0] == name:
       return fn(qz=qz, zdim=zdim, is_semi_supervised=is_semi_supervised,
                 is_hierarchical=is_hierarchical, **kwargs)
   raise ValueError(f"no network for dataset '{dataset_name}' in the port yet")
-
-
-_DSNAME_MAP = dict(halfmnist="mnist")
 
 
 def get_optimizer_info(dataset_name: str,

@@ -46,7 +46,15 @@ for one of flax's own
 ladder rung's convolutions and heads, a U-Net's ``skip_{i}``, a
 probabilistic U-Net's ``ladder_q{i}``/``ladder_p{i}``), whose flax path
 has no ``Dense_0``/``Conv_0``/``ConvTranspose_0``; of those, a rung's
-``merge_deconv`` is the transposed one.
+``merge_deconv`` is the transposed one.  Inside a block made of flax's
+own unnamed layers (a residual block, a squeeze-excitation, a PixelCNN
+decoder; ``networks.resnets``) the auto-named ``Conv_1``,
+``ConvTranspose_0``, ``Dense_0``, ``BatchNorm_2``, ... are bare modules
+of the port under those names: a primitive node with a sibling module,
+or numbered above 0, while a lone ``Conv_0`` stays a wrapper layer's
+own.  A ``SpaceToDepthConv`` and a ``MaskedConv2D`` hold their
+``kernel`` themselves, in the plain ``Conv`` layout; a subpixel
+``ConvTranspose`` holds the plain one's.
 
 Classical ML (``ml``): ``from_jax_gmm`` / ``to_jax_gmm``,
 ``from_jax_tmatrix`` / ``to_jax_tmatrix``, ``from_jax_plda`` /
@@ -86,6 +94,13 @@ __all__ = ["from_jax_params", "to_jax_params", "from_jax_mutables",
 
 _PRIMITIVES = {"Conv_0": Conv, "ConvTranspose_0": ConvTranspose,
                "Dense_0": Dense, "BatchNorm_0": BatchNorm}
+# flax's auto-named primitives (``Conv_1``, ``ConvTranspose_0``, ...); one
+# with siblings belongs to a block of flax's own layers (a residual
+# block, a squeeze-excitation, a PixelCNN decoder) and is a bare module
+# of the port under that name
+_AUTO = re.compile(r"^(Conv|ConvTranspose|Dense|BatchNorm)_(\d+)$")
+_KINDS = {"Conv": Conv, "ConvTranspose": ConvTranspose, "Dense": Dense,
+          "BatchNorm": BatchNorm}
 # flax's numbered submodules of a list attribute, a ModuleList in the port
 _LISTS = ("layers", "encoders", "decoders", "latent_heads", "observations")
 _LAYER = re.compile(r"^(%s)_(\d+)$" % "|".join(_LISTS))
@@ -159,10 +174,14 @@ def _leaves(tree: Mapping, prefix: Tuple[str, ...] = ()):
       yield prefix + (str(k),), np.asarray(v)
 
 
+def _transposed(kind) -> bool:
+  return kind is not None and issubclass(kind, ConvTranspose)
+
+
 def _kernel_to_torch(kind, kernel: np.ndarray) -> np.ndarray:
   if kernel.ndim == 2:  # Dense (in, out) -> (out, in)
     return kernel.T
-  if kind is ConvTranspose:  # (kh, kw, in, out) -> flipped (in, out, kh, kw)
+  if _transposed(kind):  # (kh, kw, in, out) -> flipped (in, out, kh, kw)
     return kernel.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
   return kernel.transpose(3, 2, 0, 1)  # HWIO -> OIHW
 
@@ -170,15 +189,35 @@ def _kernel_to_torch(kind, kernel: np.ndarray) -> np.ndarray:
 def _kernel_to_flax(kind, weight: np.ndarray) -> np.ndarray:
   if weight.ndim == 2:
     return weight.T
-  if kind is ConvTranspose:
+  if _transposed(kind):
     return weight[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
   return weight.transpose(2, 3, 1, 0)
 
 
-def _port_leaf(path: Tuple[str, ...], leaves=_PARAM_LEAVES):
+def _kept_primitives(tree: Mapping, prefix: Tuple[str, ...] = ()) -> set:
+  """The paths of `tree`'s auto-named primitive nodes that are modules of
+  their own in the port: those with a sibling module, or numbered above
+  0 (a wrapper layer holds its one primitive alone, as ``Conv_0``)."""
+  subs = [k for k, v in tree.items() if isinstance(v, Mapping)]
+  out = set()
+  for k in subs:
+    match = _AUTO.match(k)
+    if match and (len(subs) > 1 or match.group(2) != "0"):
+      out.add(prefix + (k,))
+    out |= _kept_primitives(tree[k], prefix + (k,))
+  return out
+
+
+def _port_leaf(path: Tuple[str, ...], leaves=_PARAM_LEAVES,
+               kept: frozenset = frozenset()):
   """A flax leaf path -> (the port's dotted name, the primitive layer that
-  holds it or None); `leaves` are the leaf names kept as they are."""
+  holds it or None); `leaves` are the leaf names kept as they are, `kept`
+  the primitives' paths that stay modules (``_kept_primitives``)."""
   *modules, leaf = path
+  if tuple(modules) in kept:
+    return ".".join(_flax_to_port(modules) + [
+        "weight" if leaf == "kernel" else leaf]), _KINDS[
+            _AUTO.match(modules[-1]).group(1)]
   if len(modules) >= 2 and modules[-2] == _MHA and \
       modules[-1] in _MHA_PROJECTIONS:
     modules = modules[:-2] + modules[-1:]
@@ -187,11 +226,7 @@ def _port_leaf(path: Tuple[str, ...], leaves=_PARAM_LEAVES):
     modules = modules[:-1]
   elif modules and modules[-1] in _BARE_TRANSPOSED:
     kind = ConvTranspose
-  names = []
-  for m in modules:
-    match = _LAYER.match(m)
-    names.extend(match.groups() if match else
-                 (_TO_PORT.get(m, m),))
+  names = _flax_to_port(modules)
   if leaf == "kernel" and leaves is _PARAM_LEAVES:
     leaf = "weight"
   elif leaf not in leaves and not (leaves is _PARAM_LEAVES and (
@@ -200,12 +235,21 @@ def _port_leaf(path: Tuple[str, ...], leaves=_PARAM_LEAVES):
   return ".".join(names + [leaf]), kind
 
 
+def _flax_to_port(modules):
+  names = []
+  for m in modules:
+    match = _LAYER.match(m)
+    names.extend(match.groups() if match else (_TO_PORT.get(m, m),))
+  return names
+
+
 def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
   """flax params (a nested dict of arrays; a VAE's ``{'vae': ...}`` tree or
   the tree of one module) -> a ``state_dict`` for the port's module."""
   if set(params) == {"vae"}:
     params = params["vae"]
   out = {}
+  kept = _kept_primitives(params)
   for path, value in _leaves(_fuse_gru(params)):
     *modules, leaf = path
     if len(modules) >= 2 and modules[-2] == _MHA and \
@@ -216,7 +260,7 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
       else:  # (F_in, H, D_h) -> (F_in, H·D_h); (H, D_h) -> (H·D_h,)
         value = value.reshape(value.shape[0], -1) if leaf == "kernel" \
             else value.reshape(-1)
-    name, kind = _port_leaf(path)
+    name, kind = _port_leaf(path, kept=kept)
     if leaf == "kernel":
       value = _kernel_to_torch(kind, value)
     out[name] = torch.from_numpy(value.astype(np.float32, order="C",
@@ -230,8 +274,9 @@ def _tree_to_flax(state_dict: Mapping[str, torch.Tensor],
   as `template`: each leaf of `template` read from `state_dict` by its
   port name, transposed back and shaped as the template's leaf."""
   out: Dict[str, Any] = {}
+  kept = _kept_primitives(template)
   for path, value in _leaves(_fuse_gru(template)):
-    name, kind = _port_leaf(path)
+    name, kind = _port_leaf(path, kept=kept)
     w = _numpy(state_dict[name])
     if path[-1] == "kernel":
       w = _kernel_to_flax(kind, w)
@@ -300,7 +345,8 @@ def to_jax_params(module: nn.Module,
           *(value(name, n) for n in _GRU_LEAVES)))
       continue
     if isinstance(sub, BatchNorm):
-      node = _node(tree, _flax_path(name) + ["BatchNorm_0"])
+      node = _node(tree, _flax_path(name) + ([] if sub.bare
+                                             else ["BatchNorm_0"]))
       node["scale"] = value(name, "scale")
       node["bias"] = value(name, "bias")
       continue
@@ -308,7 +354,8 @@ def to_jax_params(module: nn.Module,
       continue
     path = _flax_path(name)
     if not sub.bare:
-      path.append(next(k for k, v in _PRIMITIVES.items() if type(sub) is v))
+      path.append(next(k for k, v in _PRIMITIVES.items()
+                       if isinstance(sub, v)))
     node = _node(tree, path)
     w = value(name, "weight")
     node["kernel"] = np.ascontiguousarray(_kernel_to_flax(type(sub), w))
@@ -328,8 +375,9 @@ def from_jax_mutables(mutables: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
   ``latents.codebook``)."""
   out = {}
   for _, tree in mutables.items():
+    kept = _kept_primitives(tree)
     for path, value in _leaves(tree):
-      name, _ = _port_leaf(path, _STAT_LEAVES)
+      name, _ = _port_leaf(path, _STAT_LEAVES, kept)
       out[name] = torch.from_numpy(value.astype(np.float32, order="C",
                                                 copy=True))
   return out
@@ -344,7 +392,7 @@ def _buffer_paths(module: nn.Module):
     if collection is None:
       continue
     path = _flax_path(name) + (["BatchNorm_0"] if isinstance(sub, BatchNorm)
-                               else [])
+                               and not sub.bare else [])
     for buf, _ in sub.named_buffers(recurse=False):
       yield collection, path + [buf], f"{name}.{buf}" if name else buf
 
@@ -468,8 +516,9 @@ def to_jax_state(state: TrainState, template):
                         else _optax_like(opt, state.opt_states[name]))
   mutables: Dict[str, Any] = {}
   for collection, sub in (template.mutables or {}).items():
+    kept = _kept_primitives(sub)
     for path, value in _leaves(sub):
-      name, _ = _port_leaf(path, _STAT_LEAVES)
+      name, _ = _port_leaf(path, _STAT_LEAVES, kept)
       _node(mutables.setdefault(collection, {}), path[:-1])[path[-1]] = \
           _numpy(state.mutables["vae"][name]).astype(value.dtype)
   return template.replace(params=tree(state.params, template.params),

@@ -106,6 +106,12 @@ def test_sources_exist():
                  "bay/vi/autoencoder/sequential_vae.py",
                  "bay/distributions/continuous.py", "fuel/nlp_data.py"):
     assert f"odin_tpu_torch/{module}" in names
+  # the natural-image slice: the quantized and mixture likelihoods, the
+  # residual and PixelCNN networks
+  for module in ("bay/distributions/quantized.py",
+                 "bay/distributions/mixture.py", "networks/resnets.py",
+                 "networks/base.py", "bay/distribution_alias.py"):
+    assert f"odin_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -248,6 +254,41 @@ def test_sweep_slice_imports_no_jax():
       "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
       "             ('jax', 'jaxlib', 'flax', 'optax', 'odin_tpu')",
       "             and sys.modules[m] is not None)",
+      "assert not bad, bad"])
+  res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+  assert res.returncode == 0, res.stderr
+
+
+def test_image_slice_imports_no_jax():
+  """The natural-image slice's networks, likelihoods and datasets import
+  and run with JAX, the JAX package, scikit-learn and matplotlib
+  blocked."""
+  code = "\n".join([
+      "import sys, tempfile, os",
+      "for name in ('jax', 'jaxlib', 'flax', 'optax', 'odin_tpu', 'sklearn',",
+      "             'matplotlib'):",
+      "  sys.modules[name] = None",
+      "os.environ['ODIN_TPU_HOME'] = tempfile.mkdtemp()",
+      "import torch",
+      "from odin_tpu_torch.networks import get_networks",
+      "from odin_tpu_torch.networks.resnets import PixelCNNDecoder",
+      "from odin_tpu_torch.bay.distributions import (QuantizedLogistic,",
+      "    MixtureQuantizedLogistic, GaussianMixture, qNormal, qUniform)",
+      "from odin_tpu_torch.fuel import get_dataset",
+      "from odin_tpu_torch.fuel.image_data import make_halfmoons",
+      "for name in ('mnist', 'halfmnist', 'omniglot', 'cifar10', 'svhn',",
+      "             'celeba'):",
+      "  get_networks(name, is_semi_supervised=True)",
+      "get_networks('cifar10', resnet=True, skip_generator=True)",
+      "get_networks('dsprites', space_to_depth=True)",
+      "make_halfmoons(1)",
+      "get_dataset('ydisentanglement', n_samples=4)._load('train')",
+      "get_dataset('cifar10')",
+      "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
+      "             ('jax', 'jaxlib', 'flax', 'optax', 'odin_tpu', 'sklearn',",
+      "              'matplotlib') and sys.modules[m] is not None)",
       "assert not bad, bad"])
   res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120,

@@ -92,8 +92,9 @@ def test_semi_supervised_heads_match_jax():
     assert tuple(got["input_shape"]) == tuple(want["input_shape"])
   assert "labels" not in get_networks("dsprites")
   assert "labels" not in get_networks("halfmoons")
-  with pytest.raises(NotImplementedError, match="space_to_depth"):
-    get_networks("dsprites", space_to_depth=True)
+  from odin_tpu_torch.networks import SpaceToDepthConv
+  encoder = get_networks("dsprites", space_to_depth=True)["encoder"]
+  assert isinstance(encoder.layers[1], SpaceToDepthConv)
 
 
 @pytest.mark.parametrize("skip_decoder", [True, False])

@@ -350,3 +350,64 @@ def test_lambda_layer_holds_no_params_and_matches_flax():
   assert set(params) == {"layers_0", "layers_2"}
   assert list(layer.layers[1].parameters()) == []
   np.testing.assert_allclose(got, want, atol=ATOL)
+
+
+def _image_blocks():
+  """(JAX module, the port's module, input shape) of the natural-image
+  slice's flax trees: residual stacks both ways, batch-normed bottleneck
+  and inverted blocks, the PixelCNN decoder, the space-to-depth and
+  subpixel rewrites, and the skip-generator decoder."""
+  import odin_tpu.networks.resnets as jr
+  import odin_tpu_torch.networks.resnets as tr
+  from odin_tpu.networks.image_networks import get_networks as jnets
+  from odin_tpu_torch.networks.image_networks import get_networks as tnets
+  return {
+      "residual_down": (jr.ResidualSequential((8, 8), strides=(2, 1),
+                                              use_se=True),
+                        tr.ResidualSequential((8, 8), strides=(2, 1),
+                                              use_se=True), (4, 4, 3)),
+      "residual_up": (jr.ResidualSequential((8, 4), strides=(-2, -2),
+                                            use_se=True),
+                      tr.ResidualSequential((8, 4), strides=(-2, -2),
+                                            use_se=True), (2, 2, 2)),
+      "bottleneck_bn": (jr.ResidualBottleneck(filters_out=6, strides=2),
+                        tr.ResidualBottleneck(filters_out=6, strides=2),
+                        (6, 6, 4)),
+      "inverted_bn": (jr.ResidualInverted(), tr.ResidualInverted(),
+                      (5, 5, 4)),
+      "pixelcnn": (jr.PixelCNNDecoder((6, 6, 3), 8, 2, 6),
+                   tr.PixelCNNDecoder((6, 6, 3), 8, 2, 6), (4,)),
+      "space_to_depth": (jb.SpaceToDepthConv(8), tb.SpaceToDepthConv(8),
+                         (8, 8, 2)),
+      "subpixel": (jb.ConvTranspose(5, 4, 2, subpixel=True),
+                   tb.ConvTranspose(5, 4, 2, subpixel=True), (4, 4, 3)),
+      "up_sample": (jr.UpSample(4), tr.UpSample(4), (3, 3, 2)),
+      "skip_decoder": (jnets("cifar10", zdim=6,
+                             skip_generator=True)["decoder"],
+                       tnets("cifar10", zdim=6,
+                             skip_generator=True)["decoder"], (6,)),
+  }
+
+
+@pytest.mark.parametrize("name", ["residual_down", "residual_up",
+                                  "bottleneck_bn", "inverted_bn", "pixelcnn",
+                                  "space_to_depth", "subpixel", "up_sample",
+                                  "skip_decoder"])
+def test_image_slice_trees_round_trip(name):
+  """JAX's own init of each new module -> the port's state dict (params
+  and batch statistics; only a masked conv's fixed mask is left out) ->
+  flax trees equal to JAX's.  Outputs are held in test_torch_resnets.py
+  and test_torch_image_networks.py."""
+  from odin_tpu_torch.weights import from_jax_mutables, to_jax_mutables
+  jmod, tmod, shape = _image_blocks()[name]
+  x = jnp.asarray(np.random.RandomState(0).randn(2, *shape), jnp.float32)
+  variables = jax.device_get(jax.jit(jmod.init)(jax.random.PRNGKey(1), x))
+  stats = {k: v for k, v in variables.items() if k != "params"}
+  tmod.build(shape)
+  tmod.load_state_dict({**from_jax_params(variables["params"]),
+                        **from_jax_mutables(stats)}, strict=False)
+  missing = set(tmod.state_dict()) - set(from_jax_params(
+      variables["params"])) - set(from_jax_mutables(stats))
+  assert all(k.endswith("mask") for k in missing), missing
+  _states_equal(to_jax_params(tmod), variables["params"])
+  _states_equal(to_jax_mutables(tmod), stats)
