@@ -69,13 +69,13 @@ CPU:
      **get_networks('dsprites', zdim=10)).build()`` on the card and
      ``vae.fit(ds.create_dataset('train', batch_size=64, epochs=-1,
      prefetch=2, to_device=cuda), ...)`` with a validation set every 100 or
-     500 steps, ``log.jsonl`` in a directory under ``build/`` and
+     200 steps, ``log.jsonl`` in a directory under ``build/`` and
      non-blocking checkpoints: 300 steps at ``steps_per_call=1`` (a graph
-     of one step a call) and 1000 at ``steps_per_call=100`` (the held-out
+     of one step a call) and 400 at ``steps_per_call=100`` (the held-out
      loss below half its start), each log's records at the steps expected
      and its last checkpoint restored bitwise equal to the state; then
-     ``fit_device_dataset`` 500 + 500 steps split by a checkpoint and
-     ``load_weights``, bitwise equal to 1000 unbroken steps (cuDNN's
+     ``fit_device_dataset`` 200 + 200 steps split by a checkpoint and
+     ``load_weights``, bitwise equal to 400 unbroken steps (cuDNN's
      deterministic algorithms); steps/s of each mode beside phase 7's
      graphed step, and a host-fed step split into the pipeline's host
      work, the pinned copy and the step.  ``max_iter`` is cut from the
@@ -94,7 +94,7 @@ CPU:
      latency; Griffin-Lim (32 iterations) on 64 utterances of 2 s against
      the CPU from a shared initial phase;
  10. the gym path, the README quickstart's evaluation, on phase 8's model
-     (``fit`` at ``steps_per_call=100``, 1000 steps):
+     (``fit`` at ``steps_per_call=100``, 400 steps):
      ``DisentanglementGym(dataset=get_dataset('dsprites'), model=vae)
      .run_model(n_samples=10000, partition='test')`` and ``write_report``
      with the default scores and FID, no ``_error`` key; ``z_mean`` of the
@@ -132,14 +132,14 @@ CPU:
      TwoStageVAE, VampriorVAE, VQVAE, StochasticVAE, ImputeVAE and
      DistEncoder (on the factors), with BetaVAE as the yardstick: the ELBO
      terms on the card against the CPU on the same params, batch and noise
-     (rtol 1e-4 of each term's largest magnitude), 300 steps of
+     (rtol 1e-4 of each term's largest magnitude), 100 steps of
      ``vae.fit(..., steps_per_call=100)`` at batch 64 (128 for the two
      FactorVAEs, which split it) with no update skipped and the held-out
      loss below its start, steps/s (after a discarded warm-up fit), and
      ``run_model`` with MIG on 2,000 test images (not for the VQ-VAE,
      whose latents are a code map); then
      FactorVAE at Kim & Mnih's dSprites setting (tc_coef 35, the 5 x 1000
-     discriminator) for 1000 steps, ``DisentanglementGym(dataset=ds,
+     discriminator) for 500 steps, ``DisentanglementGym(dataset=ds,
      model=vae).run_model(n_samples=10000, partition='test')`` and
      ``write_report()`` with no ``_error`` key (MIG, SAP, DCI, beta-VAE
      and FactorVAE scores printed); the vMF sampler's rejected rows (0)
@@ -158,7 +158,7 @@ CPU:
      head, or a one-hot head over the x position in 4 bins for the classes
      whose objective needs class probabilities): the ELBO terms on the
      card against the CPU (rtol 1e-4 of each term's largest magnitude),
-     200 steps of ``fit`` at ``steps_per_call=100`` (JAX's defaults: the
+     100 steps of ``fit`` at ``steps_per_call=100`` (JAX's defaults: the
      Semafo family's MI term trains from step 1,000; Adam at 1e-3, and at
      1e-4 for MultitaskVAE, whose latents blow up at 1e-3) with no update
      skipped and the held-out loss below its start, the labels head's
@@ -187,7 +187,7 @@ CPU:
      against the CPU (rtol 1e-4 of each term's largest magnitude), the
      grouped models' mean count of shared dimensions equal (a row that a
      tie decides is reported), the kernels and device time of a graphed
-     step beside BetaVAE's, 200 steps of ``fit`` at
+     step beside BetaVAE's, 100 steps of ``fit`` at
      ``steps_per_call=100`` at batch 64 (64 pairs) with no update skipped
      and the held-out loss below its start, steps/s, ``run_model`` and MIG
      on 2,000 test images (unpaired for the grouped family), for the
@@ -261,7 +261,7 @@ CPU:
      ``True`` beside the plain one (peak memory, ms a step, the gradients
      bitwise with cuDNN's deterministic algorithms); ``run_hydra`` in the
      process over ``vae=betavae,betatcvae`` at beta 4, each point ``fit``
-     300 steps at ``steps_per_call=100``, ``run_model(n_samples=2000)``,
+     200 steps at ``steps_per_call=100``, ``run_model(n_samples=2000)``,
      ``write_report(scores=('mig', 'sap', 'dci'))`` and
      ``ScoreBoard.write``, both rows read back and both output
      directories found; then ``-j2`` refused once CUDA has started.  The
@@ -278,16 +278,16 @@ CPU:
      64) swept over seeds 1-3, the medians of its test perplexity and
      topic best-match cosine held to the JAX package's over 21 seeds on
      the CPU (``tests/recipe_seeds.py``); ``nonlinearLDA``, ``ALDA`` and
-     ``auxiliaryLDA(n_labels=8)`` (10 % of the documents labelled) 300
+     ``auxiliaryLDA(n_labels=8)`` (10 % of the documents labelled) 100
      steps each; ``examples/grade_membership.py``'s recipe
      (``fit_device_dataset``, 600 steps at batch 256) at seeds 0-20, the
      medians of its held-out accuracy and membership purity held to the
      JAX package's; ``CycleConsistentVAE`` on
      2,048 rendered dSprites pairs that share their shape and
-     ``MoeVAE`` on the image and the 5 factor values of 2,048 draws, 200
+     ``MoeVAE`` on the image and the 5 factor values of 2,048 draws, 100
      steps each, then ``cycle_consistency`` and ``cross_generate`` finite;
      ``VariationalRNN``, ``SequentialVAE`` and ``SequentialAttentionVAE``
-     at their defaults, 200 steps each on segments of 64 frames of the
+     at their defaults, 100 steps each on segments of 64 frames of the
      40-mel log-mels of 64 int16 utterances of 2-4 s (one feature batch,
      one K1 launch, the log-mels within 0.01 dB of the CPU).  Each class:
      its ELBO terms and loss gradients on the card against the CPU on the
@@ -319,15 +319,36 @@ CPU:
      ``ConvTranspose(subpixel=True)`` against the plain one at dSprites'
      widths, within 1e-5 of the largest output.  It launches no kernel of
      the port.  ``python3 chip_smoke.py --images-rehearsal`` runs the
-     phase on the CPU on smaller files (``images_rehearsal``).
+     phase on the CPU on smaller files (``images_rehearsal``);
+ 20. the distribution zoo and the gene-expression VAEs (``genes_path``):
+     every family of the slice (the 7 continuous and 10 discrete ones, a
+     ZeroInflated NBDisp, ConditionalTensor, Batchwise) on the card
+     against the CPU (log_prob, mean, variance, entropy and 9 registered
+     KL pairs, 1e-5 of each result's largest magnitude) and by the sample
+     moments of 10^5 draws on the card (5 standard errors); Cortex's and
+     PBMC's ``.npz`` files written from ``SyntheticGenes`` (558 genes, 7
+     types; 1000 and 4; 5,000 cells) and read with ``get_dataset``;
+     ``VariationalAutoencoder(**get_networks("cortex"))`` and
+     ``M2VAE(**get_networks("pbmc", is_semi_supervised=True))`` (10 % of
+     the cells labelled) 500 steps each of ``fit`` at batch 64 with
+     ``get_optimizer_info``'s schedule, their graphed steps profiled;
+     cortex with the zinb, nb, nbd, poisson, zipoisson and 3-component
+     mixzinb likelihoods, mvntril and autoregressive latents and dropout
+     0.1 on the observation, and ``SyntheticATAC`` (300 regions, 5 topics,
+     2,000 cells) under zibernoulli, 100 steps each.  Each: the ELBO terms
+     (1e-4) and gradients (2e-3 of each tensor's largest) on the card
+     against the CPU on one training-mode loss's noise, the held-out loss
+     below its start, no update skipped, steps/s; the float32 ZINB
+     log-likelihood against float64.  It launches no kernel of the port.
+     ``python3 chip_smoke.py --genes-rehearsal`` runs it on the CPU.
 
 The datasets' files and caches are kept under ``build/odin_tpu_home``
 (``$ODIN_TPU_HOME``).  Run with no argument, it runs every phase: the
 whole check.  ``python3 chip_smoke.py --phases 1,14`` runs the phases
-named (1-19), phase 1 (the build) always, and every phase whose results a
+named (1-20), phase 1 (the build) always, and every phase whose results a
 named one reads (``PHASE_NEEDS``: 3 reads 2, 6 reads 5, 8 reads 7, 10
-reads 8, 11 reads 2 and 9, 15 reads 10, 16 reads 9; 17, 18 and 19
-read none); its ``kernels`` line lists only the kernels those phases
+reads 8, 11 reads 2 and 9, 15 reads 10, 16 reads 9; 17, 18, 19 and
+20 read none); its ``kernels`` line lists only the kernels those phases
 timed.
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
@@ -706,10 +727,12 @@ FIT_BATCH = 64  # the README quickstart's batch
 # the quickstart's max_iter is 10,000; the phase runs these counts so that
 # the whole script stays well inside its time limit
 FIT_K1_STEPS = 300
-FIT_K1_TIMED = 600
+FIT_K1_TIMED = 300
 FIT_K = 100
-FIT_STEPS = 1000
-FIT_DD_CALL = 500
+FIT_STEPS = 400
+FIT_VALID = 200  # the k = 100 run's validation and checkpoint interval
+FIT_DD_CALL = 200
+FIT_TIMED = 300  # the timed repeat at k = 100
 
 
 def fit_path(torch, np, reset_counts, read_counts, smi, graphed_s):
@@ -802,13 +825,14 @@ def fit_path(torch, np, reset_counts, read_counts, smi, graphed_s):
 
   k1_s = timed(1, FIT_K1_TIMED)
 
-  # -- 8.2 steps_per_call=100 for 1000 steps: learning, logs, checkpoint
+  # -- 8.2 steps_per_call=100 for 400 steps: learning, logs, checkpoint
   vae2 = quickstart()
   eval_fn = vae2.make_eval_fn()
   before = float(eval_fn(vae2.state, held)["loss"])
   logdir = os.path.join(root, "k100")
-  tr2 = vae2.fit(train(), valid=valid, max_iter=FIT_STEPS, valid_freq=500,
-                 logdir=logdir, logging_interval=0.0, checkpoint_freq=500,
+  tr2 = vae2.fit(train(), valid=valid, max_iter=FIT_STEPS,
+                 valid_freq=FIT_VALID, logdir=logdir, logging_interval=0.0,
+                 checkpoint_freq=FIT_VALID,
                  steps_per_call=FIT_K, verbose=False)
   after = float(eval_fn(vae2.state, held)["loss"])
   # a record every call reads the metrics, so the host waits for the
@@ -824,7 +848,7 @@ def fit_path(torch, np, reset_counts, read_counts, smi, graphed_s):
   if not (math.isfinite(after) and after < TRAIN_LEARN_MARGIN * before):
     raise AssertionError(f"the loss went from {before} to {after}")
   if train_steps != list(range(FIT_K, FIT_STEPS + 1, FIT_K)) or \
-      valid_steps != [500, 1000]:
+      valid_steps != list(range(FIT_VALID, FIT_STEPS + 1, FIT_VALID)):
     raise AssertionError(f"log.jsonl has train {train_steps} and valid "
                          f"{valid_steps}")
   back = tr2.restore_checkpoint()
@@ -834,10 +858,10 @@ def fit_path(torch, np, reset_counts, read_counts, smi, graphed_s):
   if bad or int(back.step) != FIT_STEPS:
     raise AssertionError(f"the checkpoint differs from the state: {bad}")
 
-  k100_s = timed(FIT_K, FIT_STEPS)
+  k100_s = timed(FIT_K, FIT_TIMED)
 
-  # -- 8.3 fit_device_dataset: 2 x 500 steps split by a checkpoint against
-  # 1000 unbroken.  cuDNN's deterministic algorithms, so that both runs
+  # -- 8.3 fit_device_dataset: 2 x 200 steps split by a checkpoint against
+  # 400 unbroken.  cuDNN's deterministic algorithms, so that both runs
   # run the same kernels on the same inputs: the draws are keyed by the
   # step count and the noise generator's state travels in the checkpoint,
   # so the two are equal bitwise
@@ -894,7 +918,8 @@ def fit_path(torch, np, reset_counts, read_counts, smi, graphed_s):
   for name, sec in (("fit steps_per_call=1", k1_s),
                     (f"fit steps_per_call={FIT_K}", k100_s),
                     (f"fit steps_per_call={FIT_K} with a record every "
-                     f"call, validation and a checkpoint every 500 steps",
+                     f"call, validation and a checkpoint every {FIT_VALID} "
+                     "steps",
                      k100_logged_s),
                     (f"fit_device_dataset steps_per_call={FIT_DD_CALL}",
                      dd_s),
@@ -2388,11 +2413,11 @@ def extractor_path(torch, np, reset_counts, read_counts, smi):
 
 # phase 12: the unsupervised VAE zoo on dSprites
 ZOO_BATCH = 64
-ZOO_STEPS = 300  # each class's fit: 3 calls of ZOO_K graphed steps
+ZOO_STEPS = 100  # each class's fit: 1 call of ZOO_K graphed steps
 ZOO_K = 100
 ZOO_RTOL = 1e-4  # card against CPU: fp32 sums in another order, of each
 # ELBO term's largest magnitude over the batch
-ZOO_FACTOR_STEPS = 1000  # Kim & Mnih's dSprites setting, cut in length
+ZOO_FACTOR_STEPS = 500  # Kim & Mnih's dSprites setting, cut in length
 ZOO_FACTOR_TC = 35.0
 ZOO_GYM_ROWS = 2000  # each class's run_model and MIG
 ZOO_GYM_SAMPLES = 10000  # FactorVAE's, as phase 10
@@ -2444,11 +2469,11 @@ def zoo_models():
 
 def zoo_path(torch, np, reset_counts, read_counts, smi):
   """Phase 12: each class of the zoo slice on procedural dSprites: its ELBO
-  terms on the card against the CPU, 300 steps of ``fit`` at
+  terms on the card against the CPU, 100 steps of ``fit`` at
   ``steps_per_call=100`` (the held-out loss below its start, no update
   skipped, steps/s), ``run_model`` and MIG on 2,000 test images; then
   FactorVAE at Kim & Mnih's dSprites setting (tc_coef 35, the 5 x 1000
-  discriminator) for 1000 steps and the Gym's default report on 10,000
+  discriminator) for 500 steps and the Gym's default report on 10,000
   test images; the vMF sampler's rejected rows and acceptance rate."""
   from odin_tpu_torch.bay.distributions import sampling
   from odin_tpu_torch.bay.vi import DisentanglementGym, FactorVAE
@@ -2519,7 +2544,7 @@ def zoo_path(torch, np, reset_counts, read_counts, smi):
     if not worst <= ZOO_RTOL:
       raise AssertionError(f"{name}: the card's ELBO terms differ from the "
                            f"CPU's: {errs}")
-    # -- 12.2 fit: 300 steps, 100 a call
+    # -- 12.2 fit: 100 steps in one call
     eval_fn = vae.make_eval_fn()
     hb = to(batch, cuda)
     start = float(eval_fn(vae.state, hb)["loss"])
@@ -2597,7 +2622,7 @@ def zoo_path(torch, np, reset_counts, read_counts, smi):
 
 # phase 13: the semi-supervised family on dSprites, and M2 on the half-moons
 SEMI_BATCH = 64
-SEMI_STEPS = 200  # each class's fit: 2 calls of SEMI_K graphed steps
+SEMI_STEPS = 100  # each class's fit: 1 call of SEMI_K graphed steps
 SEMI_K = 100
 SEMI_LABELLED = 0.1  # label_percent: 1,638 of the 16,384 train images
 SEMI_OVERSAMPLE = 0.5  # the labelled rows of each batch: 32 of 64
@@ -2725,7 +2750,7 @@ def semi_path(torch, np, reset_counts, read_counts, smi):
   procedural dSprites (``semi_models``), trained on (x, y, mask) batches of
   ``create_dataset(label_percent=0.1, oversample_ratio=0.5)``: its ELBO
   terms on the card against the CPU on the same params, batch and noise;
-  200 steps of ``fit`` at ``steps_per_call=100`` (the held-out loss below
+  100 steps of ``fit`` at ``steps_per_call=100`` (the held-out loss below
   its start, no update skipped, steps/s); the labels head's log-likelihood of 256
   held-out labelled images above its value before training; ``run_model``
   and MIG on 2,000 test images.  Then M2VAE and ConditionalM2VAE on the
@@ -2801,7 +2826,7 @@ def semi_path(torch, np, reset_counts, read_counts, smi):
       raise AssertionError(f"{name}: the card's ELBO terms differ from the "
                            f"CPU's: {errs}")
     del ref
-    # -- 13.2 fit: 200 steps, 100 a call, on (x, y, mask) batches
+    # -- 13.2 fit: 100 steps in one call, on (x, y, mask) batches
     eval_fn = vae.make_eval_fn()
     hb = to(batch, cuda)
     start = float(eval_fn(vae.state, hb)["loss"])
@@ -2894,7 +2919,7 @@ def semi_path(torch, np, reset_counts, read_counts, smi):
 
 # phase 14: the hierarchical and grouped families on dSprites
 HIER_BATCH = 64  # images, or pairs for the grouped family
-HIER_STEPS = 200  # each class's fit: 2 calls of HIER_K graphed steps
+HIER_STEPS = 100  # each class's fit: 1 call of HIER_K graphed steps
 HIER_K = 100
 HIER_RTOL = ZOO_RTOL  # card against CPU, of each term's largest magnitude
 HIER_GYM_ROWS = 2000  # run_model and MIG (unpaired for the grouped family)
@@ -2993,7 +3018,7 @@ def hier_path(torch, np, reset_counts, read_counts, smi):
   ``kl_ladder{i}``, ``pair_loss``) on the card against the CPU on the same
   params, batch and noise, for the grouped family also the mean count of
   shared dimensions (a row that a tie decides is reported, not failed);
-  200 steps of ``fit`` at ``steps_per_call=100`` (the held-out loss below
+  100 steps of ``fit`` at ``steps_per_call=100`` (the held-out loss below
   its start, no update skipped, steps/s; a graphed step's kernels and
   device time beside BetaVAE's); ``run_model`` and MIG on 2,000 test
   images (unpaired for the grouped family: its fallback ELBO); for the
@@ -3110,8 +3135,8 @@ def hier_path(torch, np, reset_counts, read_counts, smi):
         raise AssertionError(f"{name}: the card's shared dimensions differ "
                              f"from the CPU's{shared}")
     del ref
-    # -- 14.2 a graphed step's kernels and device time; fit: 200 steps,
-    # 100 a call
+    # -- 14.2 a graphed step's kernels and device time; fit: 100 steps
+    # in one call
     kernels, step_ms = graphed_step(vae, to(batch, cuda), options)
     base_ms = base_ms or step_ms
     eval_fn = vae.make_eval_fn()
@@ -3488,7 +3513,7 @@ SWEEP_MS_K = 200  # the timed multi-seed graph: steps a call
 SWEEP_LANE_ATOL = 1e-5  # a lane against its solo run (tests/test_multiseed.py)
 SWEEP_REMAT = ("dots_saveable", True)
 SWEEP_REMAT_K = 100  # remat's timed graphs: steps a call
-SWEEP_FIT_STEPS = 300  # each sweep point's fit, SWEEP_FIT_K steps a call
+SWEEP_FIT_STEPS = 200  # each sweep point's fit, SWEEP_FIT_K steps a call
 SWEEP_FIT_K = 100
 SWEEP_BETA = 4.0  # at beta 1 the beta-TCVAE objective is the plain ELBO
 SWEEP_GYM_ROWS = 2000
@@ -3905,7 +3930,7 @@ TOPIC_CONFIG = dict(n_docs=2000, n_words=200, n_topics=8, max_iter=2000,
 GOM_CONFIG = dict(n_sheets=2000, n_questions=12, n_answers=5, n_components=3,
                   noise=0.1, max_iter=600, lr=2e-2, warmup=200)
 GOM_BATCH = 256
-TOPIC_OTHER_STEPS = 300  # nonlinearLDA, ALDA and auxiliaryLDA
+TOPIC_OTHER_STEPS = 100  # nonlinearLDA, ALDA and auxiliaryLDA
 TOPIC_LABELLED = 0.1  # auxiliaryLDA: the share of labelled documents
 # the recipes' figures: the card's medians over seeds held to the medians
 # of the JAX package's own recipes on the CPU over 21 seeds
@@ -3922,10 +3947,10 @@ GOM_JAX = dict(accuracy=0.8812, purity=0.82)
 # the bounds that a median of 21 of JAX's own seeds leaves 0.5 % beyond
 GOM_ACC_MARGIN = 0.055  # median held-out accuracy at most this below
 GOM_PURITY_MARGIN = 0.14  # median membership purity at most this below
-PAIR_STEPS = 200  # the cycle-consistent VAE and the mixture of experts
+PAIR_STEPS = 100  # the cycle-consistent VAE and the mixture of experts
 PAIR_POOL = 2048  # rendered dSprites pairs or draws on the card
 SEQ_T = 64  # frames a training segment
-SEQ_STEPS = 200
+SEQ_STEPS = 100
 SEQ_UTTERANCES = 64  # int16 utterances of 2-4 s a feature batch
 
 
@@ -4102,7 +4127,7 @@ def last_path(torch, np, reset_counts, read_counts, smi):
   """Phase 18: the last VAE classes on the card.  Six recipes, each
   ``fit`` at ``steps_per_call=100`` on the graphed step: the topic model
   of ``examples/topic_model.py`` through ``run_hydra`` (2000 steps) and
-  nonlinearLDA, ALDA and auxiliaryLDA(n_labels=8, 10 % labelled) 300 steps
+  nonlinearLDA, ALDA and auxiliaryLDA(n_labels=8, 10 % labelled) 100 steps
   each; Grade of Membership (``examples/grade_membership.py``,
   ``fit_device_dataset``); CycleConsistentVAE on 2,048 rendered dSprites
   pairs that share their shape; MoeVAE on the image and the 5 factor
@@ -4794,7 +4819,548 @@ def images_rehearsal(argv) -> int:
   return 0
 
 
-PHASES = tuple(range(1, 20))
+GENE_BATCH = 64
+GENE_STEPS = 500  # the cortex and pbmc runs: 5 calls of GENE_K graphed steps
+GENE_K = 100
+GENE_VARIANT_STEPS = 100  # each variant: one call
+GENE_CELLS = 5000  # get_optimizer_info's n_samples for cortex and pbmc
+GENE_SETS = {"cortex": (558, 7), "pbmc": (1000, 4)}  # genes, cell types
+GENE_ATAC = dict(n_cells=2000, n_regions=300, n_topics=5)
+GENE_LABELLED = 0.1  # pbmc's semi-supervised run: the labelled share
+GENE_HELD = 256  # held-out cells of each run's held-out loss
+GENE_CPU_ROWS = 64  # rows of the card-against-CPU comparisons
+GENE_RTOL = ZOO_RTOL  # card against CPU, of each ELBO term's largest
+# gradients, of each tensor's largest: no cuDNN on this path (an H100
+# 80GB HBM3 at 700 W measured 3.0e-7 to 8.2e-6, PERF.md §6)
+GENE_GRAD_REL = TRAIN_GRAD_REL
+GENE_DIST_RTOL = 1e-5  # a family's statistics, card against CPU
+GENE_DRAWS = 100_000  # each family's draws for its sample moments
+GENE_SIGMAS = 5.0  # sample moments within this many standard errors
+
+
+def genes_root():
+  import os
+  return os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                      "genes_path")
+
+
+def write_genes(np, root, cells=GENE_CELLS):
+  """Cortex's and PBMC's ``.npz`` files (``x`` float32 counts, ``y`` int64
+  cell types) under ``root/datasets``, drawn by ``SyntheticGenes`` at
+  their gene and type counts."""
+  import os
+  from odin_tpu_torch.fuel import SyntheticGenes
+  out = os.path.join(root, "datasets")
+  os.makedirs(out, exist_ok=True)
+  for i, (name, (genes, types)) in enumerate(GENE_SETS.items()):
+    ds = SyntheticGenes(n_cells=cells, n_genes=genes, n_types=types,
+                        seed=SEED + i)
+    np.savez(os.path.join(out, f"{name}.npz"), x=ds._x, y=ds._y)
+
+
+def gene_ssl_arrays(np, x, y, n_types, share=GENE_LABELLED, seed=SEED):
+  """(x, one-hot y, mask) of a semi-supervised gene run: a seeded `share`
+  of the cells labelled, the others' labels zeros, as JAX's
+  ``_unpack_ssl`` reads a batch."""
+  rs = np.random.RandomState(seed)
+  mask = np.zeros(len(x), np.float32)
+  mask[rs.permutation(len(x))[:int(round(share * len(x)))]] = 1.0
+  onehot = np.eye(n_types, dtype=np.float32)[np.asarray(y, np.int64)]
+  return (np.asarray(x, np.float32), onehot * mask[:, None], mask)
+
+
+def zoo_families(torch, np):
+  """name -> (build(device) -> distribution, value for its log_prob) of
+  the families this slice ported (a ZeroInflated over NBDisp, Poisson
+  and Bernoulli; ConditionalTensor and Batchwise), parameters drawn from
+  one seed, batch (64, 8)."""
+  from odin_tpu_torch.bay import distributions as D
+  rs = np.random.RandomState(SEED)
+  S = (64, 8)
+  pos = lambda *s: (np.abs(rs.randn(*s)) + 0.3).astype(np.float32)
+  real = lambda *s: rs.randn(*s).astype(np.float32)
+  counts = rs.poisson(3.0, S).astype(np.float32)
+  counts[rs.rand(*S) < 0.3] = 0
+  tril = np.tril(real(64, 4, 4) * 0.4)
+  tril[:, range(4), range(4)] = np.abs(tril[:, range(4), range(4)]) + 0.6
+  low = pos(*S)
+  y = np.eye(3, dtype=np.float32)[rs.randint(0, 3, 64)]
+  specs = {
+      "LogNormal": ("LogNormal", dict(loc=real(*S) * 0.3, scale=pos(*S) * .3),
+                    pos(*S)),
+      "Laplace": ("Laplace", dict(loc=real(*S), scale=pos(*S)), real(*S)),
+      "Gamma": ("Gamma", dict(concentration=pos(*S) * 2, rate=pos(*S)),
+                pos(*S)),
+      "Beta": ("Beta", dict(concentration1=pos(*S) * 2,
+                            concentration0=pos(*S) * 2),
+               rs.uniform(0.05, 0.95, S).astype(np.float32)),
+      "MultivariateNormalTriL": ("MultivariateNormalTriL", dict(
+          loc=real(64, 4), scale_tril=tril), real(64, 4)),
+      "NormalGamma": ("NormalGamma", dict(loc=real(*S), lam=pos(*S),
+                                          alpha=pos(*S) * 3, beta=pos(*S)),
+                      np.stack([real(*S), pos(*S)], -1)),
+      "LogUniform": ("LogUniform", dict(low=low, high=low + pos(*S) * 3),
+                     low + rs.uniform(0, 1, S).astype(np.float32)),
+      "ContinuousBernoulli": ("ContinuousBernoulli", dict(logits=real(*S)),
+                              rs.uniform(0, 1, S).astype(np.float32)),
+      "RelaxedBernoulli": ("RelaxedBernoulli", dict(
+          temperature=np.float32(0.5), logits=real(*S)),
+          rs.uniform(0.01, 0.99, S).astype(np.float32)),
+      "RelaxedOneHotCategorical": ("RelaxedOneHotCategorical", dict(
+          temperature=np.float32(0.7), logits=real(64, 5)),
+          rs.dirichlet(np.ones(5), 64).astype(np.float32)),
+      "Poisson": ("Poisson", dict(log_rate=real(*S)), counts),
+      "Binomial": ("Binomial", dict(total_count=np.float32(7.0),
+                                    logits=real(*S)),
+                   rs.randint(0, 8, S).astype(np.float32)),
+      "Multinomial": ("Multinomial", dict(total_count=np.float32(9.0),
+                                          logits=real(64, 4)),
+                      rs.multinomial(9, [.2, .3, .1, .4], 64).astype(
+                          np.float32)),
+      "DirichletMultinomial": ("DirichletMultinomial", dict(
+          total_count=np.float32(9.0), concentration=pos(64, 4) * 2),
+          rs.multinomial(9, [.2, .3, .1, .4], 64).astype(np.float32)),
+      "NegativeBinomial": ("NegativeBinomial", dict(total_count=pos(*S) * 3,
+                                                    logits=real(*S)), counts),
+      "NegativeBinomialDisp": ("NegativeBinomialDisp", dict(
+          loc=pos(*S) * 3, disp=pos(*S) * 2), counts),
+  }
+  out = {}
+  t = lambda a, d: torch.from_numpy(np.array(a)).to(d)
+  for name, (cls, params, x) in specs.items():
+    out[name] = ((lambda d, c=cls, p=params: getattr(D, c)(
+        **{k: t(v, d) for k, v in p.items()})), x)
+  gate = real(*S)
+  nbd = specs["NegativeBinomialDisp"][1]
+  out["ZeroInflated"] = ((lambda d: D.ZeroInflated(D.NegativeBinomialDisp(
+      t(nbd["loc"], d), t(nbd["disp"], d)), logits=t(gate, d))), counts)
+  mvn = dict(loc=real(64, 4), scale_diag=pos(64, 4))
+  out["ConditionalTensor"] = ((lambda d: D.ConditionalTensor(
+      D.MultivariateNormalDiag(t(mvn["loc"], d), t(mvn["scale_diag"], d)),
+      t(y, d))), np.concatenate([real(64, 4), y], -1))
+  out["Batchwise"] = ((lambda d: D.Batchwise([D.MultivariateNormalDiag(
+      t(mvn["loc"][:24], d), t(mvn["scale_diag"][:24], d)),
+      D.MultivariateNormalDiag(t(mvn["loc"][24:], d),
+                               t(mvn["scale_diag"][24:], d))])), real(64, 4))
+  return out
+
+
+def zoo_kl_pairs(families):
+  """(name, q, p) builders of every KL pair the slice registered, from the
+  families' parameters (p a second family of the same kind: the first
+  with its parameters rolled along the batch)."""
+  from odin_tpu_torch.bay import distributions as D
+  roll = lambda dist, fields: type(dist)(**{
+      f: getattr(dist, f).roll(1, 0) for f in fields})
+  pairs = {
+      "LogNormal": ("loc", "scale"), "Gamma": ("concentration", "rate"),
+      "Beta": ("concentration1", "concentration0"),
+      "MultivariateNormalTriL": ("loc", "scale_tril"),
+      "Poisson": ("log_rate",)}
+  out = {}
+  for name, fields in pairs.items():
+    out[name] = (lambda d, n=name: families[n][0](d),
+                 lambda d, n=name, f=fields: roll(families[n][0](d), f))
+  tril = lambda d: families["MultivariateNormalTriL"][0](d)
+  out["MVNDiag->TriL"] = (
+      lambda d: D.MultivariateNormalDiag(tril(d).loc, torch_diag(tril(d))),
+      tril)
+  out["Normal->MVNDiag"] = (
+      lambda d: D.Normal(tril(d).loc, torch_diag(tril(d))),
+      lambda d: D.MultivariateNormalDiag(tril(d).loc.roll(1, 0),
+                                         torch_diag(tril(d)).roll(1, 0)))
+  ct = lambda d: families["ConditionalTensor"][0](d)
+  out["ConditionalTensor"] = (ct, lambda d: D.ConditionalTensor(
+      D.MultivariateNormalDiag(ct(d).distribution.loc.roll(1, 0),
+                               ct(d).distribution.scale_diag),
+      ct(d).conditional_tensor))
+  bw = lambda d: families["Batchwise"][0](d)
+  out["Batchwise"] = (bw, lambda d: D.MultivariateNormalDiag(
+      bw(d).distributions[0].loc[0] * 0, bw(d).distributions[0].scale_diag[0]))
+  return out
+
+
+def torch_diag(tril):
+  return tril.scale_tril.diagonal(dim1=-2, dim2=-1)
+
+
+def zoo_on_card(torch, np, fail):
+  """Every family of the slice on the card against the CPU (log_prob,
+  mean, variance, entropy where defined, every registered KL), then its
+  sample moments over GENE_DRAWS draws on the card against its analytic
+  mean and variance.  Returns (worst relative error, its name, the number
+  of moment checks)."""
+  cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+  fams = zoo_families(torch, np)
+  worst, where = 0.0, ""
+
+  def compare(name, a, b, terms=None):
+    """`a` (card) against `b` (CPU), of b's largest magnitude; `terms`,
+    where given, the magnitude of the float32 terms each element is a
+    difference of, whose rounding (8 ulps of them) it may keep too."""
+    nonlocal worst, where
+    a, b = a.detach().float().cpu(), b.detach().float()
+    if a.shape != b.shape:
+      fail(f"{name}: card shape {tuple(a.shape)}, CPU {tuple(b.shape)}")
+      return
+    if not (bool(torch.isfinite(a).all()) == bool(torch.isfinite(b).all())):
+      fail(f"{name}: non-finite values on one device only")
+      return
+    ok = torch.isfinite(b)
+    d = (a - b).abs()
+    if terms is not None:
+      d = (d - 8 * torch.finfo(torch.float32).eps * terms.float()).clamp(
+          min=0)
+    err = float(d[ok].max()) / max(float(b[ok].abs().max()),
+                                   1e-30) if ok.any() else 0.0
+    if err > worst:
+      worst, where = err, name
+    if not err <= GENE_DIST_RTOL:
+      fail(f"{name}: card against CPU {err:.3e} (limit {GENE_DIST_RTOL})")
+
+  for name, (make, x) in fams.items():
+    dc, dg = make(cpu), make(cuda)
+    xc = torch.from_numpy(np.array(x))
+    compare(f"{name}.log_prob", dg.log_prob(xc.to(cuda)), dc.log_prob(xc))
+    for stat in ("mean", "variance", "entropy"):
+      try:
+        want = getattr(dc, stat)()
+      except NotImplementedError:
+        continue
+      terms = None
+      if name == "ContinuousBernoulli" and stat == "mean":
+        # JAX's formula: lam/(2 lam - 1) + 1/(2 atanh(1 - 2 lam)) outside
+        # |lam - 1/2| < 1e-4, two terms of up to 2,500 that cancel to
+        # about 1/2
+        lam = dc.probs.double().clamp(1e-6, 1 - 1e-6)
+        terms = (lam / (2 * lam - 1)).abs() + (
+            1 / (2 * torch.atanh(1 - 2 * lam))).abs()
+      compare(f"{name}.{stat}", getattr(dg, stat)(), want, terms)
+  for name, (q, p) in zoo_kl_pairs(fams).items():
+    compare(f"KL {name}", q(cuda).kl_divergence(p(cuda)),
+            q(cpu).kl_divergence(p(cpu)))
+  # sample moments on the card
+  gen = torch.Generator(device=cuda).manual_seed(SEED)
+  n_moments = 0
+  for name in ("LogNormal", "Laplace", "Gamma", "Beta",
+               "MultivariateNormalTriL", "Poisson", "Binomial", "Multinomial",
+               "NegativeBinomial", "NegativeBinomialDisp", "ZeroInflated",
+               "DirichletMultinomial", "LogUniform", "ContinuousBernoulli",
+               "NormalGamma", "RelaxedBernoulli",
+               "RelaxedOneHotCategorical"):
+    d = fams[name][0](cuda)
+    s = d.sample((GENE_DRAWS,), generator=gen).double()
+    if not bool(torch.isfinite(s).all()):
+      fail(f"{name}: non-finite draws on the card")
+      continue
+    # the share of draws above 1/2 (of each argmax) is the relaxed
+    # families' probability; the continuous Bernoulli draws the
+    # Bernoulli's, as in JAX; the others' means (and variances) are
+    # analytic
+    if name == "RelaxedBernoulli":
+      s, m = (s > 0.5).double(), torch.sigmoid(d.logits).double()
+    elif name == "RelaxedOneHotCategorical":
+      s = torch.nn.functional.one_hot(s.argmax(-1), s.shape[-1]).double()
+      m = torch.softmax(d.logits, -1).double()
+    elif name == "ContinuousBernoulli":
+      m = d.probs.double()
+    else:
+      m = d.mean().double()
+    two_points = name in ("RelaxedBernoulli", "RelaxedOneHotCategorical",
+                          "ContinuousBernoulli")
+    v = m * (1 - m) if two_points else d.variance().double() \
+        if name not in ("DirichletMultinomial", "LogUniform",
+                        "NormalGamma") else s.var(0)
+    bad = (s.mean(0) - m).abs() > GENE_SIGMAS * torch.sqrt(v / GENE_DRAWS) \
+        + 1e-12
+    if not two_points and name not in ("DirichletMultinomial", "LogUniform",
+                                       "NormalGamma"):
+      m4 = ((s - s.mean(0)) ** 4).mean(0)
+      se = torch.sqrt((m4 - s.var(0) ** 2).clamp(min=0) / GENE_DRAWS)
+      bad |= (s.var(0) - v).abs() > GENE_SIGMAS * se + 1e-9
+    n_moments += 1
+    if bool(bad.any()):
+      fail(f"{name}: {int(bad.sum())} sample moments beyond "
+           f"{GENE_SIGMAS} standard errors over {GENE_DRAWS} draws")
+  return worst, where, n_moments
+
+
+def genes_card_against_cpu(torch, vae, ref, batch):
+  """`vae` on the card against `ref` on the CPU on `vae`'s params, `batch`
+  and the noise of one training-mode loss drawn on the CPU (dropout's
+  uniforms included): (largest relative error of the ELBO terms, of the
+  loss gradients, that gradient's tensor), each of the CPU value's
+  largest magnitude."""
+  from odin_tpu_torch.training import Noise
+
+  cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+  to = lambda b, d: tuple(t.to(d) for t in b) if isinstance(b, tuple) \
+      else b.to(d)
+  params = {d: {p: {k: v.detach().to(d).clone() for k, v in part.items()}
+                for p, part in vae.state.params.items()} for d in (cpu, cuda)}
+  step = {d: torch.tensor(0, dtype=torch.int32, device=d) for d in (cpu,
+                                                                    cuda)}
+  noise = Noise(torch.Generator().manual_seed(SEED))
+  with torch.no_grad():
+    ref._vae_loss(params[cpu], to(batch, cpu), noise, step[cpu],
+                  dict(ref.state.mutables))
+  drawn = noise.drawn
+  terms, grads = {}, {}
+  for model, d in ((ref, cpu), (vae, cuda)):
+    leaves = {p: {k: v.clone().requires_grad_() for k, v in part.items()}
+              for p, part in params[d].items()}
+    eps = Noise(eps=[t.to(d) for t in drawn])
+    llk, kl, _ = model.elbo_components(leaves, to(batch, d), eps, step[d],
+                                       training=True,
+                                       mutables=dict(model.state.mutables))
+    terms[d] = {k: v.detach().float().cpu() for k, v in {**llk,
+                                                         **kl}.items()}
+    loss, _ = model._vae_loss(leaves, to(batch, d),
+                              Noise(eps=[t.to(d) for t in drawn]), step[d],
+                              dict(model.state.mutables))
+    names = [(p, k) for p, part in leaves.items() for k in part]
+    got = torch.autograd.grad(loss, [leaves[p][k] for p, k in names],
+                              allow_unused=True)
+    grads[d] = {n: (torch.zeros_like(leaves[n[0]][n[1]]) if g is None
+                    else g.cpu()) for n, g in zip(names, got)}
+  term_err = max(float((terms[cuda][k] - v).abs().max()) /
+                 max(float(v.abs().max()), 1e-30)
+                 for k, v in terms[cpu].items())
+  grad_err, worst = max((float((grads[cuda][n] - g).abs().max()) /
+                         max(float(g.abs().max()), 1e-30), "/".join(n))
+                        for n, g in grads[cpu].items())
+  return term_err, grad_err, worst
+
+
+def lgamma_float32_error(torch, vae, batch):
+  """The largest relative error, against float64 on the card, of the
+  float32 log-likelihood of `batch` under `vae`'s observation at its
+  posterior mean (the ZINB's sums of lgamma over the genes)."""
+  from odin_tpu_torch.bay.helpers import map_distributions
+  with torch.no_grad():
+    qz = vae.encode(batch)
+    px = vae.decode(qz.mean())
+    lp32 = px.log_prob(batch).double()
+    px64 = map_distributions(lambda t: t.double(), px)
+    lp64 = px64.log_prob(batch.double())
+  return float((lp32 - lp64).abs().max()) / float(lp64.abs().max())
+
+
+def genes_path(torch, np, reset_counts, read_counts, smi):
+  """Phase 20: the distribution zoo and the gene-expression VAEs on the
+  card.  Every family this slice ported on the card against the CPU and
+  by its sample moments; Cortex's and PBMC's ``.npz`` files written from
+  ``SyntheticGenes`` (558 genes and 7 types, 1000 and 4; 5,000 cells) and
+  read with ``get_dataset``; ``VariationalAutoencoder(**get_networks(
+  "cortex"))`` (zinbd genes, mvndiag latents) and ``M2VAE(**get_networks(
+  "pbmc", is_semi_supervised=True))`` on (x, one-hot y, mask) batches, 10 %
+  labelled, 500 steps each of ``fit`` at ``steps_per_call=100``, batch 64,
+  ``get_optimizer_info``'s schedule; the cortex variants (6 other count
+  likelihoods, mvntril and autoregressive latents, dropout 0.1 on the
+  observation) and a zibernoulli run on ``SyntheticATAC``, 100 steps
+  each.  Each run: the ELBO terms and gradients on the card against the
+  CPU, the held-out loss below its start, no update skipped, steps/s; the
+  cortex and pbmc steps profiled; the float32 ZINB log-likelihood against
+  float64.  No kernel of the port is launched.  A failed check is logged
+  and the phase goes on; it raises at the end with every failure."""
+  import os
+  import shutil
+
+  from odin_tpu_torch.bay import vi
+  from odin_tpu_torch.fuel import DataPipeline, SyntheticATAC, get_dataset
+  from odin_tpu_torch.networks import get_networks, get_optimizer_info
+  from odin_tpu_torch.networks.image_networks import _gene_networks
+
+  cuda = torch.device("cuda", 0)
+  cpu = torch.device("cpu")
+  rows, failures = [], []
+
+  def fail(msg):
+    log(f"check failed: {msg}")
+    failures.append(msg)
+
+  reset_counts()
+  # -- 20.1 the distribution zoo on the card
+  t0 = time.perf_counter()
+  worst, where, n_moments = zoo_on_card(torch, np, fail)
+  log(f"distribution zoo: 19 families on the card against the CPU "
+      f"(log_prob, mean, variance, entropy, 9 KL pairs): worst {worst:.3e} "
+      f"({where}; limit {GENE_DIST_RTOL}); {n_moments} families' sample "
+      f"moments over {GENE_DRAWS} draws on the card within {GENE_SIGMAS} "
+      f"standard errors; {time.perf_counter() - t0:.2f} s")
+
+  # -- 20.2 the data
+  root = genes_root()
+  shutil.rmtree(root, ignore_errors=True)
+  t0 = time.perf_counter()
+  write_genes(np, root, GENE_CELLS)
+  data = {n: get_dataset(n, path=os.path.join(root, "datasets", f"{n}.npz"))
+          for n in GENE_SETS}
+  atac = SyntheticATAC(seed=SEED, **GENE_ATAC)
+  zeros = float((data["cortex"]._load("train")[0] == 0).mean())
+  log(f"genes: cortex.npz and pbmc.npz of {GENE_CELLS} SyntheticGenes cells "
+      f"each written and read with get_dataset, "
+      + "; ".join(f"{n} {ds.shape} " + "/".join(
+          str(len(ds._load(p)[0])) for p in ("train", "valid", "test"))
+          for n, ds in data.items()) +
+      f" train/valid/test, {zeros:.1%} of cortex's counts zero; "
+      f"SyntheticATAC {atac.shape}; {time.perf_counter() - t0:.2f} s")
+
+  def held_of(ds, semi=False, n_types=0):
+    x, y = ds._load("valid")
+    x, y = x[:GENE_HELD], y[:GENE_HELD]
+    if not semi:
+      return torch.from_numpy(np.asarray(x, np.float32)).to(cuda)
+    return tuple(torch.from_numpy(a).to(cuda) for a in gene_ssl_arrays(
+        np, x, y, n_types, share=1.0))
+
+  def rows_of(batch):
+    return tuple(b[:GENE_CPU_ROWS] for b in batch) \
+        if isinstance(batch, tuple) else batch[:GENE_CPU_ROWS]
+
+  def run(name, make, train, held, steps, lr, profile=False, lgamma=False):
+    t_run = time.perf_counter()
+    vae = make(cuda)
+    term_err, grad_err, worst = genes_card_against_cpu(
+        torch, vae, make(cpu), rows_of(held))
+    if not (term_err <= GENE_RTOL and grad_err <= GENE_GRAD_REL):
+      fail(f"{name}: card against CPU, ELBO terms {term_err:.3e} (limit "
+           f"{GENE_RTOL}), gradients {grad_err:.3e} (limit {GENE_GRAD_REL})")
+    extra = ""
+    if lgamma:
+      err = lgamma_float32_error(torch, vae, held)
+      extra = f"; float32 log-likelihood against float64 {err:.3e}"
+    eval_fn = vae.make_eval_fn()
+    start = float(eval_fn(vae.state, held)["loss"])
+    tr = vae.fit(train, max_iter=steps, steps_per_call=min(GENE_K, steps),
+                 learning_rate=lr, logging_interval=1e9, verbose=False)
+    end = float(eval_fn(vae.state, held)["loss"])
+    skipped = int(vae.state.skipped_updates)
+    if skipped or not end < start:
+      fail(f"{name}: held-out loss {start:.6g} -> {end:.6g}, {skipped} "
+           "updates skipped")
+    capture = tr.capture_seconds or 0.0
+    rate = steps / (tr.total_time - capture)
+    kernels = step_ms = float("nan")
+    if profile:
+      kernels, step_ms = graphed_profile(torch, vae, held, k=10)
+    rows.append((name, rate, step_ms, kernels))
+    log(f"{name}: card against CPU ({GENE_CPU_ROWS} held-out rows): ELBO "
+        f"terms {term_err:.3e} (limit {GENE_RTOL}), gradients "
+        f"{grad_err:.3e} ({worst}; limit {GENE_GRAD_REL}){extra}; fit "
+        f"{steps} steps at lr {float(lr(0)):g}: held-out loss {start:.6g} "
+        f"-> {end:.6g}, skipped {skipped}, {rate:.1f} steps/s" + (
+            f", a graphed step {kernels:.0f} kernels, {step_ms:.3f} ms of "
+            f"device time" if profile else "") +
+        f"; capture {capture:.3f} s; {time.perf_counter() - t_run:.2f} s")
+
+  def train_of(ds):
+    return ds.create_dataset("train", batch_size=GENE_BATCH, epochs=-1,
+                             prefetch=2, to_device=cuda, drop_remainder=True)
+
+  lr = {n: get_optimizer_info(n, batch_size=GENE_BATCH)["learning_rate"]
+        for n in GENE_SETS}
+  # -- 20.3 cortex, unsupervised, at JAX's defaults
+  cortex = lambda d, **kw: vi.VariationalAutoencoder(**get_networks(
+      "cortex", **kw)).build(seed=SEED, device=d)
+  run("cortex VAE zinbd", cortex, train_of(data["cortex"]),
+      held_of(data["cortex"]), GENE_STEPS, lr["cortex"], profile=True,
+      lgamma=True)
+  # -- 20.4 pbmc, semi-supervised M2VAE on 10 % labelled cells
+  x, y = data["pbmc"].numpy("train")
+  ssl = gene_ssl_arrays(np, x, y, GENE_SETS["pbmc"][1])
+  pipe = DataPipeline(ssl, batch_size=GENE_BATCH, shuffle=True, epochs=-1,
+                      drop_remainder=True, seed=SEED, prefetch=2,
+                      to_device=cuda)
+  run("pbmc M2VAE semi", lambda d: vi.M2VAE(**get_networks(
+      "pbmc", is_semi_supervised=True)).build(seed=SEED, device=d), pipe,
+      held_of(data["pbmc"], semi=True, n_types=GENE_SETS["pbmc"][1]),
+      GENE_STEPS, lr["pbmc"], profile=True)
+  log(f"pbmc labelled cells: {int(ssl[2].sum())} of {len(ssl[2])} "
+      f"({GENE_LABELLED:.0%})")
+
+  # -- 20.5 the variants, 100 steps each
+  def variant(obs=None, obs_kwargs=None, latents=None, observation=None,
+              **kw):
+    def make(d):
+      nets = get_networks("cortex", **(dict(distribution=obs) if obs
+                                       else {}), **kw)
+      if obs_kwargs:
+        nets["observation"] = nets["observation"].copy(kwargs=obs_kwargs)
+      if latents:
+        nets["latents"] = nets["latents"].copy(**latents)
+      if observation:
+        nets["observation"] = nets["observation"].copy(**observation)
+      return vi.VariationalAutoencoder(**nets).build(seed=SEED, device=d)
+    return make
+
+  variants = [(f"cortex {o}", variant(o)) for o in (
+      "zinb", "nb", "nbd", "poisson", "zipoisson")]
+  variants += [
+      ("cortex mixzinb K=3", variant("mixzinb", {"n_components": 3})),
+      ("cortex mvntril latents", variant(qz="mvntril")),
+      ("cortex autoregressive latents", variant(
+          latents=dict(autoregressive=True))),
+      ("cortex dropout 0.1", variant(observation=dict(dropout=0.1)))]
+  for name, make in variants:
+    run(name, make, train_of(data["cortex"]), held_of(data["cortex"]),
+        GENE_VARIANT_STEPS, lr["cortex"])
+  run("SyntheticATAC zibernoulli", lambda d: vi.VariationalAutoencoder(
+      **_gene_networks(GENE_ATAC["n_regions"], GENE_ATAC["n_topics"],
+                       distribution="zibernoulli")).build(seed=SEED,
+                                                          device=d),
+      train_of(atac), held_of(atac), GENE_VARIANT_STEPS, lr["cortex"])
+  counts = read_counts()
+  if any(counts.values()):
+    fail(f"the gene path launched kernels of the port: {counts}")
+  shutil.rmtree(root, ignore_errors=True)
+  if failures:
+    raise AssertionError(f"{len(failures)} check(s) failed: " +
+                         "; ".join(failures))
+  log(f"genes steps/s ({smi}): " + ", ".join(
+      f"{n} {r:.1f}" for n, r, _, _ in rows) +
+      "; a graphed step's device ms and kernels: " + ", ".join(
+          f"{n} {ms:.3f} ms {k:.0f}" for n, _, ms, k in rows if ms == ms) +
+      f"; launches of the port's kernels: {counts}")
+
+
+def genes_rehearsal(argv) -> int:
+  """``python3 chip_smoke.py --genes-rehearsal [--steps 20] [--k 10]
+  [--cells 600] [--draws 4000]``: phase 20 (``genes_path``) on the CPU,
+  its source and its helpers' recompiled with the card swapped for the
+  CPU, each fit `--steps` steps at `--k` a call."""
+  import argparse
+  import inspect
+
+  import numpy as np
+  import torch
+
+  ap = argparse.ArgumentParser(prog="chip_smoke.py --genes-rehearsal")
+  ap.add_argument("--steps", type=int, default=20)
+  ap.add_argument("--k", type=int, default=10)
+  ap.add_argument("--cells", type=int, default=600)
+  ap.add_argument("--draws", type=int, default=4000)
+  args = ap.parse_args(argv)
+  torch.cuda.synchronize = lambda *a, **k: None
+  scope = dict(globals())
+  scope.update(GENE_K=args.k, GENE_STEPS=args.steps,
+               GENE_VARIANT_STEPS=args.steps, GENE_CELLS=args.cells,
+               GENE_DRAWS=args.draws,
+               GENE_ATAC=dict(GENE_ATAC, n_cells=args.cells))
+  for fn in (graphed_profile, genes_card_against_cpu, zoo_on_card,
+             genes_path):
+    src = inspect.getsource(fn).replace('torch.device("cuda", 0)',
+                                        'torch.device("cpu")').replace(
+        "torch.Generator(device=cuda)", "torch.Generator()")
+    exec(src, scope)
+  t0 = time.perf_counter()
+  scope["genes_path"](torch, np, lambda: None, lambda: {},
+                      "CPU rehearsal, no card")
+  log(f"phase 20 rehearsed on the CPU in {time.perf_counter() - t0:.2f} s")
+  return 0
+
+
+PHASES = tuple(range(1, 21))
 # the phases whose results a phase reads: the kernel reports of 2 and 5,
 # phase 7's graphed step time, phase 8's model, phase 9's wav files, phase
 # 10's Gym
@@ -4811,7 +5377,7 @@ def selected_phases(spec=None):
   chosen = {1} | {int(p) for p in str(spec).split(",") if p.strip()}
   if not chosen <= set(PHASES):
     raise SystemExit(f"chip_smoke.py --phases: no phase "
-                     f"{sorted(chosen - set(PHASES))}; phases are 1-19")
+                     f"{sorted(chosen - set(PHASES))}; phases are 1-20")
   todo = list(chosen)
   while todo:
     for need in PHASE_NEEDS.get(todo.pop(), ()):
@@ -5488,6 +6054,11 @@ def main(phases=None) -> int:
       import shutil
       shutil.rmtree(images_root(), ignore_errors=True)
 
+  if 20 in phases:
+    with Phase("20 genes path: the distribution zoo and the gene-expression "
+               "VAEs (count likelihoods, cortex and pbmc networks)"):
+      genes_path(torch, np, reset_counts, read_counts, smi)
+
   log("kernels: " + "; ".join(
       f"{k} launches={v['launches']} ms={v['ms']:.4f} "
       f"plain_ms={v['plain_ms']:.4f} library_ms={v['library_ms']:.4f} "
@@ -5518,6 +6089,8 @@ if __name__ == "__main__":
     sys.exit(last_rehearsal(sys.argv[2:]))
   if sys.argv[1:2] == ["--images-rehearsal"]:
     sys.exit(images_rehearsal(sys.argv[2:]))
+  if sys.argv[1:2] == ["--genes-rehearsal"]:
+    sys.exit(genes_rehearsal(sys.argv[2:]))
   if sys.argv[1:2] == ["--write-images"]:
     write_images(sys.argv[2])
     sys.exit(0)

@@ -1,11 +1,9 @@
 """String alias registry of the port: alias -> (params_size, builder,
-default prior), for the families the port serves and trains through
-(PyTorch port of ``odin_tpu/bay/distribution_alias.py``: ``_softplus`` :30,
-the normal, mvndiag, dirichlet, bernoulli, onehot, deterministic,
-vdeterministic, vmf and powerspherical builders
-:83,93,122,127,147,208,212,263,271, the image likelihoods' gmmdiag
-:216-244, mixqlogistic :245-262 and qlogistic :376-388, and the default
-priors :282-305)."""
+default prior) (PyTorch port of ``odin_tpu/bay/distribution_alias.py``:
+``_softplus`` :30, the builders :83-271 and :376-414, the default priors
+:282-305 and the table :315-433).  The port registers every alias the JAX
+package does, each with the same parameter count and the same
+raw-parameter layout."""
 from __future__ import annotations
 
 import math
@@ -76,9 +74,41 @@ def _normal_builder(params, event_shape, **kw):
   return _indep(D.Normal(loc, _softplus(raw)), event_shape)
 
 
+def _lognormal_builder(params, event_shape, **kw):
+  loc, raw = _split(params, 2, event_shape)
+  return _indep(D.LogNormal(loc, _softplus(raw)), event_shape)
+
+
 def _mvndiag_builder(params, event_shape, **kw):
   d = _size(event_shape)
   return D.MultivariateNormalDiag(params[..., :d], _softplus(params[..., d:]))
+
+
+def _fill_tril(raw: torch.Tensor, d: int) -> torch.Tensor:
+  """The d x d lower-triangular factors whose entries are `raw`'s last axis
+  in ``tril_indices(d)`` order (row by row), softplus on the diagonal."""
+  rows, cols = torch.tril_indices(d, d, device=raw.device)
+  flat = raw.reshape(-1, raw.shape[-1])
+  tril = flat.new_zeros(flat.shape[0], d * d).index_copy(
+      1, rows * d + cols, flat).reshape(tuple(raw.shape[:-1]) + (d, d))
+  diag = torch.diagonal(tril, dim1=-2, dim2=-1)
+  return tril + torch.diag_embed(_softplus(diag) - diag)
+
+
+def _mvntril_builder(params, event_shape, **kw):
+  d = _size(event_shape)
+  return D.MultivariateNormalTriL(params[..., :d],
+                                  _fill_tril(params[..., d:], d))
+
+
+def _gamma_builder(params, event_shape, **kw):
+  conc, rate = _split(params, 2, event_shape)
+  return _indep(D.Gamma(_softplus(conc), _softplus(rate)), event_shape)
+
+
+def _beta_builder(params, event_shape, **kw):
+  c1, c0 = _split(params, 2, event_shape)
+  return _indep(D.Beta(_softplus(c1), _softplus(c0)), event_shape)
 
 
 def _dirichlet_builder(params, event_shape, **kw):
@@ -90,8 +120,88 @@ def _bernoulli_builder(params, event_shape, **kw):
                 event_shape)
 
 
+def _cbernoulli_builder(params, event_shape, **kw):
+  return _indep(D.ContinuousBernoulli(
+      logits=_reshape_event(params, event_shape)), event_shape)
+
+
+def _zibernoulli_builder(params, event_shape, **kw):
+  logits, gate = _split(params, 2, event_shape)
+  return _indep(D.ZeroInflated(D.Bernoulli(logits=logits), logits=gate),
+                event_shape)
+
+
+def _relaxedbernoulli_builder(params, event_shape, temperature=0.5, **kw):
+  return _indep(D.RelaxedBernoulli(
+      torch.as_tensor(temperature, dtype=params.dtype, device=params.device),
+      logits=_reshape_event(params, event_shape)), event_shape)
+
+
 def _onehot_builder(params, event_shape, **kw):
   return D.OneHotCategorical(logits=_reshape_event(params, event_shape))
+
+
+def _categorical_builder(params, event_shape, **kw):
+  return D.Categorical(logits=_reshape_event(params, event_shape))
+
+
+def _relaxedonehot_builder(params, event_shape, temperature=0.5, **kw):
+  return D.RelaxedOneHotCategorical(
+      torch.as_tensor(temperature, dtype=params.dtype, device=params.device),
+      logits=_reshape_event(params, event_shape))
+
+
+def _poisson_builder(params, event_shape, **kw):
+  return _indep(D.Poisson(log_rate=_reshape_event(params, event_shape)),
+                event_shape)
+
+
+def _zipoisson_builder(params, event_shape, **kw):
+  log_rate, gate = _split(params, 2, event_shape)
+  return _indep(D.ZeroInflated(D.Poisson(log_rate=log_rate), logits=gate),
+                event_shape)
+
+
+def _nb_builder(params, event_shape, **kw):
+  count, logits = _split(params, 2, event_shape)
+  return _indep(D.NegativeBinomial(_softplus(count), logits=logits),
+                event_shape)
+
+
+def _zinb_builder(params, event_shape, **kw):
+  count, logits, gate = _split(params, 3, event_shape)
+  return _indep(D.ZeroInflated(D.NegativeBinomial(_softplus(count),
+                                                  logits=logits),
+                               logits=gate), event_shape)
+
+
+def _nbd_builder(params, event_shape, **kw):
+  loc, disp = _split(params, 2, event_shape)
+  return _indep(D.NegativeBinomialDisp(_softplus(loc), _softplus(disp)),
+                event_shape)
+
+
+def _zinbd_builder(params, event_shape, **kw):
+  loc, disp, gate = _split(params, 3, event_shape)
+  return _indep(D.ZeroInflated(D.NegativeBinomialDisp(_softplus(loc),
+                                                      _softplus(disp)),
+                               logits=gate), event_shape)
+
+
+def _binomial_builder(params, event_shape, total_count=1.0, **kw):
+  return _indep(D.Binomial(total_count,
+                           logits=_reshape_event(params, event_shape)),
+                event_shape)
+
+
+def _multinomial_builder(params, event_shape, total_count=1.0, **kw):
+  return D.Multinomial(total_count,
+                       logits=_reshape_event(params, event_shape))
+
+
+def _dirimultinomial_builder(params, event_shape, total_count=1.0, **kw):
+  return D.DirichletMultinomial(
+      total_count, _softplus(_reshape_event(params, event_shape)))
 
 
 def _deterministic_builder(params, event_shape, **kw):
@@ -131,16 +241,19 @@ def _gmm_params_size(event_size, n_components=2, covariance="diag", **kw):
 
 def _gmm_builder(params, event_shape, n_components=2, covariance="diag",
                  **kw):
-  """K logits, then K·d locations, then K·d raw scales."""
+  """K logits, then K·d locations, then K·d raw scales ('diag') or K raw
+  lower-triangular factors of d(d+1)/2 entries each ('tril')."""
   d = _size(event_shape)
   K = n_components
-  if covariance not in ("diag", "none"):
-    return D.GaussianMixture(None, None, None, covariance=covariance)
   logits, rest = params[..., :K], params[..., K:]
   lead = tuple(rest.shape[:-1])
   locs = rest[..., :K * d].reshape(lead + (K, d))
-  scales = _softplus(rest[..., K * d:].reshape(lead + (K, d)))
-  return D.GaussianMixture(logits, locs, scales, covariance="diag")
+  if covariance in ("diag", "none"):
+    scales = _softplus(rest[..., K * d:].reshape(lead + (K, d)))
+    return D.GaussianMixture(logits, locs, scales, covariance="diag")
+  raw = rest[..., K * d:].reshape(lead + (K, d * (d + 1) // 2))
+  return D.GaussianMixture(logits, locs, _fill_tril(raw, d),
+                           covariance="tril")
 
 
 def _mixqlogistic_params_size(event_size, n_components=10, **kw):
@@ -176,6 +289,41 @@ def _qlogistic_builder(params, event_shape, low=0, high=255, **kw):
                                     inputs_domain="sigmoid"), event_shape)
 
 
+def _mixnb_params_size(event_size, n_components=2, zero_inflated=False,
+                       **kw):
+  per = 3 if zero_inflated else 2
+  return n_components * (1 + per * event_size)
+
+
+def _activation(name: str):
+  """``jax.nn``'s activation `name` (softplus, relu, sigmoid, ...)."""
+  fn = getattr(F, name, None) or getattr(torch, name, None)
+  if fn is None:
+    raise ValueError(f"unknown mean_activation {name!r}")
+  return fn
+
+
+def _mixnb_builder(params, event_shape, n_components=2, zero_inflated=False,
+                   mean_activation="softplus", **kw):
+  """A mixture of mean/dispersion negative binomials (scVI's count heads):
+  K logits, then K·d means (`mean_activation`, plus 1e-8), K·d raw
+  dispersions (softplus, plus 1e-8) and, `zero_inflated`, K·d gate
+  logits."""
+  d = _size(event_shape)
+  K = n_components
+  logits, rest = params[..., :K], params[..., K:]
+  lead = tuple(rest.shape[:-1])
+  loc = _activation(mean_activation)(rest[..., :K * d]).reshape(
+      lead + (K, d)) + 1e-8
+  disp = _softplus(rest[..., K * d:2 * K * d]).reshape(lead + (K, d)) + 1e-8
+  comp = D.NegativeBinomialDisp(loc, disp)
+  if zero_inflated:
+    comp = D.ZeroInflated(comp, logits=rest[..., 2 * K * d:].reshape(
+        lead + (K, d)))
+  return D.MixtureSameFamily(D.Categorical(logits=logits),
+                             D.Independent(comp, len(event_shape) or 1))
+
+
 def _std_normal_prior(event_shape, **kw):
   return _indep(D.Normal(torch.zeros(event_shape), torch.ones(event_shape)),
                 event_shape)
@@ -206,16 +354,68 @@ def _n_params(n):
   return lambda event_size, **kw: n * event_size
 
 
+def _tril_params_size(d, **kw):
+  return d + d * (d + 1) // 2
+
+
 register_distribution_alias(("normal", "gaussian"), DistSpec(
     "normal", _n_params(2), _normal_builder, _std_normal_prior))
+register_distribution_alias("lognormal", DistSpec(
+    "lognormal", _n_params(2), _lognormal_builder, _std_normal_prior))
 register_distribution_alias("mvndiag", DistSpec(
     "mvndiag", _n_params(2), _mvndiag_builder, _mvndiag_prior))
+register_distribution_alias("mvntril", DistSpec(
+    "mvntril", _tril_params_size, _mvntril_builder, _mvndiag_prior))
+register_distribution_alias("mvnfull", DistSpec(
+    "mvnfull", _tril_params_size, _mvntril_builder, _mvndiag_prior))
+register_distribution_alias("gamma", DistSpec(
+    "gamma", _n_params(2), _gamma_builder, _no_prior))
+register_distribution_alias("beta", DistSpec(
+    "beta", _n_params(2), _beta_builder, _no_prior))
 register_distribution_alias("dirichlet", DistSpec(
     "dirichlet", _n_params(1), _dirichlet_builder, _dirichlet_prior))
 register_distribution_alias("bernoulli", DistSpec(
     "bernoulli", _n_params(1), _bernoulli_builder, _no_prior))
+register_distribution_alias("cbernoulli", DistSpec(
+    "cbernoulli", _n_params(1), _cbernoulli_builder, _no_prior))
+register_distribution_alias(("zibernoulli", "zeroinflatedbernoulli"), DistSpec(
+    "zibernoulli", _n_params(2), _zibernoulli_builder, _no_prior))
+register_distribution_alias(
+    ("relaxedbern", "relaxedsigmoid", "relaxedbernoulli"), DistSpec(
+        "relaxedbernoulli", _n_params(1), _relaxedbernoulli_builder,
+        _no_prior))
 register_distribution_alias(("onehot",), DistSpec(
     "onehot", _n_params(1), _onehot_builder, _onehot_prior))
+register_distribution_alias(("cat", "categorical", "discrete"), DistSpec(
+    "categorical", _n_params(1), _categorical_builder, _onehot_prior))
+register_distribution_alias(
+    ("relaxedsoftmax", "relaxedonehot", "gumbel_softmax"), DistSpec(
+        "relaxedonehot", _n_params(1), _relaxedonehot_builder,
+        _onehot_prior))
+register_distribution_alias(("pois", "poisson"), DistSpec(
+    "poisson", _n_params(1), _poisson_builder, _no_prior))
+register_distribution_alias(
+    ("zip", "zipois", "zipoisson", "zeroinflatedpoisson"), DistSpec(
+        "zipoisson", _n_params(2), _zipoisson_builder, _no_prior))
+register_distribution_alias(
+    ("nb", "negativebinomial", "nbfull", "nbshare", "nbsingle"), DistSpec(
+        "nb", _n_params(2), _nb_builder, _no_prior))
+register_distribution_alias(("zinb", "zinbfull", "zinbshare", "zinbsingle"),
+                            DistSpec("zinb", _n_params(3), _zinb_builder,
+                                     _no_prior))
+register_distribution_alias(
+    ("nbd", "negativebinomialdisp", "nbdfull", "nbdshare", "nbdsingle"),
+    DistSpec("nbd", _n_params(2), _nbd_builder, _no_prior))
+register_distribution_alias(
+    ("zinbd", "zinbdfull", "zinbdshare", "zinbdsingle"), DistSpec(
+        "zinbd", _n_params(3), _zinbd_builder, _no_prior))
+register_distribution_alias("binomial", DistSpec(
+    "binomial", _n_params(1), _binomial_builder, _no_prior))
+register_distribution_alias("multinomial", DistSpec(
+    "multinomial", _n_params(1), _multinomial_builder, _no_prior))
+register_distribution_alias(("dirimultinomial", "dirichletmultinomial"),
+                            DistSpec("dirimultinomial", _n_params(1),
+                                     _dirimultinomial_builder, _no_prior))
 register_distribution_alias("deterministic", DistSpec(
     "deterministic", _n_params(1), _deterministic_builder, _no_prior))
 register_distribution_alias("vdeterministic", DistSpec(
@@ -230,6 +430,15 @@ register_distribution_alias(
         lambda p, e, n_components=2, **kw: _gmm_builder(p, e, n_components,
                                                         "tril"),
         _mvndiag_prior))
+register_distribution_alias(("mixnb", "nbmixture"), DistSpec(
+    "mixnb", _mixnb_params_size, _mixnb_builder, _no_prior))
+register_distribution_alias(("mixzinb", "zinbmixture"), DistSpec(
+    "mixzinb",
+    lambda d, n_components=2, **kw: _mixnb_params_size(
+        d, n_components, zero_inflated=True),
+    lambda p, e, n_components=2, **kw: _mixnb_builder(
+        p, e, n_components, zero_inflated=True, **kw),
+    _no_prior))
 register_distribution_alias(("qlogistic", "quantizedlogistic"), DistSpec(
     "qlogistic", _n_params(2), _qlogistic_builder, _no_prior))
 register_distribution_alias(("mixqlogist", "mixqlogistic"), DistSpec(

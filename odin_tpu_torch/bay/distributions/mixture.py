@@ -84,19 +84,17 @@ class MixtureSameFamily(Distribution):
 
 def GaussianMixture(logits, locs, scales, covariance: str = "diag"):
   """A mixture of Gaussians over K components: 'none'/'scalar' (scalar
-  Normals) or 'diag' (``MultivariateNormalDiag``).  'tril'/'full' need
-  ``MultivariateNormalTriL``, which is not ported yet."""
+  Normals), 'diag' (``MultivariateNormalDiag``, `scales` the diagonals)
+  or 'tril'/'full' (``MultivariateNormalTriL``, `scales` the
+  lower-triangular factors)."""
   from odin_tpu_torch.bay.distributions.continuous import (
-      MultivariateNormalDiag, Normal)
+      MultivariateNormalDiag, MultivariateNormalTriL, Normal)
   if covariance in ("none", "scalar"):
     comps = Normal(locs, scales)
   elif covariance == "diag":
     comps = MultivariateNormalDiag(locs, scales)
   elif covariance in ("tril", "full"):
-    raise NotImplementedError(
-        f"GaussianMixture(covariance={covariance!r}) needs "
-        "MultivariateNormalTriL, not ported yet (ROADMAP.md queue 1, "
-        "item 5, the distribution zoo)")
+    comps = MultivariateNormalTriL(locs, scales)
   else:
     raise ValueError(f"unknown covariance: {covariance}")
   return MixtureSameFamily(Categorical(logits=logits), comps)

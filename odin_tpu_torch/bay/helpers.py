@@ -1,6 +1,6 @@
 """KL divergence and concatenation of the port (PyTorch port of
-``kl_divergence`` and ``concat_distributions``,
-``odin_tpu/bay/helpers.py:21-88``): the closed form where one is
+``kl_divergence``, ``concat_distributions`` and ``KLdivergence``,
+``odin_tpu/bay/helpers.py:21-143``): the closed form where one is
 registered and asked for, else the Monte-Carlo estimate
 ``E_a[log a - log b]``, with `reverse` and per-unit free bits."""
 from __future__ import annotations
@@ -10,22 +10,12 @@ from typing import Callable, Optional, Sequence, Union
 
 import torch
 
-from odin_tpu_torch.bay.distributions import (Bernoulli, Deterministic,
-                                              Distribution, Independent,
-                                              MultivariateNormalDiag, Normal,
-                                              OneHotCategorical,
-                                              PowerSpherical, VectorQuantized,
-                                              VonMisesFisher)
+from odin_tpu_torch.bay.distributions import Batchwise, Distribution
 from odin_tpu_torch.bay.distributions.base import (exact_kl,
                                                    kl_registry_lookup)
 
-__all__ = ["kl_divergence", "concat_distributions", "map_distributions"]
-
-# the families a VAE of the port returns; JAX's ``Batchwise`` fallback for
-# any other mix waits with the rest of the distribution zoo
-_CONCAT_FAMILIES = (MultivariateNormalDiag, Normal, Bernoulli, Independent,
-                    Deterministic, OneHotCategorical, VonMisesFisher,
-                    PowerSpherical, VectorQuantized)
+__all__ = ["kl_divergence", "concat_distributions", "map_distributions",
+           "KLdivergence"]
 
 
 def kl_divergence(q: Distribution,
@@ -89,6 +79,12 @@ def map_distributions(fn: Callable[..., torch.Tensor],
       setattr(out, key, fn(*others))
     elif isinstance(value, Distribution):
       setattr(out, key, map_distributions(fn, *others))
+    elif isinstance(value, tuple) and value and all(
+        isinstance(v, Distribution) for v in value):  # a Batchwise's parts
+      if any(len(o) != len(value) for o in others):
+        raise ValueError(f"the distributions differ in {key!r}")
+      setattr(out, key, tuple(map_distributions(fn, *parts)
+                              for parts in zip(*others)))
     elif any(o != value for o in others):
       raise ValueError(f"the distributions differ in {key!r}: {others}")
   return out
@@ -97,25 +93,66 @@ def map_distributions(fn: Callable[..., torch.Tensor],
 def concat_distributions(distributions: Sequence[Distribution],
                          axis: int = 0) -> Distribution:
   """Concatenate same-family distributions along a batch axis (JAX's
-  ``concat_distributions``, ``odin_tpu/bay/helpers.py:68``): their
-  parameters are concatenated.  The families the port's VAEs return
-  (``MultivariateNormalDiag``, ``Normal``, ``Bernoulli``, the point masses,
-  ``OneHotCategorical``, the spherical families, ``VectorQuantized``) and
-  ``Independent`` of those; another family raises."""
+  ``concat_distributions``, ``odin_tpu/bay/helpers.py:68``): one
+  distribution of the family whose tensors are the parts' concatenated,
+  where the parts share their family and settings and every tensor
+  concatenates (as JAX's ``tree_map``); else a ``Batchwise`` of them."""
   distributions = list(distributions)
   if len(distributions) == 1:
     return distributions[0]
+  try:
+    return map_distributions(lambda *xs: torch.cat(xs, dim=axis),
+                             *distributions)
+  except (TypeError, ValueError, RuntimeError, IndexError):
+    return Batchwise(distributions, axis=axis)
 
-  def check(d):
-    if not isinstance(d, _CONCAT_FAMILIES):
-      raise NotImplementedError(
-          f"concat_distributions of {type(d).__name__} is not ported yet "
-          "(JAX's Batchwise waits with the rest of the distribution zoo, "
-          "ROADMAP.md queue 1)")
-    if isinstance(d, Independent):
-      check(d.distribution)
 
-  for d in distributions:
-    check(d)
-  return map_distributions(lambda *xs: torch.cat(xs, dim=axis),
-                           *distributions)
+class KLdivergence:
+  """``kl_divergence``'s arguments frozen for later calls (JAX's
+  ``KLdivergence``, ``odin_tpu/bay/helpers.py:90``): 0 when no prior is
+  given; an MC estimate draws `sample_shape` (at least one) samples of the
+  posterior from a generator seeded with `seed` on its device."""
+
+  def __init__(self, posterior: Distribution,
+               prior: Optional[Distribution] = None,
+               analytic: bool = False,
+               sample_shape=(),
+               reverse: bool = True,
+               free_bits: Optional[float] = None,
+               seed: int = 1):
+    self.posterior = posterior
+    self.prior = prior
+    self.analytic = bool(analytic)
+    self.sample_shape = sample_shape
+    self.reverse = bool(reverse)
+    self.free_bits = free_bits
+    self.seed = int(seed)
+
+  def __call__(self, prior: Optional[Distribution] = None,
+               analytic: Optional[bool] = None,
+               sample_shape="__default__",
+               reverse: Optional[bool] = None,
+               free_bits="__default__"):
+    prior = prior if prior is not None else self.prior
+    if prior is None:
+      return torch.zeros(())
+    analytic = self.analytic if analytic is None else bool(analytic)
+    reverse = self.reverse if reverse is None else bool(reverse)
+    if sample_shape == "__default__":
+      sample_shape = self.sample_shape
+    if free_bits == "__default__":
+      free_bits = self.free_bits
+    q_sample = None
+    if not analytic:
+      shape = (sample_shape,) if isinstance(sample_shape, int) \
+          else tuple(sample_shape)
+      device = self.posterior.mean().device
+      gen = torch.Generator(device).manual_seed(self.seed)
+      q_sample = self.posterior.sample(shape or (1,), generator=gen)
+    return kl_divergence(self.posterior, prior, analytic=analytic,
+                         q_sample=q_sample, reverse=reverse,
+                         free_bits=free_bits)
+
+  def __repr__(self):
+    return (f"KLdivergence(analytic={self.analytic}, "
+            f"reverse={self.reverse}, free_bits={self.free_bits})")

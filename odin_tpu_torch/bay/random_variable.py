@@ -1,6 +1,5 @@
 """RVconf: declarative random-variable descriptor (PyTorch port of
-``odin_tpu/bay/random_variable.py:22``, as far as the image networks use
-it)."""
+``odin_tpu/bay/random_variable.py:22``)."""
 from __future__ import annotations
 
 import dataclasses
@@ -18,8 +17,9 @@ __all__ = ["RVconf"]
 class RVconf:
   """Descriptor for a random-variable head, e.g.
   ``RVconf(10, 'mvndiag', projection=True, name='latents')``.  The fields
-  are the JAX package's, in its order; ``autoregressive`` and ``dropout``
-  are not ported yet and raise unless left at their defaults."""
+  are the JAX package's, in its order: `autoregressive` makes the head's
+  projection a MADE network, `dropout` drops its raw parameters in
+  training."""
 
   event_shape: Union[int, Sequence[int]] = ()
   posterior: str = "normal"
@@ -35,10 +35,6 @@ class RVconf:
       self.event_shape = (int(self.event_shape),)
     else:
       self.event_shape = tuple(int(i) for i in self.event_shape)
-    if self.autoregressive or self.dropout:
-      raise NotImplementedError(
-          "RVconf's autoregressive and dropout are not ported yet "
-          f"(autoregressive={self.autoregressive}, dropout={self.dropout})")
 
   def copy(self, **overrides) -> "RVconf":
     """A copy with some fields replaced."""
@@ -66,6 +62,8 @@ class RVconf:
                              posterior=self.posterior,
                              posterior_kwargs=dict(self.kwargs),
                              projection=self.projection,
+                             autoregressive=self.autoregressive,
+                             dropout=self.dropout,
                              name=name or self.name)
 
   def create_prior(self) -> Optional[Distribution]:

@@ -1,13 +1,18 @@
 """Data layer of the port: the input pipeline, the on-disk stores and the
 feature-store ``Dataset``, ``AudioFeatureLoader``, and the datasets ported
 so far (the ``.npz`` image sets, dSprites and Shapes3D with their
-variants, YDisentanglement, the half-moons as points and as images, and
-the procedural text sets ``SyntheticBoW`` and ``MathArithmetic``, which
-are made by their constructors).  ``get_dataset`` looks up the image
-datasets and raises for the JAX package's other datasets, which are not
-ported yet."""
+variants, YDisentanglement, the half-moons as points and as images, the
+gene-expression and ATAC sets of ``bio_data``, and the procedural text
+sets ``SyntheticBoW`` and ``MathArithmetic``, which are made by their
+constructors).  ``get_dataset`` looks up the image and gene datasets and
+raises for the JAX package's NLP datasets, which are not ported yet."""
 from typing import List, Type, Union
 
+from odin_tpu_torch.fuel.bio_data import (PBMC, BreastTumor, Cortex,
+                                          Forebrain, GeneDataset,
+                                          HumanEmbryos, HumanGenome,
+                                          Insilico, Leukemia, Melanoma,
+                                          SyntheticATAC, SyntheticGenes)
 from odin_tpu_torch.fuel.audio_data import (AudioFeatureLoader,
                                             synth_speaker_corpus)
 from odin_tpu_torch.fuel.databases import (MmapArray, MmapArrayWriter,
@@ -35,27 +40,32 @@ __all__ = ["get_dataset", "get_all_dataset", "get_partition",
            "Shapes3D0", "HalfMoons", "Dataset", "MmapDict", "SQLiteDict",
            "MmapArray", "MmapArrayWriter", "TableDict", "AudioFeatureLoader",
            "synth_speaker_corpus", "NLPDataset", "SyntheticBoW",
-           "MathArithmetic"]
+           "MathArithmetic", "GeneDataset", "Cortex", "PBMC",
+           "SyntheticGenes", "Melanoma", "Forebrain", "Insilico",
+           "BreastTumor", "Leukemia", "HumanEmbryos", "SyntheticATAC",
+           "HumanGenome"]
 
 _DATASETS = (MNIST, FashionMNIST, BinarizedMNIST, HalfMNIST,
              BinarizedAlphaDigits, SVHN, CIFAR10, CIFAR100, CIFAR20, CelebA,
              CelebASmall, CelebABig, Omniglot, LegoFaces, Kaokore, dSprites,
              dSprites0, dSpritesSmall, Shapes3D, Shapes3DSmall, Shapes3D0,
-             HalfMoons, HalfMoonsImage, YDisentanglement)
+             HalfMoons, HalfMoonsImage, YDisentanglement, Cortex, PBMC,
+             SyntheticGenes, Melanoma, Forebrain, Insilico, BreastTumor,
+             Leukemia, HumanEmbryos, SyntheticATAC)
 
 
 def get_all_dataset(data_type: str = None) -> List[Type[IterableDataset]]:
   """The dataset classes ported so far, optionally those of one
-  `data_type` ('image')."""
+  `data_type` ('image', 'gene', 'atac')."""
   return sorted((c for c in _DATASETS
                  if data_type is None or c.data_type.fget(c) == data_type),
                 key=lambda c: c.__name__)
 
 
 def get_dataset(name: Union[str, IterableDataset], **kwargs) -> IterableDataset:
-  """A dataset by its class name (``'dsprites'``, ``'cifar10'``) or by the
-  name of its ``.npz`` file (``'binaryalphadigits'``); a name of a dataset
-  that is not ported raises."""
+  """A dataset by its class name (``'dsprites'``, ``'cortex'``) or by the
+  name of its ``.npz`` file (``'binaryalphadigits'``, ``'melanoma_atac'``);
+  a name of a dataset that is not ported raises."""
   if isinstance(name, IterableDataset):
     return name
   key = str(name).lower().replace("_", "").strip()
@@ -63,7 +73,7 @@ def get_dataset(name: Union[str, IterableDataset], **kwargs) -> IterableDataset:
     if cls.__name__.lower() == key:
       return cls(**kwargs)
   for cls in get_all_dataset():
-    if getattr(cls, "_name", None) == key:
+    if str(getattr(cls, "_name", None)).replace("_", "") == key:
       return cls(**kwargs)
   raise NotImplementedError(
       f"dataset '{name}' is not ported yet; the port has "

@@ -4,10 +4,10 @@
 :95-154, ``cifar_networks`` :157-240, ``dsprites_networks`` :243-307,
 ``vq_dsprites_networks`` :314-346, ``shapes3d_networks`` :348-358,
 ``locatello_networks`` :361-403, ``celeba_networks`` :406-417,
-``halfmoons_networks`` :420-444, ``get_networks`` :488,
-``get_optimizer_info`` :512).  The gene sets' networks (cortex, pbmc)
-need the ZINB likelihood and are not ported yet; ``is_semi_supervised``
-adds each family's labels head."""
+``halfmoons_networks`` :420-444, the gene sets' ``_gene_networks``,
+``cortex_networks`` and ``pbmc_networks`` :447-482, ``get_networks``
+:488, ``get_optimizer_info`` :512).  ``is_semi_supervised`` adds each
+family's labels head."""
 from __future__ import annotations
 
 import functools
@@ -25,6 +25,7 @@ from odin_tpu_torch.networks.base import (
     ConvTranspose,
     Dense,
     Flatten,
+    LogNorm,
     Reshape,
     SequentialNetwork,
     SkipSequential,
@@ -37,7 +38,8 @@ __all__ = ["PackImageParams", "mnist_networks", "fashionmnist_networks",
            "cifar20_networks", "cifar100_networks", "svhn_networks",
            "dsprites_networks", "vq_dsprites_networks", "shapes3d_networks",
            "locatello_networks", "celeba_networks", "halfmoons_networks",
-           "get_networks", "get_optimizer_info"]
+           "cortex_networks", "pbmc_networks", "get_networks",
+           "get_optimizer_info"]
 
 
 def _decoder_network(layers, skip_generator: bool = False):
@@ -423,6 +425,39 @@ def halfmoons_networks(qz: str = "mvndiag",
   return networks
 
 
+def _gene_networks(input_dim: int, n_labels: int, qz: str = "mvndiag",
+                   zdim: Optional[int] = None, activation="relu",
+                   is_semi_supervised: bool = False,
+                   is_hierarchical: bool = False,
+                   **kwargs) -> Dict[str, Any]:
+  """Gene-expression MLPs: ``LogNorm`` (log1p of counts per 10,000) then
+  two Dense(`hidden_dim`, 128) in the encoder, two in the decoder, and a
+  count likelihood over the genes ('genes'; `distribution`, 'zinbd' by
+  default); with `is_semi_supervised`, a one-hot head over the cell types
+  ('celltype')."""
+  zdim = 10 if zdim is None else int(zdim)
+  hidden = int(kwargs.get("hidden_dim", 128))
+  networks = dict(
+      encoder=SequentialNetwork((LogNorm(),) + tuple(
+          Dense(hidden, activation) for _ in range(2))),
+      decoder=SequentialNetwork(tuple(Dense(hidden, activation)
+                                      for _ in range(2))),
+      latents=RVconf((zdim,), qz, projection=True, name="latents"),
+      observation=RVconf((input_dim,), kwargs.get("distribution", "zinbd"),
+                         projection=True, name="genes"),
+      input_shape=(input_dim,),
+      hierarchy=(),
+  )
+  if is_semi_supervised:
+    networks["labels"] = RVconf(n_labels, "onehot", projection=True,
+                                name="celltype")
+  return networks
+
+
+cortex_networks = functools.partial(_gene_networks, input_dim=558, n_labels=7)
+pbmc_networks = functools.partial(_gene_networks, input_dim=1000, n_labels=4)
+
+
 _DSNAME_MAP = dict(halfmnist="mnist")
 
 
@@ -440,7 +475,8 @@ def get_networks(dataset_name, *, is_semi_supervised: bool = False,
     if key.endswith("_networks") and key.split("_")[0] == name:
       return fn(qz=qz, zdim=zdim, is_semi_supervised=is_semi_supervised,
                 is_hierarchical=is_hierarchical, **kwargs)
-  raise ValueError(f"no network for dataset '{dataset_name}' in the port yet")
+  raise ValueError(f"no pre-implemented network for dataset "
+                   f"'{dataset_name}'")
 
 
 def get_optimizer_info(dataset_name: str,

@@ -38,7 +38,13 @@ parameter a module holds itself (``v_add``, a VQ ``codebook``, VampPrior's
 ``pseudo_inputs``, a label embedder's ``table/embedding``, the four vectors
 of M3's ``regressor``, the linear LDA decoder's ``topics_words``, the
 Grade-of-Membership model's stacked ``enc_w<i>``/``enc_b<i>``,
-``conc_w``/``conc_b`` and ``profile_logits``) keeps its name.  A
+``conc_w``/``conc_b`` and ``profile_logits``, an autoregressive head's
+MADE ``kernel_<i>``/``bias_<i>``/``kernel_out``/``bias_out``, kept in
+flax's (in, out) layout) keeps its name; a module marked ``flax_raw``
+(``TrainableNormal``'s ``loc``/``scale``, ``VariationalDense``'s
+``kernel_mu``/``kernel_rho``/``bias``) holds all of its parameters so,
+and a ``DistributionNetwork``'s ``distributions_<i>`` is
+``distributions.<i>``.  A
 ``Dense``, ``Conv`` or ``ConvTranspose`` built with ``bare=True`` stands
 for one of flax's own
 ``nn.Dense``/``nn.Conv``/``nn.ConvTranspose`` layers (a head's
@@ -102,7 +108,8 @@ _AUTO = re.compile(r"^(Conv|ConvTranspose|Dense|BatchNorm)_(\d+)$")
 _KINDS = {"Conv": Conv, "ConvTranspose": ConvTranspose, "Dense": Dense,
           "BatchNorm": BatchNorm}
 # flax's numbered submodules of a list attribute, a ModuleList in the port
-_LISTS = ("layers", "encoders", "decoders", "latent_heads", "observations")
+_LISTS = ("layers", "encoders", "decoders", "latent_heads", "observations",
+          "distributions")
 _LAYER = re.compile(r"^(%s)_(\d+)$" % "|".join(_LISTS))
 # flax's bare nn.ConvTranspose layers, by their module name (a ladder
 # rung's merge); a bare 4-d kernel of another name is an nn.Conv's
@@ -115,7 +122,10 @@ _MHA_PROJECTIONS = ("query", "key", "value", "out")
 _RAW = ("v_add", "codebook", "pseudo_inputs", "embedding", "diag_loc_true",
         "diag_loc_false", "diag_scale_true", "diag_scale_false")
 _RAW += ("topics_words", "conc_w", "conc_b", "profile_logits")
-_RAW_NUMBERED = re.compile(r"^enc_[wb]\d+$")
+# a MADE projection's masked kernels and biases, a VariationalDense's
+# kernel posterior, a TrainableNormal's location
+_RAW += ("kernel_out", "bias_out", "kernel_mu", "kernel_rho", "loc")
+_RAW_NUMBERED = re.compile(r"^(enc_[wb]|kernel_|bias_)\d+$")
 _PARAM_LEAVES = ("bias", "scale") + _RAW
 _GRU_GATES = ("ir", "iz", "in", "hr", "hz", "hn")
 _GRU_LEAVES = ("weight_ih", "weight_hh", "bias_ih", "bias_hn")
@@ -349,6 +359,13 @@ def to_jax_params(module: nn.Module,
                                              else ["BatchNorm_0"]))
       node["scale"] = value(name, "scale")
       node["bias"] = value(name, "bias")
+      continue
+    if getattr(sub, "flax_raw", False):
+      # a module that holds every parameter itself in flax's layout
+      # (``bay.stochastic_initializers``)
+      node = _node(tree, _flax_path(name))
+      for leaf, _ in sub.named_parameters(recurse=False):
+        node[leaf] = value(name, leaf)
       continue
     if not isinstance(sub, (Conv, ConvTranspose, Dense)) or sub in held:
       continue

@@ -222,10 +222,18 @@ def test_concat_distributions_matches_jax():
   np.testing.assert_allclose(got.log_prob(torch.tensor(x)).numpy(),
                              np.asarray(want.log_prob(x)), rtol=1e-6)
   assert got.reinterpreted_batch_ndims == 3
-  with pytest.raises(TypeError):
-    concat_distributions([pd.Bernoulli(torch.tensor(logits[0])),
-                          pd.MultivariateNormalDiag(torch.tensor(locs[0]),
-                                                    torch.tensor(scales[0]))])
+  # two families: a Batchwise of them, as in JAX
+  mixed = [(pd.Bernoulli(torch.tensor(logits[0][:, :, 0, 0])),
+            jd.Bernoulli(logits=jnp.asarray(logits[0][:, :, 0, 0]))),
+           (pd.MultivariateNormalDiag(torch.tensor(locs[0][:, :2]),
+                                      torch.tensor(scales[0][:, :2])),
+            jd.MultivariateNormalDiag(jnp.asarray(locs[0][:, :2]),
+                                      jnp.asarray(scales[0][:, :2])))]
+  got = concat_distributions([p for p, _ in mixed])
+  want = jconcat([j for _, j in mixed])
+  assert type(got).__name__ == type(want).__name__ == "Batchwise"
+  assert tuple(got.batch_shape) == tuple(want.batch_shape)
+  np.testing.assert_array_equal(got.mean().numpy(), np.asarray(want.mean()))
   # a Normal (M3's joint posterior, an Independent Normal) concatenates
   got = concat_distributions([pd.Independent(pd.Normal(
       torch.tensor(l), torch.tensor(s)), 1) for l, s in zip(locs, scales)])
@@ -233,8 +241,11 @@ def test_concat_distributions_matches_jax():
                                  1) for l, s in zip(locs, scales)])
   np.testing.assert_array_equal(got.stddev().numpy(),
                                 np.asarray(want.stddev()))
-  with pytest.raises(NotImplementedError):
-    concat_distributions([pd.SphericalUniform(4)] * 2)
+  # a family without tensors stays itself, as JAX's tree_map leaves it
+  got = concat_distributions([pd.SphericalUniform(4)] * 2)
+  want = jconcat([jd.SphericalUniform(4)] * 2)
+  assert type(got).__name__ == type(want).__name__ == "SphericalUniform"
+  assert tuple(got.event_shape) == tuple(want.event_shape)
 
 
 def test_ground_truth_matches_jax():

@@ -5,8 +5,7 @@ package on the CPU.
     'observation'), whatever the RVconf's own name, so the ELBO's metric
     keys are JAX's; a ``DistributionDense`` given as a head keeps its name.
   * ``RVconf`` has JAX's fields in JAX's order, so a positional call binds
-    the same fields; ``autoregressive`` and ``dropout`` raise unless left at
-    their defaults (not ported yet).
+    the same fields, ``autoregressive`` and ``dropout`` among them.
   * ``md5_checksum`` hashes the params as the JAX package does (flax's
     leaves, layouts and order), so the same weights give the same digest.
 The ELBO terms are held at the limit of tests/test_torch_elbo.py (rtol
@@ -104,11 +103,22 @@ def test_positional_rvconf_binds_the_same_fields(args):
 @pytest.mark.parametrize("kw", [dict(autoregressive=True),
                                 dict(dropout=0.1)])
 def test_autoregressive_and_dropout_raise(kw):
-  with pytest.raises(NotImplementedError, match="not ported yet"):
-    RVconf((10,), "mvndiag", **kw)
-  with pytest.raises(NotImplementedError, match="not ported yet"):
-    RVconf((10,), "mvndiag", True, kw.get("autoregressive", False),
-           kw.get("dropout", 0.0))
+  """Both fields are ported: given by keyword or by position, the RVconf
+  and the head it makes carry them as JAX's do (the heads' numbers are
+  held in tests/test_torch_dist_layers.py)."""
+  for port, jconf in ((RVconf((10,), "mvndiag", **kw),
+                       JaxRVconf((10,), "mvndiag", **kw)),
+                      (RVconf((10,), "mvndiag", True,
+                              kw.get("autoregressive", False),
+                              kw.get("dropout", 0.0)),
+                       JaxRVconf((10,), "mvndiag", True,
+                                 kw.get("autoregressive", False),
+                                 kw.get("dropout", 0.0)))):
+    assert (port.autoregressive, port.dropout) == \
+        (jconf.autoregressive, jconf.dropout)
+    head, jhead = port.create_posterior(), jconf.create_posterior()
+    assert (head.autoregressive, head.dropout, head.params_size) == \
+        (jhead.autoregressive, jhead.dropout, jhead.params_size)
 
 
 def test_md5_checksum_equals_jax_digest_of_the_same_state():

@@ -160,9 +160,31 @@ def test_obs_distribution_heads():
 
 
 def test_unported_names_raise():
-  for name in ("cortex", "pbmc", "nosuchset"):
-    with pytest.raises(ValueError):
-      PN.get_networks(name)
+  """An unknown name raises in both packages; the gene sets' networks
+  (cortex, pbmc) are JAX's (tests/test_torch_gene_vae.py runs them)."""
+  with pytest.raises(ValueError):
+    PN.get_networks("nosuchset")
+  with pytest.raises(ValueError):
+    JN.get_networks("nosuchset")
+  for name, genes, types in (("cortex", 558, 7), ("pbmc", 1000, 4)):
+    for semi in (False, True):
+      got = PN.get_networks(name, is_semi_supervised=semi)
+      want = JN.get_networks(name, is_semi_supervised=semi)
+      assert set(got) == set(want)
+      assert got["input_shape"] == want["input_shape"] == (genes,)
+      fields = ("event_shape", "posterior", "projection", "autoregressive",
+                "dropout", "name", "prior", "kwargs")
+      for head in ("latents", "observation", "labels"):
+        if head in want:
+          assert [getattr(got[head], f) for f in fields] == \
+              [getattr(want[head], f) for f in fields], head
+      if semi:
+        assert got["labels"].event_shape == (types,)
+      assert got["observation"].posterior == "zinbd"
+      assert [type(l).__name__ for l in got["encoder"].layers] == \
+          [type(l).__name__ for l in want["encoder"].layers]
+      assert [type(l).__name__ for l in got["decoder"].layers] == \
+          [type(l).__name__ for l in want["decoder"].layers]
 
 
 # ---------------------------------------------------------------------------

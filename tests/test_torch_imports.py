@@ -112,6 +112,18 @@ def test_sources_exist():
                  "bay/distributions/mixture.py", "networks/resnets.py",
                  "networks/base.py", "bay/distribution_alias.py"):
     assert f"odin_tpu_torch/{module}" in names
+  # the distribution zoo and the gene-expression slice: the families, the
+  # heads and layers, the stochastic initializers and the gene datasets
+  for module in ("bay/distributions/conditional.py",
+                 "bay/distributions/discrete.py",
+                 "bay/distributions/deterministic.py",
+                 "bay/layers/autoregressive.py",
+                 "bay/layers/dense_distribution.py",
+                 "bay/layers/distribution_layers.py",
+                 "bay/layers/util_layers.py",
+                 "bay/stochastic_initializers.py", "fuel/bio_data.py",
+                 "networks/image_networks.py"):
+    assert f"odin_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -167,7 +179,10 @@ def test_importing_the_port_loads_no_jax():
           "odin_tpu_torch.bay.vi.autoencoder.lda_vae, "
           "odin_tpu_torch.bay.vi.autoencoder.cycle_vae, "
           "odin_tpu_torch.bay.vi.autoencoder.moe_vae, "
-          "odin_tpu_torch.bay.vi.autoencoder.sequential_vae\n"
+          "odin_tpu_torch.bay.vi.autoencoder.sequential_vae, "
+          "odin_tpu_torch.bay.layers, "
+          "odin_tpu_torch.bay.stochastic_initializers, "
+          "odin_tpu_torch.fuel.bio_data\n"
           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
           f"{FORBIDDEN!r})\nassert not bad, bad")
   res = _run(["-c", code], cwd=ROOT)
@@ -190,6 +205,19 @@ def test_chip_smoke_fails_without_the_port(tmp_path):
   assert res.returncode != 0
   assert "No module named 'odin_tpu_torch'" in res.stderr
   assert '"ok"' not in res.stdout
+
+
+def test_chip_smoke_phases_run_1_to_20():
+  """Phase 20 (the gene-expression slice) is the last; ``--phases 20``
+  runs it with the build alone, reading no other phase."""
+  import chip_smoke
+  assert chip_smoke.PHASES == tuple(range(1, 21))
+  assert chip_smoke.selected_phases() == set(range(1, 21))
+  assert chip_smoke.selected_phases("20") == {1, 20}
+  assert 20 not in chip_smoke.PHASE_NEEDS
+  assert all(20 not in needs for needs in chip_smoke.PHASE_NEEDS.values())
+  with pytest.raises(SystemExit, match="1-20"):
+    chip_smoke.selected_phases("21")
 
 
 def test_new_modules_need_neither_sklearn_nor_matplotlib():

@@ -130,7 +130,10 @@ def test_registry_names_the_image_sets():
   assert set(LOADERS) | {"HalfMoonsImage", "YDisentanglement"} <= port
   assert port <= jax_images
   with pytest.raises(NotImplementedError):
-    pfuel.get_dataset("cortex")
+    pfuel.get_dataset("imdbreview")
+  # the gene sets are ported (tests/test_torch_bio_data.py)
+  assert type(pfuel.get_dataset("cortex")).__name__ == \
+      type(jfuel.get_dataset("cortex")).__name__
 
 
 def test_make_halfmoons_matches_jax():

@@ -133,15 +133,19 @@ def test_dataset_api_matches_jax():
 def test_get_dataset_lists_only_what_is_ported():
   assert isinstance(get_dataset("dsprites"), dSprites)
   assert isinstance(get_dataset("dSprites_Small", n_samples=8), dSpritesSmall)
-  assert [c.__name__ for c in get_all_dataset()] == \
+  assert [c.__name__ for c in get_all_dataset("image")] == \
       ["BinarizedAlphaDigits", "BinarizedMNIST", "CIFAR10", "CIFAR100",
        "CIFAR20", "CelebA", "CelebABig", "CelebASmall", "FashionMNIST",
        "HalfMNIST", "HalfMoons", "HalfMoonsImage", "Kaokore", "LegoFaces",
        "MNIST", "Omniglot", "SVHN", "Shapes3D", "Shapes3D0",
        "Shapes3DSmall", "YDisentanglement", "dSprites", "dSprites0",
        "dSpritesSmall"]
-  assert get_all_dataset("image") == get_all_dataset()
-  for name in ("cortex", "imdbreview", "nope"):
+  assert [c.__name__ for c in get_all_dataset()] == sorted(
+      [c.__name__ for c in get_all_dataset("image")] +
+      ["BreastTumor", "Cortex", "Forebrain", "HumanEmbryos", "Insilico",
+       "Leukemia", "Melanoma", "PBMC", "SyntheticATAC", "SyntheticGenes"])
+  assert type(get_dataset("cortex")).__name__ == "Cortex"
+  for name in ("imdbreview", "nope"):
     with pytest.raises(NotImplementedError, match="not ported yet"):
       get_dataset(name)
   assert dSprites(full_grid=True).full_grid

@@ -360,11 +360,26 @@ def test_gaussian_mixture_matches_jax(covariance):
 
 
 def test_gaussian_mixture_tril_raises():
-  with pytest.raises(NotImplementedError, match="MultivariateNormalTriL"):
-    PD.GaussianMixture(np.zeros(2), np.zeros((2, 3)), np.zeros((2, 3, 3)),
-                       "tril")
-  with pytest.raises(NotImplementedError, match="queue 1"):
-    pparse("gmmtril").builder(torch.zeros(2, 20), (3,))
+  """The full-covariance mixture is ported: ``GaussianMixture(...,
+  'tril')`` and the 'gmmtril' alias score as JAX's."""
+  rs = np.random.RandomState(12)
+  raw = rs.randn(2, 20).astype(np.float32)
+  got = pparse("gmmtril").builder(torch.from_numpy(raw), (3,))
+  want = jparse("gmmtril").builder(jnp.asarray(raw), (3,))
+  x = rs.randn(2, 3).astype(np.float32)
+  close(got.log_prob(torch.from_numpy(x)), want.log_prob(jnp.asarray(x)),
+        what="gmmtril log_prob")
+  tril = np.tril(rs.randn(2, 3, 3)).astype(np.float32)
+  tril[:, range(3), range(3)] = np.abs(tril[:, range(3), range(3)]) + 0.5
+  logits, locs = rs.randn(2).astype(np.float32), rs.randn(2, 3).astype(
+      np.float32)
+  got = PD.GaussianMixture(torch.from_numpy(logits), torch.from_numpy(locs),
+                           torch.from_numpy(tril), "tril")
+  want = JD.GaussianMixture(jnp.asarray(logits), jnp.asarray(locs),
+                            jnp.asarray(tril), "tril")
+  close(got.log_prob(torch.from_numpy(x)), want.log_prob(jnp.asarray(x)),
+        what="GaussianMixture log_prob")
+  close(got.variance(), want.variance(), what="variance")
 
 
 ALIASES = [("qlogistic", (4, 4, 3), {}),

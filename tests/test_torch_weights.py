@@ -411,3 +411,83 @@ def test_image_slice_trees_round_trip(name):
   assert all(k.endswith("mask") for k in missing), missing
   _states_equal(to_jax_params(tmod), variables["params"])
   _states_equal(to_jax_mutables(tmod), stats)
+
+
+# ---------------------------------------------------------------------------
+# the distribution heads and stochastic layers
+# ---------------------------------------------------------------------------
+def _heads(package):
+  """name -> (module, input shape) of the layers with the new rules: a
+  MADE head (its masked kernels), the mixture heads inside a
+  DistributionNetwork (``distributions_<i>``), the stochastic
+  initializers, and a ConditionalTensorLayer (no params)."""
+  if package == "jax":
+    import odin_tpu.bay.layers as L
+    from odin_tpu.bay import stochastic_initializers as S
+    net = lambda: jb.SequentialNetwork((jb.Dense(6, "relu"),))
+    dn = lambda n, d: L.dense_distribution.DistributionNetwork(
+        network=n, distributions=tuple(d))
+    dd = lambda **kw: L.DistributionDense(**kw)
+  else:
+    import odin_tpu_torch.bay.layers as L
+    from odin_tpu_torch.bay import stochastic_initializers as S
+    net = lambda: tb.SequentialNetwork([tb.Dense(6, "relu")])
+    dn = lambda n, d: L.DistributionNetwork(n, list(d))
+    dd = lambda **kw: L.DistributionDense(**kw)
+  return {
+      "made": (dd(event_shape=(4,), posterior="mvndiag",
+                  autoregressive=True), (5,)),
+      "mixtures": (dn(net(), [L.MixtureDensityNetwork.create(
+          3, 2, covariance="tril"), L.MixtureMassNetwork.create(
+              4, 3, zero_inflated=True)]), (5,)),
+      "variational": (S.VariationalDense(3), (5,)),
+      "trainable": (S.TrainableNormal(shape=(2, 3)), None),
+      "shared": (S.TrainableNormalSharedScale(shape=(4,)), None),
+      "conditional": (L.ConditionalTensorLayer(), None),
+  }
+
+
+@pytest.mark.parametrize("name", ["made", "mixtures", "variational",
+                                  "trainable", "shared", "conditional"])
+def test_distribution_layers_round_trip(name):
+  """flax's init -> ``from_jax_params`` loads the port's module strictly,
+  ``to_jax_params`` gives flax's tree back exactly, and the outputs
+  agree."""
+  jmod, in_shape = _heads("jax")[name]
+  pmod, _ = _heads("torch")[name]
+  rng = jax.random.PRNGKey(3)
+  x = np.random.RandomState(1).randn(2, *(in_shape or (1,))).astype(
+      np.float32)
+  if name == "conditional":
+    assert pmod.build(None) is None and not list(pmod.parameters())
+    return
+  if in_shape is None:
+    params = jmod.init(rng, method=jmod.distribution)["params"]
+  else:
+    params = jmod.init({"params": rng, "sample": rng}, jnp.asarray(x))[
+        "params"]
+  params = jax.device_get(params)
+  pmod.build(in_shape, torch.Generator().manual_seed(0))
+  pmod.load_state_dict(from_jax_params(params), strict=True)
+  got, want = _flat(to_jax_params(pmod)), _flat(params)
+  assert set(got) == set(want)
+  for k, w in want.items():
+    assert got[k].shape == w.shape, k
+    np.testing.assert_array_equal(got[k], w, err_msg=k)
+  pmod.eval()
+  if in_shape is None:
+    want = jmod.apply({"params": params}, method=jmod.distribution).mean()
+    got = pmod().mean()
+  elif name == "variational":
+    want = jmod.apply({"params": params}, jnp.asarray(x),
+                      mutable=["losses"])[0]
+    got = pmod(torch.from_numpy(x))
+  else:
+    want = jmod.apply({"params": params}, jnp.asarray(x))
+    got = pmod(torch.from_numpy(x))
+    want = [d.mean() for d in (want if isinstance(want, tuple) else (want,))]
+    got = [d.mean() for d in (got if isinstance(got, tuple) else (got,))]
+  for g, w in zip(got if isinstance(got, list) else [got],
+                  want if isinstance(want, list) else [want]):
+    np.testing.assert_allclose(g.detach().numpy(), np.asarray(w), rtol=1e-5,
+                               atol=ATOL)
