@@ -341,15 +341,39 @@ CPU:
      below its start, no update skipped, steps/s; the float32 ZINB
      log-likelihood against float64.  It launches no kernel of the port.
      ``python3 chip_smoke.py --genes-rehearsal`` runs it on the CPU.
+ 21. the x-vector path (``xvector_path``, right after phase 16, on phase
+     9's 2048 wav files of 64 speakers): ``examples/voxceleb/recipe.py``'s
+     lines through the port's API (``xvector_recipe``):
+     ``batch_speech_features(raw, FeatureConfig(n_mels=24, n_ceps=14),
+     features=("mfcc_cmvn",))`` (one K1 launch a batch of 64: 32), each
+     utterance cut to the shortest one's 398 frames so that they stack,
+     ``XVectorNet(n_classes=64, embedding_dim=512)`` trained 1200 steps at
+     batch 32 by the port's ``AdamW(1e-3, weight_decay=1e-4)`` on batches
+     drawn by ``RandomState(1)``, every utterance's embedding, ``PLDA(
+     n_phi=16, n_iter=8)`` on speakers 0-31 and 2000 trials on speakers
+     32-63: the loss finite and falling, the PLDA EER under a limit set
+     from the CPU at a reduced scale, minDCF; one step from the initial
+     weights on the first batch on the card against the CPU (loss,
+     logits, embeddings, gradients, at about 100x the CPU's float32
+     distance from float64, ``tools/xvector_recipe.py``); then each class
+     of ``networks/time_delay.py``, ``util_layers.py`` and ``dropout.py``
+     at small shapes on the card against the CPU (outputs within 1e-5,
+     cuDNN's recurrent layers' within 5e-5, and gradients within 1e-4 of
+     their largest magnitudes),
+     ``BatchRenormalization``'s statistics after three training calls,
+     and the dropouts' dropped shares within 5 binomial standard errors of
+     their rates.  Logged: the features' seconds, the median ms a step and
+     the kernels a step, the embedding and PLDA seconds, EER and minDCF.
+     The network runs cuDNN and cuBLAS; K1 is the path's port kernel.
 
 The datasets' files and caches are kept under ``build/odin_tpu_home``
 (``$ODIN_TPU_HOME``).  Run with no argument, it runs every phase: the
 whole check.  ``python3 chip_smoke.py --phases 1,14`` runs the phases
-named (1-20), phase 1 (the build) always, and every phase whose results a
+named (1-21), phase 1 (the build) always, and every phase whose results a
 named one reads (``PHASE_NEEDS``: 3 reads 2, 6 reads 5, 8 reads 7, 10
-reads 8, 11 reads 2 and 9, 15 reads 10, 16 reads 9; 17, 18, 19 and
-20 read none); its ``kernels`` line lists only the kernels those phases
-timed.
+reads 8, 11 reads 2 and 9, 15 reads 10, 16 and 21 read 9; 17, 18, 19
+and 20 read none); its ``kernels`` line lists only the kernels those
+phases timed.
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
 fp32 like the CPU.  Any failure raises and the script exits non-zero; it
@@ -5360,12 +5384,477 @@ def genes_rehearsal(argv) -> int:
   return 0
 
 
-PHASES = tuple(range(1, 21))
+# -- phase 21: the x-vector speaker path -----------------------------------
+XV_FEATURES = dict(n_mels=24, n_ceps=14)  # examples/voxceleb/recipe.py:78
+XV_EMBED = 512  # XVectorNet's default (odin_tpu/networks/time_delay.py:118)
+XV_LR, XV_WD = 1e-3, 1e-4  # recipe.py:85
+XV_BATCH = 32  # recipe.py:31
+XV_STEPS = 1200  # recipe.py:31's max_iter
+XV_PLDA = dict(n_phi=16, n_iter=8)  # recipe.py:113-114
+XV_TRIALS = 2000  # recipe.py:53
+XV_EMBED_CHUNK = 256  # utterances an embedding call
+# one step, the card against the CPU from the same weights and batch, each
+# over the CPU value's largest magnitude.  The CPU's float32 lies from
+# float64 at (tools/xvector_recipe.py on the CPU, phase 9's corpus, the
+# recipe's first batch of 32 x 398 frames at full width): loss 5.75e-8,
+# logits 4.96e-7, embeddings 4.44e-7, gradients 1.64e-4 (the largest over
+# the 16 tensors); the limits are about 100x those:
+XV_LOSS_TOL = 6e-6
+XV_LOGITS_TOL = 5e-5
+XV_EMBED_TOL = 5e-5
+XV_GRAD_TOL = 1.6e-2
+# the recipe learns: the PLDA EER on the held-out speakers at most 1.5x
+# the port's CPU run of the recipe at a reduced scale, fixed before the
+# first card run (tools/xvector_recipe.py --steps 300 --frames 100 on the
+# same files: EER 0.3073, the loss 4.13 -> 3.42 over the first and last
+# 50 steps; chance is 0.5)
+XV_PLDA_EER_MAX = 0.461
+# 21.2, each layer on the card against the CPU from the same weights:
+# outputs within 1e-5 of their largest magnitude, gradients within 1e-4 of
+# each tensor's largest (tests/torch_layer_common.py's limits)
+XV_LAYER_TOL = 1e-5
+XV_LAYER_GRAD_TOL = 1e-4
+# but the recurrent layers' outputs, which cuDNN's RNN kernels compute on
+# the card: the CPU's float32 lies 1.2e-7 to 4.9e-7 from float64 at
+# 21.2's shapes (tools/xvector_recipe.py, "layers_fp64"; their gradients
+# 2.8e-7 to 5.3e-7), and the limit is about 100x the largest, as the
+# recipe's step's limits are (an H100's cuDNN RNNs lie up to 1.44e-5
+# from the CPU)
+XV_RNN_TOL = 5e-5
+XV_RNN_LAYERS = ("LSTM", "LSTM(last)", "GRU", "SimpleRNN")
+XV_DROP_SIGMAS = 5.0  # a dropped share within 5 binomial standard errors
+
+
+def make_trials(np, labels, n_trials=XV_TRIALS, seed=0):
+  """``examples/voxceleb/recipe.py``'s balanced trial pairs over utterance
+  indices: (pairs, is-target)."""
+  rng = np.random.RandomState(seed)
+  n = len(labels)
+  pairs, truth = [], []
+  while len(pairs) < n_trials:
+    i, j = rng.randint(0, n, 2)
+    if i == j:
+      continue
+    pairs.append((i, j))
+    truth.append(labels[i] == labels[j])
+  return np.asarray(pairs), np.asarray(truth)
+
+
+def xvector_loss(torch, net, params, x, y):
+  """The recipe's loss: the mean cross-entropy of whole utterances."""
+  logits = torch.func.functional_call(net, params, (x,))
+  return -torch.mean(torch.log_softmax(logits, -1)[
+      torch.arange(len(y), device=y.device), y])
+
+
+def xvector_recipe(torch, np, raw, spk, device, steps=XV_STEPS,
+                   batch_size=XV_BATCH, embedding_dim=XV_EMBED, frames=None,
+                   seed=SEED):
+  """``examples/voxceleb/recipe.py:76-126`` through the port's API on
+  `device`: ``batch_speech_features(raw, FeatureConfig(n_mels=24,
+  n_ceps=14), features=("mfcc_cmvn",))``, every utterance cut to the
+  shortest one's frames (or `frames`) so that they stack as the recipe
+  stacks them, ``XVectorNet(n_classes, embedding_dim)`` built from
+  `seed`, the port's ``AdamW(1e-3, weight_decay=1e-4)`` on the
+  cross-entropy of batches drawn by ``RandomState(1)``, the embeddings of
+  every utterance (``return_embedding=True``), ``PLDA(n_phi=16,
+  n_iter=8)`` on the first half of the speakers and ``make_trials`` on
+  the other half: EER and minDCF.  Returns the results, the model and
+  each stage's seconds."""
+  from odin_tpu_torch.backend import compute_EER, compute_minDCF, det_curve
+  from odin_tpu_torch.ml import PLDA
+  from odin_tpu_torch.networks import XVectorNet
+  from odin_tpu_torch.ops.features import FeatureConfig
+  from odin_tpu_torch.preprocessing import batch_speech_features
+  from odin_tpu_torch.training.core import AdamW
+
+  cuda = torch.device(device).type == "cuda"
+  sync = torch.cuda.synchronize if cuda else (lambda: None)
+  out = {}
+
+  def stage(name, fn):
+    sync()
+    t = time.perf_counter()
+    result = fn()
+    sync()
+    out[name + "_s"] = time.perf_counter() - t
+    return result
+
+  feats = stage("features", lambda: [f["mfcc_cmvn"] for f in
+                                     batch_speech_features(
+                                         raw, FeatureConfig(**XV_FEATURES),
+                                         features=("mfcc_cmvn",),
+                                         device=device)])
+  n_frames = frames or min(len(f) for f in feats)
+  X = torch.from_numpy(np.stack([f[:n_frames] for f in feats]).astype(
+      np.float32)).to(device)
+  y = torch.from_numpy(np.asarray(spk, np.int64)).to(device)
+  n_spk = int(np.max(spk)) + 1
+  net = XVectorNet(n_classes=n_spk, embedding_dim=embedding_dim)
+  net.build((None, X.shape[-1]), torch.Generator().manual_seed(seed))
+  init = {k: v.detach().clone() for k, v in net.named_parameters()}
+  net.to(device)
+  params = {"net": {k: v.detach() for k, v in net.named_parameters()}}
+  opt = AdamW(XV_LR, weight_decay=XV_WD)
+  opt_state = opt.init(params)
+  r = np.random.RandomState(1)
+  losses, marks, batches = [], [], []
+  t0 = time.perf_counter()
+  for _ in range(steps):
+    idx = r.randint(0, len(X), batch_size)
+    batches.append(idx)
+    if cuda:
+      marks.append(torch.cuda.Event(enable_timing=True))
+      marks[-1].record()
+    else:
+      marks.append(time.perf_counter())
+    ix = torch.from_numpy(idx).to(device)
+    p = {k: v.requires_grad_(True) for k, v in params["net"].items()}
+    loss = xvector_loss(torch, net, p, X[ix], y[ix])
+    grads = dict(zip(p, torch.autograd.grad(loss, list(p.values()))))
+    with torch.no_grad():
+      upd, opt_state = opt.update({"net": grads}, opt_state,
+                                  {"net": {k: v.detach() for k, v in
+                                           p.items()}})
+      params = {"net": {k: (p[k].detach() + upd["net"][k])
+                        for k in p}}
+    losses.append(loss.detach())
+  if cuda:
+    marks.append(torch.cuda.Event(enable_timing=True))
+    marks[-1].record()
+  else:
+    marks.append(time.perf_counter())
+  sync()
+  out["train_s"] = time.perf_counter() - t0
+  # each step's ms: CUDA events on the card, the host clock on the CPU
+  out["step_ms"] = sorted(a.elapsed_time(b) if cuda else 1e3 * (b - a)
+                          for a, b in zip(marks[:-1], marks[1:]))
+  out["losses"] = torch.stack(losses).cpu().numpy() if losses else \
+      np.zeros(0, np.float32)
+
+  def embed():
+    with torch.no_grad():
+      return torch.cat([torch.func.functional_call(
+          net, params["net"], (X[i:i + XV_EMBED_CHUNK],),
+          {"return_embedding": True})
+          for i in range(0, len(X), XV_EMBED_CHUNK)])
+
+  vecs = stage("embed", embed)
+  spk = np.asarray(spk)
+  held = spk >= n_spk // 2
+  n_phi = min(XV_PLDA["n_phi"], embedding_dim // 2)
+  held_t = torch.from_numpy(held).to(device)
+  plda = stage("plda_fit", lambda: PLDA(
+      n_phi=n_phi, n_iter=XV_PLDA["n_iter"], device=device).fit(
+          vecs[~held_t], spk[~held]))
+  pairs, truth = make_trials(np, spk[held].astype(int))
+  v = vecs[held_t]
+  scores = stage("plda_score", lambda: plda.score_trials(
+      v[torch.from_numpy(pairs[:, 0]).to(device)],
+      v[torch.from_numpy(pairs[:, 1]).to(device)]))
+  Pfa, Pmiss = det_curve(truth, scores)[:2]
+  out.update(feats=feats, X=X, y=y, net=net, init=init,
+             params=params["net"], batches=batches, vecs=vecs, plda=plda,
+             pairs=pairs, truth=truth, scores=scores, frames=n_frames,
+             eer=compute_EER(Pfa, Pmiss), mindcf=compute_minDCF(Pfa,
+                                                                Pmiss)[0])
+  return out
+
+
+def xvector_one_step(torch, net, init, x, y, device, dtype=None):
+  """One step of the recipe's loss at the weights `init` on (x, y) on
+  `device` (in `dtype`): {loss, logits, embedding, grads}, as float64
+  numpy."""
+  import copy
+  model = copy.deepcopy(net).to(device)
+  if dtype is not None:
+    model = model.to(dtype)
+  p = {k: v.to(device=device, dtype=dtype or v.dtype).clone()
+       .requires_grad_(True) for k, v in init.items()}
+  x = x.to(device=device, dtype=dtype or x.dtype)
+  y = y.to(device)
+  logits = torch.func.functional_call(model, p, (x,))
+  loss = -torch.mean(torch.log_softmax(logits, -1)[
+      torch.arange(len(y), device=y.device), y])
+  grads = torch.autograd.grad(loss, list(p.values()))
+  with torch.no_grad():
+    emb = torch.func.functional_call(model, p, (x,),
+                                     {"return_embedding": True})
+  host = lambda t: t.detach().double().cpu().numpy()
+  return dict(loss=host(loss), logits=host(logits), embedding=host(emb),
+              grads={k: host(g) for k, g in zip(p, grads)})
+
+
+def xvector_apart(np, got, want):
+  """{name: the largest |got - want| over want's largest magnitude} of two
+  ``xvector_one_step`` results; 'grads' the largest over the tensors."""
+  rel = lambda a, b: float(np.abs(a - b).max() / max(np.abs(b).max(),
+                                                        1e-30))
+  out = {k: rel(got[k], want[k]) for k in ("loss", "logits", "embedding")}
+  out["grads"] = max(rel(got["grads"][k], want["grads"][k])
+                     for k in want["grads"])
+  return out
+
+
+def xvector_layers(torch, np, device, dtype=None):
+  """21.2: each class of ``networks/time_delay.py``, ``util_layers.py`` and
+  ``dropout.py`` at small shapes on `device` (in `dtype`) against the CPU
+  in float32 from the same weights (outputs, and the input's and the
+  parameters' gradients), ``BatchRenormalization``'s running statistics
+  after three training calls, and each dropout's dropped share on
+  `device` against its rate.  Returns {layer: (output error, gradient
+  error)}, each over the CPU's largest magnitude, and the dropouts'
+  shares."""
+  import copy
+  from odin_tpu_torch import networks as N
+  from odin_tpu_torch.networks.base import collecting_updates
+
+  rs = np.random.RandomState(SEED)
+  seq, img, labels = (6, 40, 12), (4, 9, 8, 8), (6, 10)
+  # name: (the layer, its inputs' shapes); built on the first input's
+  # shape, a second one's given as build's third argument
+  layers = {
+      "TimeDelay": (lambda: N.TimeDelay(16), [seq]),
+      "TimeDelay(irregular)": (lambda: N.TimeDelay(16, (-3, 0, 1)), [seq]),
+      "TimeDelayDense": (lambda: N.TimeDelayDense(16), [seq]),
+      "TimeDelayConv": (lambda: N.TimeDelayConv(16, 4, 2), [seq]),
+      "TimeDelayConvTied": (lambda: N.TimeDelayConvTied(16), [seq]),
+      "StatsPool": (lambda: N.StatsPool(), [seq]),
+      "XVectorNet": (lambda: N.XVectorNet(8, 32), [seq]),
+      "Identity": (lambda: N.Identity(), [seq]),
+      "ExpandDims": (lambda: N.ExpandDims(1), [seq]),
+      "Reduce": (lambda: N.Reduce("std", 1), [seq]),
+      "Conv1DTranspose": (lambda: N.Conv1DTranspose(8, 3, 2, "elu"), [seq]),
+      "BatchRenormalization": (lambda: N.BatchRenormalization(), [seq]),
+      "ParallelNetwork": (lambda: N.ParallelNetwork(
+          (N.Dense(5, "relu"), N.Dense(3))), [seq]),
+      "PositionalEncoder": (lambda: N.PositionalEncoder(), [seq]),
+      "SkipConnection": (lambda: N.SkipConnection(N.Dense(10, "tanh")),
+                         [seq]),
+      "ConditionalEmbedding": (lambda: N.ConditionalEmbedding(10, 8),
+                               [labels]),
+      "ConditionalProjection": (lambda: N.ConditionalProjection(8, "film"),
+                                [seq, labels]),
+      "LSTM": (lambda: N.LSTM(16), [seq]),
+      "LSTM(last)": (lambda: N.LSTM(16, return_sequences=False), [seq]),
+      "GRU": (lambda: N.GRU(16), [seq]),
+      "SimpleRNN": (lambda: N.SimpleRNN(16), [seq]),
+      "DepthToSpace": (lambda: N.DepthToSpace(2), [img]),
+      "Resampling2D(nearest)": (lambda: N.Resampling2D(1.5), [img]),
+      "Resampling2D(linear)": (lambda: N.Resampling2D(0.7, "linear"), [img]),
+      "Resampling2D(cubic)": (lambda: N.Resampling2D(2.0, "cubic"), [img]),
+  }
+  errs = {}
+  rel = lambda a, b: float((a.detach().cpu().double() - b.detach().double())
+                           .abs().max() / max(float(b.detach().abs().max()),
+                                              1e-30))
+  for name, (make, shapes) in layers.items():
+    ref = make()
+    ref.build(shapes[0][1:], torch.Generator().manual_seed(SEED),
+              *(s[1:] for s in shapes[1:]))
+    mod = copy.deepcopy(ref).to(device=device, dtype=dtype)
+    xs = [torch.from_numpy(rs.randn(*s).astype(np.float32)) for s in shapes]
+    outs, grads = [], []
+    for m, dev, dt in ((mod, device, dtype), (ref, "cpu", None)):
+      m.eval()
+      xi = [x.to(device=dev, dtype=dt).requires_grad_(True) for x in xs]
+      out = m(*xi)
+      w = torch.from_numpy(np.random.RandomState(1).randn(*out.shape)
+                           .astype(np.float32)).to(device=dev, dtype=dt)
+      (out * w).sum().backward()
+      outs.append(out)
+      # a parameter the output does not use has no gradient (FiLM's
+      # cond_proj, as in JAX): 0 on both sides
+      grads.append([x.grad for x in xi] + [
+          torch.zeros_like(p) if p.grad is None else p.grad
+          for p in m.parameters()])
+    errs[name] = (rel(*outs), max(rel(a, b) for a, b in zip(*grads)))
+  # BatchRenormalization's running statistics after three training calls
+  ref = N.BatchRenormalization()
+  ref.build((12,))
+  mod = copy.deepcopy(ref).to(device=device, dtype=dtype)
+  for call in range(3):
+    x = torch.from_numpy((rs.randn(64, 12) * 5 + call).astype(np.float32))
+    for m, xi in ((mod, x.to(device=device, dtype=dtype)), (ref, x)):
+      m.train()
+      with collecting_updates() as upd:
+        m(xi)
+      for (owner, buf), v in upd.items():
+        getattr(owner, buf).copy_(v.detach())
+  errs["BatchRenormalization(stats)"] = (max(rel(mod.mean, ref.mean),
+                                             rel(mod.var, ref.var)), 0.0)
+  # the dropouts' dropped shares on the device: counts of 1000 thinned at
+  # 0.2 always change, so DiscreteDropout's changed share is its rate; a
+  # DropBlock of size 1 drops each pixel with its rate
+  gen = torch.Generator(device=device).manual_seed(SEED)
+  shares = {}
+  for name, m, x, rate in (
+      ("DiscreteDropout", N.DiscreteDropout(0.3, 0.2),
+       torch.full((512, 1024), 1000.0, device=device), 0.3),
+      ("DropBlock(1)", N.DropBlock(0.1, 1),
+       torch.ones(16, 64, 64, 32, device=device), 0.1)):
+    got = m.train()(x, rng=gen)
+    share = float((got != x).float().mean() if name == "DiscreteDropout"
+                  else (got == 0).float().mean())
+    sd = math.sqrt(rate * (1 - rate) / x.numel())
+    shares[name] = (share, rate, sd)
+  blocks = N.DropBlock(0.1, 3).train()(torch.ones(16, 64, 64, 32,
+                                                  device=device), rng=gen)
+  shares["DropBlock(3)"] = (float((blocks == 0).float().mean()), 0.1, None)
+  return errs, shares
+
+
+def xvector_flops(net, n, frames):
+  """Multiply-adds x 2 of a forward of `n` utterances of `frames` frames
+  through ``net`` (the TDNN layers, then the Denses on the pooled
+  statistics); a training step is about three times that."""
+  per_frame = sum(layer.weight.numel() for layer in net.frame_layers())
+  dense = sum(m.weight.numel() for m in (net.embedding_a, net.embedding_b,
+                                         net.classifier))
+  return 2.0 * n * (frames * per_frame + dense)
+
+
+def xvector_path(torch, np, reset_counts, read_counts, smi):
+  """Phase 21: the x-vector recipe on phase 9's wav files, one step and
+  each layer on the card against the CPU (see the docstring); returns
+  K1's launches on the path."""
+  import glob
+  import os
+  import re
+  from torch.profiler import ProfilerActivity, profile
+
+  from odin_tpu_torch.preprocessing.speech import read_wave_raw
+
+  files = sorted(glob.glob(os.path.join(corpus_root(), "wav", "*.wav")))
+  if len(files) != CORPUS_SPEAKERS * CORPUS_UTTERANCES:
+    raise AssertionError(f"{len(files)} wav files of phase 9 left")
+  spk = np.array([int(re.match(r"s(\d+)_", os.path.basename(f)).group(1))
+                  for f in files])
+  t0 = time.perf_counter()
+  raw = [read_wave_raw(f)[0] for f in files]
+  read_s = time.perf_counter() - t0
+
+  # -- 21.1 the recipe on the card: the main path
+  reset_counts()
+  r = xvector_recipe(torch, np, raw, spk, "cuda")
+  counts = read_counts()
+  n_batches = -(-len(files) // CORPUS_BATCH)
+  log(f"x-vector path launches (batch_speech_features of {len(files)} "
+      f"files, {n_batches} batches of {CORPUS_BATCH}; the network runs "
+      f"cuDNN, cuBLAS and torch's own kernels): {counts}")
+  if counts["logmel"] != n_batches or counts["logmel_fft"] != n_batches:
+    raise AssertionError(f"the x-vector path launched K1 {counts}, not "
+                         f"once a batch ({n_batches})")
+  losses = r["losses"]
+  if not np.isfinite(losses).all():
+    raise AssertionError(f"non-finite losses at steps "
+                         f"{np.flatnonzero(~np.isfinite(losses))[:10]}")
+  k = max(1, min(50, len(losses) // 4))  # steps averaged at each end
+  first, last = float(losses[:k].mean()), float(losses[-k:].mean())
+  net, X, y = r["net"], r["X"], r["y"]
+  n_spk = int(spk.max()) + 1
+  flops = 3 * xvector_flops(net, len(r["batches"][0]), r["frames"])
+  step_ms = r["step_ms"][len(r["step_ms"]) // 2]
+  # kernels a step: three more steps from the trained weights, profiled
+  p = {k: v.detach().clone() for k, v in r["params"].items()}
+  ix = torch.from_numpy(r["batches"][0]).to(X.device)
+
+  def step():
+    q = {k: v.requires_grad_(True) for k, v in p.items()}
+    loss = xvector_loss(torch, net, q, X[ix], y[ix])
+    return torch.autograd.grad(loss, list(q.values()))
+
+  step()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    for _ in range(3):
+      step()
+    torch.cuda.synchronize()
+  busy_ms, n_kernels = device_busy(torch, prof)
+  top = sorted(((e.key, e.self_device_time_total / 1e3 / 3)
+                for e in prof.key_averages()
+                if e.self_device_time_total > 0), key=lambda t: -t[1])[:6]
+  log("x-vector step's kernels by device time (ms a step): " + "; ".join(
+      f"{key[:70]} {t:.3f}" for key, t in top))
+  log(f"x-vector recipe on the card: {len(files)} utterances of {n_spk} "
+      f"speakers cut to {r['frames']} frames of {X.shape[-1]} mfcc_cmvn "
+      f"dims; read {read_s:.3f} s; features {r['features_s']:.3f} s; "
+      f"XVectorNet(n_classes={n_spk}, embedding_dim={net.embedding_dim}), "
+      f"{sum(v.numel() for v in r['params'].values())} parameters; "
+      f"{len(losses)} AdamW steps at batch {len(r['batches'][0])}: "
+      f"{r['train_s']:.3f} s, "
+      f"median {step_ms:.3f} ms a step (CUDA events, p90 "
+      f"{r['step_ms'][int(0.9 * len(r['step_ms']))]:.3f}), "
+      f"{n_kernels / 3:.1f} kernels and {busy_ms / 3:.3f} ms of device time "
+      f"a step (torch.profiler), {flops / 1e9:.2f} GFLOP a step, "
+      f"{flops / (step_ms * 1e-3) / FP32_PEAK_FLOPS * 100:.2f} % of fp32 "
+      f"peak; loss {float(losses[0]):.4f} -> {float(losses[-1]):.4f} "
+      f"(mean of the first {k} {first:.4f}, of the last {k} {last:.4f}); "
+      f"embeddings {r['embed_s']:.3f} s, PLDA fit {r['plda_fit_s']:.3f} s, "
+      f"{XV_TRIALS} trials scored {r['plda_score_s']:.3f} s; {smi}")
+  log(f"x-vector results on the card: PLDA EER {r['eer']:.6f}, minDCF "
+      f"{r['mindcf']:.6f} ({int(r['truth'].sum())} target / "
+      f"{int((~r['truth']).sum())} non-target trials on speakers "
+      f"{n_spk // 2}-{n_spk - 1}; "
+      f"limit {XV_PLDA_EER_MAX})")
+  if not last < first:
+    raise AssertionError(f"the loss did not fall: {first} -> {last}")
+  if not r["eer"] <= XV_PLDA_EER_MAX:
+    raise AssertionError(f"PLDA EER {r['eer']} above {XV_PLDA_EER_MAX}")
+  vecs = r["vecs"]
+  if tuple(vecs.shape) != (len(files), net.embedding_dim) or \
+      not bool(torch.isfinite(vecs).all()):
+    raise AssertionError(f"embeddings {tuple(vecs.shape)}, finite "
+                         f"{bool(torch.isfinite(vecs).all())}")
+
+  # -- the card against the CPU, one step from the initial weights on the
+  # recipe's first batch
+  xb, yb = X[ix].cpu(), y[ix].cpu()
+  got = xvector_one_step(torch, net, r["init"], xb, yb, "cuda")
+  want = xvector_one_step(torch, net, r["init"], xb, yb, "cpu")
+  apart = xvector_apart(np, got, want)
+  limits = dict(loss=XV_LOSS_TOL, logits=XV_LOGITS_TOL,
+                embedding=XV_EMBED_TOL, grads=XV_GRAD_TOL)
+  log("one step, card against CPU (of the CPU's largest magnitude): " +
+      ", ".join(f"{k} {v:.3g} (limit {limits[k]})" for k, v in
+                apart.items()))
+  bad = {k: v for k, v in apart.items() if not v <= limits[k]}
+  if bad:
+    raise AssertionError(f"the card differs from the CPU: {bad}")
+
+  # -- 21.2 each layer on the card against the CPU
+  t0 = time.perf_counter()
+  errs, shares = xvector_layers(torch, np, "cuda")
+  log("layers on the card against the CPU (output, gradient errors of the "
+      "largest magnitude): " + ", ".join(
+          f"{k} {a:.3g}/{b:.3g}" for k, (a, b) in errs.items()) +
+      f" ({time.perf_counter() - t0:.3f} s)")
+  limit = lambda k: (XV_RNN_TOL if k in XV_RNN_LAYERS else XV_LAYER_TOL,
+                     XV_LAYER_GRAD_TOL)
+  bad = {k: (v, limit(k)) for k, v in errs.items()
+         if not (v[0] <= limit(k)[0] and v[1] <= limit(k)[1])}
+  if bad:
+    raise AssertionError(f"layers differ from the CPU beyond their limits "
+                         f"(error, limit): {bad}")
+  log("dropped shares on the card: " + ", ".join(
+      f"{k} {s:.6f} (rate {rate}" + (f", {XV_DROP_SIGMAS} sd {sd:.2g})"
+                                     if sd else ")")
+      for k, (s, rate, sd) in shares.items()))
+  for k, (s, rate, sd) in shares.items():
+    if sd is not None and abs(s - rate) > XV_DROP_SIGMAS * sd:
+      raise AssertionError(f"{k} dropped {s}, rate {rate}")
+    if sd is None and not 0.8 * rate <= s <= 1.05 * rate:
+      raise AssertionError(f"{k} dropped {s}, rate {rate}")
+  return counts["logmel_fft"]
+
+
+PHASES = tuple(range(1, 22))
 # the phases whose results a phase reads: the kernel reports of 2 and 5,
 # phase 7's graphed step time, phase 8's model, phase 9's wav files, phase
 # 10's Gym
 PHASE_NEEDS = {3: (2,), 6: (5,), 8: (7,), 10: (8,), 11: (2, 9), 15: (10,),
-               16: (9,)}
+               16: (9,), 21: (9,)}
 
 
 def selected_phases(spec=None):
@@ -5377,7 +5866,8 @@ def selected_phases(spec=None):
   chosen = {1} | {int(p) for p in str(spec).split(",") if p.strip()}
   if not chosen <= set(PHASES):
     raise SystemExit(f"chip_smoke.py --phases: no phase "
-                     f"{sorted(chosen - set(PHASES))}; phases are 1-20")
+                     f"{sorted(chosen - set(PHASES))}; phases are "
+                     f"1-{PHASES[-1]}")
   todo = list(chosen)
   while todo:
     for need in PHASE_NEEDS.get(todo.pop(), ()):
@@ -6010,6 +6500,15 @@ def main(phases=None) -> int:
       if "logmel_fft" in report:
         report["logmel_fft"]["launches"] += k1
       log(f"K1 FFT launches on the extractor path (phase 16): {k1}")
+  # phase 21 reads phase 9's wav files too
+  if 21 in phases:
+    with Phase("21 x-vector path: TDNN layers and XVectorNet trained by the "
+               "VoxCeleb recipe on K1's features, PLDA and EER; the other "
+               "network layers against the CPU"):
+      k1 = xvector_path(torch, np, reset_counts, read_counts, smi)
+      if "logmel_fft" in report:
+        report["logmel_fft"]["launches"] += k1
+      log(f"K1 FFT launches on the x-vector path (phase 21): {k1}")
   if 9 in phases:
     import shutil
     shutil.rmtree(corpus_root(), ignore_errors=True)

@@ -61,17 +61,21 @@ def _mix(y, mask, y_soft):
 class M2Core(nn.Module):
   """M2's classifier, conditional encoder and conditional decoder; with
   ``conditional_encoder=False`` (M3) the encoder path x -> q(z|x, y) is
-  left out."""
+  left out.  With ``classify_on_features`` the classifier reads the shared
+  encoder's features, flattened, instead of x (JAX's M3
+  reparameterisation flag)."""
 
   def __init__(self, encoder, decoder, latents, observation, labels,
                classifier, embed_dim: int = 128, n_classes: int = 10,
                embedding_method: str = "projection",
-               conditional_encoder: bool = True):
+               conditional_encoder: bool = True,
+               classify_on_features: bool = False):
     super().__init__()
     e = int(embed_dim)
     emb = get_embedding(embedding_method)
     self.n_classes = int(n_classes)
     self.embed_dim = e
+    self.classify_on_features = bool(classify_on_features)
     self.encoder, self.decoder = encoder, decoder
     self.latents, self.observation, self.labels = latents, observation, labels
     self.classifier = classifier
@@ -96,8 +100,12 @@ class M2Core(nn.Module):
 
   def build(self, input_shape, generator=None):
     e = self.embed_dim
-    self._build_classifier(input_shape, generator)
-    h = self.encoder.build(tuple(input_shape), generator)
+    if self.classify_on_features:
+      h = self.encoder.build(tuple(input_shape), generator)
+      self._build_classifier((int(torch.Size(h).numel()),), generator)
+    else:
+      self._build_classifier(input_shape, generator)
+      h = self.encoder.build(tuple(input_shape), generator)
     self.x_to_qz.build((int(torch.Size(h).numel()),), generator)
     self.y_to_qz.build((self.n_classes,), generator)
     self.xy_to_qz.build((2 * e,), generator)
@@ -106,6 +114,9 @@ class M2Core(nn.Module):
 
   def classify(self, x):
     """q(y|x)."""
+    if self.classify_on_features:
+      x = self.encoder(x)
+      x = x.reshape(x.shape[0], -1)
     return self.labels(self.classifier(x))
 
   def encode_xy(self, x, y):

@@ -49,7 +49,8 @@ from odin_tpu_torch.bay.layers.dense_distribution import DistributionDense
 from odin_tpu_torch.bay.random_variable import RVconf
 from odin_tpu_torch.bay.vi._base import VariationalModel, traverse_dims
 from odin_tpu_torch.device import resolve_device
-from odin_tpu_torch.networks.base import collecting_updates
+from odin_tpu_torch.networks.base import (Dense, SequentialNetwork,
+                                         collecting_updates)
 from odin_tpu_torch.training.core import (
     EMA_KEY,
     Noise,
@@ -160,10 +161,10 @@ class VariationalAutoencoder(VariationalModel):
   x)``.  Images are NHWC."""
 
   def __init__(self,
-               encoder: nn.Module,
-               decoder: nn.Module,
-               latents: Union[RVconf, DistributionDense],
-               observation: Union[RVconf, DistributionDense],
+               encoder: Optional[nn.Module] = None,
+               decoder: Optional[nn.Module] = None,
+               latents: Union[RVconf, DistributionDense, None] = None,
+               observation: Union[RVconf, DistributionDense, None] = None,
                labels: Union[RVconf, DistributionDense, None] = None,
                input_shape: Optional[Tuple[int, ...]] = None,
                hierarchy: Sequence[dict] = (),
@@ -177,6 +178,17 @@ class VariationalAutoencoder(VariationalModel):
     super().__init__(analytic=analytic, reverse=reverse, free_bits=free_bits,
                      sample_shape=sample_shape,
                      allow_negative_kl=allow_negative_kl, name=name)
+    # the JAX package's defaults: 32 'mvndiag' latents, a Gaussian
+    # observation of input_shape, two Dense(64, relu) each way
+    if latents is None:
+      latents = RVconf(32, "mvndiag", projection=True, name="latents")
+    if observation is None and input_shape is not None:
+      observation = RVconf(tuple(input_shape), "gaussian", projection=True,
+                           name="observation")
+    if encoder is None:
+      encoder = SequentialNetwork(tuple(Dense(64, "relu") for _ in range(2)))
+    if decoder is None:
+      decoder = SequentialNetwork(tuple(Dense(64, "relu") for _ in range(2)))
     self.encoder_net = encoder
     self.decoder_net = decoder
     self.latents_conf = latents if isinstance(latents, RVconf) else None

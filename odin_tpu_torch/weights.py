@@ -10,6 +10,13 @@ The layout rules:
     port's ``ConvTranspose`` weight is (in, out, kh, kw) with both spatial
     axes flipped (see ``networks.base.ConvTranspose``);
   * ``Dense`` kernels are (in, out) in flax and (out, in) in torch;
+  * 1-D kernels (``networks.time_delay``'s TDNN layers, ``util_layers``'
+    ``Conv1DTranspose``) are (k, in, out) in flax and (out, in, k) in the
+    port, a transposed one's (in, out, k) flipped; a 1-D layer names the
+    flax primitive that holds its weight (``flax_kind``: ``Conv_0``,
+    ``Dense_0`` for an irregular ``TimeDelay`` context,
+    ``ConvTranspose_0``), and ``TimeDelayConvTied``'s raw ``kernel`` is
+    held by the layer itself;
   * activations stay NHWC, so ``Flatten`` before a ``Dense`` needs no
     permutation of the Dense kernel.
 
@@ -26,7 +33,13 @@ Recurrent cells: flax's ``nn.GRUCell`` (gates ``ir``, ``iz``, ``in`` with
 bias, ``hr``, ``hz`` without, ``hn`` with) is the port's ``GRUCell``:
 ``weight_ih`` is ``[ir; iz; in]`` and ``weight_hh`` ``[hr; hz; hn]``, each
 kernel transposed, ``bias_ih`` ``[b_ir; b_iz; b_in]`` and ``bias_hn`` the
-``hn`` bias.
+``hn`` bias.  ``nn.OptimizedLSTMCell`` (``ii/if/ig/io`` without bias,
+``hi/hf/hg/ho`` with) is ``util_layers.LSTMCell``: ``weight_ih`` ``[ii;
+if; ig; io]``, ``weight_hh`` ``[hi; hf; hg; ho]`` and ``bias_hh``;
+``nn.SimpleCell`` (``i`` with bias, ``h`` without) is ``SimpleCell``:
+``weight_ih``, ``weight_hh`` and ``bias_ih``.  ``BatchRenormalization``
+holds its ``gamma`` and ``beta`` itself, its running ``mean`` and ``var``
+in ``batch_stats``.
 
 Path rules: flax's ``layers_<i>`` is ``layers.<i>``, and so are the
 per-modality lists of ``MoeVAE`` (``encoders_<m>``, ``decoders_<m>``,
@@ -90,6 +103,7 @@ from odin_tpu_torch.ml import GMM, PLDA, Scorer, Tmatrix, VectorNormalizer
 from odin_tpu_torch.networks.attention import MultiHeadAttention
 from odin_tpu_torch.networks.base import (BatchNorm, Conv, ConvTranspose,
                                          Dense, GRUCell)
+from odin_tpu_torch.networks.util_layers import LSTMCell, SimpleCell
 from odin_tpu_torch.training.core import EMA_KEY, TrainState, _dtype
 
 __all__ = ["from_jax_params", "to_jax_params", "from_jax_mutables",
@@ -100,6 +114,7 @@ __all__ = ["from_jax_params", "to_jax_params", "from_jax_mutables",
 
 _PRIMITIVES = {"Conv_0": Conv, "ConvTranspose_0": ConvTranspose,
                "Dense_0": Dense, "BatchNorm_0": BatchNorm}
+_PRIMITIVE_NAMES = {v: k for k, v in _PRIMITIVES.items()}
 # flax's auto-named primitives (``Conv_1``, ``ConvTranspose_0``, ...); one
 # with siblings belongs to a block of flax's own layers (a residual
 # block, a squeeze-excitation, a PixelCNN decoder) and is a bare module
@@ -125,29 +140,64 @@ _RAW += ("topics_words", "conc_w", "conc_b", "profile_logits")
 # a MADE projection's masked kernels and biases, a VariationalDense's
 # kernel posterior, a TrainableNormal's location
 _RAW += ("kernel_out", "bias_out", "kernel_mu", "kernel_rho", "loc")
+# BatchRenormalization's scale and shift
+_RAW += ("gamma", "beta")
 _RAW_NUMBERED = re.compile(r"^(enc_[wb]|kernel_|bias_)\d+$")
 _PARAM_LEAVES = ("bias", "scale") + _RAW
 _GRU_GATES = ("ir", "iz", "in", "hr", "hz", "hn")
 _GRU_LEAVES = ("weight_ih", "weight_hh", "bias_ih", "bias_hn")
+_LSTM_IN, _LSTM_HIDDEN = ("ii", "if", "ig", "io"), ("hi", "hf", "hg", "ho")
+_LSTM_LEAVES = ("weight_ih", "weight_hh", "bias_hh")
+_RNN_LEAVES = ("weight_ih", "weight_hh", "bias_ih")
+_CELL_LEAVES = set(_GRU_LEAVES + _LSTM_LEAVES + _RNN_LEAVES)
 
 
 def _is_raw(leaf: str) -> bool:
   return leaf in _RAW or bool(_RAW_NUMBERED.match(leaf))
 
 
-def _fuse_gru(tree: Mapping) -> Dict[str, Any]:
-  """`tree` with each flax ``GRUCell`` node (the tree itself too) replaced
-  by the port's fused leaves, in the port's layout."""
+def _fuse_cells(tree: Mapping) -> Dict[str, Any]:
+  """`tree` with each flax recurrent cell node (the tree itself too)
+  replaced by the port's fused leaves, in the port's layout: a
+  ``GRUCell``, an ``OptimizedLSTMCell`` (``LSTMCell``) or a
+  ``SimpleCell``."""
+  kernel = lambda gates: np.concatenate(
+      [np.asarray(tree[g]["kernel"]).T for g in gates], 0)
+  bias = lambda gates: np.concatenate([np.asarray(tree[g]["bias"])
+                                       for g in gates])
   if set(tree) == set(_GRU_GATES):
-    kernel = lambda gates: np.concatenate(
-        [np.asarray(tree[g]["kernel"]).T for g in gates], 0)
     return {"weight_ih": kernel(("ir", "iz", "in")),
             "weight_hh": kernel(("hr", "hz", "hn")),
-            "bias_ih": np.concatenate([np.asarray(tree[g]["bias"])
-                                       for g in ("ir", "iz", "in")]),
+            "bias_ih": bias(("ir", "iz", "in")),
             "bias_hn": np.asarray(tree["hn"]["bias"])}
-  return {k: _fuse_gru(v) if isinstance(v, Mapping) else v
+  if set(tree) == set(_LSTM_IN + _LSTM_HIDDEN):
+    return {"weight_ih": kernel(_LSTM_IN), "weight_hh": kernel(_LSTM_HIDDEN),
+            "bias_hh": bias(_LSTM_HIDDEN)}
+  if set(tree) == {"i", "h"} and all(isinstance(v, Mapping)
+                                     for v in tree.values()):
+    return {"weight_ih": kernel(("i",)), "weight_hh": kernel(("h",)),
+            "bias_ih": bias(("i",))}
+  return {k: _fuse_cells(v) if isinstance(v, Mapping) else v
           for k, v in tree.items()}
+
+
+def _unstack(w, gates, b=None) -> Dict[str, Any]:
+  """A fused (gates·h, in) weight (and its bias) -> flax's gate nodes."""
+  h = w.shape[0] // len(gates)
+  out = {g: {"kernel": np.ascontiguousarray(w[i * h:(i + 1) * h].T)}
+         for i, g in enumerate(gates)}
+  if b is not None:
+    for i, g in enumerate(gates):
+      out[g]["bias"] = b[i * h:(i + 1) * h].copy()
+  return out
+
+
+def _lstm_gates(w_ih, w_hh, b_hh) -> Dict[str, Any]:
+  return {**_unstack(w_ih, _LSTM_IN), **_unstack(w_hh, _LSTM_HIDDEN, b_hh)}
+
+
+def _rnn_gates(w_ih, w_hh, b_ih) -> Dict[str, Any]:
+  return {**_unstack(w_ih, ("i",), b_ih), **_unstack(w_hh, ("h",))}
 
 
 def _gru_gates(w_ih, w_hh, b_ih, b_hn) -> Dict[str, Any]:
@@ -162,11 +212,14 @@ def _gru_gates(w_ih, w_hh, b_ih, b_hn) -> Dict[str, Any]:
   return gates
 
 
-def _split_gru(tree: Mapping) -> Dict[str, Any]:
-  """The inverse of ``_fuse_gru``."""
-  if set(tree) == set(_GRU_LEAVES):
-    return _gru_gates(*(np.asarray(tree[n]) for n in _GRU_LEAVES))
-  return {k: _split_gru(v) if isinstance(v, Mapping) else v
+def _split_cells(tree: Mapping) -> Dict[str, Any]:
+  """The inverse of ``_fuse_cells``."""
+  for leaves, gates in ((_GRU_LEAVES, _gru_gates),
+                        (_LSTM_LEAVES, _lstm_gates),
+                        (_RNN_LEAVES, _rnn_gates)):
+    if set(tree) == set(leaves):
+      return gates(*(np.asarray(tree[n]) for n in leaves))
+  return {k: _split_cells(v) if isinstance(v, Mapping) else v
           for k, v in tree.items()}
 
 
@@ -191,6 +244,9 @@ def _transposed(kind) -> bool:
 def _kernel_to_torch(kind, kernel: np.ndarray) -> np.ndarray:
   if kernel.ndim == 2:  # Dense (in, out) -> (out, in)
     return kernel.T
+  if kernel.ndim == 3:  # 1-D (k, in, out) -> (out, in, k); transposed
+    return (kernel.transpose(1, 2, 0)[:, :, ::-1] if _transposed(kind)
+            else kernel.transpose(2, 1, 0))  # -> flipped (in, out, k)
   if _transposed(kind):  # (kh, kw, in, out) -> flipped (in, out, kh, kw)
     return kernel.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1]
   return kernel.transpose(3, 2, 0, 1)  # HWIO -> OIHW
@@ -199,6 +255,9 @@ def _kernel_to_torch(kind, kernel: np.ndarray) -> np.ndarray:
 def _kernel_to_flax(kind, weight: np.ndarray) -> np.ndarray:
   if weight.ndim == 2:
     return weight.T
+  if weight.ndim == 3:
+    return (weight[:, :, ::-1].transpose(2, 0, 1) if _transposed(kind)
+            else weight.transpose(2, 1, 0))
   if _transposed(kind):
     return weight[:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
   return weight.transpose(2, 3, 1, 0)
@@ -240,7 +299,7 @@ def _port_leaf(path: Tuple[str, ...], leaves=_PARAM_LEAVES,
   if leaf == "kernel" and leaves is _PARAM_LEAVES:
     leaf = "weight"
   elif leaf not in leaves and not (leaves is _PARAM_LEAVES and (
-      _is_raw(leaf) or leaf in _GRU_LEAVES)):
+      _is_raw(leaf) or leaf in _CELL_LEAVES)):
     raise ValueError(f"unexpected flax leaf {'/'.join(path)}")
   return ".".join(names + [leaf]), kind
 
@@ -260,7 +319,7 @@ def from_jax_params(params: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     params = params["vae"]
   out = {}
   kept = _kept_primitives(params)
-  for path, value in _leaves(_fuse_gru(params)):
+  for path, value in _leaves(_fuse_cells(params)):
     *modules, leaf = path
     if len(modules) >= 2 and modules[-2] == _MHA and \
         modules[-1] in _MHA_PROJECTIONS:
@@ -285,14 +344,14 @@ def _tree_to_flax(state_dict: Mapping[str, torch.Tensor],
   port name, transposed back and shaped as the template's leaf."""
   out: Dict[str, Any] = {}
   kept = _kept_primitives(template)
-  for path, value in _leaves(_fuse_gru(template)):
+  for path, value in _leaves(_fuse_cells(template)):
     name, kind = _port_leaf(path, kept=kept)
     w = _numpy(state_dict[name])
     if path[-1] == "kernel":
       w = _kernel_to_flax(kind, w)
     _node(out, path[:-1])[path[-1]] = np.ascontiguousarray(
         w.reshape(value.shape)).astype(value.dtype)
-  return _split_gru(out)
+  return _split_cells(out)
 
 
 def _flax_path(name: str):
@@ -350,9 +409,14 @@ def to_jax_params(module: nn.Module,
               (kernel.shape[0],) + heads))
           node["bias"] = value(name, proj, "bias").reshape(heads)
       continue
-    if isinstance(sub, GRUCell):
-      _node(tree, _flax_path(name)).update(_gru_gates(
-          *(value(name, n) for n in _GRU_LEAVES)))
+    cell = next(((leaves, gates) for kind, leaves, gates in (
+        (GRUCell, _GRU_LEAVES, _gru_gates),
+        (LSTMCell, _LSTM_LEAVES, _lstm_gates),
+        (SimpleCell, _RNN_LEAVES, _rnn_gates)) if isinstance(sub, kind)),
+                None)
+    if cell is not None:
+      _node(tree, _flax_path(name)).update(cell[1](
+          *(value(name, n) for n in cell[0])))
       continue
     if isinstance(sub, BatchNorm):
       node = _node(tree, _flax_path(name) + ([] if sub.bare
@@ -367,15 +431,18 @@ def to_jax_params(module: nn.Module,
       for leaf, _ in sub.named_parameters(recurse=False):
         node[leaf] = value(name, leaf)
       continue
-    if not isinstance(sub, (Conv, ConvTranspose, Dense)) or sub in held:
+    # the flax primitive a layer stands for: a 1-D layer of
+    # ``networks.time_delay``/``util_layers`` names it (``flax_kind``)
+    kind = getattr(sub, "flax_kind", None) or next(
+        (k for k in (Conv, ConvTranspose, Dense) if isinstance(sub, k)), None)
+    if kind is None or sub in held:
       continue
     path = _flax_path(name)
     if not sub.bare:
-      path.append(next(k for k, v in _PRIMITIVES.items()
-                       if isinstance(sub, v)))
+      path.append(_PRIMITIVE_NAMES[kind])
     node = _node(tree, path)
     w = value(name, "weight")
-    node["kernel"] = np.ascontiguousarray(_kernel_to_flax(type(sub), w))
+    node["kernel"] = np.ascontiguousarray(_kernel_to_flax(kind, w))
     if sub.bias is not None:
       node["bias"] = value(name, "bias")
   for name, _ in module.named_parameters():

@@ -1,7 +1,10 @@
 """The PyTorch port stands alone: odin_tpu_torch and chip_smoke.py import
 nothing of JAX, nothing of the JAX package and nothing of scikit-learn (the
 card's machine has none), and chip_smoke.py fails, printing no result,
-where there is no CUDA card or no port beside it."""
+where there is no CUDA card or no port beside it.  The one exception is
+``Newsgroup20._fetch``, which reads 20-newsgroups from scikit-learn's local
+cache as the JAX package does: its import stands inside that function
+(``LAZY``), never at a module's top level."""
 import ast
 import os
 import pathlib
@@ -13,17 +16,47 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "odin_tpu", "sklearn")
+# (source, function, module) of the imports a function makes when it runs
+LAZY = {("odin_tpu_torch/fuel/nlp_data.py", "_fetch", "sklearn.datasets")}
 SOURCES = sorted((ROOT / "odin_tpu_torch").rglob("*.py")) + sorted(
     (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+def _imports(node):
+  if isinstance(node, ast.Import):
+    return [alias.name for alias in node.names]
+  if isinstance(node, ast.ImportFrom) and node.level == 0:
+    return [node.module]
+  return []
+
+
 def _imported_modules(path):
+  """The modules `path` imports, but those ``LAZY`` allows inside the
+  function it names."""
+  rel = path.relative_to(ROOT).as_posix()
   tree = ast.parse(path.read_text(), filename=str(path))
+  lazy = set()
+  for fn in ast.walk(tree):
+    if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+      for node in ast.walk(fn):
+        lazy |= {id(node) for m in _imports(node)
+                 if (rel, fn.name, m) in LAZY}
   for node in ast.walk(tree):
-    if isinstance(node, ast.Import):
-      yield from (alias.name for alias in node.names)
-    elif isinstance(node, ast.ImportFrom) and node.level == 0:
-      yield node.module
+    if id(node) not in lazy:
+      yield from _imports(node)
+
+
+def test_the_lazy_import_is_inside_its_function():
+  """``Newsgroup20._fetch`` holds the one scikit-learn import, and the
+  module's top level none."""
+  path = ROOT / "odin_tpu_torch" / "fuel" / "nlp_data.py"
+  tree = ast.parse(path.read_text())
+  top = [m for node in tree.body for m in _imports(node)]
+  assert not any(m.split(".")[0] == "sklearn" for m in top)
+  fetch = [n for n in ast.walk(tree) if isinstance(n, ast.FunctionDef)
+           and n.name == "_fetch"]
+  assert any(m == "sklearn.datasets" for fn in fetch
+             for node in ast.walk(fn) for m in _imports(node))
 
 
 def test_sources_exist():
@@ -124,6 +157,12 @@ def test_sources_exist():
                  "bay/stochastic_initializers.py", "fuel/bio_data.py",
                  "networks/image_networks.py"):
     assert f"odin_tpu_torch/{module}" in names
+  # the x-vector slice: the TDNN layers, the utility layers and dropouts,
+  # the text readers and loaders
+  for module in ("networks/time_delay.py", "networks/util_layers.py",
+                 "networks/dropout.py", "fuel/nlp_data.py",
+                 "fuel/loaders.py"):
+    assert f"odin_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -182,7 +221,10 @@ def test_importing_the_port_loads_no_jax():
           "odin_tpu_torch.bay.vi.autoencoder.sequential_vae, "
           "odin_tpu_torch.bay.layers, "
           "odin_tpu_torch.bay.stochastic_initializers, "
-          "odin_tpu_torch.fuel.bio_data\n"
+          "odin_tpu_torch.fuel.bio_data, odin_tpu_torch.fuel.loaders, "
+          "odin_tpu_torch.networks.time_delay, "
+          "odin_tpu_torch.networks.util_layers, "
+          "odin_tpu_torch.networks.dropout\n"
           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
           f"{FORBIDDEN!r})\nassert not bad, bad")
   res = _run(["-c", code], cwd=ROOT)
@@ -208,16 +250,18 @@ def test_chip_smoke_fails_without_the_port(tmp_path):
 
 
 def test_chip_smoke_phases_run_1_to_20():
-  """Phase 20 (the gene-expression slice) is the last; ``--phases 20``
-  runs it with the build alone, reading no other phase."""
+  """Phases 1-20 stay, and phase 21 (the x-vector slice) is the last:
+  ``--phases 20`` runs phase 20 with the build alone, ``--phases 21``
+  brings phase 9, whose wav files it reads."""
   import chip_smoke
-  assert chip_smoke.PHASES == tuple(range(1, 21))
-  assert chip_smoke.selected_phases() == set(range(1, 21))
+  assert chip_smoke.PHASES == tuple(range(1, 22))
+  assert chip_smoke.selected_phases() == set(range(1, 22))
   assert chip_smoke.selected_phases("20") == {1, 20}
+  assert chip_smoke.selected_phases("21") == {1, 9, 21}
   assert 20 not in chip_smoke.PHASE_NEEDS
   assert all(20 not in needs for needs in chip_smoke.PHASE_NEEDS.values())
-  with pytest.raises(SystemExit, match="1-20"):
-    chip_smoke.selected_phases("21")
+  with pytest.raises(SystemExit, match="1-21"):
+    chip_smoke.selected_phases("22")
 
 
 def test_new_modules_need_neither_sklearn_nor_matplotlib():

@@ -129,8 +129,9 @@ def test_registry_names_the_image_sets():
   port = {c.__name__ for c in pfuel.get_all_dataset("image")}
   assert set(LOADERS) | {"HalfMoonsImage", "YDisentanglement"} <= port
   assert port <= jax_images
-  with pytest.raises(NotImplementedError):
-    pfuel.get_dataset("imdbreview")
+  # the text sets are ported too (tests/test_torch_nlp_loaders.py)
+  assert type(pfuel.get_dataset("imdbreview")).__name__ == \
+      type(jfuel.get_dataset("imdbreview")).__name__
   # the gene sets are ported (tests/test_torch_bio_data.py)
   assert type(pfuel.get_dataset("cortex")).__name__ == \
       type(jfuel.get_dataset("cortex")).__name__

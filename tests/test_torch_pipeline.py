@@ -143,11 +143,13 @@ def test_get_dataset_lists_only_what_is_ported():
   assert [c.__name__ for c in get_all_dataset()] == sorted(
       [c.__name__ for c in get_all_dataset("image")] +
       ["BreastTumor", "Cortex", "Forebrain", "HumanEmbryos", "Insilico",
-       "Leukemia", "Melanoma", "PBMC", "SyntheticATAC", "SyntheticGenes"])
+       "Leukemia", "Melanoma", "PBMC", "SyntheticATAC", "SyntheticGenes",
+       "ImdbReview", "MathArithmetic", "Newsgroup20", "Newsgroup20_clean",
+       "Newsgroup5", "SyntheticBoW", "TinyShakespear"])
   assert type(get_dataset("cortex")).__name__ == "Cortex"
-  for name in ("imdbreview", "nope"):
-    with pytest.raises(NotImplementedError, match="not ported yet"):
-      get_dataset(name)
+  assert type(get_dataset("imdbreview")).__name__ == "ImdbReview"
+  with pytest.raises(ValueError, match="cannot find dataset 'nope'"):
+    get_dataset("nope")
   assert dSprites(full_grid=True).full_grid
 
 
