@@ -5717,7 +5717,8 @@ def xvector_flops(net, n, frames):
 def xvector_path(torch, np, reset_counts, read_counts, smi):
   """Phase 21: the x-vector recipe on phase 9's wav files, one step and
   each layer on the card against the CPU (see the docstring); returns
-  K1's launches on the path."""
+  K1's launches on the path and what phase 22 reads (the raw utterances,
+  their speakers and utterance numbers, the ``embedding_a`` vectors)."""
   import glob
   import os
   import re
@@ -5846,15 +5847,431 @@ def xvector_path(torch, np, reset_counts, read_counts, smi):
       raise AssertionError(f"{k} dropped {s}, rate {rate}")
     if sd is None and not 0.8 * rate <= s <= 1.05 * rate:
       raise AssertionError(f"{k} dropped {s}, rate {rate}")
+  utt = np.array([int(re.search(r"_u(\d+)", os.path.basename(f)).group(1))
+                  for f in files])
+  return counts["logmel_fft"], dict(raw=raw, spk=spk, utt=utt, vecs=vecs)
+
+
+# -- phase 22: classical ML on K1's frames and the x-vectors ---------------
+CL_COMPONENTS = PCA_COMPONENTS  # 20 components of the 40-mel log-mels
+CL_MB_BATCH = 65536  # MiniBatchPCA's batch
+CL_TRAIN_UTT = 24  # utterances 0-23 of each speaker train, 24-31 test
+CL_ALGOS = ("lda", "svm", "logistic", "gbt", "rf")
+# linear_classifier's keywords: the SVC with Platt probabilities, which
+# evaluate reads (scikit-learn's SVC has none without them)
+CL_ALGO_KW = {"svm": dict(probability=True, random_state=SEED)}
+CL_TOPICS = dict(n_docs=TOPIC_CONFIG["n_docs"],
+                 n_words=TOPIC_CONFIG["n_words"],
+                 n_topics=TOPIC_CONFIG["n_topics"])  # phase 18's corpus
+# 22.1, each reduction against a float64 eigh of the frames' covariance on
+# the card: the largest relative error of its explained variances (None:
+# PPCA has none), the largest principal angle (radians) between the top
+# 20 - drop eigenvectors and its subspace, and the least share of the top
+# subspace's variance that its subspace captures.  The port's CPU run at
+# full size (tools/classical_recipe.py --files 2048: 1,220,944 frames)
+# measured: fast_pca (covariance_eigh, X'X in float32 as scikit-learn
+# forms it) 5.77e-5, 5.33e-4, 1 - 1.6e-9; fast_pca(randomized) 1.15e-5,
+# 1.98e-3, 1 - 1.4e-8; RandomizedPCA (a sketch of all 40 columns)
+# 2.53e-6, 5.83e-6, 1 - 1.1e-13; MiniBatchPCA (incremental: each batch
+# keeps 20 directions, an approximation of its own) 1.76e-2, 0.123 for
+# the top 19, 1 - 9.5e-5; PPCA (EM, stopped by its sigma2 test after 17
+# steps) 0.0151 for the top 19 (how far EM has turned them by its stop:
+# 0.019 a step earlier, 0.024 two, 2e-3 at 25 steps), 1 - 5.2e-4; the
+# 20th direction is left out of the angles of both, its eigenvalue
+# (16.80) within 12 % of the 21st (14.87).  The limits are 10-40x the
+# rounding-bound figures and 2.5-6x the algorithms' own (PPCA's angle
+# limit was 1e-2 in the first card run, set from a misread figure, and
+# failed there at the same 0.0151):
+CL_LIMITS = {  # name: (explained variance, angle, drop, captured share)
+    "fast_pca": (1e-3, 1e-2, 0, 1 - 1e-6),
+    "fast_pca(randomized)": (1e-3, 2e-2, 0, 1 - 1e-6),
+    "RandomizedPCA": (1e-4, 1e-3, 0, 1 - 1e-9),
+    "MiniBatchPCA": (5e-2, 0.3, 1, 1 - 5e-4),
+    "PPCA": (None, 5e-2, 1, 1 - 3e-3)}
+# 22.2, the back-ends on the held-out x-vectors: each accuracy at least
+# 1/1.5 of, and each EER at most 1.5x, the port's CPU run of the same
+# back-ends on x-vectors that phase 21's recipe made on the card
+# (tools/classical_recipe.py --files 2048 --stages 5 --trees 20 --vectors
+# X.npy, X from `--device cuda --steps 1200 --frames 0`: that run's PLDA
+# EER 0.2309), at a reduced scale: the boosted trees at 5 stages and the
+# forest at 20 trees (the CPU took 32 s a stage and 0.6 s a tree; the
+# logistic regression's dense Newton 1884 s).  Chance accuracy is 1/64;
+# EERs are capped at chance's 0.5, which binds for lda, gbt and
+# GMMclassifier, whose accuracy floors (9-16x chance) and 22.4 hold
+# them.  (accuracy, EER):
+CL_CPU = {"Scorer(lda=True)": dict(accuracy=0.388671875, EER=0.1117),
+          "Scorer(svm)": dict(accuracy=0.41796875, EER=0.0840),
+          "lda": dict(accuracy=0.375, EER=0.3402),
+          "svm": dict(accuracy=0.453125, EER=0.0738),
+          "logistic": dict(accuracy=0.408203125, EER=0.2047),
+          "gbt": dict(accuracy=0.21875, EER=0.3438),
+          "rf": dict(accuracy=0.35546875, EER=0.1208),
+          "GMMclassifier": dict(accuracy=0.2578125, EER=0.3901),
+          "ProbabilisticEmbedding": dict(accuracy=0.32421875, EER=0.1810)}
+CL_RATIO = 1.5
+# 22.4, the card against the CPU from the same inputs at small shapes, each
+# of the CPU value's largest magnitude; 100x or more the CPU's own float32
+# distance from float64 (tools/classical_recipe.py, "fp32", on the
+# card's x-vectors as above: PCA components 6.84e-4, as scikit-learn
+# forms X'X in float32; the LDA transform 4.26e-6; the mixture's weights
+# 2.34e-7, means 6.25e-7, score_samples 2.91e-6; the GMM classifier's
+# log-likelihoods 1.51e-5; the topics' components 8.9e-7; evaluate's
+# figures 2.76e-6).  The SVC computes in float64 whatever its input (0
+# from float32): its limit is libsvm's stop, which leaves decision values
+# up to about tol = 1e-3 apart wherever two runs' rounding picks other
+# working sets (tests/test_torch_svm.py), and its Platt probabilities as
+# far times |A|/4 (Platt's slopes |A| up to 2.61 here).  The forest's
+# splits are chosen from integer sums and float32 thresholds on both
+# devices; the boosted trees' fit is the same bits on both, so their raw
+# scores are equal (limit 0: a last-bit difference in a residual can turn a
+# split and every stage after it, and one card run read probabilities
+# 0.090 apart when the residuals' exp and sums were torch's).  The two
+# models' probabilities differ by the order of a float64 sum.  The
+# logistic regression runs Newton in float64 to its stop, and the
+# embedding is float64 on its probabilities: both within float64's
+# rounding.
+CL_CARD = {"pca_components": 7e-2, "lda_transform": 8e-3,
+           "mixture_weights": 1e-5, "mixture_means": 4e-5,
+           "mixture_score_samples": 2e-4, "svc_decision": 1e-3,
+           "svc_proba": 1e-3, "forest_proba": 1e-12, "gbt_raw": 0.0,
+           "gbt_proba": 1e-12,
+           "logistic_proba": 1e-9, "embedding_proba": 1e-9,
+           "gmm_classifier_llk": 1.5e-3, "topics_components": 1e-4,
+           "evaluate": 1e-3}
+CL_SMALL_FRAMES = 8192  # frames of the PCA, rows of the mixture
+CL_SMALL_SPEAKERS = 8  # speakers of the classifiers' comparisons
+CL_SMALL_STAGES = 10  # the boosted trees' stages there (0.45 s a stage on
+# the CPU)
+
+
+def principal_angle(torch, rows, basis):
+  """The largest principal angle (radians) between the orthonormal
+  columns of `basis` (d, m) and the span of `rows` (k, d), m <= k, in
+  float64: 0 where the span holds every column."""
+  Q = torch.linalg.qr(rows.T.to(torch.float64))[0]
+  s = torch.linalg.svdvals(Q.T @ basis)
+  return float(torch.arccos(torch.clamp(s.min(), max=1.0)))
+
+
+def captured_share(torch, rows, C, top):
+  """The variance of covariance C inside the span of `rows` (k, d) over
+  the most any k-dimensional subspace holds (the sum of the `top`
+  eigenvalues), in float64: 1 for the principal subspace."""
+  Q = torch.linalg.qr(rows.T.to(torch.float64))[0]
+  return float(torch.trace(Q.T @ C @ Q) / top.sum())
+
+
+def mel_energy_db(torch, mspec):
+  """A frame's log-energy in dB from its log-mel bands in dB."""
+  c = math.log(10.0) / 10.0
+  return torch.logsumexp(mspec * c, dim=1) / c
+
+
+def classical_reductions(torch, np, frames, device, sync):
+  """22.1: the five reductions of `frames` (N, 40) at CL_COMPONENTS and
+  GMMThreshold on their log-energy, each against a float64 eigh of the
+  covariance on `device`; -> {name: (explained-variance error or None,
+  principal angle, captured variance share, seconds)}, and the
+  threshold's (low mean, threshold, high mean, seconds)."""
+  from odin_tpu_torch.ml import (MiniBatchPCA, PPCA, GMMThreshold,
+                                 RandomizedPCA, fast_pca)
+  k = CL_COMPONENTS
+  F = frames.to(torch.float64)
+  C = torch.cov(F.T)
+  evals, evecs = torch.linalg.eigh(C)
+  evals, evecs = torch.flip(evals, [0])[:k], torch.flip(evecs, [1])[:, :k]
+
+  def timed(fn):
+    sync()
+    t = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t
+
+  fits = {
+      "fast_pca": lambda: fast_pca(frames, n_components=k,
+                                   return_model=True)[1],
+      "fast_pca(randomized)": lambda: fast_pca(
+          frames, n_components=k, svd_solver="randomized",
+          return_model=True)[1],
+      "RandomizedPCA": lambda: RandomizedPCA(k, random_state=SEED).fit(
+          frames),
+      "MiniBatchPCA": lambda: MiniBatchPCA(k, batch_size=CL_MB_BATCH).fit(
+          frames),
+      "PPCA": lambda: PPCA(k).fit(frames)}
+  out = {}
+  for name, fit in fits.items():
+    model, secs = timed(fit)
+    if name == "PPCA":
+      rows, ev = model.W.T, None
+    else:
+      model = model._model if name == "MiniBatchPCA" else model
+      rows = model.components_
+      ev = float(((model.explained_variance_.to(torch.float64) - evals
+                   ).abs() / evals).max())
+    drop = CL_LIMITS[name][2]
+    out[name] = (ev, principal_angle(torch, rows, evecs[:, :k - drop]),
+                 captured_share(torch, rows, C, evals), secs)
+  energy = mel_energy_db(torch, frames)
+  th, secs = timed(lambda: GMMThreshold().fit(energy))
+  means = th.gmm_.means_.reshape(-1).cpu().numpy()
+  return out, (float(means.min()), th.threshold_, float(means.max()), secs)
+
+
+def classical_backends(torch, np, vecs, spk, utt, device, sync,
+                       pdf_path=None, cuts=None):
+  """22.2: the back-ends on the x-vectors (utterances below CL_TRAIN_UTT
+  train, the rest test), each through ``evaluate``; `cuts` may give an
+  algorithm's keywords (the CPU run cuts the trees' counts); -> {name:
+  the evaluate dict plus 'seconds'}."""
+  from odin_tpu_torch.ml import (GMMclassifier, ProbabilisticEmbedding,
+                                 Scorer, evaluate, linear_classifier)
+  train = utt < CL_TRAIN_UTT
+  tr_t = torch.from_numpy(train).to(vecs.device)
+  Xtr, Xte = vecs[tr_t], vecs[~tr_t]
+  ytr, yte = spk[train], spk[~train]
+  results = {}
+
+  def run(name, fit, proba, path=None):
+    sync()
+    t = time.perf_counter()
+    model = fit()
+    p = proba(model)
+    sync()
+    secs = time.perf_counter() - t
+    r = evaluate(yte, p, print_log=False, path=path, device=device)
+    r["seconds"] = secs
+    results[name] = r
+    return model
+
+  run("Scorer(lda=True)", lambda: Scorer(lda=True, device=device).fit(
+      Xtr, ytr), lambda m: m.predict_proba(Xte), pdf_path)
+  run("Scorer(svm)", lambda: Scorer(method="svm", device=device).fit(
+      Xtr, ytr), lambda m: m.predict_proba(Xte))
+  models = {}
+  for algo in CL_ALGOS:  # each estimator runs on the device of Xtr
+    kw = dict(CL_ALGO_KW.get(algo, {}), **(cuts or {}).get(algo, {}))
+    models[algo] = run(algo, lambda: linear_classifier(Xtr, ytr, algo=algo,
+                                                       **kw),
+                       lambda m: m.predict_proba(Xte))
+  run("GMMclassifier", lambda: GMMclassifier(device=device).fit(Xtr, ytr),
+      lambda m: m.predict_proba(Xte))
+  probs = models["logistic"].predict_proba(Xte)
+  run("ProbabilisticEmbedding", lambda: ProbabilisticEmbedding(
+      device=device).fit(probs), lambda m: m.predict_proba(probs))
+  return results
+
+
+def classical_topics(torch, np, device, sync):
+  """22.3: ``fast_lda_topics`` on phase 18's ``SyntheticBoW`` at its true
+  topic count, the perplexity after each EM step; -> (model, perplexities,
+  the topic strings, the recovered topics' mean best-match cosine,
+  seconds)."""
+  from odin_tpu_torch.fuel.nlp_data import SyntheticBoW
+  from odin_tpu_torch.ml import fast_lda_topics, get_topics_string
+  ds = SyntheticBoW(**CL_TOPICS, seed=1)
+  X = torch.from_numpy(ds._x).to(device)
+  sync()
+  t = time.perf_counter()
+  lda = fast_lda_topics(X, n_topics=CL_TOPICS["n_topics"], evaluate_every=1)
+  sync()
+  secs = time.perf_counter() - t
+  words = [f"w{i:03d}" for i in range(CL_TOPICS["n_words"])]
+  comp = lda.components_.to(torch.float64).cpu().numpy()
+  comp = comp / comp.sum(1, keepdims=True)
+  sims = comp @ ds.topics.T / (np.linalg.norm(comp, axis=1)[:, None] *
+                               np.linalg.norm(ds.topics, axis=1)[None])
+  return (lda, list(lda.perplexities_), get_topics_string(lda, words),
+          float(sims.max(1).mean()), secs)
+
+
+def classical_small(torch, np, frames, vecs, spk, utt, device,
+                    dtype=None):
+  """22.4's small shapes on `device` (in `dtype` where given, else the
+  inputs' own): PCA components, the LDA transform, the diagonal mixture's
+  weights, means and score_samples, the SVC's decision values and Platt
+  probabilities, the probabilities of the forest, the logistic
+  regression, the boosted trees (and their raw scores) and the
+  probabilistic embedding (of the
+  logistic model's probabilities, as 22.2 fits it), the GMM classifier's
+  log-likelihoods, the topic model's components and evaluate's dict; ->
+  {name: array}."""
+  from odin_tpu_torch.fuel.nlp_data import SyntheticBoW
+  from odin_tpu_torch.ml import (GMMclassifier, ProbabilisticEmbedding,
+                                 evaluate, fast_lda_topics, fast_pca,
+                                 linear_classifier)
+  from odin_tpu_torch.ml.discriminant import LinearDiscriminantAnalysis
+  from odin_tpu_torch.ml.forest import RandomForestClassifier
+  from odin_tpu_torch.ml.mixture import GaussianMixture
+  from odin_tpu_torch.ml.svm import SVC
+
+  def on(x):
+    x = torch.as_tensor(x).to(device)
+    return x if dtype is None else x.to(dtype)
+
+  host = lambda t: t.detach().to(torch.float64).cpu().numpy()
+  out = {}
+  F = on(frames[:CL_SMALL_FRAMES])
+  _, pca = fast_pca(F, n_components=CL_COMPONENTS, return_model=True)
+  out["pca_components"] = host(pca.components_)
+  keep = spk < CL_SMALL_SPEAKERS
+  train = keep & (utt < CL_TRAIN_UTT)
+  test = keep & (utt >= CL_TRAIN_UTT)
+  V = on(vecs)
+  Xtr, Xte = V[torch.from_numpy(train)], V[torch.from_numpy(test)]
+  ytr, yte = spk[train], spk[test]
+  lda = LinearDiscriminantAnalysis(device=device).fit(Xtr, ytr)
+  out["lda_transform"] = host(lda.transform(Xte))
+  gm = GaussianMixture(2, covariance_type="diag", random_state=1,
+                       device=device).fit(Xtr[:, :16])
+  out["mixture_weights"] = host(gm.weights_)
+  out["mixture_means"] = host(gm.means_)
+  out["mixture_score_samples"] = host(gm.score_samples(Xte[:, :16]))
+  # with Scorer(svm)'s and linear_classifier('svm')'s probabilities,
+  # seeded (Scorer's SVC draws its folds unseeded, as JAX's does); the
+  # decision values are the full fit's, which the folds leave as they are
+  svc = SVC(kernel="linear", probability=True, random_state=SEED,
+            device=device).fit(Xtr, ytr)
+  out["svc_decision"] = host(svc.decision_function(Xte))
+  out["svc_proba"] = host(svc.predict_proba(Xte))
+  rf = RandomForestClassifier(n_estimators=20, random_state=1,
+                              device=device).fit(Xtr, ytr)
+  out["forest_proba"] = host(rf.predict_proba(Xte))
+  probs = linear_classifier(Xtr, ytr, algo="logistic").predict_proba(Xte)
+  out["logistic_proba"] = host(probs)
+  gbt = linear_classifier(Xtr, ytr, algo="gbt", n_estimators=CL_SMALL_STAGES)
+  out["gbt_raw"] = host(gbt.decision_function(Xte))
+  out["gbt_proba"] = host(gbt.predict_proba(Xte))
+  # its log-likelihoods plus log priors (its probabilities are 0 or 1 in
+  # 512 dimensions)
+  out["gmm_classifier_llk"] = host(GMMclassifier(device=device).fit(
+      Xtr, ytr).decision_function(Xte))
+  out["embedding_proba"] = host(ProbabilisticEmbedding(device=device).fit(
+      probs).predict_proba(probs))
+  ds = SyntheticBoW(n_docs=300, n_words=60, n_topics=4, seed=1)
+  topics = fast_lda_topics(on(ds._x), n_topics=4)
+  out["topics_components"] = host(topics.components_)
+  r = evaluate(yte, lda.predict_proba(Xte), print_log=False, device=device)
+  out["evaluate"] = np.array([r["log_loss"], r["accuracy"], r["Cnorm"],
+                              r["EER"], r["minDCF"]])
+  return out
+
+
+def apart(np, got, want):
+  """|got - want| over want's largest magnitude, per entry of the dicts;
+  the LDA transform's columns first signed as want's (an SVD's signs are
+  no convention)."""
+  got = dict(got)
+  g, w = got["lda_transform"], want["lda_transform"]
+  got["lda_transform"] = g * np.where(np.sum(g * w, 0) < 0, -1.0, 1.0)
+  return {k: float(np.abs(got[k] - want[k]).max() /
+                   max(np.abs(want[k]).max(), 1e-300)) for k in want}
+
+
+def classical_path(torch, np, reset_counts, read_counts, smi, xv):
+  """Phase 22 (see the constants above): K1's frames of phase 9's files,
+  the reductions and GMMThreshold on them, the back-ends on phase 21's
+  x-vectors, topics, and the card against the CPU at small shapes;
+  returns K1's launches on the path."""
+  import os
+  import tempfile
+
+  from odin_tpu_torch.ops.features import FeatureConfig
+  from odin_tpu_torch.preprocessing import batch_speech_features
+
+  cuda = torch.device("cuda", 0)
+  sync = torch.cuda.synchronize
+  raw, spk, utt, vecs = xv["raw"], xv["spk"], xv["utt"], xv["vecs"]
+  # -- 22.1 K1's log-mels, then the reductions
+  reset_counts()
+  sync()
+  t0 = time.perf_counter()
+  feats = batch_speech_features(raw, FeatureConfig(), features=("mspec",),
+                                device="cuda")
+  frames = torch.from_numpy(np.concatenate([f["mspec"] for f in feats])).to(
+      cuda)
+  sync()
+  feat_s = time.perf_counter() - t0
+  counts = read_counts()
+  n_batches = -(-len(raw) // CORPUS_BATCH)
+  log(f"classical path features: {len(raw)} files, {frames.shape[0]} "
+      f"frames x {frames.shape[1]} mels ({frames.numel() * 4 / 1e6:.1f} MB "
+      f"of float32 on the card) in {feat_s:.3f} s; launches {counts}")
+  if counts["logmel"] != n_batches or counts["logmel_fft"] != n_batches:
+    raise AssertionError(f"the classical path launched K1 {counts}, not "
+                         f"once a batch ({n_batches})")
+  red, (lo, thr, hi, th_s) = classical_reductions(torch, np, frames, cuda,
+                                                  sync)
+  for name, (ev, angle, share, secs) in red.items():
+    ev_max, angle_max, drop, share_min = CL_LIMITS[name]
+    log(f"22.1 {name}: {secs:.3f} s; explained variance against float64 "
+        f"eigh {'-' if ev is None else f'{ev:.3g}'} (limit {ev_max}), "
+        f"largest principal angle to the top {CL_COMPONENTS - drop} "
+        f"eigenvectors {angle:.3g} rad (limit {angle_max}), captured "
+        f"variance share 1 - {1 - share:.3g} (min 1 - {1 - share_min:.3g})")
+  log(f"22.1 GMMThreshold on {frames.shape[0]} frame energies: {th_s:.3f} "
+      f"s; modes {lo:.4f} and {hi:.4f} dB, threshold {thr:.4f} dB")
+  bad = {n: v for n, v in red.items() if not (
+      (v[0] is None or v[0] <= CL_LIMITS[n][0]) and
+      v[1] <= CL_LIMITS[n][1] and v[2] >= CL_LIMITS[n][3])}
+  if bad:
+    raise AssertionError(f"reductions off the float64 eigh: {bad}")
+  if not lo < thr < hi:
+    raise AssertionError(f"GMMThreshold {thr} not between {lo} and {hi}")
+  # -- 22.2 the back-ends on the x-vectors; the Scorer(lda=True) report's
+  # PDF where matplotlib is installed (the card's machine may lack it;
+  # tests/test_torch_ml_wrappers.py writes it on the CPU)
+  import importlib.util
+  drawn = importlib.util.find_spec("matplotlib") is not None
+  with tempfile.TemporaryDirectory() as tmp:
+    pdf = os.path.join(tmp, "report.pdf") if drawn else None
+    res = classical_backends(torch, np, vecs, spk, utt, "cuda", sync, pdf)
+    pdf_note = (f"a {os.path.getsize(pdf)}-byte PDF" if drawn else
+                "no PDF: matplotlib is not installed here")
+  for name, r in res.items():
+    cpu = CL_CPU.get(name, {})
+    log(f"22.2 {name}: {r['seconds']:.3f} s; accuracy {r['accuracy']:.6f} "
+        f"(min {cpu.get('accuracy', 0) / CL_RATIO:.4f}), EER "
+        f"{r['EER']:.6f} (max {min(0.5, cpu.get('EER', 1) * CL_RATIO):.4f})"
+        f", minDCF {r['minDCF']:.6f}, Cnorm {r['Cnorm']:.6f}, log loss "
+        f"{r['log_loss']:.6f}")
+  log(f"22.2 the Scorer(lda=True) report: {pdf_note}; {smi}")
+  bad = {n: (r["accuracy"], r["EER"]) for n, r in res.items() if not (
+      r["accuracy"] >= CL_CPU[n]["accuracy"] / CL_RATIO and
+      r["EER"] <= min(0.5, CL_CPU[n]["EER"] * CL_RATIO))}
+  if bad:
+    raise AssertionError(f"back-ends beyond their limits: {bad}")
+  # -- 22.3 topics
+  lda, ppl, strings, match, tp_s = classical_topics(torch, np, "cuda", sync)
+  log(f"22.3 fast_lda_topics on SyntheticBoW{tuple(CL_TOPICS.values())}: "
+      f"{tp_s:.3f} s, perplexity {ppl[0]:.4f} -> {ppl[-1]:.4f} over "
+      f"{len(ppl)} EM steps, best-match cosine to the true topics "
+      f"{match:.4f}")
+  for line in strings:
+    log(f"  {line}")
+  if not ppl[-1] < ppl[0]:
+    raise AssertionError(f"the perplexity did not fall: {ppl}")
+  # -- 22.4 the card against the CPU at small shapes
+  t0 = time.perf_counter()
+  card = classical_small(torch, np, frames.cpu().numpy(), vecs.cpu(), spk,
+                         utt, "cuda")
+  cpu = classical_small(torch, np, frames.cpu().numpy(), vecs.cpu(), spk,
+                        utt, "cpu")
+  err = apart(np, card, cpu)
+  log(f"22.4 card against CPU ({time.perf_counter() - t0:.3f} s): " +
+      ", ".join(f"{k} {v:.3g} (limit {CL_CARD[k]})" for k, v in err.items()))
+  bad = {k: v for k, v in err.items() if not v <= CL_CARD[k]}
+  if bad:
+    raise AssertionError(f"the card differs from the CPU: {bad}")
   return counts["logmel_fft"]
 
 
-PHASES = tuple(range(1, 22))
+PHASES = tuple(range(1, 23))
 # the phases whose results a phase reads: the kernel reports of 2 and 5,
 # phase 7's graphed step time, phase 8's model, phase 9's wav files, phase
-# 10's Gym
+# 10's Gym, phase 21's x-vectors
 PHASE_NEEDS = {3: (2,), 6: (5,), 8: (7,), 10: (8,), 11: (2, 9), 15: (10,),
-               16: (9,), 21: (9,)}
+               16: (9,), 21: (9,), 22: (9, 21)}
 
 
 def selected_phases(spec=None):
@@ -6505,10 +6922,20 @@ def main(phases=None) -> int:
     with Phase("21 x-vector path: TDNN layers and XVectorNet trained by the "
                "VoxCeleb recipe on K1's features, PLDA and EER; the other "
                "network layers against the CPU"):
-      k1 = xvector_path(torch, np, reset_counts, read_counts, smi)
+      k1, xv = xvector_path(torch, np, reset_counts, read_counts, smi)
       if "logmel_fft" in report:
         report["logmel_fft"]["launches"] += k1
       log(f"K1 FFT launches on the x-vector path (phase 21): {k1}")
+  # phase 22 reads phase 21's x-vectors and phase 9's utterances
+  if 22 in phases:
+    with Phase("22 classical path: the PCA family, PPCA and GMMThreshold on "
+               "K1's frames; LDA, SVM, logistic, boosted trees, forests and "
+               "GMMs on the x-vectors; topics; the card against the CPU"):
+      k1 = classical_path(torch, np, reset_counts, read_counts, smi, xv)
+      if "logmel_fft" in report:
+        report["logmel_fft"]["launches"] += k1
+      log(f"K1 FFT launches on the classical path (phase 22): {k1}")
+      del xv
   if 9 in phases:
     import shutil
     shutil.rmtree(corpus_root(), ignore_errors=True)

@@ -117,7 +117,7 @@ def build_host(name: str) -> Path:
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
     gxx = shutil.which("g++")
     if gxx is None:
-      raise RuntimeError("g++ not found: the native IO engine needs a C++ "
+      raise RuntimeError(f"g++ not found: csrc/{name}.cpp needs a C++ "
                          "compiler")
     res = subprocess.run([gxx, *GXX_FLAGS, "-o", str(tmp),
                           str(CSRC / f"{name}.cpp"), "-lpthread"],

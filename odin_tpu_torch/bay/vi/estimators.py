@@ -28,7 +28,11 @@ scikit-learn (the card's machine has none), so each follows scikit-learn
   ``feature_importances_``.  The trees of a stage grow together, level by
   level: each feature is presorted once, and one split search per level
   covers every node, feature and tree, from cumulative sums of the
-  residuals over the presorted order and an argmax.
+  residuals over the presorted order and an argmax.  A fit is the same
+  bits on every device: its sums are exact or run in a fixed order and its
+  softmax is built from IEEE-rounded arithmetic (``_pairwise_sum``,
+  ``_exp_nonpositive``), since one last-bit difference in a residual can
+  turn a split and every stage after it.
 
 Every reduction that scikit-learn makes in float64 is made in float64
 here (the criterion, the Newton solves, the contingency tables), so TF32
@@ -267,6 +271,12 @@ class _LinearClassifier:
     return accuracy(self.predict(X), as_tensor(y, self.coef_.device))
 
 
+# Newton decrements below this share of the objective are within a few
+# hundred roundings of its float64 sum, where a line search decides by
+# rounding; the fit then takes full steps (see LogisticRegression)
+NEWTON_NOISE = 1e-13
+
+
 class LogisticRegression(_LinearClassifier):
   """L2-penalised logistic regression (scikit-learn's
   ``LogisticRegression(C)`` with lbfgs' objective): ``C·Σ_i loss_i +
@@ -274,7 +284,13 @@ class LogisticRegression(_LinearClassifier):
   classes, binomial with one row for two; intercepts are not penalised.
   Solved in float64 by Newton's method with a backtracking line search
   until the Newton decrement is below `tol` of the objective or a step no
-  longer lowers it."""
+  longer lowers it (below ``NEWTON_NOISE`` of it, where the objective's
+  rounding cannot tell, full steps until the decrement stops shrinking:
+  the fit then ends at the optimum on every device, not wherever
+  rounding first rejects a step, up to about 1e-7 from it); each Newton
+  step is a Cholesky solve of the dense
+  Hessian ((rows·D)² float64: 8.6 GB at 64 classes of 512 features, and
+  as much again for its factor)."""
 
   def __init__(self, C: float = 1.0, max_iter: int = 100,
                tol: float = 1e-20):
@@ -323,26 +339,49 @@ class LogisticRegression(_LinearClassifier):
     W = torch.zeros(rows, D, dtype=torch.float64, device=dev)
     f = objective(W)
     self.n_iter_ = 0
+    small = math.inf  # the last decrement below NEWTON_NOISE
     for it in range(self.max_iter):
       Z = Xt @ W.T
       P = torch.sigmoid(Z) if K == 2 else torch.softmax(Z, 1)
       G = C * (P - Y).T @ Xt + pen.reshape(rows, D) * W  # (rows, D)
       g = G.reshape(-1)
-      # Hessian: C·Σ_i (diag p_i - p_i p_iᵀ) ⊗ x_i x_iᵀ + penalty
+      # Hessian: C·Σ_i (diag p_i - p_i p_iᵀ) ⊗ x_i x_iᵀ + penalty,
+      # assembled in place (one (rows·D)² buffer)
       if K == 2:
         w8 = (P * (1 - P))[:, 0]
         H = C * (Xt * w8[:, None]).T @ Xt
       else:
-        diag = torch.einsum("ik,ia,ib->kab", P, Xt, Xt)
         Q = (P[:, :, None] * Xt[:, None, :]).reshape(n, rows * D)
-        H = -C * (Q.T @ Q)
-        H = H + C * torch.block_diag(*diag)
-        H = H + torch.outer(gauge, gauge)
-      H = H + torch.diag(pen)
-      step = -torch.linalg.solve(H, g)
+        H = Q.T @ Q
+        del Q
+        H.mul_(-C)
+        for k in range(rows):  # the block diagonal, one class a block
+          H[k * D:(k + 1) * D, k * D:(k + 1) * D].add_(
+              (Xt * P[:, k:k + 1]).T @ Xt, alpha=C)
+        H.add_(torch.outer(gauge, gauge))
+      H.diagonal().add_(pen)
+      # positive definite: a Cholesky solve, half an LU's work
+      L, info = torch.linalg.cholesky_ex(H)
+      del H
+      if bool(info):
+        raise RuntimeError("the logistic Hessian is not positive definite")
+      step = -torch.cholesky_solve(g[:, None], L)[:, 0]
+      del L
       decrement = float(-(g @ step))
-      if decrement <= self.tol * max(abs(float(f)), 1.0):
+      scale = max(abs(float(f)), 1.0)
+      if decrement <= self.tol * scale:
         break
+      if decrement <= NEWTON_NOISE * scale:
+        # a gain below the objective's rounding, which the line search
+        # cannot judge: full Newton steps, which converge quadratically
+        # here, while the decrement still shrinks
+        if decrement >= small:
+          break
+        small = decrement
+        W = W + step.reshape(rows, D)
+        f = objective(W)
+        self.n_iter_ = it + 1
+        continue
       t = 1.0
       while True:
         W_new = W + t * step.reshape(rows, D)
@@ -473,6 +512,51 @@ class LinearSVC(_LinearClassifier):
 # gradient-boosted trees
 # ---------------------------------------------------------------------------
 RAND_R_MAX = 2147483647  # scikit-learn's ``utils/_random.pxd``
+# Cody and Waite's split of ln 2 (fdlibm's ``e_exp.c``): k·_LN2_HI is exact
+_LN2_HI = 6.93147180369123816490e-01
+_LN2_LO = 1.90821492927058770002e-10
+_EXP_TAYLOR = tuple(1.0 / math.factorial(i) for i in range(14))
+
+
+def _pairwise_sum(v: torch.Tensor) -> torch.Tensor:
+  """The sum over v's last dimension in one fixed order (zero-padded to a
+  power of two, then halves added elementwise): the same bits on every
+  device, which torch's reductions do not promise."""
+  n = v.shape[-1]
+  w = 1 << max(n - 1, 0).bit_length()
+  if w > n:
+    v = torch.nn.functional.pad(v, (0, w - n))
+  while v.shape[-1] > 1:
+    h = v.shape[-1] // 2
+    v = v[..., :h] + v[..., h:]
+  return v[..., 0]
+
+
+def _exp_nonpositive(x: torch.Tensor) -> torch.Tensor:
+  """exp(x) for float64 x <= 0 (clamped at -708, where it is still
+  normal) from IEEE-rounded products and sums and an exact power of two:
+  the same bits on every device, where ``torch.exp``'s last bit differs
+  between the CPU's library and CUDA's.  Within about 2 ulp of exp: a
+  degree-13 Taylor polynomial on |r| <= ln2/2 (remainder below 4e-18)."""
+  x = torch.clamp(x, min=-708.0)
+  k = torch.round(x * (1.0 / math.log(2.0)))
+  r = (x - k * _LN2_HI) - k * _LN2_LO
+  p = torch.full_like(r, _EXP_TAYLOR[-1])
+  for c in reversed(_EXP_TAYLOR[:-1]):
+    p = p * r + c
+  two_k = torch.bitwise_left_shift(k.to(torch.int64) + 1023, 52)
+  return p * two_k.view(torch.float64)
+
+
+def _portable_probabilities(raw: torch.Tensor) -> torch.Tensor:
+  """The log-loss's probabilities of raw scores (n, K), as ``torch.sigmoid``
+  (K = 1) or ``torch.softmax`` over the classes, from ``_exp_nonpositive``
+  and ``_pairwise_sum``: the same bits on every device."""
+  if raw.shape[1] == 1:
+    e = _exp_nonpositive(-raw.abs())
+    return torch.where(raw >= 0, 1.0 / (1.0 + e), e / (1.0 + e))
+  e = _exp_nonpositive(raw - raw.amax(1, keepdim=True))
+  return e / _pairwise_sum(e)[:, None]
 
 
 class _SplitterDraws:
@@ -497,18 +581,22 @@ class _SplitterDraws:
     self.state = s
     return low + (s % (RAND_R_MAX + 1)) % (high - low)
 
-  def visit(self, n_known_constants: int, constant: Sequence[bool]
-            ) -> Tuple[List[int], int]:
+  def visit(self, n_known_constants: int, constant: Sequence[bool],
+            max_features: Optional[int] = None) -> Tuple[List[int], int]:
     """(the non-constant features in visit order, the node's constant
     count for its children) for a node with `n_known_constants` inherited
     and `constant[f]` true where feature f spans at most
-    ``FEATURE_THRESHOLD`` in the node."""
+    ``FEATURE_THRESHOLD`` in the node; at most `max_features` draws (every
+    feature by default) unless all drawn so far were constant."""
     features = self.features
     f_i = len(features)
-    n_drawn = n_found = 0
+    max_features = f_i if max_features is None else int(max_features)
+    n_drawn = n_found = n_visited = 0
     n_total = n_known_constants
     visited: List[int] = []
-    while f_i > n_total:  # max_features is every feature
+    while f_i > n_total and (n_visited < max_features or
+                             n_visited <= n_found + n_drawn):
+      n_visited += 1
       f_j = self._rand_int(n_drawn, f_i - n_found)
       if f_j < n_known_constants:
         features[n_drawn], features[f_j] = features[f_j], features[n_drawn]
@@ -527,6 +615,77 @@ class _SplitterDraws:
     self.constant_features[n_known_constants:n_known_constants + n_found] = \
         features[n_known_constants:n_known_constants + n_found]
     return visited, n_total
+
+
+_DRAWS_LIB = []  # the loaded splitter_draws library
+
+
+def _draws_library():
+  """``csrc/splitter_draws.cpp`` built with g++ and loaded; raises where
+  it cannot be built, as the native IO engine does."""
+  if not _DRAWS_LIB:
+    import ctypes
+
+    from odin_tpu_torch import _build
+    lib = ctypes.CDLL(str(_build.build_host("splitter_draws")))
+    i64, p = ctypes.c_int64, ctypes.c_void_p
+    lib.splitter_visit_many.argtypes = [i64, p, p, p, p, i64, p, p, i64,
+                                        p, p, p]
+    lib.splitter_visit_many.restype = None
+    _DRAWS_LIB.append(lib)
+  return _DRAWS_LIB[0]
+
+
+class SplitterDrawsBatch:
+  """``_SplitterDraws`` for many trees at once: each tree's ``rand_r``
+  state, ``features`` and ``constant_features`` as rows of numpy arrays,
+  and ``visit`` replaying one node of each of several trees in one call of
+  ``csrc/splitter_draws.cpp`` (``native=False``: ``_SplitterDraws``'
+  Python replay, the library's reference in the tests)."""
+
+  def __init__(self, seeds: Sequence[int], n_features: int):
+    self.states = np.asarray([int(s) & 0xFFFFFFFF for s in seeds],
+                             dtype=np.uint32)
+    self.features = np.tile(np.arange(n_features, dtype=np.int64),
+                            (len(seeds), 1))
+    self.constant_features = np.zeros_like(self.features)
+
+  def visit(self, rows: Sequence[int], n_known: Sequence[int],
+            constant: np.ndarray, max_features: Optional[int] = None,
+            native: bool = True):
+    """For tree rows[i] with n_known[i] inherited constants and the node's
+    constant mask constant[i] (d,): (visited (m, d), the first n_visited[i]
+    of row i in visit order; n_visited (m,); the node's constant count
+    (m,))."""
+    m = len(rows)
+    d = self.features.shape[1]
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    n_known = np.ascontiguousarray(n_known, dtype=np.int64)
+    constant = np.ascontiguousarray(constant, dtype=np.uint8).reshape(m, d)
+    visited = np.zeros((m, d), np.int64)
+    n_visited = np.zeros(m, np.int64)
+    n_total = np.zeros(m, np.int64)
+    mf = d if max_features is None else int(max_features)
+    if native:
+      lib = _draws_library()
+      ptr = lambda a: a.ctypes.data
+      lib.splitter_visit_many(m, ptr(rows), ptr(self.states),
+                              ptr(self.features), ptr(self.constant_features),
+                              d, ptr(n_known), ptr(constant), mf,
+                              ptr(visited), ptr(n_visited), ptr(n_total))
+      return visited, n_visited, n_total
+    for i, t in enumerate(rows):
+      one = _SplitterDraws(int(self.states[t]), d)
+      one.features = self.features[t].tolist()
+      one.constant_features = self.constant_features[t].tolist()
+      v, n_total[i] = one.visit(int(n_known[i]), constant[i].astype(bool),
+                                mf)
+      visited[i, :len(v)] = v
+      n_visited[i] = len(v)
+      self.states[t] = one.state
+      self.features[t] = one.features
+      self.constant_features[t] = one.constant_features
+    return visited, n_visited, n_total
 
 
 def _check_random_state(random_state) -> np.random.RandomState:
@@ -557,14 +716,18 @@ class GradientBoostingClassifier:
   of the residuals give every candidate's left sum and an argmax picks the
   split.  The sums run in integers (the residuals on a grid of about
   2^-39), so they are exact and every gain is the same number on every
-  device.
+  device.  So are the residuals: the log prior is taken on the host, the
+  probabilities come from ``_portable_probabilities``, and each node's
+  impurity and each leaf's value from ``_pairwise_sum``; a fit on the card
+  is the CPU's, bit for bit.
 
   Ties: splits of equal gain are frequent where a tree's residuals take
   few values (the first stage has two per tree, and a split that isolates
   one row can often be made on several features).  scikit-learn keeps the
   first best split in the order it visits the features, which it draws
-  from `random_state`; the port replays those draws (``_SplitterDraws``)
-  and keeps the first best in the same order.  Where scikit-learn's own
+  from `random_state`; the port replays those draws (``_SplitterDraws``,
+  for all trees of a stage at once in ``SplitterDrawsBatch``) and keeps
+  the first best in the same order.  Where scikit-learn's own
   float sums round two equal gains apart, its choice follows the rounding
   and may differ from the port's."""
 
@@ -596,31 +759,33 @@ class GradientBoostingClassifier:
     n, d = X.shape
     self.n_features_in_ = d
     eps = EPSILON
-    prior = torch.bincount(yi, minlength=n_classes).to(torch.float64) / n
+    # the log prior on the host: numpy's log, whatever the device
+    prior = np.bincount(yi.cpu().numpy(), minlength=n_classes) / n
     if self.binary_:
-      p1 = torch.clamp(prior[1:], eps, 1 - eps)
-      self.init_raw_ = torch.log(p1 / (1 - p1))
+      p1 = np.clip(prior[1:], eps, 1 - eps)
+      init = np.log(p1 / (1 - p1))
       Y = (yi == 1).to(torch.float64)[:, None]
     else:
-      logp = torch.log(torch.clamp(prior, eps, 1 - eps))
-      self.init_raw_ = logp - logp.mean()
+      logp = np.log(np.clip(prior, eps, 1 - eps))
+      init = logp - logp.mean()
       Y = torch.nn.functional.one_hot(yi, K).to(torch.float64)
+    self.init_raw_ = torch.as_tensor(init, dtype=torch.float64, device=dev)
     raw = self.init_raw_.expand(n, K).clone()
     XT64 = X.T.to(torch.float64).contiguous()  # (d, n), float32 values
     order = torch.argsort(X.T, dim=1, stable=True)  # presorted once
     rng = _check_random_state(self.random_state)
     self.trees_ = []
     for _ in range(self.n_estimators):
-      g = Y - (torch.sigmoid(raw) if self.binary_ else torch.softmax(raw, 1))
-      draws = [_SplitterDraws(rng.randint(0, RAND_R_MAX), d)
-               for _ in range(K)]
+      g = Y - _portable_probabilities(raw)
+      draws = SplitterDrawsBatch([rng.randint(0, RAND_R_MAX)
+                                  for _ in range(K)], d)
       tree, leaf = self._grow(XT64, order, g.T.contiguous(), Y.T, draws)
       raw = raw + self.learning_rate * tree["value"].gather(1, leaf).T
       self.trees_.append(tree)
     return self
 
   def _grow(self, XT64: torch.Tensor, order: torch.Tensor, gT: torch.Tensor,
-            YT: torch.Tensor, draws: List[_SplitterDraws]):
+            YT: torch.Tensor, draws: SplitterDrawsBatch):
     """One stage's K trees on the residuals gT (K, n); -> (the trees, the
     leaf of each training row in each tree (K, n))."""
     d, n = XT64.shape
@@ -644,13 +809,15 @@ class GradientBoostingClassifier:
     n_const = np.zeros((K, H), dtype=np.int64)
 
     def stats(h, mask):
-      """Row count, impurity of heap node h over the rows in mask (K, n)."""
-      m = mask.to(torch.float64)
-      c = m.sum(1)
+      """Row count, impurity of heap node h over the rows in mask (K, n),
+      the impurity as the mean squared deviation (0 to rounding where
+      the residuals are equal, far below ``EPSILON``)."""
+      c = mask.sum(1).to(torch.float64)
       safe = torch.clamp(c, min=1.0)
-      mean = (gT * m).sum(1) / safe
+      mean = _pairwise_sum(torch.where(mask, gT, 0.0)) / safe
+      dev2 = (gT - mean[:, None]) * (gT - mean[:, None])
       count[:, h] = c
-      impurity[:, h] = (gT * gT * m).sum(1) / safe - mean * mean
+      impurity[:, h] = _pairwise_sum(torch.where(mask, dev2, 0.0)) / safe
 
     stats(0, torch.ones(K, n, dtype=torch.bool, device=dev))
     exists = torch.zeros(K, H, dtype=torch.bool, device=dev)
@@ -671,11 +838,13 @@ class GradientBoostingClassifier:
       constant = (xmax <= xmin + FEATURE_THRESHOLD).cpu().numpy()
       searched_h = searched.cpu().numpy()
       rank = np.full((K, d), d, dtype=np.int64)
-      for k in np.flatnonzero(searched_h):
-        visited, n_const_k = draws[k].visit(int(n_const[k, h]), constant[k])
-        rank[k, visited] = np.arange(len(visited))
+      rows = np.flatnonzero(searched_h)
+      visited, n_visited, n_total = draws.visit(rows, n_const[rows, h],
+                                                constant[rows])
+      for i, k in enumerate(rows):
+        rank[k, visited[i, :n_visited[i]]] = np.arange(n_visited[i])
         if 2 * h + 2 < H:
-          n_const[k, 2 * h + 1:2 * h + 3] = n_const_k
+          n_const[k, 2 * h + 1:2 * h + 3] = n_total[i]
       if not searched_h.any():
         continue
       # masked prefix sums over each feature's presorted rows
@@ -725,18 +894,16 @@ class GradientBoostingClassifier:
           stats(c, node == c)
     leaf = node
     # leaf values: scikit-learn's Newton step on the leaf's rows
-    k_idx = torch.arange(K, device=dev)[:, None]
-    flat = (k_idx * H + leaf).reshape(-1)
 
     def leaf_sum(v):
-      return torch.zeros(K * H, dtype=torch.float64, device=dev).index_add_(
-          0, flat, v.reshape(-1)).reshape(K, H)
+      return torch.stack([_pairwise_sum(torch.where(leaf == h, v, 0.0))
+                          for h in range(H)], 1)
 
     prob = YT - gT
     n_leaf = torch.clamp(leaf_sum(torch.ones_like(gT)), min=1.0)
     numerator = leaf_sum(gT) / n_leaf
     if K > 1:
-      numerator = numerator * (K - 1) / K
+      numerator = numerator * ((K - 1) / K)  # one product, as scikit-learn
     denominator = leaf_sum(prob * (1 - prob)) / n_leaf
     tiny = denominator.abs() < 1e-150  # scikit-learn's _safe_divide
     value = torch.where(tiny, torch.zeros_like(numerator),
@@ -783,6 +950,15 @@ class GradientBoostingClassifier:
     raw = self.decision_function(X)
     idx = (raw >= 0).long() if raw.ndim == 1 else torch.argmax(raw, 1)
     return self.classes_[idx]
+
+  def predict_proba(self, X) -> torch.Tensor:
+    """The log-loss's probabilities: the sigmoid of the raw score (as
+    [1 − p, p]) for two classes, its softmax for more."""
+    raw = self.decision_function(X)
+    if raw.ndim == 1:
+      p = torch.sigmoid(raw)
+      return torch.stack([1 - p, p], 1)
+    return torch.softmax(raw, 1)
 
   def score(self, X, y) -> float:
     return accuracy(self.predict(X), as_tensor(y, self.init_raw_.device))

@@ -4,14 +4,13 @@
 ``compute_class_avg``, ``compute_within_cov`` and ``compute_wccn`` run in
 float64 on the device of their tensor argument (the card for arrays unless
 `device` says otherwise); ``VectorNormalizer`` (centering -> unit length ->
-WCCN -> unit length) and ``Scorer``'s cosine path run in float64 on their
-`device` and keep their state and results there.  Class labels stay numpy,
-in ``np.unique`` order.
-
-Not ported yet, each raising: ``VectorNormalizer(lda=True)``
-(scikit-learn's ``LinearDiscriminantAnalysis``) and
-``Scorer(method="svm")`` (``SVC`` with Platt probabilities), ROADMAP.md
-queue 1, item 6.
+WCCN -> unit length, then with ``lda=True`` the port's
+``LinearDiscriminantAnalysis``, fitted as JAX fits it on the normaliser's
+own output before the LDA is set) and ``Scorer``'s cosine path run in
+float64 on their `device` and keep their state and results there.
+``Scorer(method="svm")`` fits the port's ``SVC(kernel='linear',
+probability=True)`` (``ml/svm.py``) on the normalised vectors.  Class
+labels stay numpy, in ``np.unique`` order.
 """
 from __future__ import annotations
 
@@ -21,18 +20,14 @@ import numpy as np
 import torch
 
 from odin_tpu_torch.device import resolve_device
+from odin_tpu_torch.ml.discriminant import LinearDiscriminantAnalysis
 from odin_tpu_torch.ml.gmm_tmat import _numpy, _on
+from odin_tpu_torch.ml.svm import SVC
 
 __all__ = ["compute_within_cov", "compute_class_avg", "compute_wccn",
            "VectorNormalizer", "Scorer"]
 
 F64 = torch.float64
-
-
-def _not_ported(what: str) -> NotImplementedError:
-  return NotImplementedError(
-      f"{what} is not ported yet: it needs scikit-learn's estimator carried "
-      "in torch (ROADMAP.md queue 1, item 6)")
 
 
 def _device_of(X, device=None) -> torch.device:
@@ -89,22 +84,22 @@ def compute_wccn(X, y, epsilon: float = 1e-6, device=None) -> torch.Tensor:
 
 
 class VectorNormalizer:
-  """Centering -> unit length -> WCCN -> unit length, in float64 on
-  `device`; ``mean`` and ``W`` are tensors there."""
+  """Centering -> unit length -> WCCN -> unit length (-> LDA), in float64
+  on `device`; ``mean``, ``W`` and the LDA's arrays are tensors there."""
 
   def __init__(self, centering: bool = True, wccn: bool = False,
                unit_length: bool = True, lda: bool = False,
                concat: bool = False,
                device: Union[str, torch.device] = "cuda"):
-    if lda:
-      raise _not_ported("VectorNormalizer(lda=True)")
     self.centering = bool(centering)
     self.wccn = bool(wccn)
     self.unit_length = bool(unit_length)
+    self.lda = bool(lda)
     self.concat = bool(concat)
     self.device = resolve_device(device)
     self.mean: Optional[torch.Tensor] = None
     self.W: Optional[torch.Tensor] = None
+    self.lda_model: Optional[LinearDiscriminantAnalysis] = None
 
   def fit(self, X, y=None) -> "VectorNormalizer":
     X = _on(X, self.device, F64)
@@ -114,6 +109,12 @@ class VectorNormalizer:
       if self.unit_length:
         Xc = _unit(Xc)
       self.W = compute_wccn(Xc, y)
+    if self.lda and y is not None:
+      # fitted on this normaliser's output while lda_model is still unset
+      self.lda_model = None
+      Xn = self.transform(X)
+      self.lda_model = LinearDiscriminantAnalysis(device=self.device).fit(
+          Xn, _labels(y))
     return self
 
   def transform(self, X) -> torch.Tensor:
@@ -126,6 +127,8 @@ class VectorNormalizer:
       X = X @ self.W
       if self.unit_length:
         X = _unit(X)
+    if self.lda_model is not None:
+      X = self.lda_model.transform(X)
     return X
 
   def fit_transform(self, X, y=None) -> torch.Tensor:
@@ -133,15 +136,14 @@ class VectorNormalizer:
 
 
 class Scorer:
-  """Cosine scoring of test vectors against the enrolled class means, on
-  `device` (reference ``scoring.py:252``)."""
+  """Cosine scoring of test vectors against the enrolled class means, or a
+  linear ``SVC`` with Platt probabilities, on `device` (reference
+  ``scoring.py:252``)."""
 
   def __init__(self, method: str = "cosine", labels=None,
                wccn: bool = True, lda: bool = False, centering: bool = True,
                device: Union[str, torch.device] = "cuda"):
-    if method == "svm":
-      raise _not_ported("Scorer(method='svm')")
-    if method != "cosine":
+    if method not in ("cosine", "svm"):
       raise ValueError(f"method must be 'cosine' or 'svm', given {method!r}")
     self.method = method
     self.normalizer = VectorNormalizer(centering=centering, wccn=wccn,
@@ -149,12 +151,16 @@ class Scorer:
                                        device=device)
     self.device = self.normalizer.device
     self.labels = labels
+    self.model: Optional[SVC] = None
     self.enroll: Optional[torch.Tensor] = None
 
   def fit(self, X, y) -> "Scorer":
     y = _labels(y)
     Xn = self.normalizer.fit(X, y).transform(X)
     self.labels, self.enroll = compute_class_avg(Xn, y)
+    if self.method == "svm":
+      self.model = SVC(kernel="linear", probability=True,
+                       device=self.device).fit(Xn, y)
     return self
 
   def score(self, X) -> torch.Tensor:
@@ -162,6 +168,8 @@ class Scorer:
     return _unit(self.normalizer.transform(X)) @ _unit(self.enroll).T
 
   def predict_proba(self, X) -> torch.Tensor:
+    if self.method == "svm":
+      return self.model.predict_proba(self.normalizer.transform(X))
     return torch.softmax(self.score(X), dim=1)
 
   def predict(self, X) -> np.ndarray:

@@ -26,6 +26,8 @@ import torch
 from odin_tpu_torch.device import resolve_device
 from odin_tpu_torch.fuel.databases import MmapArrayWriter, MmapDict
 from odin_tpu_torch.fuel.dataset import Dataset
+from odin_tpu_torch.ml.decompositions import \
+    IncrementalPCA as _IncrementalPCA
 from odin_tpu_torch.mpi import MPI
 from odin_tpu_torch.preprocessing.base import ExtractorSignal, Pipeline
 
@@ -480,107 +482,48 @@ def validate_features(dataset: Union[str, Dataset],
   )
 
 
-class IncrementalPCA:
-  """Incremental PCA on a torch device, following scikit-learn's
-  ``IncrementalPCA.partial_fit``: the running mean and variance merge (in
-  float64), then the SVD of the previous components scaled by their
-  singular values stacked over the centred batch and the mean-correction
-  row, with ``svd_flip``'s signs (the largest entry of each component
-  positive).
-
-  The attributes are numpy arrays with scikit-learn's names and dtypes:
-  ``components_``, ``singular_values_``, ``explained_variance_``,
-  ``explained_variance_ratio_``, ``noise_variance_``, ``mean_``, ``var_``
-  and ``n_samples_seen_``.  As in scikit-learn, float32 data is centred
-  in float32 and the first batch's factors are float32; the stacked matrix
-  of a later batch holds the float64 mean correction, so its factors are
-  float64; the variances and the moments are float64.  The SVD itself always runs in float64, and its factors are
-  rounded to the stacked matrix's dtype.
+class IncrementalPCA(_IncrementalPCA):
+  """The port's incremental PCA (``ml.decompositions.IncrementalPCA``,
+  scikit-learn's ``IncrementalPCA.partial_fit`` on a torch device: the
+  running mean and variance in float64, the SVD of the previous components
+  scaled by their singular values stacked over the centred batch and the
+  mean-correction row, ``svd_flip``'s signs) with its fitted attributes
+  kept as numpy arrays between batches, so that ``calculate_pca`` pickles
+  no device tensor: ``components_``, ``singular_values_``,
+  ``explained_variance_``, ``explained_variance_ratio_``, ``mean_`` and
+  ``var_`` with scikit-learn's dtypes (float32 data gives float32 factors
+  from the first batch, float64 from a later one, whose stacked matrix
+  holds the float64 mean correction), ``noise_variance_`` a float.
   """
+
+  _ARRAYS = ("components_", "singular_values_", "explained_variance_",
+             "explained_variance_ratio_", "mean_", "var_")
 
   def __init__(self, n_components: int,
                device: Union[str, torch.device] = "cuda"):
-    self.n_components = int(n_components)
-    self.device = resolve_device(device)
-    self.n_samples_seen_ = 0
-    self.mean_ = 0.0
-    self.var_ = 0.0
-    self.components_ = None
-    self.singular_values_ = None
-
-  def _tensor(self, a, dtype=None) -> torch.Tensor:
-    return torch.as_tensor(np.asarray(a), dtype=dtype).to(self.device)
+    super().__init__(n_components=int(n_components),
+                     device=resolve_device(device))
 
   def partial_fit(self, X) -> "IncrementalPCA":
     """Update the fit with one (n_samples, n_features) batch."""
+    for name in self._ARRAYS:
+      value = getattr(self, name)
+      if isinstance(value, np.ndarray):
+        setattr(self, name, torch.from_numpy(value).to(self.device))
     # a copy: X may be a read-only memmap
-    x = torch.tensor(np.asarray(X)).to(self.device)
-    if x.dtype not in (torch.float32, torch.float64):
-      x = x.to(torch.float64)
-    n, n_features = x.shape
-    k = self.n_components
-    if k > min(n, n_features):
-      raise ValueError(f"n_components={k} must be at most the batch's "
-                       f"min(n_samples, n_features) = {min(n, n_features)}")
-    # the running mean and variance (sklearn's _incremental_mean_and_var)
-    f64 = torch.float64
-    seen = self.n_samples_seen_
-    total = seen + n
-    last_mean = self._tensor(self.mean_, f64)
-    last_var = self._tensor(self.var_, f64)
-    new_sum = x.sum(0, dtype=f64)
-    last_sum = last_mean * seen
-    mean = (last_sum + new_sum) / total
-    centred = x.to(f64) - new_sum / n
-    correction = centred.sum(0)
-    new_unnormalized = (centred ** 2).sum(0) - correction ** 2 / n
-    if seen == 0:
-      unnormalized = new_unnormalized
-    else:
-      last_over_new = seen / n
-      unnormalized = (last_var * seen + new_unnormalized +
-                      last_over_new / total *
-                      (last_sum / last_over_new - new_sum) ** 2)
-    var = unnormalized / total
-
-    if seen == 0:
-      stacked = (x.to(f64) - mean).to(x.dtype)
-    else:
-      batch_mean = x.mean(0)
-      mean_correction = (float(np.sqrt(seen / total * n)) *
-                         (last_mean - batch_mean.to(f64)))
-      previous = (self._tensor(self.singular_values_)[:, None] *
-                  self._tensor(self.components_))
-      # the float64 correction row makes the stacked matrix float64
-      stacked = torch.cat([previous.to(f64), (x - batch_mean).to(f64),
-                           mean_correction[None]])
-    _, S, Vt = torch.linalg.svd(stacked.to(f64), full_matrices=False)
-    # svd_flip(u_based_decision=False): each row of Vt's largest |entry|
-    # positive
-    pick = torch.argmax(Vt.abs(), dim=1)
-    signs = torch.sign(Vt.gather(1, pick[:, None]))
-    Vt = Vt * signs
-    S, Vt = S.to(stacked.dtype), Vt.to(stacked.dtype)
-    explained = S.to(f64) ** 2 / (total - 1)
-    ratio = S.to(f64) ** 2 / torch.sum(var * total)
-
-    self.n_samples_seen_ = total
-    self.components_ = Vt[:k].cpu().numpy()
-    self.singular_values_ = S[:k].cpu().numpy()
-    self.mean_ = mean.cpu().numpy()
-    self.var_ = var.cpu().numpy()
-    self.explained_variance_ = explained[:k].cpu().numpy()
-    self.explained_variance_ratio_ = ratio[:k].cpu().numpy()
-    self.noise_variance_ = (float(explained[k:].mean())
-                            if k not in (n, n_features) else 0.0)
+    super().partial_fit(torch.tensor(np.asarray(X)).to(self.device))
+    for name in self._ARRAYS:
+      setattr(self, name, getattr(self, name).cpu().numpy())
+    self.noise_variance_ = float(self.noise_variance_)
     return self
 
   def transform(self, X) -> np.ndarray:
-    """Project (n, n_features) rows onto the components."""
-    x = self._tensor(X, torch.float64)
-    comps = self._tensor(self.components_, torch.float64)
-    return ((x - self._tensor(self.mean_, torch.float64)) @ comps.T
-            ).cpu().numpy()
+    """Project (n, n_features) rows onto the components, in float64."""
+    x = torch.as_tensor(np.asarray(X), dtype=torch.float64).to(self.device)
+    comps = torch.from_numpy(self.components_).to(self.device,
+                                                  torch.float64)
+    mean = torch.from_numpy(self.mean_).to(self.device, torch.float64)
+    return ((x - mean) @ comps.T).cpu().numpy()
 
 
 def calculate_pca(dataset: Union[str, Dataset], feat_name: str = "mspec",

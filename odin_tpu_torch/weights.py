@@ -82,7 +82,20 @@ state of the JAX package's ``GMM``, ``Tmatrix``, ``PLDA`` and ``Scorer``
 (read from an object's attributes or from a mapping of the same names) into
 the port's objects on a device, and back as plain dicts of numpy arrays,
 which a JAX object takes with ``setattr`` (the normalizer's entries on its
-``normalizer``).
+``normalizer``).  The same holds for the fitted state of the estimators
+the JAX package takes from scikit-learn, read by scikit-learn's attribute
+names (no scikit-learn is imported): ``from_jax_pca`` (the ``PCA`` of
+``fast_pca(return_model=True)``), ``from_jax_incremental_pca`` and
+``from_jax_minibatch_pca``, ``from_jax_ppca``, ``from_jax_supervised_ppca``
+and ``from_jax_randomized_pca``, ``from_jax_lda`` (a
+``LinearDiscriminantAnalysis``, also inside ``VectorNormalizer`` and
+``SupervisedPPCA``), ``from_jax_gaussian_mixture``,
+``from_jax_gmm_classifier``, ``from_jax_probabilistic_embedding`` and
+``from_jax_gmm_threshold``, ``from_jax_svc`` (support vectors, dual
+coefficients, intercepts, ``probA_``/``probB_``), ``from_jax_forest``
+(each tree's ``tree_`` arrays, which the port keeps in scikit-learn's
+node order) and ``from_jax_topics`` (``LatentDirichletAllocation``), each
+with its ``to_jax_*``.
 
 A bare stack of flax ``nn.Dense`` layers (``Dense_0``, ``Dense_1``, ...,
 the network of the JAX package's ``BNFExtractor((module, params))``)
@@ -100,6 +113,16 @@ from torch import nn
 
 from odin_tpu_torch.device import resolve_device
 from odin_tpu_torch.ml import GMM, PLDA, Scorer, Tmatrix, VectorNormalizer
+from odin_tpu_torch.ml.decompositions import (PCA, PPCA, IncrementalPCA,
+                                              MiniBatchPCA, RandomizedPCA,
+                                              SupervisedPPCA)
+from odin_tpu_torch.ml.discriminant import LinearDiscriminantAnalysis
+from odin_tpu_torch.ml.forest import RandomForestClassifier
+from odin_tpu_torch.ml.gmm_embedding import (GMMclassifier, GMMThreshold,
+                                             ProbabilisticEmbedding)
+from odin_tpu_torch.ml.mixture import GaussianMixture
+from odin_tpu_torch.ml.svm import SVC
+from odin_tpu_torch.ml.topics import LatentDirichletAllocation
 from odin_tpu_torch.networks.attention import MultiHeadAttention
 from odin_tpu_torch.networks.base import (BatchNorm, Conv, ConvTranspose,
                                          Dense, GRUCell)
@@ -665,12 +688,17 @@ def _normalizer_from(src, device) -> VectorNormalizer:
   vn = VectorNormalizer(**flags, device=device)
   vn.mean, vn.W = _f64(_get(src, "mean"), vn.device), _f64(_get(src, "W"),
                                                            vn.device)
+  lda = _get(src, "lda_model")
+  if lda is not None:
+    vn.lda, vn.lda_model = True, from_jax_lda(lda, vn.device)
   return vn
 
 
 def _normalizer_to(vn: VectorNormalizer) -> Dict[str, Any]:
   out = {k: getattr(vn, k) for k in _NORMALIZER_FLAGS}
-  out.update(mean=_host(vn.mean), W=_host(vn.W))
+  out.update(mean=_host(vn.mean), W=_host(vn.W),
+             lda_model=None if vn.lda_model is None else
+             to_jax_lda(vn.lda_model))
   return out
 
 
@@ -696,20 +724,401 @@ def to_jax_plda(plda: PLDA) -> Dict[str, Any]:
 
 
 def from_jax_scorer(src, device="cuda") -> Scorer:
-  """A fitted JAX cosine ``Scorer`` (or the dict ``to_jax_scorer`` gives)
-  -> the port's ``Scorer`` on `device`: labels, enroll and the
-  normalizer."""
+  """A fitted JAX ``Scorer`` (or the dict ``to_jax_scorer`` gives) -> the
+  port's ``Scorer`` on `device`: labels, enroll, the normalizer and, for
+  ``method='svm'``, the SVC."""
   scorer = Scorer(method=_get(src, "method", "cosine"), device=device)
   scorer.normalizer = _normalizer_from(_get(src, "normalizer"),
                                        scorer.device)
   scorer.labels = _get(src, "labels")
   scorer.enroll = _f64(_get(src, "enroll"), scorer.device)
+  if _get(src, "model") is not None:
+    scorer.model = from_jax_svc(_get(src, "model"), scorer.device)
   return scorer
 
 
 def to_jax_scorer(scorer: Scorer) -> Dict[str, Any]:
-  return {"labels": scorer.labels, "enroll": _host(scorer.enroll),
-          "normalizer": _normalizer_to(scorer.normalizer)}
+  out = {"method": scorer.method, "labels": scorer.labels,
+         "enroll": _host(scorer.enroll),
+         "normalizer": _normalizer_to(scorer.normalizer)}
+  if scorer.model is not None:
+    out["model"] = to_jax_svc(scorer.model)
+  return out
+
+
+# ---------------------------------------------------------------------------
+# scikit-learn's estimators, by their attribute names
+# ---------------------------------------------------------------------------
+def _t(x, device, dtype=None):
+  """An array (or tensor) as a tensor on `device`, its dtype kept unless
+  given."""
+  if x is None:
+    return None
+  if isinstance(x, torch.Tensor):
+    return x.to(device=device, dtype=dtype or x.dtype)
+  return torch.as_tensor(np.asarray(x), dtype=dtype).to(device)
+
+
+def _hosts(obj, names) -> Dict[str, Any]:
+  return {k: _host(getattr(obj, k)) for k in names}
+
+
+_PCA = ("components_", "mean_", "explained_variance_",
+        "explained_variance_ratio_", "singular_values_", "noise_variance_")
+
+
+def from_jax_pca(src, device="cuda") -> PCA:
+  """A fitted scikit-learn ``PCA`` (the model ``fast_pca(...,
+  return_model=True)`` returns) -> the port's ``PCA`` on `device`."""
+  dev = resolve_device(device)
+  pca = PCA(n_components=_get(src, "n_components_"),
+            whiten=bool(_get(src, "whiten", False)), device=dev)
+  for k in _PCA:
+    setattr(pca, k, _t(_get(src, k), dev))
+  pca.n_components_ = int(_get(src, "n_components_"))
+  pca.n_samples_ = int(_get(src, "n_samples_"))
+  return pca
+
+
+def to_jax_pca(pca: PCA) -> Dict[str, Any]:
+  out = _hosts(pca, _PCA)
+  out.update(n_components_=pca.n_components_, n_samples_=pca.n_samples_,
+             whiten=pca.whiten)
+  return out
+
+
+_IPCA = ("components_", "mean_", "var_", "singular_values_",
+         "explained_variance_", "explained_variance_ratio_",
+         "noise_variance_")
+
+
+def from_jax_incremental_pca(src, device="cuda") -> IncrementalPCA:
+  """A fitted scikit-learn ``IncrementalPCA`` -> the port's."""
+  dev = resolve_device(device)
+  ipca = IncrementalPCA(n_components=_get(src, "n_components"),
+                        batch_size=_get(src, "batch_size"), device=dev)
+  for k in _IPCA:
+    setattr(ipca, k, _t(_get(src, k), dev))
+  ipca.n_components_ = int(_get(src, "n_components_"))
+  ipca.n_samples_seen_ = int(np.asarray(_get(src, "n_samples_seen_")))
+  return ipca
+
+
+def to_jax_incremental_pca(ipca: IncrementalPCA) -> Dict[str, Any]:
+  out = _hosts(ipca, _IPCA)
+  out.update(n_components=ipca.n_components, batch_size=ipca.batch_size,
+             n_components_=ipca.n_components_,
+             n_samples_seen_=ipca.n_samples_seen_)
+  return out
+
+
+def from_jax_minibatch_pca(src, device="cuda") -> MiniBatchPCA:
+  """A JAX ``MiniBatchPCA`` (its ``_model``, or that model itself) -> the
+  port's."""
+  model = _get(src, "_model", src)
+  out = MiniBatchPCA(device=device)
+  out._model = from_jax_incremental_pca(model, device)
+  return out
+
+
+def to_jax_minibatch_pca(mb: MiniBatchPCA) -> Dict[str, Any]:
+  return {"_model": to_jax_incremental_pca(mb._model)}
+
+
+def from_jax_ppca(src, device="cuda", cls=PPCA) -> PPCA:
+  """A fitted JAX ``PPCA`` -> the port's: W, sigma2 and mean."""
+  dev = resolve_device(device)
+  ppca = cls(n_components=_get(src, "n_components"),
+             n_iter=_get(src, "n_iter", 50), tol=_get(src, "tol", 1e-4),
+             random_state=_get(src, "random_state", 1), device=dev)
+  ppca.W = _t(_get(src, "W"), dev, torch.float32)
+  ppca.mean = _t(_get(src, "mean"), dev, torch.float32)
+  ppca.sigma2 = float(_get(src, "sigma2"))
+  return ppca
+
+
+def to_jax_ppca(ppca: PPCA) -> Dict[str, Any]:
+  return {"n_components": ppca.n_components, "W": _host(ppca.W),
+          "mean": _host(ppca.mean), "sigma2": float(ppca.sigma2)}
+
+
+def from_jax_supervised_ppca(src, device="cuda") -> SupervisedPPCA:
+  """A fitted JAX ``SupervisedPPCA`` -> the port's, its LDA included."""
+  ppca = from_jax_ppca(src, device, cls=SupervisedPPCA)
+  rot = _get(src, "_rotation")
+  ppca._rotation = None if rot is None else from_jax_lda(rot, ppca.device)
+  return ppca
+
+
+def to_jax_supervised_ppca(ppca: SupervisedPPCA) -> Dict[str, Any]:
+  out = to_jax_ppca(ppca)
+  out["_rotation"] = None if ppca._rotation is None else       to_jax_lda(ppca._rotation)
+  return out
+
+
+_RPCA = ("mean_", "singular_values_", "components_", "explained_variance_",
+         "explained_variance_ratio_")
+
+
+def from_jax_randomized_pca(src, device="cuda") -> RandomizedPCA:
+  """A fitted JAX ``RandomizedPCA`` -> the port's."""
+  dev = resolve_device(device)
+  rp = RandomizedPCA(n_components=_get(src, "n_components"),
+                     whiten=bool(_get(src, "whiten", False)), device=dev)
+  for k in _RPCA:
+    setattr(rp, k, _t(_get(src, k), dev))
+  rp.n_samples_ = int(_get(src, "n_samples_"))
+  return rp
+
+
+def to_jax_randomized_pca(rp: RandomizedPCA) -> Dict[str, Any]:
+  out = _hosts(rp, _RPCA)
+  out.update(n_components=rp.n_components, whiten=rp.whiten,
+             n_samples_=rp.n_samples_)
+  return out
+
+
+_LDA = ("priors_", "means_", "xbar_", "scalings_", "coef_", "intercept_",
+        "explained_variance_ratio_")
+
+
+def from_jax_lda(src, device="cuda") -> LinearDiscriminantAnalysis:
+  """A fitted scikit-learn ``LinearDiscriminantAnalysis`` (svd solver) ->
+  the port's on `device`."""
+  dev = resolve_device(device)
+  lda = LinearDiscriminantAnalysis(device=dev)
+  for k in _LDA:
+    setattr(lda, k, _t(_get(src, k), dev))
+  lda.classes_ = np.asarray(_get(src, "classes_"))
+  lda._max_components = int(_get(src, "_max_components"))
+  return lda
+
+
+def to_jax_lda(lda: LinearDiscriminantAnalysis) -> Dict[str, Any]:
+  out = _hosts(lda, _LDA)
+  out.update(classes_=lda.classes_, _max_components=lda._max_components,
+             solver="svd")
+  return out
+
+
+_GM = ("weights_", "means_", "covariances_", "precisions_cholesky_")
+
+
+def from_jax_gaussian_mixture(src, device="cuda") -> GaussianMixture:
+  """A fitted scikit-learn ``GaussianMixture`` -> the port's."""
+  dev = resolve_device(device)
+  gm = GaussianMixture(int(_get(src, "n_components")),
+                       covariance_type=_get(src, "covariance_type"),
+                       device=dev)
+  return gm.set_state(*(_t(_get(src, k), dev) for k in _GM))
+
+
+def to_jax_gaussian_mixture(gm: GaussianMixture) -> Dict[str, Any]:
+  out = _hosts(gm, _GM + ("precisions_",))
+  out.update(n_components=gm.n_components,
+             covariance_type=gm.covariance_type)
+  return out
+
+
+def from_jax_gmm_classifier(src, device="cuda") -> GMMclassifier:
+  """A fitted JAX ``GMMclassifier`` -> the port's: its classes, log
+  priors and one mixture per class."""
+  dev = resolve_device(device)
+  clf = GMMclassifier(n_components=_get(src, "n_components"),
+                      covariance_type=_get(src, "covariance_type"),
+                      device=dev)
+  clf.classes_ = np.asarray(_get(src, "classes_"))
+  clf._priors = _t(_get(src, "_priors"), dev, torch.float64)
+  clf._gmms = [from_jax_gaussian_mixture(g, dev)
+               for g in _get(src, "_gmms")]
+  return clf
+
+
+def to_jax_gmm_classifier(clf: GMMclassifier) -> Dict[str, Any]:
+  return {"n_components": clf.n_components,
+          "covariance_type": clf.covariance_type,
+          "classes_": clf.classes_, "_priors": _host(clf._priors),
+          "_gmms": [to_jax_gaussian_mixture(g) for g in clf._gmms]}
+
+
+def from_jax_probabilistic_embedding(src, device="cuda"
+                                     ) -> ProbabilisticEmbedding:
+  """A fitted JAX ``ProbabilisticEmbedding`` (one mixture a column) -> the
+  port's (one batched mixture)."""
+  dev = resolve_device(device)
+  pe = ProbabilisticEmbedding(_get(src, "n_components"), device=dev)
+  gmms = _get(src, "_gmms")
+  pe._gmm = GaussianMixture(pe.n_components, covariance_type="diag",
+                            device=dev).set_state(
+      *(np.stack([_host(_get(g, k)) for g in gmms]) for k in _GM),
+      batched=True, device=dev)
+  return pe
+
+
+def to_jax_probabilistic_embedding(pe: ProbabilisticEmbedding
+                                   ) -> Dict[str, Any]:
+  return {"n_components": pe.n_components,
+          "_gmms": [to_jax_gaussian_mixture(g) for g in pe._gmms]}
+
+
+def from_jax_gmm_threshold(src, device="cuda") -> GMMThreshold:
+  """A fitted JAX ``GMMThreshold`` -> the port's (its threshold)."""
+  th = GMMThreshold(_get(src, "n_components"), device=device)
+  th.threshold_ = float(_get(src, "threshold_"))
+  th.device_ = resolve_device(device)
+  return th
+
+
+def to_jax_gmm_threshold(th: GMMThreshold) -> Dict[str, Any]:
+  return {"n_components": th.n_components, "threshold_": th.threshold_}
+
+
+def from_jax_svc(src, device="cuda") -> SVC:
+  """A fitted scikit-learn ``SVC`` -> the port's: ``support_vectors_``,
+  the unflipped ``_dual_coef_`` and ``_intercept_`` (libsvm's layout: for
+  pair (i, j), class i's coefficients in row j − 1 and class j's in row
+  i), ``_n_support``, ``probA_``/``probB_``, the kernel and ``_gamma``."""
+  dev = resolve_device(device)
+  svc = SVC(kernel=_get(src, "kernel"), degree=_get(src, "degree", 3),
+            coef0=_get(src, "coef0", 0.0), device=dev)
+  svc._gamma = float(_get(src, "_gamma"))
+  svc.classes_ = np.asarray(_get(src, "classes_"))
+  K = len(svc.classes_)
+  n_support = np.asarray(_get(src, "_n_support", _get(src, "n_support_")))
+  svc.n_support_ = n_support.astype(np.int32)
+  svc.support_ = np.asarray(_get(src, "support_"))
+  svc.support_vectors_ = _t(_get(src, "support_vectors_"), dev,
+                            torch.float64)
+  dual = np.asarray(_get(src, "_dual_coef_"), np.float64)
+  start = np.r_[0, np.cumsum(n_support)]
+  svc._pairs = [(i, j) for i in range(K) for j in range(i + 1, K)]
+  coef = np.zeros((len(svc._pairs), dual.shape[1]))
+  for p, (i, j) in enumerate(svc._pairs):
+    coef[p, start[i]:start[i + 1]] = dual[j - 1, start[i]:start[i + 1]]
+    coef[p, start[j]:start[j + 1]] = dual[i, start[j]:start[j + 1]]
+  svc.coef_pairs_ = torch.from_numpy(coef).to(dev)
+  svc.rho_ = -_t(_get(src, "_intercept_"), dev, torch.float64)
+  a, b = _get(src, "probA_"), _get(src, "probB_")
+  svc.probA_ = None if a is None or np.size(a) == 0 else       _t(a, dev, torch.float64)
+  svc.probB_ = None if b is None or np.size(b) == 0 else       _t(b, dev, torch.float64)
+  return svc
+
+
+def to_jax_svc(svc: SVC) -> Dict[str, Any]:
+  """The port's SVC in scikit-learn's names (``_dual_coef_`` and
+  ``_intercept_`` unflipped, ``dual_coef_`` and ``intercept_`` as
+  scikit-learn shows them)."""
+  K = len(svc.classes_)
+  flip = -1.0 if K == 2 else 1.0
+  return {"kernel": svc.kernel, "degree": svc.degree, "coef0": svc.coef0,
+          "_gamma": svc._gamma, "classes_": svc.classes_,
+          "support_": svc.support_, "_n_support": svc.n_support_,
+          "n_support_": svc.n_support_,
+          "support_vectors_": _host(svc.support_vectors_),
+          "_dual_coef_": flip * _host(svc.dual_coef_),
+          "dual_coef_": _host(svc.dual_coef_),
+          "_intercept_": -_host(svc.rho_), "intercept_": _host(svc.intercept_),
+          "probA_": None if svc.probA_ is None else _host(svc.probA_),
+          "probB_": None if svc.probB_ is None else _host(svc.probB_)}
+
+
+def from_jax_forest(src, device="cuda") -> RandomForestClassifier:
+  """A fitted scikit-learn ``RandomForestClassifier`` -> the port's: each
+  tree's ``tree_`` (or a mapping of its arrays) ``children_left``,
+  ``children_right``, ``feature``, ``threshold`` and ``value``, in
+  scikit-learn's node order."""
+  dev = resolve_device(device)
+  trees = [_get(e, "tree_", e) for e in _get(src, "estimators_")]
+  rf = RandomForestClassifier(n_estimators=len(trees), device=dev)
+  rf.classes_ = np.asarray(_get(src, "classes_"))
+  C = len(rf.classes_)
+  N = max(len(np.asarray(_get(t, "children_left"))) for t in trees)
+  T = len(trees)
+  feature = np.zeros((T, N), np.int64)
+  threshold = np.zeros((T, N))
+  left = np.full((T, N), -1, np.int64)
+  right = np.full((T, N), -1, np.int64)
+  value = np.zeros((T, N, C))
+  depth = 0
+  for k, t in enumerate(trees):
+    cl = np.asarray(_get(t, "children_left"))
+    n = len(cl)
+    left[k, :n], right[k, :n] = cl, np.asarray(_get(t, "children_right"))
+    f = np.asarray(_get(t, "feature"))
+    feature[k, :n] = np.where(cl >= 0, f, 0)
+    threshold[k, :n] = np.asarray(_get(t, "threshold"))
+    value[k, :n] = np.asarray(_get(t, "value")).reshape(n, -1)[:, :C]
+    depth = max(depth, int(_get(t, "max_depth")))
+  rf.feature_, rf.threshold_ = (torch.from_numpy(a).to(dev)
+                                for a in (feature, threshold))
+  rf.left_, rf.right_ = (torch.from_numpy(a).to(dev) for a in (left, right))
+  rf.value_ = torch.from_numpy(value).to(dev)
+  rf.depth_ = depth
+  rf.n_features_in_ = int(_get(src, "n_features_in_", 0))
+  return rf
+
+
+def to_jax_forest(rf: RandomForestClassifier) -> Dict[str, Any]:
+  """``{classes_, estimators_: [tree arrays]}``, each tree's nodes renumbered
+  into scikit-learn's depth-first order, every node's value as its class
+  fractions (n_nodes, 1, C) and -2 for a leaf's feature and threshold."""
+  feature, threshold = _host(rf.feature_), _host(rf.threshold_)
+  left, right, value = _host(rf.left_), _host(rf.right_), _host(rf.value_)
+  trees = []
+  for t in range(feature.shape[0]):
+    order, stack = [], [0]
+    while stack:
+      k = stack.pop()
+      order.append(k)
+      if left[t, k] >= 0:
+        stack += [right[t, k], left[t, k]]
+    new = {k: i for i, k in enumerate(order)}
+    o = np.asarray(order)
+    leaf = left[t, o] < 0
+    v = value[t].copy()
+    for k in reversed(order):  # a split node holds its children's weights
+      if left[t, k] >= 0:
+        v[k] = v[left[t, k]] + v[right[t, k]]
+    v = v[o]
+    s = v.sum(1, keepdims=True)
+    trees.append({
+        "children_left": np.where(leaf, -1, [new.get(c, -1)
+                                             for c in left[t, o]]),
+        "children_right": np.where(leaf, -1, [new.get(c, -1)
+                                              for c in right[t, o]]),
+        "feature": np.where(leaf, -2, feature[t, o]),
+        "threshold": np.where(leaf, -2.0, threshold[t, o]),
+        "value": (v / np.where(s == 0, 1, s))[:, None, :],
+        "max_depth": rf.depth_})
+  return {"classes_": rf.classes_, "estimators_": trees,
+          "n_features_in_": rf.n_features_in_}
+
+
+_TOPICS = ("components_", "exp_dirichlet_component_")
+
+
+def from_jax_topics(src, device="cuda") -> LatentDirichletAllocation:
+  """A fitted scikit-learn ``LatentDirichletAllocation`` -> the port's."""
+  dev = resolve_device(device)
+  lda = LatentDirichletAllocation(
+      int(_get(src, "n_components")),
+      mean_change_tol=_get(src, "mean_change_tol", 1e-3),
+      max_doc_update_iter=_get(src, "max_doc_update_iter", 100), device=dev)
+  for k in _TOPICS:
+    setattr(lda, k, _t(_get(src, k), dev))
+  lda.doc_topic_prior_ = float(_get(src, "doc_topic_prior_"))
+  lda.topic_word_prior_ = float(_get(src, "topic_word_prior_"))
+  return lda
+
+
+def to_jax_topics(lda: LatentDirichletAllocation) -> Dict[str, Any]:
+  out = _hosts(lda, _TOPICS)
+  out.update(n_components=lda.n_components,
+             doc_topic_prior_=lda.doc_topic_prior_,
+             topic_word_prior_=lda.topic_word_prior_,
+             mean_change_tol=lda.mean_change_tol,
+             max_doc_update_iter=lda.max_doc_update_iter)
+  return out
 
 
 # ---------------------------------------------------------------------------

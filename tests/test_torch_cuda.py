@@ -766,9 +766,10 @@ def _gym_data(n=1200, d=6, seed=0):
 
 @pytest.mark.parametrize("column", [0, 2])
 def test_gradient_boosting_on_card_equals_cpu(cuda_device, column):
-  """The split search sums integers, so the trees are the same on the card
-  as on the CPU; importances within 1e-9 (float64 sums in another order),
-  the same predictions."""
+  """A fit is the same bits on the card as on the CPU (integer split sums,
+  residuals from IEEE-rounded arithmetic, sums in a fixed order): the
+  trees, their leaf values and the raw scores equal; importances within
+  1e-9 (their scatter adds run in another order), the same predictions."""
   from odin_tpu_torch.bay.vi.estimators import GradientBoostingClassifier
   z, f = _gym_data()
   fits = [GradientBoostingClassifier(n_estimators=10, random_state=1).fit(
@@ -778,8 +779,11 @@ def test_gradient_boosting_on_card_equals_cpu(cuda_device, column):
   for a, b in zip(card.trees_, cpu.trees_):
     for key in ("feature", "is_split"):
       np.testing.assert_array_equal(a[key].cpu().numpy(), b[key].numpy())
-    np.testing.assert_array_equal(a["threshold"].cpu().numpy(),
-                                  b["threshold"].numpy())
+    for key in ("threshold", "value"):
+      np.testing.assert_array_equal(a[key].cpu().numpy(), b[key].numpy())
+  np.testing.assert_array_equal(
+      card.decision_function(torch.tensor(z).to(cuda_device)).cpu().numpy(),
+      cpu.decision_function(torch.tensor(z)).numpy())
   np.testing.assert_allclose(card.feature_importances_.cpu().numpy(),
                              cpu.feature_importances_.numpy(), atol=1e-9)
   np.testing.assert_array_equal(

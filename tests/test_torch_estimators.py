@@ -153,6 +153,27 @@ def test_logistic_regression(column):
   assert proba.shape == (N, SIZES[column])
 
 
+def test_logistic_regression_ends_at_the_optimum_in_any_row_order():
+  """Near the optimum a Newton step's gain falls below the objective's
+  float64 rounding, where a line search accepts or rejects by rounding;
+  the fit takes full steps there, so the same rows in another order (other
+  roundings, as on another device) reach the same optimum: probabilities
+  within 1e-13 (measured 4.4e-16; a stop at the first rejected step left
+  them 2e-10 apart on these rows)."""
+  rng = np.random.RandomState(0)
+  y = np.repeat(np.arange(16), 16)
+  X = torch.from_numpy(3.0 * (0.6 * rng.randn(16, 64)[y] +
+                              rng.randn(len(y), 64)))
+  yt = torch.from_numpy(y)
+  probs = []
+  for seed in range(6):
+    perm = torch.from_numpy(np.random.RandomState(seed).permutation(len(y)))
+    probs.append(E.LogisticRegression().fit(X[perm], yt[perm]).predict_proba(
+        X).numpy())
+  for p in probs[1:]:
+    np.testing.assert_allclose(p, probs[0], rtol=0, atol=1e-13)
+
+
 @pytest.mark.parametrize("latent", [0, 3])
 @pytest.mark.parametrize("column", [0, 1, 2, 5])
 def test_linear_svc_as_sap_fits_it(latent, column):
@@ -261,6 +282,42 @@ def test_gradient_boosting_replays_the_visit_order(column):
                                sk.feature_importances_, atol=1e-9)
   np.testing.assert_array_equal(port.predict(torch.tensor(x)).numpy(),
                                 sk.predict(x))
+
+
+def test_boosting_probabilities_are_the_same_bits_as_numpy():
+  """The boosted trees' residuals come from ``_exp_nonpositive`` and
+  ``_pairwise_sum``, built from IEEE-rounded products, sums and quotients
+  only, so any IEEE implementation of the same steps gives the same bits:
+  here numpy's, bit for bit.  The exp is within 2 ulp of numpy's from 0
+  down to -708, the sums within 1e-12 of numpy's, the probabilities within
+  2e-15 of the softmax and the sigmoid."""
+  rng = np.random.RandomState(0)
+  x = np.concatenate([-np.geomspace(1e-300, 708.0, 20000), [0.0, -708.0],
+                      -rng.rand(20000) * 40])
+  got = E._exp_nonpositive(torch.tensor(x)).numpy()
+  k = np.round(x * (1.0 / np.log(2.0)))
+  r = (x - k * E._LN2_HI) - k * E._LN2_LO
+  p = np.full_like(r, E._EXP_TAYLOR[-1])
+  for c in reversed(E._EXP_TAYLOR[:-1]):
+    p = p * r + c
+  np.testing.assert_array_equal(got, np.ldexp(p, k.astype(np.int64)))
+  np.testing.assert_allclose(got, np.exp(x), rtol=4.5e-16, atol=0)
+  for n in (1, 2, 7, 64, 1000):
+    v = rng.randn(3, n)
+    w = np.pad(v, ((0, 0), (0, (1 << (n - 1).bit_length()) - n)))
+    while w.shape[1] > 1:
+      w = w[:, :w.shape[1] // 2] + w[:, w.shape[1] // 2:]
+    np.testing.assert_array_equal(E._pairwise_sum(torch.tensor(v)).numpy(),
+                                  w[:, 0])
+    np.testing.assert_allclose(w[:, 0], v.sum(1), rtol=1e-12, atol=1e-12)
+  raw = rng.randn(50, 5) * 10
+  want = np.exp(raw - raw.max(1, keepdims=True))
+  np.testing.assert_allclose(
+      E._portable_probabilities(torch.tensor(raw)).numpy(),
+      want / want.sum(1, keepdims=True), rtol=2e-15, atol=1e-300)
+  np.testing.assert_allclose(
+      E._portable_probabilities(torch.tensor(raw[:, :1])).numpy(),
+      1 / (1 + np.exp(-raw[:, :1])), rtol=2e-15, atol=1e-300)
 
 
 def test_estimators_refuse_one_class():

@@ -163,6 +163,15 @@ def test_sources_exist():
                  "networks/dropout.py", "fuel/nlp_data.py",
                  "fuel/loaders.py"):
     assert f"odin_tpu_torch/{module}" in names
+  # the classical-ML slice: the decompositions, discriminant analysis,
+  # mixtures and their embeddings, SVC, forests, topic models, evaluate,
+  # the Transformer embedder, the metrics' rest and the plotting helpers
+  for module in ("ml/decompositions.py", "ml/discriminant.py",
+                 "ml/mixture.py", "ml/gmm_embedding.py", "ml/svm.py",
+                 "ml/forest.py", "ml/topics.py", "ml/base.py",
+                 "ml/neural_nlp.py", "backend/maths.py",
+                 "visual/__init__.py", "visual/extended.py"):
+    assert f"odin_tpu_torch/{module}" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -224,7 +233,13 @@ def test_importing_the_port_loads_no_jax():
           "odin_tpu_torch.fuel.bio_data, odin_tpu_torch.fuel.loaders, "
           "odin_tpu_torch.networks.time_delay, "
           "odin_tpu_torch.networks.util_layers, "
-          "odin_tpu_torch.networks.dropout\n"
+          "odin_tpu_torch.networks.dropout, "
+          "odin_tpu_torch.ml.decompositions, odin_tpu_torch.ml.discriminant, "
+          "odin_tpu_torch.ml.mixture, odin_tpu_torch.ml.gmm_embedding, "
+          "odin_tpu_torch.ml.svm, odin_tpu_torch.ml.forest, "
+          "odin_tpu_torch.ml.topics, odin_tpu_torch.ml.base, "
+          "odin_tpu_torch.ml.neural_nlp, odin_tpu_torch.backend.maths, "
+          "odin_tpu_torch.visual\n"
           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
           f"{FORBIDDEN!r})\nassert not bad, bad")
   res = _run(["-c", code], cwd=ROOT)
@@ -250,18 +265,20 @@ def test_chip_smoke_fails_without_the_port(tmp_path):
 
 
 def test_chip_smoke_phases_run_1_to_20():
-  """Phases 1-20 stay, and phase 21 (the x-vector slice) is the last:
+  """Phases 1-21 stay, and phase 22 (the classical-ML slice) is the last:
   ``--phases 20`` runs phase 20 with the build alone, ``--phases 21``
-  brings phase 9, whose wav files it reads."""
+  brings phase 9, whose wav files it reads, and ``--phases 22`` phases 9
+  and 21, whose utterances and x-vectors it reads."""
   import chip_smoke
-  assert chip_smoke.PHASES == tuple(range(1, 22))
-  assert chip_smoke.selected_phases() == set(range(1, 22))
+  assert chip_smoke.PHASES == tuple(range(1, 23))
+  assert chip_smoke.selected_phases() == set(range(1, 23))
   assert chip_smoke.selected_phases("20") == {1, 20}
   assert chip_smoke.selected_phases("21") == {1, 9, 21}
+  assert chip_smoke.selected_phases("22") == {1, 9, 21, 22}
   assert 20 not in chip_smoke.PHASE_NEEDS
   assert all(20 not in needs for needs in chip_smoke.PHASE_NEEDS.values())
-  with pytest.raises(SystemExit, match="1-21"):
-    chip_smoke.selected_phases("22")
+  with pytest.raises(SystemExit, match="1-22"):
+    chip_smoke.selected_phases("23")
 
 
 def test_new_modules_need_neither_sklearn_nor_matplotlib():
@@ -399,3 +416,85 @@ def test_speech_front_end_needs_no_sklearn():
                        env=dict(os.environ, PYTHONPATH=str(ROOT)))
   assert res.returncode == 0, res.stderr
   assert 0 < int(res.stdout.split()[0]) < 200
+
+
+def _lazy_imports(path, function):
+  """(imports inside `function`, imports at the module's top level)."""
+  tree = ast.parse(path.read_text())
+  top = [m for node in tree.body for m in _imports(node)]
+  inside = [m for fn in ast.walk(tree) if isinstance(fn, ast.FunctionDef)
+            and fn.name == function for node in ast.walk(fn)
+            for m in _imports(node)]
+  return inside, top
+
+
+def test_transformers_and_umap_are_imported_where_they_are_used():
+  """``Transformer`` imports ``transformers`` in its constructor and
+  ``fast_umap`` imports ``umap`` in its body, never at a module's top."""
+  inside, top = _lazy_imports(ROOT / "odin_tpu_torch" / "ml" /
+                              "neural_nlp.py", "__init__")
+  assert "transformers" in inside and "transformers" not in top
+  inside, top = _lazy_imports(ROOT / "odin_tpu_torch" / "ml" / "__init__.py",
+                              "fast_umap")
+  assert "umap" in inside and "umap" not in top
+
+
+def test_the_ml_and_metric_names_are_the_jax_packages():
+  """The port's ``ml.__all__`` is the JAX package's, and every name of the
+  JAX package's ``backend.metrics`` exists in the port's."""
+  import odin_tpu.backend.metrics as jax_metrics
+  import odin_tpu.ml as jax_ml
+
+  import odin_tpu_torch.backend.metrics as metrics
+  import odin_tpu_torch.ml as ml
+  assert ml.__all__ == jax_ml.__all__
+  for name in ml.__all__:
+    assert hasattr(ml, name), name
+  assert metrics.__all__ == jax_metrics.__all__
+  for name in jax_metrics.__all__:
+    assert callable(getattr(metrics, name)), name
+
+
+def test_classical_ml_runs_without_sklearn():
+  """The classical-ML slice's estimators fit and predict with scikit-learn,
+  matplotlib, transformers and umap blocked."""
+  code = "\n".join([
+      "import sys",
+      "for name in ('sklearn', 'matplotlib', 'transformers', 'umap'):",
+      "  sys.modules[name] = None",
+      "import numpy as np, torch",
+      "import odin_tpu_torch.ml as ml",
+      "from odin_tpu_torch.ml.mixture import GaussianMixture",
+      "rng = np.random.RandomState(0)",
+      "X = rng.randn(90, 5) + np.repeat(np.eye(5)[:3] * 4, 30, 0)",
+      "y = np.repeat(np.arange(3), 30)",
+      "kw = dict(device='cpu')",
+      "ml.fast_pca(X, X, n_components=2, **kw)",
+      "ml.PPCA(2, **kw).fit(X); ml.MiniBatchPCA(2, 30, **kw).fit(X)",
+      "ml.RandomizedPCA(2, **kw).fit(X)",
+      "ml.SupervisedPPCA(2, **kw).fit(X, y)",
+      "for algo in ('lda', 'svm', 'rf'):",
+      "  ml.linear_classifier(X, y, algo=algo, **kw).predict(X)",
+      "ml.Scorer(method='svm', **kw).fit(X, y).predict_proba(X)",
+      "ml.VectorNormalizer(lda=True, **kw).fit(X, y).transform(X)",
+      "ml.GMMclassifier(**kw).fit(X, y).predict(X)",
+      "ml.GMMThreshold(**kw).fit(X[:, 0])",
+      "ml.ProbabilisticEmbedding(**kw).fit(np.abs(X[:, :2]))",
+      "GaussianMixture(2, covariance_type='full', **kw).fit(X)",
+      "lda = ml.fast_lda_topics(rng.poisson(2, (40, 12)), n_topics=3,",
+      "                         max_iter=2, **kw)",
+      "ml.get_topics_string(lda, [str(i) for i in range(12)])",
+      "ml.evaluate(y, ml.linear_classifier(X, y, **kw).predict_proba(X),",
+      "            print_log=False, **kw)",
+      "try:",
+      "  ml.Transformer('x', device='cpu')",
+      "except FileNotFoundError:",
+      "  pass",
+      "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
+      "             ('sklearn', 'matplotlib', 'jax', 'odin_tpu', 'umap',",
+      "              'transformers') and sys.modules[m] is not None)",
+      "assert not bad, bad"])
+  res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+  assert res.returncode == 0, res.stderr
