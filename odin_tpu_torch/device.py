@@ -44,8 +44,10 @@ def as_tensor(x, device: Optional[torch.device] = None,
   if isinstance(x, torch.Tensor):
     return x.to(device=x.device if device is None else device,
                 dtype=x.dtype if dtype is None else dtype)
-  return torch.as_tensor(np.asarray(x), dtype=dtype).to(
-      device_of(device=device))
+  x = np.asarray(x)
+  if any(s < 0 for s in x.strides):  # a reversed view: torch takes a copy
+    x = x.copy()
+  return torch.as_tensor(x, dtype=dtype).to(device_of(device=device))
 
 
 def iterate(step: Callable[[], None], stopped: Callable[[], bool],

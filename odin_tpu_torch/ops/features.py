@@ -99,9 +99,14 @@ class FeatureConfig:
       cos_b, sin_b = dft_bases(self.frame_length, self.n_fft)
       arrays = dict(window=self.window_fn, cos=cos_b, sin=sin_b,
                     mel_t=self.mel_basis.T, dct_t=self.dct_basis.T)
-      self._bases[device] = {
-          k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(device)
-          for k, v in arrays.items()}
+      # under torch.export the bases are still made as real tensors (the
+      # program's constants), never as the tracer's fake ones, which the
+      # cache would keep after the export
+      from torch._subclasses.fake_tensor import unset_fake_temporarily
+      with unset_fake_temporarily():
+        self._bases[device] = {
+            k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(
+                device) for k, v in arrays.items()}
     return self._bases[device]
 
 

@@ -169,6 +169,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   ``sm_scale`` defaults to 1/sqrt(D).  On the card a call launches
   ceil(D / width) kernels, width 128 for float32 and 256 for 16-bit
   inputs."""
+  _build.refuse_export("K2, flash_attention",
+                       "odin_tpu_torch/ops/flash_attention.py", "flash=False")
   _check(q, k, v)
   if sm_scale is None:
     sm_scale = 1.0 / math.sqrt(q.shape[-1])

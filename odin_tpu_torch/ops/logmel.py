@@ -476,6 +476,8 @@ def logmel(frames_windowed: torch.Tensor,
   ``logmel.launches`` counts the launches of the three kernels,
   ``logmel.fft_launches`` the power-of-two FFT kernel's share and
   ``logmel.mixed_launches`` the mixed-radix kernel's."""
+  _build.refuse_export("K1, logmel", "odin_tpu_torch/ops/logmel.py",
+                       "use_pallas=False")
   frame_length = config.frame_length
   if frames_windowed.dtype != torch.float32:
     raise TypeError(f"logmel takes float32 frames, got {frames_windowed.dtype}")

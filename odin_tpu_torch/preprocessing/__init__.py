@@ -1,7 +1,9 @@
 """Speech and feature preprocessing of the port: the DSP library, the
 extractor pipeline and its stages, openSMILE's replacements, Kaldi interop,
-``FeatureProcessor`` over forked workers and the device corpus path."""
-from odin_tpu_torch.preprocessing import audio, kaldi, signal
+``FeatureProcessor`` over forked workers and the device corpus path; the
+text, TextGrid, image and video readers."""
+from odin_tpu_torch.preprocessing import (audio, kaldi, signal, text,
+                                          textgrid, video)
 from odin_tpu_torch.preprocessing.audio import (augment_audio, logscale_spec,
                                                 pitch_shift, time_stretch)
 from odin_tpu_torch.preprocessing.base import (AsType, Converter, Delete,

@@ -101,6 +101,11 @@ A bare stack of flax ``nn.Dense`` layers (``Dense_0``, ``Dense_1``, ...,
 the network of the JAX package's ``BNFExtractor((module, params))``)
 becomes an ``nn.Sequential`` of ``nn.Linear`` with a ReLU between two of
 them through ``from_jax_dense_stack``.
+
+The JAX package's int8 serving weights (``serving.quantize_params``: a
+large leaf is ``{'__int8__': codes, 'scale': scales}``) become the port's
+``serving.quantize_params`` dict through ``from_jax_quantized``: codes
+and scales follow their kernel's layout rule.
 """
 from __future__ import annotations
 
@@ -133,7 +138,8 @@ __all__ = ["from_jax_params", "to_jax_params", "from_jax_mutables",
            "to_jax_mutables", "from_jax_state", "to_jax_state",
            "from_jax_gmm", "to_jax_gmm", "from_jax_tmatrix",
            "to_jax_tmatrix", "from_jax_plda", "to_jax_plda",
-           "from_jax_scorer", "to_jax_scorer", "from_jax_dense_stack"]
+           "from_jax_scorer", "to_jax_scorer", "from_jax_dense_stack",
+           "from_jax_quantized"]
 
 _PRIMITIVES = {"Conv_0": Conv, "ConvTranspose_0": ConvTranspose,
                "Dense_0": Dense, "BatchNorm_0": BatchNorm}
@@ -1152,3 +1158,35 @@ def from_jax_dense_stack(params: Mapping[str, Any],
     if i < len(names) - 1:
       layers.append(nn.ReLU())
   return nn.Sequential(*layers).to(resolve_device(device))
+
+
+# ---------------------------------------------------------------------------
+# int8 serving weights
+# ---------------------------------------------------------------------------
+def from_jax_quantized(qparams: Mapping[str, Any]) -> Dict[str, Any]:
+  """The JAX package's ``quantize_params`` tree (flax params whose large
+  leaves are ``{'__int8__': codes, 'scale': scales}``) -> the port's
+  ``serving.quantize_params`` dict of the same module: codes and scales
+  laid out as the port's weights (a kernel's codes transposed and flipped
+  as ``from_jax_params`` carries the kernel, its (1, ..., out) scale
+  along with them), the other leaves as ``from_jax_params`` gives them."""
+  from odin_tpu_torch.serving import _Q_KEY
+
+  def split(tree, part):
+    out = {}
+    for k, v in tree.items():
+      if isinstance(v, Mapping) and _Q_KEY in v:
+        out[k] = np.asarray(v[_Q_KEY] if part == "codes" else
+                            v["scale"] if part == "scale" else
+                            np.ones(np.shape(v[_Q_KEY])), np.float32)
+      elif isinstance(v, Mapping):
+        out[k] = split(v, part)
+      else:
+        out[k] = np.asarray(v) if part != "marker" else np.zeros(np.shape(v))
+    return out
+
+  codes, scales, marker = (from_jax_params(split(qparams, part))
+                           for part in ("codes", "scale", "marker"))
+  return {name: {_Q_KEY: codes[name].to(torch.int8),
+                 "scale": scales[name]} if bool(marker[name].all())
+          else codes[name] for name in codes}

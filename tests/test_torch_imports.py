@@ -22,6 +22,14 @@ SOURCES = sorted((ROOT / "odin_tpu_torch").rglob("*.py")) + sorted(
     (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+# the modules of the serving and library slice
+NEW_MODULES = ("serving", "backend.losses", "backend.alias",
+               "backend.keras_helpers", "backend.maths", "search",
+               "search.beam_search", "explain", "stats", "preprocessing.text",
+               "preprocessing.textgrid", "preprocessing.image",
+               "preprocessing.video")
+
+
 def _imports(node):
   if isinstance(node, ast.Import):
     return [alias.name for alias in node.names]
@@ -118,7 +126,7 @@ def test_sources_exist():
                  "bay/vi/correlation_estimators.py",
                  "bay/vi/discretizers.py", "ml/cluster.py",
                  "ml/neighbors.py", "ml/naive_bayes.py", "ml/tsne.py",
-                 "search.py"):
+                 "search/__init__.py"):
     assert f"odin_tpu_torch/{module}" in names
   # the speech front-end slice, and the native IO engine's own source
   for module in ("preprocessing/signal.py", "preprocessing/_mixture.py",
@@ -172,6 +180,10 @@ def test_sources_exist():
                  "ml/neural_nlp.py", "backend/maths.py",
                  "visual/__init__.py", "visual/extended.py"):
     assert f"odin_tpu_torch/{module}" in names
+  # the serving bundle and the library's rest
+  for module in NEW_MODULES:
+    assert f"odin_tpu_torch/{module.replace('.', '/')}.py" in names or \
+        f"odin_tpu_torch/{module.replace('.', '/')}/__init__.py" in names
 
 
 @pytest.mark.parametrize("path", SOURCES,
@@ -239,7 +251,8 @@ def test_importing_the_port_loads_no_jax():
           "odin_tpu_torch.ml.svm, odin_tpu_torch.ml.forest, "
           "odin_tpu_torch.ml.topics, odin_tpu_torch.ml.base, "
           "odin_tpu_torch.ml.neural_nlp, odin_tpu_torch.backend.maths, "
-          "odin_tpu_torch.visual\n"
+          "odin_tpu_torch.visual, " + ", ".join(
+              f"odin_tpu_torch.{m}" for m in NEW_MODULES) + "\n"
           "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
           f"{FORBIDDEN!r})\nassert not bad, bad")
   res = _run(["-c", code], cwd=ROOT)
@@ -265,20 +278,76 @@ def test_chip_smoke_fails_without_the_port(tmp_path):
 
 
 def test_chip_smoke_phases_run_1_to_20():
-  """Phases 1-21 stay, and phase 22 (the classical-ML slice) is the last:
-  ``--phases 20`` runs phase 20 with the build alone, ``--phases 21``
-  brings phase 9, whose wav files it reads, and ``--phases 22`` phases 9
-  and 21, whose utterances and x-vectors it reads."""
+  """Phases 1-22 stay, and phase 23 (the serving bundle and the library's
+  rest) is the last: ``--phases 20`` runs phase 20 with the build alone,
+  ``--phases 21`` brings phase 9, whose wav files it reads, ``--phases
+  22`` phases 9 and 21, whose utterances and x-vectors it reads, and
+  ``--phases 23`` phase 4, whose model it exports."""
   import chip_smoke
-  assert chip_smoke.PHASES == tuple(range(1, 23))
-  assert chip_smoke.selected_phases() == set(range(1, 23))
+  assert chip_smoke.PHASES == tuple(range(1, 24))
+  assert chip_smoke.selected_phases() == set(range(1, 24))
   assert chip_smoke.selected_phases("20") == {1, 20}
   assert chip_smoke.selected_phases("21") == {1, 9, 21}
   assert chip_smoke.selected_phases("22") == {1, 9, 21, 22}
+  assert chip_smoke.selected_phases("23") == {1, 4, 23}
   assert 20 not in chip_smoke.PHASE_NEEDS
   assert all(20 not in needs for needs in chip_smoke.PHASE_NEEDS.values())
-  with pytest.raises(SystemExit, match="1-22"):
-    chip_smoke.selected_phases("23")
+  with pytest.raises(SystemExit, match="1-23"):
+    chip_smoke.selected_phases("24")
+
+
+def test_new_modules_import_no_jax_sklearn_matplotlib_or_pil():
+  """The serving and library slice's modules import with JAX, the JAX
+  package, scikit-learn, matplotlib and PIL blocked (the card's machine
+  has no scikit-learn, matplotlib or PIL), and its host functions that
+  need none of them run."""
+  blocked = ("jax", "jaxlib", "flax", "optax", "odin_tpu", "sklearn",
+             "matplotlib", "PIL")
+  code = "\n".join([
+      "import sys, importlib",
+      f"for name in {blocked!r}:",
+      "  sys.modules[name] = None",
+      "import numpy as np",
+      f"for m in {NEW_MODULES!r}:",
+      "  importlib.import_module('odin_tpu_torch.' + m)",
+      "from odin_tpu_torch.stats import classification_report",
+      "from odin_tpu_torch.preprocessing.text import is_stopword, Tokenizer",
+      "classification_report([0, 1, 1], [0, 1, 0], ['a', 'b'])",
+      "assert is_stopword('the')",
+      "Tokenizer().fit(['a b c']).transform(['a c'], mode='tfidf')",
+      "bad = sorted(m for m in sys.modules if m.split('.')[0] in",
+      f"             {blocked!r} and sys.modules[m] is not None)",
+      "assert not bad, bad"])
+  res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+  assert res.returncode == 0, res.stderr
+
+
+def test_a_loaded_program_needs_no_port(tmp_path):
+  """A ``.pt2`` of ``serving.export_fn`` loads and runs in a process whose
+  path lacks the repository, with ``torch.export.load`` alone, and
+  imports no ``odin`` module."""
+  code = "\n".join([
+      "import torch",
+      "from odin_tpu_torch.serving import export_fn",
+      "w = torch.arange(12.0).reshape(3, 4)",
+      "blob = export_fn(lambda x: torch.relu(x @ w), (torch.ones(1, 3),))",
+      f"open({str(tmp_path / 'f.pt2')!r}, 'wb').write(blob)"])
+  res = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=str(ROOT)))
+  assert res.returncode == 0, res.stderr
+  code = "\n".join([
+      "import sys, torch",
+      f"f = torch.export.load({str(tmp_path / 'f.pt2')!r}).module()",
+      "y = f(torch.ones(5, 3))",
+      "assert y.shape == (5, 4) and float(y[0, 3]) == 3 + 7 + 11, y",
+      "assert not [m for m in sys.modules if m.startswith('odin')]"])
+  res = subprocess.run([sys.executable, "-c", code], cwd=str(tmp_path),
+                       capture_output=True, text=True, timeout=120,
+                       env=dict(os.environ, PYTHONPATH=""))
+  assert res.returncode == 0, res.stderr
 
 
 def test_new_modules_need_neither_sklearn_nor_matplotlib():
