@@ -376,21 +376,44 @@ CPU:
      repository and which imports no ``odin`` module, at batch 1, 7 and
      256 (the fp32 bundle within 1e-5 of the live model, the int8
      ``reconstruct`` within 0.15 relative of fp32; batch-1 latency beside
-     phase 4's eager figures, batch-256 images/s); ``export_fn`` over K1
-     raising the error that names it; ``beam_search_decode`` with a
+     phase 4's eager figures, batch-256 images/s); ``beam_search_decode`` with a
      ``GRUCell(512)`` step and 1,024 symbols at batch 64, beam 4, length
      32; FGSM, PGD and 50 DeepDream steps on phase 4's model with
      injected noise; every loss, the rest of the maths and
      ``batch_resize``: each on the card against the CPU.  It launches no
      kernel of the port.
+ 24. export over the kernels (``export_path``, reading no other phase):
+     ``serving.export_fn`` over ``speech_features(use_pallas=True)`` on
+     64 int16 utterances of 4 s at n_fft 512, 400 and 551 (one program for
+     each K1 kernel) and over ``MultiHeadAttention(num_heads=8,
+     qkv_features=512, flash=True)`` on (4, 4096, 512) in fp32 and cast to
+     bf16 (K2's two kernels), each batch-polymorphic, exported on the card
+     and on the CPU, saved to bytes and loaded onto the card with
+     ``serving.load_fn``.  At batch 1, 7 and 64 from each program: the
+     loaded call launches exactly the kernel ``kernel_route`` names (one K1
+     launch a batch, one K2 launch at D 64), counted; its output equals
+     the live ``use_pallas=True``/``flash=True`` call on the same input
+     (limit 0) and stays within phase 3's and 6's limits of the plain
+     version (0.01 dB; 2e-5 in fp32, twice ``flash=False``'s distance
+     from the fp32 layer in bf16).  Logged: the export seconds, the loaded
+     call against the live call (host to host, median of 10), and each
+     wrapper's host microseconds a call (the public call, the registered
+     operator, the bare launch).  K1's operator, given tables that do not
+     fit its route (another route's, a band past its weights, tables on
+     the CPU), raises ValueError and launches nothing.
+     Then the slice's host modules: ``odin_tpu_torch.utils``, its
+     submodules and ``odin_tpu_torch.mpi`` (one module object with
+     ``utils.mpi``) import; ``visual`` and ``visual.extended`` import, a
+     text plot of a card tensor prints, and a figure raises the
+     ``ImportError`` naming matplotlib where it is absent.
 
 The datasets' files and caches are kept under ``build/odin_tpu_home``
 (``$ODIN_TPU_HOME``).  Run with no argument, it runs every phase: the
 whole check.  ``python3 chip_smoke.py --phases 1,14`` runs the phases
-named (1-23), phase 1 (the build) always, and every phase whose results a
+named (1-24), phase 1 (the build) always, and every phase whose results a
 named one reads (``PHASE_NEEDS``: 3 reads 2, 6 reads 5, 8 reads 7, 10
 reads 8, 11 reads 2 and 9, 15 reads 10, 16 and 21 read 9, 22 reads 9 and
-21, 23 reads 4; 17, 18, 19 and 20 read none); its ``kernels`` line lists
+21, 23 reads 4; 17, 18, 19, 20 and 24 read none); its ``kernels`` line lists
 only the kernels those phases timed.
 
 TF32 is off for matmuls and cuDNN convolutions, so the card computes in
@@ -6483,7 +6506,6 @@ def served_path(torch, np, reset_counts, read_counts, smi, served, root,
   from odin_tpu_torch import serving
   from odin_tpu_torch.explain import AdversarialAttack, DeepDream, _grad
   from odin_tpu_torch.networks.base import GRUCell
-  from odin_tpu_torch.ops.features import FeatureConfig, speech_features
   from odin_tpu_torch.search import beam_search_decode
 
   vae, vae_cpu = served["vae"], served["vae_cpu"]
@@ -6513,18 +6535,8 @@ def served_path(torch, np, reset_counts, read_counts, smi, served, root,
     inputs[f"z{b}"] = np.random.RandomState(SEED + 1000 + b).randn(
         b, 10).astype("f")
   np.savez(os.path.join(root, "inputs.npz"), **inputs)
-  # -- 23.2 a function over K1 is refused by the exporter
-  cfg = FeatureConfig()
-  y = torch.randn(2, 8000, device="cuda",
-                  generator=torch.Generator("cuda").manual_seed(SEED)) * 0.1
-  try:
-    serving.export_fn(lambda y: speech_features(y, cfg)["mspec"], (y,))
-  except RuntimeError as e:
-    if "K1" not in str(e) or "use_pallas=False" not in str(e):
-      raise
-    log(at() + f"23.2 export_fn over K1 raised: {e}")
-  else:
-    raise AssertionError("export_fn traced speech_features through K1")
+  # (23.2, the refusal of an export over K1, is gone: phase 24 exports
+  # over K1 and K2)
   # -- 23.3 beam decoding: a GRUCell step and a projection to the symbols
   H, V, B, K, T = (BEAM[k] for k in ("hidden", "symbols", "batch", "beam",
                                      "length"))
@@ -6685,7 +6697,293 @@ def served_path(torch, np, reset_counts, read_counts, smi, served, root,
   if any(counts.values()):
     raise AssertionError(f"phase 23 launched a kernel of the port: {counts}")
 
-PHASES = tuple(range(1, 24))
+# ---------------------------------------------------------------------------
+# phase 24: export over the kernels
+# ---------------------------------------------------------------------------
+EXPORT_BATCHES = (1, 7, 64)
+EXPORT_SECONDS = 4.0  # phase 3's longest utterance, at each config's rate
+EXPORT_LIVE_TOL = 0.0  # a loaded program against the live call: the same
+                       # kernels on the same inputs
+EXPORT_PLAIN_CHUNK = 4  # flash=False runs the attention layer 4 rows at a
+                        # time: at 64 rows its scores would take 34 GB
+HOST_CALLS = 2000  # calls a host-cost reading, on tiny inputs
+
+
+def host_us(torch, fn, calls=HOST_CALLS, reps=5):
+  """The host's microseconds a call of `fn`: `calls` back-to-back calls on
+  inputs small enough that the card keeps up, timed on the host clock
+  without waiting for the card (it is waited for after each run); the
+  median of `reps` runs."""
+  fn()
+  torch.cuda.synchronize()
+  runs = []
+  for _ in range(reps):
+    t0 = time.perf_counter()
+    for _ in range(calls):
+      fn()
+    runs.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+  return sorted(runs)[reps // 2]
+
+
+def export_path(torch, np, reset_counts, read_counts, smi):
+  """Phase 24: programs over K1 and K2, exported on the card and on the
+  CPU, loaded onto the card; returns {kernel: launches of the loaded
+  programs}."""
+  import importlib
+  import io
+
+  from odin_tpu_torch import serving
+  from odin_tpu_torch.networks.attention import MultiHeadAttention
+  from odin_tpu_torch.ops.features import FeatureConfig, speech_features
+  # the modules (``odin_tpu_torch.ops`` names their wrappers alike)
+  k1 = importlib.import_module("odin_tpu_torch.ops.logmel")
+  k2 = importlib.import_module("odin_tpu_torch.ops.flash_attention")
+
+  cuda = torch.device("cuda", 0)
+  launches = {}
+
+  def exported(fn, example, where):
+    """`fn` exported on `where` (batch-polymorphic), its bytes, the
+    seconds, and the program loaded onto the card."""
+    t0 = time.perf_counter()
+    blob = serving.export_fn(fn, example)
+    seconds = time.perf_counter() - t0
+    ep = torch.export.load(io.BytesIO(blob))
+    ops = {str(n.target) for n in ep.graph.nodes
+           if str(n.target).startswith("odin_tpu_torch.")}
+    return blob, seconds, ops, serving.load_fn(blob)
+
+  # -- 24.1 K1: speech_features at each kernel's config
+  rs = np.random.RandomState(SEED + 24)
+  configs = (("logmel_fft", FeatureConfig()),
+             ("logmel_fft_mixed", FeatureConfig(n_fft=400, n_mels=80,
+                                                fmin=0.0)),
+             ("logmel", FeatureConfig(sr=22050, frame_length=551,
+                                      step_length=220, n_fft=551, n_mels=80,
+                                      fmin=0.0)))
+  routes = {"logmel_fft": "fft", "logmel_fft_mixed": "mixed",
+            "logmel": "dense"}
+  counter = {"fft": "logmel_fft", "mixed": "logmel_fft_mixed"}
+  for name, cfg in configs:
+    route = k1.kernel_route(cfg.n_fft)
+    if route != routes[name]:
+      raise AssertionError(f"n_fft {cfg.n_fft} takes {route}, not {name}")
+    T = int(EXPORT_SECONDS * cfg.sr)
+    y = (rs.randn(max(EXPORT_BATCHES), T) * 0.1 * 32768.0).clip(
+        -32768, 32767).astype(np.int16)
+    live = lambda yb, cfg=cfg: speech_features(yb, cfg, device="cuda")["mspec"]
+    plain = lambda yb, cfg=cfg: speech_features(
+        yb, cfg, device="cuda", use_pallas=False)["mspec"]
+    for where in ("cuda", "cpu"):
+      fn = lambda yb, cfg=cfg, where=where: speech_features(
+          yb, cfg, device=where)["mspec"]
+      blob, seconds, ops, program = exported(
+          fn, (torch.from_numpy(y).to(where),), where)
+      log(f"24.1 {name} (n_fft {cfg.n_fft}) exported on {where}: "
+          f"{seconds:.3f} s, {len(blob)} bytes, operators {sorted(ops)}")
+      if ops != {"odin_tpu_torch.logmel.default"}:
+        raise AssertionError(f"the program holds {ops}, not K1's operator")
+      for b in EXPORT_BATCHES:
+        yb = y[:b]
+        reset_counts()
+        got = program(yb)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {"logmel": 1, "logmel_fft": int(route == "fft"),
+                "logmel_fft_mixed": int(route == "mixed")}
+        if {k: counts[k] for k in want} != want:
+          raise AssertionError(f"the loaded {name} program launched {counts} "
+                               f"at batch {b}, not {name} once")
+        launches[name] = launches.get(name, 0) + 1
+        n_frames = cfg.n_frames(T)
+        if got.device != cuda or tuple(got.shape) != (b, n_frames,
+                                                      cfg.n_mels):
+          raise AssertionError(f"{name} b={b}: {tuple(got.shape)} on "
+                               f"{got.device}")
+        if not bool(torch.isfinite(got).all()):
+          raise AssertionError(f"{name} b={b}: non-finite output")
+        e_live = float((got - live(yb)).abs().max())
+        e_plain = float((got - plain(yb)).abs().max())
+        log(f"24.1 {name} from {where}, b={b}: launches {counts}; max |loaded "
+            f"- live| = {e_live:.3g} dB (limit {EXPORT_LIVE_TOL}), max "
+            f"|loaded - plain| = {e_plain:.6f} dB (limit {LOGMEL_TOL_DB})")
+        if e_live > EXPORT_LIVE_TOL or e_plain > LOGMEL_TOL_DB:
+          raise AssertionError(f"the loaded {name} program differs at b={b}")
+      rounds = 10
+      t_prog = host_times_s(torch, lambda: program(y).cpu(), rounds)
+      t_live = host_times_s(torch, lambda: live(y).cpu(), rounds)
+      log(f"24.1 {name} from {where}, b={max(EXPORT_BATCHES)}, host to host, "
+          f"median of {rounds}: loaded {t_prog[rounds // 2] * 1e3:.3f} ms, "
+          f"live {t_live[rounds // 2] * 1e3:.3f} ms")
+      del program
+
+  # -- 24.2 K2: MultiHeadAttention(flash=True) in fp32 and bf16
+  B, T, F = 4, 4096, 512
+  x = np.random.RandomState(SEED + 25).randn(max(EXPORT_BATCHES), T, F
+                                             ).astype(np.float32)
+
+  def layer(flash, device, dtype=torch.float32, state=None):
+    m = MultiHeadAttention(num_heads=8, qkv_features=512, flash=flash)
+    m.build((T, F), torch.Generator().manual_seed(SEED), device=device)
+    if state is not None:
+      m.load_state_dict(state)
+    return m.to(dtype).eval()
+
+  ref = layer(True, cuda)
+  state = {k: v.cpu() for k, v in ref.state_dict().items()}
+
+  def chunked(m, xb):
+    return torch.cat([m(xb[i:i + EXPORT_PLAIN_CHUNK])
+                      for i in range(0, xb.shape[0], EXPORT_PLAIN_CHUNK)])
+
+  for dtype, name in ((torch.float32, "flash_attention"),
+                      (torch.bfloat16, "flash_attention_mma_bf16")):
+    flash_card = layer(True, cuda, dtype, state)
+    plain_card = layer(False, cuda, dtype, state)
+    for where in ("cuda", "cpu"):
+      module = flash_card if where == "cuda" else layer(True, "cpu", dtype,
+                                                        state)
+      rows = B if where == "cuda" else 1  # the CPU checks the program at 1
+      example = torch.from_numpy(x[:rows]).to(where, dtype)
+      blob, seconds, ops, program = exported(module, (example,), where)
+      log(f"24.2 {name} layer exported on {where}: {seconds:.3f} s, "
+          f"{len(blob)} bytes, operators {sorted(ops)}")
+      if ops != {"odin_tpu_torch.flash_attention.default"}:
+        raise AssertionError(f"the program holds {ops}, not K2's operator")
+      for b in EXPORT_BATCHES:
+        xb = torch.from_numpy(x[:b]).to(cuda, dtype)
+        reset_counts()
+        with torch.no_grad():
+          got = program(xb)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        mma = int(dtype != torch.float32)
+        if (counts["flash_attention"], counts["flash_attention_mma"]) != (
+            1, mma):
+          raise AssertionError(f"the loaded {name} program launched {counts} "
+                               f"at batch {b}, not the {dtype} kernel once")
+        launches[name] = launches.get(name, 0) + 1
+        if got.dtype != dtype or tuple(got.shape) != (b, T, F) or \
+            not bool(torch.isfinite(got).all()):
+          raise AssertionError(f"{name} b={b}: {got.dtype} "
+                               f"{tuple(got.shape)} or non-finite values")
+        with torch.no_grad():
+          e_live = float((got.float() - flash_card(xb).float()).abs().max())
+          if dtype == torch.float32:
+            e_plain = float((got - chunked(plain_card, xb)).abs().max())
+            limit, ok = f"{ATTN_ATOL}", e_plain <= ATTN_ATOL
+          else:
+            want = ref(xb.float())
+            e_plain = float((got.float() - want).abs().max())
+            e_ref = float((chunked(plain_card, xb).float() - want).abs().max())
+            limit, ok = f"2 x flash=False's {e_ref:.3g}", e_plain <= 2 * e_ref
+        log(f"24.2 {name} from {where}, b={b}: launches {counts}; max |loaded "
+            f"- live| = {e_live:.3g} (limit {EXPORT_LIVE_TOL}), max |loaded - "
+            f"{'plain' if dtype == torch.float32 else 'fp32 layer'}| = "
+            f"{e_plain:.3g} (limit {limit})")
+        if e_live > EXPORT_LIVE_TOL or not ok:
+          raise AssertionError(f"the loaded {name} program differs at b={b}")
+      # timed at batch 7: at 64 the copies of 512 MB each way would take
+      # most of the time
+      rounds, b = 10, EXPORT_BATCHES[1]
+      xs = torch.from_numpy(x[:b]).to(dtype)
+      with torch.no_grad():
+        t_prog = host_times_s(torch, lambda: program(xs).cpu(), rounds)
+        t_live = host_times_s(torch, lambda: flash_card(xs.to(cuda)).cpu(),
+                              rounds)
+      log(f"24.2 {name} from {where}, b={b}, host to host, median of "
+          f"{rounds}: loaded {t_prog[rounds // 2] * 1e3:.3f} ms, live "
+          f"{t_live[rounds // 2] * 1e3:.3f} ms")
+      del program
+    del flash_card, plain_card
+  torch.cuda.empty_cache()
+
+  # -- 24.3 each wrapper's host cost a call, on inputs the card keeps up
+  # with; then K1's operator refuses tables that do not fit its route
+  cfg = FeatureConfig()
+  bases = cfg.device_bases(cuda)
+  frames = (torch.randn(64, cfg.frame_length, device=cuda) * 0.1 *
+            bases["window"]).contiguous()
+  tables = k1.kernel_tables("fft", bases, cfg.n_fft)
+  scale_sq = float(cfg.scale ** 2)
+  out = torch.empty(64, cfg.n_mels, device=cuda)
+  q = torch.randn(1, 1, 128, 64, device=cuda)
+  k1_op = torch.ops.odin_tpu_torch.logmel.default
+  k1_bases = (bases["cos"], bases["sin"], bases["mel_t"])
+  k2_op = torch.ops.odin_tpu_torch.flash_attention.default
+  costs = {
+      "K1 logmel (public call)": lambda: k1.logmel(frames, cfg),
+      "K1 operator": lambda: k1_op(frames, *k1_bases, *tables, cfg.n_fft,
+                                   scale_sq),
+      "K1 bare launch (_run)": lambda: k1._run("fft", frames, *tables,
+                                               cfg.n_fft, scale_sq, out),
+      "K2 flash_attention (public call)": lambda: k2.flash_attention(q, q, q),
+      "K2 operator": lambda: k2_op(q, q, q, 0.125, False),
+      "K2 bare launch (_forward_cuda)": lambda: k2._forward_cuda(
+          q, q, q, 0.125, False)}
+  for what, fn in costs.items():
+    log(f"24.3 host microseconds a call, {what}: {host_us(torch, fn):.2f} "
+        f"(median of 5 runs of {HOST_CALLS} calls; 64 frames, or (1, 1, 128, "
+        f"64) fp32); {smi}")
+  past = tables[2].clone()
+  past[-1, 2] = tables[1].numel()  # the last band's weights past the end
+  misfits = {
+      "the mixed kernel's tables (n_fft 400)": k1.kernel_tables(
+          "mixed", configs[1][1].device_bases(cuda), 400),
+      "a band past the weights": (*tables[:2], past),
+      "the tables on the CPU": tuple(t.cpu() for t in tables)}
+  for what, misfit in misfits.items():
+    reset_counts()
+    try:
+      k1_op(frames, *k1_bases, *misfit, cfg.n_fft, scale_sq)
+    except ValueError as e:
+      refusal = str(e)
+    else:
+      raise AssertionError(f"K1's operator took {what} at n_fft 512")
+    torch.cuda.synchronize()
+    if any(read_counts().values()):
+      raise AssertionError(f"K1's operator launched on {what}")
+    log(f"24.3 K1's operator at n_fft 512 refused {what}, launching "
+        f"nothing: {refusal[:160]}")
+
+  # -- 24.4 the slice's host modules on this machine: the utils package
+  # and the plots, which take tensors on the card; without matplotlib a
+  # plot raises the ImportError that names it, and the text plots run
+  import importlib.util
+  mpi = importlib.import_module("odin_tpu_torch.mpi")
+  utils = importlib.import_module("odin_tpu_torch.utils")
+  for sub in ("cli", "crypto", "decorators", "np_utils", "ordered_flag",
+              "pdf_utils", "progbar", "python_utils"):
+    importlib.import_module(f"odin_tpu_torch.utils.{sub}")
+  if mpi is not utils.mpi:
+    raise AssertionError("odin_tpu_torch.mpi is not odin_tpu_torch.utils.mpi")
+  visual = importlib.import_module("odin_tpu_torch.visual")
+  extended = importlib.import_module("odin_tpu_torch.visual.extended")
+  mat = torch.arange(12, dtype=torch.float32, device=cuda).reshape(3, 4) - 5
+  text = extended.print_hinton(mat)
+  if text != extended.print_hinton(mat.cpu().numpy()):
+    raise AssertionError("print_hinton of a card tensor differs")
+  if importlib.util.find_spec("matplotlib") is None:
+    try:
+      visual.plot_heatmap(mat)
+    except ImportError as e:
+      if "matplotlib" not in str(e):
+        raise
+      refusal = f"refused: {e}"
+    else:
+      raise AssertionError("plot_heatmap drew without matplotlib")
+  else:
+    refusal = f"drawn ({type(visual.plot_heatmap(mat)).__name__})"
+    visual.plot_close()
+  log(f"24.4 odin_tpu_torch.utils ({len(utils.__all__)} names), its 9 "
+      f"submodules and odin_tpu_torch.mpi import; visual and extended "
+      f"({len(visual.__all__)} names) import, print_hinton of a card "
+      f"tensor printed, plot_heatmap {refusal}")
+  return launches
+
+
+PHASES = tuple(range(1, 25))
 # the phases whose results a phase reads: the kernel reports of 2 and 5,
 # phase 7's graphed step time, phase 8's model, phase 9's wav files, phase
 # 10's Gym, phase 21's x-vectors, phase 4's served model
@@ -7420,6 +7718,16 @@ def main(phases=None) -> int:
                "bundles (fp32 and int8) in a process without the port, beam "
                "decoding, attacks, DeepDream, losses, maths and resizing"):
       bundle_path(torch, np, reset_counts, read_counts, smi, served)
+
+  if 24 in phases:
+    with Phase("24 export over the kernels: speech_features over K1's three "
+               "kernels and MultiHeadAttention over K2's two, exported on "
+               "the card and on the CPU, loaded onto the card"):
+      for name, n in export_path(torch, np, reset_counts, read_counts,
+                                 smi).items():
+        if name in report:
+          report[name]["launches"] = (report[name]["launches"] or 0) + n
+        log(f"{name} launches of the loaded programs (phase 24): {n}")
 
   log("kernels: " + "; ".join(
       f"{k} launches={v['launches']} ms={v['ms']:.4f} "

@@ -24,7 +24,7 @@ from pathlib import Path
 from typing import Dict, List, Sequence
 
 __all__ = ["NVCC_FLAGS", "GXX_FLAGS", "build_all", "build_host",
-           "host_library_path", "library_path", "load", "refuse_export"]
+           "host_library_path", "library_path", "load"]
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = CSRC.parent.parent / "build" / "odin_tpu_torch"
@@ -35,19 +35,6 @@ GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 GXX_TIMEOUT_S = 120
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-
-
-def refuse_export(kernel: str, source: str, way_out: str) -> None:
-  """Raise where ``torch.export`` traces a call of a kernel wrapper: the
-  kernels are launched through ctypes, which the exporter cannot trace,
-  and a wrapper never stands its plain version in for its kernel in an
-  exported program."""
-  import torch
-  if torch.compiler.is_exporting():
-    raise RuntimeError(
-        f"{kernel} ({source}) is a hand-written CUDA kernel launched through "
-        f"ctypes, which torch.export cannot trace; export the plain PyTorch "
-        f"version instead by calling with {way_out}")
 
 
 def _nvcc() -> str:

@@ -88,8 +88,9 @@ def evaluate(y_true, y_pred_proba=None, y_pred_log_proba=None,
     print(print_confusion(cm, labels))
 
   if path is not None:
-    from odin_tpu_torch.visual import (_plt, plot_Cnorm, plot_confusion_matrix,
-                                       plot_detection_curve, plot_save)
+    from odin_tpu_torch.visual import _plt, plot_confusion_matrix, plot_save
+    from odin_tpu_torch.visual.extended import (plot_Cnorm,
+                                                plot_detection_curve)
     plt = _plt()
     figs = []
     fig = plt.figure(figsize=(max(4, n_classes), max(4, n_classes) + 1))

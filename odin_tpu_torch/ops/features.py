@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from odin_tpu_torch.device import resolve_device
-from odin_tpu_torch.ops.logmel import logmel, power_spectrum
+from odin_tpu_torch.ops.logmel import logmel, power_spectrum, untraced
 from odin_tpu_torch.preprocessing import signal as np_signal
 
 __all__ = ["FeatureConfig", "dft_bases", "frame_signal", "speech_features",
@@ -99,11 +99,9 @@ class FeatureConfig:
       cos_b, sin_b = dft_bases(self.frame_length, self.n_fft)
       arrays = dict(window=self.window_fn, cos=cos_b, sin=sin_b,
                     mel_t=self.mel_basis.T, dct_t=self.dct_basis.T)
-      # under torch.export the bases are still made as real tensors (the
-      # program's constants), never as the tracer's fake ones, which the
-      # cache would keep after the export
-      from torch._subclasses.fake_tensor import unset_fake_temporarily
-      with unset_fake_temporarily():
+      # under torch.export the bases are the program's constants, never
+      # the tracer's fake tensors, which the cache would keep after it
+      with untraced():
         self._bases[device] = {
             k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(
                 device) for k, v in arrays.items()}

@@ -11,10 +11,14 @@ covers head dims up to the kernel's width (128 and 256); above it the
 forward launches once per chunk of that many columns of V and O, and each
 launch computes the scores over the whole head dim.  On a CPU tensor it runs
 ``flash_attention_reference``, the plain PyTorch version of the kernels'
-function.  As in JAX, the backward recomputes plain attention
-(``reference_attention``) and takes its gradients, so the forward saves
-only q, k and v.  The kernels' bounds on the card and their designs are
-noted in the CUDA sources.
+function.  The forward is the operator ``torch.ops.odin_tpu_torch.
+flash_attention``, which this module registers (CUDA: the kernels; CPU:
+the plain version), so that ``torch.export`` keeps it in an exported
+program as one node; a process that loads such a program imports this
+module first.  As in JAX, the backward, registered with the operator,
+recomputes plain attention (``reference_attention``) and takes its
+gradients, so the forward saves only q, k and v.  The kernels' bounds on
+the card and their designs are noted in the CUDA sources.
 
 ``flash_attention_fn`` is the drop-in attention function of
 ``networks.attention.MultiHeadAttention(flash=True)`` over (B, T, H, D);
@@ -30,6 +34,7 @@ from typing import Optional
 import torch
 
 from odin_tpu_torch import _build
+from odin_tpu_torch.ops.logmel import on_device, raw_stream
 
 __all__ = ["flash_attention", "flash_attention_fn", "flash_attention_reference",
            "reference_attention", "dot_product_attention"]
@@ -116,9 +121,18 @@ def _check(q, k, v):
                      f"{q.device}, {k.device}, {v.device}")
 
 
-def _forward(q, k, v, sm_scale: float, causal: bool) -> torch.Tensor:
-  if q.device.type == "cpu":
-    return flash_attention_reference(q, k, v, sm_scale, causal)
+# -- the operator ------------------------------------------------------------
+_LIB = torch.library.Library("odin_tpu_torch", "FRAGMENT")
+_LIB.define("flash_attention(Tensor q, Tensor k, Tensor v, float sm_scale, "
+            "bool causal) -> Tensor")
+
+
+def _forward_cuda(q, k, v, sm_scale, causal):
+  """The operator on the card: ceil(D / width) launches of the dtype's
+  kernel, counted in ``flash_attention.launches`` (and ``mma_launches``).
+  The kernels read q, k and v by raw pointer, so their shapes, dtypes and
+  device are checked here too, where a program calls the operator."""
+  _check(q, k, v)
   B, H, Tq, D = q.shape
   Tk = k.shape[2]
   q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
@@ -127,12 +141,11 @@ def _forward(q, k, v, sm_scale: float, causal: bool) -> torch.Tensor:
     return out
   name, code, width = _KERNELS[q.dtype]
   fn = getattr(_library(name, width), f"odin_{name}")
-  stream = torch.cuda.current_stream(q.device).cuda_stream
-  with torch.cuda.device(q.device):
+  stream = raw_stream(q.device)
+  with on_device(q.device):
     for col0 in range(0, D, width):
       err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-               B * H, Tq, Tk, D, col0, float(sm_scale), int(bool(causal)),
-               code, stream)
+               B * H, Tq, Tk, D, col0, sm_scale, int(causal), code, stream)
       if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed with CUDA "
                            f"error {err}")
@@ -142,22 +155,38 @@ def _forward(q, k, v, sm_scale: float, causal: bool) -> torch.Tensor:
   return out
 
 
-class _FlashAttention(torch.autograd.Function):
+def _forward_cpu(q, k, v, sm_scale, causal):
+  """The operator on the CPU: the plain version."""
+  return flash_attention_reference(q, k, v, sm_scale, causal)
 
-  @staticmethod
-  def forward(ctx, q, k, v, sm_scale, causal):
-    ctx.save_for_backward(q, k, v)
-    ctx.sm_scale, ctx.causal = sm_scale, causal
-    return _forward(q, k, v, sm_scale, causal)
 
-  @staticmethod
-  def backward(ctx, g):
-    q, k, v = ctx.saved_tensors
-    with torch.enable_grad():
-      q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
-      out = reference_attention(q, k, v, ctx.sm_scale, ctx.causal)
-      gq, gk, gv = torch.autograd.grad(out, (q, k, v), g)
-    return gq, gk, gv, None, None
+def _forward_fake(q, k, v, sm_scale, causal):
+  return q.new_empty(q.shape)
+
+
+def _setup(ctx, inputs, output):
+  q, k, v, sm_scale, causal = inputs
+  ctx.save_for_backward(q, k, v)
+  ctx.sm_scale, ctx.causal = sm_scale, causal
+
+
+def _backward(ctx, g):
+  """JAX's ``_bwd``: the gradients of plain attention, recomputed."""
+  q, k, v = ctx.saved_tensors
+  with torch.enable_grad():
+    q, k, v = (t.detach().requires_grad_() for t in (q, k, v))
+    out = reference_attention(q, k, v, ctx.sm_scale, ctx.causal)
+    gq, gk, gv = torch.autograd.grad(out, (q, k, v), g)
+  return gq, gk, gv, None, None
+
+
+_LIB.impl("flash_attention", _forward_cuda, "CUDA")
+_LIB.impl("flash_attention", _forward_cpu, "CPU")
+torch.library.register_fake("odin_tpu_torch::flash_attention", _forward_fake,
+                            lib=_LIB)
+torch.library.register_autograd("odin_tpu_torch::flash_attention", _backward,
+                                setup_context=_setup, lib=_LIB)
+_OP = torch.ops.odin_tpu_torch.flash_attention.default
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -169,12 +198,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
   ``sm_scale`` defaults to 1/sqrt(D).  On the card a call launches
   ceil(D / width) kernels, width 128 for float32 and 256 for 16-bit
   inputs."""
-  _build.refuse_export("K2, flash_attention",
-                       "odin_tpu_torch/ops/flash_attention.py", "flash=False")
   _check(q, k, v)
   if sm_scale is None:
     sm_scale = 1.0 / math.sqrt(q.shape[-1])
-  return _FlashAttention.apply(q, k, v, float(sm_scale), bool(causal))
+  return _OP(q, k, v, float(sm_scale), bool(causal))
 
 
 # kernel launches: all of them, and those of the tensor-core kernel

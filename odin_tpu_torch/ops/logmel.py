@@ -15,13 +15,22 @@ The kernels replace ``_logmel_kernel`` (``odin_tpu/ops/pallas_features.py:
 * ``csrc/logmel.cu``, the dense real DFT, for every other n_fft (odd, a
   prime factor of 11 or more in n_fft/2, or above 8192).
 
-On a CUDA tensor ``logmel`` launches the chosen kernel and raises if the
-launch fails; there is no fallback and no retry.  On a CPU tensor it runs
-``logmel_reference``, the plain PyTorch version of the same function.  Each
-kernel's bound on the card and its design are noted in its CUDA source.
+``logmel`` calls the operator ``torch.ops.odin_tpu_torch.logmel``, which
+this module registers, so that ``torch.export`` keeps the call in an
+exported program as one node.  Its CUDA implementation launches the chosen
+kernel and raises if the launch fails; there is no fallback and no retry.
+Its CPU implementation is ``logmel_reference``, the plain PyTorch version of
+the same function.  The operator takes the kernels' tables (the twiddles,
+the packed mel weights and their bands, or the dense DFT bases) as tensor
+arguments, so that an exported program carries them and runs on the card
+however it was exported; a process that loads such a program imports this
+module first.  Its gradient, with respect to the frames, is the plain
+version's.  Each kernel's bound on the card and its design are noted in its
+CUDA source.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 from typing import TYPE_CHECKING, List, NamedTuple, Tuple
@@ -83,6 +92,7 @@ def _odd_part(m: int) -> int:
   return m
 
 
+@functools.lru_cache(maxsize=None)
 def kernel_route(n_fft: int) -> str:
   """The K1 kernel that takes a config: ``"fft"`` where n_fft is a power of
   two in the FFT kernel's range, ``"mixed"`` where it is another even n_fft
@@ -433,51 +443,268 @@ def _mixed_library() -> ctypes.CDLL:
   return lib
 
 
-def _launch(kernel: str, frames: torch.Tensor, config: "FeatureConfig",
-            out: torch.Tensor) -> None:
+def on_device(device: torch.device):
+  """The CUDA device guard of a launch: none where `device` is already the
+  current device (the guard costs microseconds a call)."""
+  if device.index is None or device.index == torch._C._cuda_getDevice():
+    return contextlib.nullcontext()
+  return torch.cuda.device(device)
+
+
+def raw_stream(device: torch.device) -> int:
+  """The current CUDA stream of `device` as the ``cudaStream_t`` a launcher
+  takes, without making a ``torch.cuda.Stream`` object."""
+  return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+@contextlib.contextmanager
+def untraced():
+  """Tensors made inside are real, whatever traces the caller: under
+  ``torch.export`` neither the tracer's fake mode, its proxy mode nor its
+  functionalization sees them, so a program takes them as constants (not
+  the ops that made them), and a cache keeps no fake tensor after the
+  export."""
+  from torch._subclasses.fake_tensor import unset_fake_temporarily
+  from torch._subclasses.functional_tensor import disable_functional_mode
+  from torch.fx.experimental.proxy_tensor import disable_proxy_modes_tracing
+  with unset_fake_temporarily(), disable_proxy_modes_tracing(), \
+      disable_functional_mode():
+    yield
+
+
+def kernel_tables(kernel: str, bases: dict, n_fft: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """(table, weights, bands) of one K1 kernel, built once and kept in
+  `bases` (``FeatureConfig.device_bases``): for ``"fft"`` and ``"mixed"``
+  the twiddles, the packed mel weights and their bands
+  (``fft_operands``); for ``"dense"`` the DFT bases in the kernel's layout,
+  ``mel_t`` and the mel bands (``kernel_operands``).  Made ``untraced``:
+  under ``torch.export`` they are the program's constants."""
+  key = f"logmel_tables_{kernel}"
+  if key not in bases:
+    with untraced():
+      if kernel == "dense":
+        dft, bands = kernel_operands(bases)
+        bases[key] = (dft, bases["mel_t"], bands)
+      else:
+        bases[key] = fft_operands(bases, n_fft)
+  return bases[key]
+
+
+def _run(kernel: str, frames: torch.Tensor, table: torch.Tensor,
+         weights: torch.Tensor, bands: torch.Tensor, n_fft: int,
+         scale_sq: float, out: torch.Tensor) -> None:
   """Launches one K1 kernel, ``"fft"``, ``"mixed"`` or ``"dense"``, on
-  (n, frame_length) CUDA frames into (n, n_mels) ``out`` on the current
-  stream; raises if the launch fails.  Counts nothing: ``logmel`` does."""
-  bases = config.device_bases(frames.device)
-  n = frames.numel() // config.frame_length
-  stream = torch.cuda.current_stream(frames.device).cuda_stream
-  with torch.cuda.device(frames.device):
+  (..., frame_length) contiguous CUDA frames into (..., n_mels) ``out`` on
+  the current stream, with the kernel's tables (``kernel_tables``); raises
+  if the launch fails.  Counts nothing."""
+  frame_length = frames.shape[-1]
+  n = frames.numel() // frame_length
+  n_mels = out.shape[-1]
+  device = frames.device
+  stream = raw_stream(device)
+  with on_device(device):
     if kernel == "fft":
-      twiddles, weights, bands = fft_operands(bases, config.n_fft)
       err = _fft_library().odin_logmel_fft(
-          frames.data_ptr(), twiddles.data_ptr(), weights.data_ptr(),
-          bands.data_ptr(), out.data_ptr(), n, config.frame_length,
-          config.n_fft.bit_length() - 1, config.n_mels, weights.numel(),
-          float(config.scale ** 2), stream)
+          frames.data_ptr(), table.data_ptr(), weights.data_ptr(),
+          bands.data_ptr(), out.data_ptr(), n, frame_length,
+          n_fft.bit_length() - 1, n_mels, weights.numel(), scale_sq, stream)
     elif kernel == "mixed":
-      twiddles, weights, bands = fft_operands(bases, config.n_fft)
-      geometry = mixed_geometry(config.n_fft)
       err = _mixed_library().odin_logmel_fft_mixed(
-          frames.data_ptr(), twiddles.data_ptr(), weights.data_ptr(),
-          bands.data_ptr(), out.data_ptr(), n, config.frame_length,
-          config.n_fft, config.n_mels, weights.numel(), *geometry,
-          float(config.scale ** 2), stream)
+          frames.data_ptr(), table.data_ptr(), weights.data_ptr(),
+          bands.data_ptr(), out.data_ptr(), n, frame_length, n_fft, n_mels,
+          weights.numel(), *mixed_geometry(n_fft), scale_sq, stream)
     else:
-      dft, bands = kernel_operands(bases)
       err = _library().odin_logmel(
-          frames.data_ptr(), dft.data_ptr(), bases["mel_t"].data_ptr(),
-          bands.data_ptr(), out.data_ptr(), n, config.frame_length,
-          config.n_fft // 2 + 1, config.n_mels, float(config.scale ** 2),
-          stream)
+          frames.data_ptr(), table.data_ptr(), weights.data_ptr(),
+          bands.data_ptr(), out.data_ptr(), n, frame_length, n_fft // 2 + 1,
+          n_mels, scale_sq, stream)
   if err != 0:
     raise RuntimeError(f"logmel {kernel} kernel launch failed with CUDA "
                        f"error {err}")
 
 
+def _launch(kernel: str, frames: torch.Tensor, config: "FeatureConfig",
+            out: torch.Tensor) -> None:
+  """``_run`` with `config`'s tables on the frames' device: one K1 kernel
+  on (n, frame_length) CUDA frames into (n, n_mels) ``out``.  Counts
+  nothing: the operator's CUDA implementation does."""
+  tables = kernel_tables(kernel, config.device_bases(frames.device),
+                         config.n_fft)
+  _run(kernel, frames, *tables, config.n_fft, float(config.scale ** 2), out)
+
+
+# -- the operator ------------------------------------------------------------
+_LIB = torch.library.Library("odin_tpu_torch", "FRAGMENT")
+_LIB.define("logmel(Tensor frames, Tensor cos, Tensor sin, Tensor mel_t, "
+            "Tensor table, Tensor weights, Tensor bands, int n_fft, "
+            "float scale_sq) -> Tensor")
+
+
+@functools.lru_cache(maxsize=None)
+def _table_shapes(kernel: str, n_fft: int, frame_length: int
+                  ) -> Tuple[Tuple[int, ...], int]:
+  """The shape of `kernel`'s table (``kernel_tables``) for n_fft and
+  frame_length, and the columns of its bands."""
+  if kernel == "dense":
+    n_freqs = n_fft // 2 + 1
+    return ((-(-n_freqs // MAX_FREQS), -(-frame_length // CHUNK) * CHUNK, 2,
+             MAX_FREQS), 2)
+  return (len(fft_twiddle_index(n_fft)), 2), 4
+
+
+# the tables already checked: id(bands) -> (bands, table, weights, mel_t,
+# then the frames' device and length, n_fft and the four versions they were
+# checked at); the tensors are held, so that an id is not reused while kept
+_CHECKED = {}
+_CHECKED_KEPT = 64
+
+
+def check_tables(kernel: str, frames: torch.Tensor, mel_t: torch.Tensor,
+                 table: torch.Tensor, weights: torch.Tensor,
+                 bands: torch.Tensor, n_fft: int) -> None:
+  """Raises ValueError unless `kernel`'s tables fit its launch on `frames`:
+  contiguous, on the frames' device, of the dtypes and shapes that
+  ``kernel_tables`` gives for n_fft, the frame length and mel_t's mels;
+  for the FFT kernels, also every band within the bins and its weights
+  within ``weights``.  The kernels read the tables by raw pointer, so a
+  table of another route, config or device would be read out of bounds.
+  Tables that passed are not checked again (nor their bands read to the
+  host again) until one of them, the device, the frame length or n_fft
+  changes."""
+  device = frames.device
+  frame_length = frames.shape[-1]
+  seen = (device, frame_length, n_fft, mel_t._version, table._version,
+          weights._version, bands._version)
+  hit = _CHECKED.get(id(bands))
+  if (hit is not None and hit[0] is bands and hit[1] is table and
+      hit[2] is weights and hit[3] is mel_t and hit[4:] == seen):
+    return
+  n_freqs = n_fft // 2 + 1
+  shape, columns = _table_shapes(kernel, n_fft, frame_length)
+  if not (mel_t.dtype == table.dtype == weights.dtype == torch.float32 and
+          bands.dtype == torch.int32 and
+          device == mel_t.device == table.device == weights.device ==
+          bands.device and
+          mel_t.ndim == 2 and mel_t.shape[0] == n_freqs and
+          table.shape == shape and
+          (weights.shape == mel_t.shape if kernel == "dense" else
+           weights.ndim == 1) and
+          bands.shape == (mel_t.shape[1], columns) and
+          mel_t.is_contiguous() and table.is_contiguous() and
+          weights.is_contiguous() and bands.is_contiguous()):
+    got = ", ".join(f"{name} {tuple(t.shape)} {t.dtype} on {t.device}"
+                    for name, t in (("mel_t", mel_t), ("table", table),
+                                    ("weights", weights), ("bands", bands)))
+    raise ValueError(
+        f"logmel's {kernel} kernel at n_fft {n_fft} cannot take {got} for "
+        f"{tuple(frames.shape)} frames on {device}: it takes a contiguous "
+        f"float32 table {shape} and int32 bands (n_mels, {columns}) on the "
+        "frames' device (kernel_tables gives them)")
+  if kernel != "dense":  # the dense kernel clamps its bands to the bins
+    n_weights = weights.numel()
+    lo, hi, offset, _ = bands.cpu().T.tolist()
+    if not all(0 <= l <= h <= n_freqs and 0 <= o and o + h - l <= n_weights
+               for l, h, o in zip(lo, hi, offset)):
+      raise ValueError(f"logmel's {kernel} kernel: bands {bands.tolist()} "
+                       f"lie outside {n_freqs} bins or {n_weights} weights")
+  if len(_CHECKED) >= _CHECKED_KEPT:
+    _CHECKED.clear()
+  _CHECKED[id(bands)] = (bands, table, weights, mel_t) + seen
+
+
+def _logmel_cuda(frames, cos, sin, mel_t, table, weights, bands, n_fft,
+                 scale_sq):
+  """The operator on the card: the kernel that ``kernel_route(n_fft)``
+  names, on tables that ``check_tables`` passes, counted in
+  ``logmel.launches`` and its route's share."""
+  if frames.dtype != torch.float32:
+    raise TypeError(f"logmel takes float32 frames, got {frames.dtype}")
+  kernel = kernel_route(n_fft)
+  check_tables(kernel, frames, mel_t, table, weights, bands, n_fft)
+  frames = frames.contiguous()
+  out = frames.new_empty(frames.shape[:-1] + (mel_t.shape[1],))
+  if out.numel() == 0:
+    return out
+  _run(kernel, frames, table, weights, bands, n_fft, scale_sq, out)
+  logmel.launches += 1
+  if kernel == "fft":
+    logmel.fft_launches += 1
+  elif kernel == "mixed":
+    logmel.mixed_launches += 1
+  return out
+
+
+def _logmel_cpu(frames, cos, sin, mel_t, table, weights, bands, n_fft,
+                scale_sq):
+  """The operator on the CPU: the plain version."""
+  return logmel_reference(frames, cos, sin, mel_t, scale_sq)
+
+
+def _logmel_fake(frames, cos, sin, mel_t, table, weights, bands, n_fft,
+                 scale_sq):
+  return frames.new_empty(frames.shape[:-1] + (mel_t.shape[1],),
+                          dtype=torch.float32)
+
+
+def _logmel_setup(ctx, inputs, output):
+  frames, cos, sin, mel_t, *_, scale_sq = inputs
+  ctx.save_for_backward(frames, cos, sin, mel_t)
+  ctx.scale_sq = scale_sq
+
+
+def _logmel_backward(ctx, g):
+  """The plain version's gradient with respect to the frames."""
+  frames, cos, sin, mel_t = ctx.saved_tensors
+  with torch.enable_grad():
+    frames = frames.detach().requires_grad_()
+    out = logmel_reference(frames, cos, sin, mel_t, ctx.scale_sq)
+    grad, = torch.autograd.grad(out, frames, g)
+  return (grad,) + (None,) * 8
+
+
+_LIB.impl("logmel", _logmel_cuda, "CUDA")
+_LIB.impl("logmel", _logmel_cpu, "CPU")
+torch.library.register_fake("odin_tpu_torch::logmel", _logmel_fake,
+                            lib=_LIB)
+torch.library.register_autograd("odin_tpu_torch::logmel", _logmel_backward,
+                                setup_context=_logmel_setup, lib=_LIB)
+_OP = torch.ops.odin_tpu_torch.logmel.default
+
+
+def _op_args(config: "FeatureConfig", device: torch.device,
+             tables: bool) -> tuple:
+  """The operator's arguments after the frames for `config` on `device`,
+  built once and kept beside its bases: the bases, the routed kernel's
+  tables (``kernel_tables``) where `tables`, else empty ones, n_fft and
+  the scale squared."""
+  bases = config.device_bases(device)
+  key = "logmel_op_args" if tables else "logmel_op_args_plain"
+  args = bases.get(key)
+  if args is None:
+    if tables:
+      kernel = kernel_route(config.n_fft)
+      table = kernel_tables(kernel, bases, config.n_fft)
+    else:
+      with untraced():
+        table = (torch.empty(0), torch.empty(0),
+                 torch.empty(0, dtype=torch.int32))
+    args = bases[key] = (bases["cos"], bases["sin"], bases["mel_t"], *table,
+                         config.n_fft, float(config.scale ** 2))
+  return args
+
+
 def logmel(frames_windowed: torch.Tensor,
            config: "FeatureConfig") -> torch.Tensor:
-  """(..., frame_length) fp32 contiguous windowed frames -> (..., n_mels).
+  """(..., frame_length) fp32 contiguous windowed frames -> (..., n_mels),
+  through ``torch.ops.odin_tpu_torch.logmel``.
 
+  The kernel's tables go to the operator where a kernel may run them: on
+  the card, and in a program that ``torch.export`` traces (which may be
+  moved onto the card); an eager call on the CPU passes empty ones.
   ``logmel.launches`` counts the launches of the three kernels,
   ``logmel.fft_launches`` the power-of-two FFT kernel's share and
   ``logmel.mixed_launches`` the mixed-radix kernel's."""
-  _build.refuse_export("K1, logmel", "odin_tpu_torch/ops/logmel.py",
-                       "use_pallas=False")
   frame_length = config.frame_length
   if frames_windowed.dtype != torch.float32:
     raise TypeError(f"logmel takes float32 frames, got {frames_windowed.dtype}")
@@ -487,25 +714,13 @@ def logmel(frames_windowed: torch.Tensor,
   if not frames_windowed.is_contiguous():
     raise ValueError("logmel takes contiguous frames")
   device = frames_windowed.device
-  if device.type not in ("cpu", "cuda"):
+  if device.type == "cuda":
+    args = _op_args(config, device, True)
+  elif device.type == "cpu":
+    args = _op_args(config, device, torch.compiler.is_exporting())
+  else:
     raise ValueError(f"logmel runs on 'cpu' or 'cuda', not {device}")
-  if device.type == "cpu":
-    bases = config.device_bases(device)
-    return logmel_reference(frames_windowed, bases["cos"], bases["sin"],
-                            bases["mel_t"], config.scale ** 2)
-
-  out = torch.empty(frames_windowed.shape[:-1] + (config.n_mels,),
-                    dtype=torch.float32, device=device)
-  if out.numel() == 0:
-    return out
-  kernel = kernel_route(config.n_fft)
-  _launch(kernel, frames_windowed, config, out)
-  logmel.launches += 1
-  if kernel == "fft":
-    logmel.fft_launches += 1
-  elif kernel == "mixed":
-    logmel.mixed_launches += 1
-  return out
+  return _OP(frames_windowed, *args)
 
 
 logmel.launches = 0

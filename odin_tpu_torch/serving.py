@@ -7,13 +7,17 @@ axis, and weight-only int8 quantization of a module's parameters.
 its device; ``export_vae`` writes the same three functions into a
 ``ServingBundle`` directory (``<name>.pt2`` and ``manifest.json``).  A
 function that reaches one of the port's hand-written kernels (K1 behind
-``ops/logmel.py``, K2 behind ``ops/flash_attention.py``) cannot be
-exported: the kernels are bound through ctypes, which ``torch.export``
-cannot trace, and the wrappers raise an error naming the kernel and the
-option that takes the plain version (``use_pallas=False``,
-``flash=False``).  Exported programs hold the model's weights, on the
-device they were exported on; a bundle loads them onto the card unless
-asked for the CPU.
+``ops/logmel.py``, K2 behind ``ops/flash_attention.py``) exports with the
+kernel's operator (``torch.ops.odin_tpu_torch.logmel``,
+``.flash_attention``) as a node of the program: loaded on the card, the
+program launches the kernel; on the CPU it runs the plain version.  Such a
+program needs the operators registered where it loads: ``load_fn`` and
+``ServingBundle`` import the modules that register them, and a process
+that calls ``torch.export.load`` itself imports
+``odin_tpu_torch.ops.logmel`` or ``odin_tpu_torch.ops.flash_attention``
+first.  Exported programs hold the model's weights (and a kernel's
+tables), on the device they were exported on; ``load_fn`` and a bundle
+move them onto the card unless asked for the CPU.
 """
 from __future__ import annotations
 
@@ -159,9 +163,10 @@ def export_fn(fn: Callable, example_args: Sequence,
   dim ``b`` >= 1, so one program serves every batch size; the other
   arguments keep their shapes.  An example batch of 1 is traced at batch 2
   (at 1 the exporter would fix the dim), and the program is then checked
-  at the example's own batch.  A function that reaches K1 or K2 raises the
-  kernel wrapper's error, which names the option that takes the plain
-  version."""
+  at the example's own batch.  A function that reaches K1 or K2 exports
+  with the kernel's operator as a node, at a symbolic batch or a static
+  one, on the CPU or on the card; its bases go into the program as
+  constants."""
   module = _Fn(fn)
   args = tuple(example_args)
   poly = set(poly_args) if batch_polymorphic else set()
@@ -202,6 +207,10 @@ class _Loaded:
 
 def _load(f, device) -> _Loaded:
   device = resolve_device("cuda" if device is None else device)
+  # the kernels' operators, which a program over K1 or K2 calls, must be
+  # registered before it loads
+  import odin_tpu_torch.ops.flash_attention  # noqa: F401
+  import odin_tpu_torch.ops.logmel  # noqa: F401
   from torch.export.passes import move_to_device_pass
   ep = move_to_device_pass(torch.export.load(f), device)
   return _Loaded(ep.module(), device)
@@ -209,7 +218,8 @@ def _load(f, device) -> _Loaded:
 
 def load_fn(blob: bytes, device=None) -> Callable:
   """The program of ``export_fn``'s bytes as a callable on `device` (the
-  card unless 'cpu')."""
+  card unless 'cpu'), its constants moved there; a program over K1 or K2
+  then dispatches the kernel's operator on that device."""
   return _load(io.BytesIO(blob), device)
 
 

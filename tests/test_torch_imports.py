@@ -22,12 +22,16 @@ SOURCES = sorted((ROOT / "odin_tpu_torch").rglob("*.py")) + sorted(
     (ROOT / "tools").glob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
-# the modules of the serving and library slice
+# the modules of the serving and library slice, then of the utils package
+# and the plots
 NEW_MODULES = ("serving", "backend.losses", "backend.alias",
                "backend.keras_helpers", "backend.maths", "search",
                "search.beam_search", "explain", "stats", "preprocessing.text",
                "preprocessing.textgrid", "preprocessing.image",
-               "preprocessing.video")
+               "preprocessing.video", "utils.cli", "utils.crypto",
+               "utils.decorators", "utils.mpi", "utils.np_utils",
+               "utils.ordered_flag", "utils.pdf_utils", "utils.progbar",
+               "utils.python_utils", "visual.extended")
 
 
 def _imports(node):
@@ -86,7 +90,7 @@ def test_sources_exist():
   for module in ("training/trainer.py", "training/callbacks.py",
                  "training/early_stopping.py", "fuel/pipeline.py",
                  "fuel/image_data/_base.py", "bay/vi/losses.py",
-                 "bay/vi/autoencoder/beta_vae.py", "utils.py"):
+                 "bay/vi/autoencoder/beta_vae.py", "utils/__init__.py"):
     assert f"odin_tpu_torch/{module}" in names
   # the corpus slice
   for module in ("preprocessing/speech.py", "preprocessing/processor.py",
@@ -278,22 +282,23 @@ def test_chip_smoke_fails_without_the_port(tmp_path):
 
 
 def test_chip_smoke_phases_run_1_to_20():
-  """Phases 1-22 stay, and phase 23 (the serving bundle and the library's
-  rest) is the last: ``--phases 20`` runs phase 20 with the build alone,
-  ``--phases 21`` brings phase 9, whose wav files it reads, ``--phases
-  22`` phases 9 and 21, whose utterances and x-vectors it reads, and
-  ``--phases 23`` phase 4, whose model it exports."""
+  """Phases 1-23 stay, and phase 24 (export over the kernels) is the last:
+  ``--phases 20`` runs phase 20 with the build alone, ``--phases 21``
+  brings phase 9, whose wav files it reads, ``--phases 22`` phases 9 and
+  21, whose utterances and x-vectors it reads, ``--phases 23`` phase 4,
+  whose model it exports, and ``--phases 24`` reads no other phase."""
   import chip_smoke
-  assert chip_smoke.PHASES == tuple(range(1, 24))
-  assert chip_smoke.selected_phases() == set(range(1, 24))
+  assert chip_smoke.PHASES == tuple(range(1, 25))
+  assert chip_smoke.selected_phases() == set(range(1, 25))
   assert chip_smoke.selected_phases("20") == {1, 20}
   assert chip_smoke.selected_phases("21") == {1, 9, 21}
   assert chip_smoke.selected_phases("22") == {1, 9, 21, 22}
   assert chip_smoke.selected_phases("23") == {1, 4, 23}
+  assert chip_smoke.selected_phases("24") == {1, 24}
   assert 20 not in chip_smoke.PHASE_NEEDS
   assert all(20 not in needs for needs in chip_smoke.PHASE_NEEDS.values())
-  with pytest.raises(SystemExit, match="1-23"):
-    chip_smoke.selected_phases("24")
+  with pytest.raises(SystemExit, match="1-24"):
+    chip_smoke.selected_phases("25")
 
 
 def test_new_modules_import_no_jax_sklearn_matplotlib_or_pil():

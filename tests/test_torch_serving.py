@@ -9,6 +9,7 @@ within 0.15 of the fp32 one relative to the largest value
 (tests/test_serving.py's limits).  The JAX models are not built: their
 state is the port's params carried across (``to_jax_params``).
 """
+import io
 import os
 import subprocess
 import sys
@@ -213,25 +214,37 @@ def test_int8_bundle_is_under_half_the_bytes(tmp_path):
 
 
 def test_export_over_a_kernel_raises():
-  """A function reaching K1 or K2 raises the wrapper's error, which names
-  the kernel and the option that takes the plain version; with that
-  option the function exports and the program equals it."""
+  """A function reaching K1 or K2 no longer raises: it exports, with the
+  kernel's operator named in the program's graph, and the loaded program
+  equals the function; with the plain options (``use_pallas=False``,
+  ``flash=False``) the graph holds no such operator."""
   from odin_tpu_torch.networks.attention import MultiHeadAttention
   from odin_tpu_torch.ops.features import FeatureConfig, speech_features
   cfg = FeatureConfig()
   y = torch.randn(2, 4000, generator=torch.Generator().manual_seed(0)) * 0.1
-  with pytest.raises(RuntimeError, match="K1.*use_pallas=False"):
-    export_fn(lambda y: speech_features(y, cfg, device="cpu")["mspec"], (y,))
-  plain = lambda y: speech_features(y, cfg, device="cpu",
-                                    use_pallas=False)["mspec"]
-  g = load_fn(export_fn(plain, (y,)), device="cpu")
-  np.testing.assert_allclose(g(y[:1]).numpy(), plain(y[:1]).numpy(),
-                             atol=ATOL)
-  layer = MultiHeadAttention(num_heads=2, qkv_features=16, flash=True)
-  layer.build((10, 16), torch.Generator().manual_seed(0), device="cpu")
+
+  def targets(blob):
+    ep = torch.export.load(io.BytesIO(blob))
+    return {str(n.target) for n in ep.graph.nodes if n.op == "call_function"}
+
+  for use_pallas in (True, False):
+    fn = lambda y: speech_features(y, cfg, device="cpu",
+                                   use_pallas=use_pallas)["mspec"]
+    blob = export_fn(fn, (y,))
+    assert ("odin_tpu_torch.logmel.default" in targets(blob)) == use_pallas
+    g = load_fn(blob, device="cpu")
+    np.testing.assert_allclose(g(y[:1]).numpy(), fn(y[:1]).numpy(),
+                               atol=ATOL)
   x = torch.randn(2, 10, 16, generator=torch.Generator().manual_seed(1))
-  with pytest.raises(RuntimeError, match="K2.*flash=False"):
-    export_fn(layer, (x,))
+  for flash in (True, False):
+    layer = MultiHeadAttention(num_heads=2, qkv_features=16, flash=flash)
+    layer.build((10, 16), torch.Generator().manual_seed(0), device="cpu")
+    blob = export_fn(layer, (x,))
+    assert ("odin_tpu_torch.flash_attention.default" in targets(blob)) == \
+        flash
+    with torch.no_grad():
+      np.testing.assert_allclose(load_fn(blob, device="cpu")(x).numpy(),
+                                 layer(x).numpy(), atol=ATOL)
 
 
 def test_bundle_loads_without_the_port(tmp_path, moons):
